@@ -1,0 +1,108 @@
+"""Device-resident dense and row-padded views of sparse interaction matrices.
+
+Port of ganmf_tpu/data/device.py. The dense URM is built once on the device
+from its COO triplets (O(nnz) host-to-device traffic) and rows are gathered
+from it; the padded-CSR planes hold each row's column ids and values,
+left-justified and padded with the sentinel column ``n_cols``, for matrices
+whose dense form is too large and for the evaluator's test rows.
+
+The content-digest LRU of ``padded_csr_from_sparse`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import scipy.sparse as sps
+import torch
+
+
+def dense_from_sparse(mat: sps.spmatrix, device: torch.device) -> torch.Tensor:
+    """Densify on the device: ship only the COO triplets and scatter-add them
+    into a zeros buffer."""
+    R, C = mat.shape
+    coo = mat.tocoo()
+    coo.sum_duplicates()
+    lin = coo.row.astype(np.int64) * C + coo.col.astype(np.int64)
+    out = torch.zeros(R * C, dtype=torch.float32, device=device)
+    out.scatter_add_(
+        0,
+        torch.from_numpy(lin).to(device),
+        torch.from_numpy(coo.data.astype(np.float32)).to(device),
+    )
+    return out.view(R, C)
+
+
+class DeviceURM:
+    """Device-resident dense URM plus its cached boolean mask."""
+
+    def __init__(self, urm: sps.spmatrix, device: torch.device):
+        urm = urm.tocsr().astype(np.float32)
+        urm.eliminate_zeros()
+        self.dense = dense_from_sparse(urm, device)
+        self._mask: Optional[torch.Tensor] = None
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """Boolean interaction mask (True where an interaction exists)."""
+        if self._mask is None:
+            self._mask = self.dense != 0
+        return self._mask
+
+    def rows(self, user_ids: torch.Tensor) -> torch.Tensor:
+        """Gather dense profile rows on the device."""
+        return self.dense.index_select(0, user_ids)
+
+
+class PaddedCSR(NamedTuple):
+    """Row-padded sparse matrix on the device: ``idx[r]`` holds row r's
+    column ids padded with the ``n_cols`` sentinel, ``val[r]`` the values
+    padded with 0. Memory is O(rows * max_row_nnz)."""
+
+    idx: torch.Tensor  # [R, L] int64
+    val: torch.Tensor  # [R, L] float32
+
+
+def padded_csr_from_sparse(mat: sps.spmatrix, device: torch.device) -> PaddedCSR:
+    """Build the padded planes with one scatter each on the device; the host
+    computes only the O(nnz) slot of every stored entry."""
+    csr = mat.tocsr().astype(np.float32)
+    csr.eliminate_zeros()
+    R, C = csr.shape
+    lens = np.ediff1d(csr.indptr)
+    L = max(int(lens.max()) if R else 0, 1)
+    rows = np.repeat(np.arange(R, dtype=np.int64), lens)
+    offs = np.arange(csr.nnz, dtype=np.int64) - np.repeat(csr.indptr[:-1].astype(np.int64), lens)
+    lin = torch.from_numpy(rows * L + offs).to(device)
+    idx = torch.full((R * L,), C, dtype=torch.int64, device=device)
+    idx.index_put_((lin,), torch.from_numpy(csr.indices.astype(np.int64)).to(device))
+    val = torch.zeros(R * L, dtype=torch.float32, device=device)
+    val.index_put_((lin,), torch.from_numpy(csr.data).to(device))
+    return PaddedCSR(idx.view(R, L), val.view(R, L))
+
+
+def padded_rows_dense(
+    pc: PaddedCSR, uids: torch.Tensor, n_cols: int, max_len: int = None
+) -> torch.Tensor:
+    """Densify a batch of rows: gather the padded entries and scatter them
+    into a [B, n_cols + 1] zeros block, then drop the sentinel column.
+
+    ``max_len`` crops the gathered planes to their first ``max_len`` slots,
+    exact whenever every selected row has at most ``max_len`` entries (the
+    rows are left-justified; the tail is all sentinel)."""
+    bi = pc.idx.index_select(0, uids)
+    bv = pc.val.index_select(0, uids)
+    if max_len is not None and max_len < bi.shape[1]:
+        bi = bi[:, :max_len]
+        bv = bv[:, :max_len]
+    out = torch.zeros((bi.shape[0], n_cols + 1), dtype=bv.dtype, device=bv.device)
+    out.scatter_add_(1, bi, bv)
+    return out[:, :n_cols]
+
+
+def padded_rows_mask(
+    pc: PaddedCSR, uids: torch.Tensor, n_cols: int, max_len: int = None
+) -> torch.Tensor:
+    """Boolean seen-mask rows from the padded storage."""
+    return padded_rows_dense(pc, uids, n_cols, max_len=max_len) != 0

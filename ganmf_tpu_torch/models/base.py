@@ -1,0 +1,248 @@
+"""Recommender base class.
+
+Port of ganmf_tpu/models/base.py:25-62,174-491. A recommender holds a CSR
+``URM_train`` on the host and its dense copy on its device. ``recommend`` and
+``serve_all`` rank through the fused scorer K1 (ops/scorer.py): the model
+provides its factors through ``_factors_device()``, and the seen items, the
+top-popular and custom items to remove, and the items outside
+``items_to_compute`` are folded into the scorer's mask. The lists equal those
+of the JAX ``recommend`` and ``serve_all``, which rank the dense score block
+with ``lax.top_k`` (same scores, ties to the lowest item id).
+
+The matrix-factorization base class (:514-686) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sps
+import torch
+
+from ganmf_tpu_torch.data.device import DeviceURM, padded_csr_from_sparse, padded_rows_mask
+from ganmf_tpu_torch.ops.scorer import masked_topk_scores
+from ganmf_tpu_torch.utils.dataio import DataIO
+from ganmf_tpu_torch.utils.device import as_device
+
+
+def check_matrix(X, format: str = "csc", dtype=np.float32):
+    """Format/dtype coercion (reference Base/Recommender_utils.py:13-45)."""
+    if isinstance(X, np.ndarray):
+        X = sps.csr_matrix(X, dtype=dtype)
+        X.eliminate_zeros()
+    converters = {
+        "csc": sps.csc_matrix,
+        "csr": sps.csr_matrix,
+        "coo": sps.coo_matrix,
+        "dok": sps.dok_matrix,
+        "lil": sps.lil_matrix,
+    }
+    cls = converters[format]
+    if not isinstance(X, cls):
+        X = cls(X)
+    return X.astype(dtype)
+
+
+class Recommender:
+    RECOMMENDER_NAME = "Recommender_Base_Class"
+
+    # Above this dense-URM size the [U, I] matrix stays off the device and
+    # seen rows are scatter-built per block from padded-CSR storage.
+    _DENSE_URM_BYTE_LIMIT = 6 << 30
+
+    def __init__(self, URM_train, *, device: torch.device):
+        self.device = as_device(device)
+        self.URM_train = check_matrix(URM_train.copy(), "csr", dtype=np.float32)
+        self.URM_train.eliminate_zeros()
+        self.n_users, self.n_items = self.URM_train.shape
+
+        self.filterTopPop = False
+        self.filterTopPop_ItemsID = np.array([], dtype=np.int64)
+        self.items_to_ignore_flag = False
+        self.items_to_ignore_ID = np.array([], dtype=np.int64)
+
+        self._cold_user_mask = np.ediff1d(self.URM_train.indptr) == 0
+        self._durm: Optional[DeviceURM] = None
+        self._seen_padded = None
+
+    # -- device caches ---------------------------------------------------------
+    def device_urm(self) -> DeviceURM:
+        if self._durm is None:
+            self._durm = DeviceURM(self.URM_train, self.device)
+        return self._durm
+
+    def _urm_streams(self) -> bool:
+        """True when the dense [U, I] URM would not reasonably fit on the
+        device, so seen rows come from padded-CSR storage instead."""
+        return 4 * self.n_users * self.n_items > self._DENSE_URM_BYTE_LIMIT
+
+    def device_seen_rows(self, uids: torch.Tensor, max_len: int = None) -> torch.Tensor:
+        """[B, I] bool seen-mask rows for the given users. ``max_len`` (padded
+        storage only) crops the scatter to a row-length bound the caller
+        guarantees."""
+        if self._urm_streams():
+            if self._seen_padded is None:
+                self._seen_padded = padded_csr_from_sparse(self.URM_train, self.device)
+            return padded_rows_mask(self._seen_padded, uids, self.n_items, max_len=max_len)
+        return self.device_urm().mask.index_select(0, uids)
+
+    def _invalidate_device_cache(self):
+        self._durm = None
+        self._seen_padded = None
+
+    # -- reference-compatible accessors ---------------------------------------
+    def get_URM_train(self):
+        return self.URM_train.copy()
+
+    def set_URM_train(self, URM_train_new, **kwargs):
+        assert self.URM_train.shape == URM_train_new.shape
+        self.URM_train = check_matrix(URM_train_new.copy(), "csr", dtype=np.float32)
+        self.URM_train.eliminate_zeros()
+        self._cold_user_mask = np.ediff1d(self.URM_train.indptr) == 0
+        self._invalidate_device_cache()
+
+    def _get_cold_user_mask(self):
+        return self._cold_user_mask
+
+    def set_items_to_ignore(self, items_to_ignore):
+        self.items_to_ignore_flag = True
+        self.items_to_ignore_ID = np.array(items_to_ignore, dtype=np.int64)
+
+    def reset_items_to_ignore(self):
+        self.items_to_ignore_flag = False
+        self.items_to_ignore_ID = np.array([], dtype=np.int64)
+
+    def fit(self, *args, **kwargs):
+        pass
+
+    # -- scoring ---------------------------------------------------------------
+    def _factors_device(self):
+        """(U [n_users, K], V [n_items, K], cold [n_users] bool) on the model's
+        device: scores are U @ V^T, and cold users rank nothing. Subclasses
+        override."""
+        raise NotImplementedError(f"{type(self).__name__} does not provide factors")
+
+    def _uids(self, user_id_array) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(user_id_array, dtype=np.int64)).to(self.device)
+
+    def _exclusion_mask(self, uids: torch.Tensor, remove_seen_flag: bool,
+                        items_to_compute=None, remove_top_pop_flag: bool = False,
+                        remove_CustomItems_flag: bool = False) -> torch.Tensor:
+        """[B, I] bool: the items that must not be ranked for each user."""
+        if remove_seen_flag:
+            mask = self.device_seen_rows(uids)  # a fresh tensor: written below
+        else:
+            mask = torch.zeros((len(uids), self.n_items), dtype=torch.bool, device=self.device)
+        columns = []
+        if items_to_compute is not None:
+            outside = np.ones(self.n_items, dtype=bool)
+            outside[np.asarray(items_to_compute, dtype=np.int64)] = False
+            columns.append(np.flatnonzero(outside))
+        if remove_top_pop_flag:
+            columns.append(np.asarray(self.filterTopPop_ItemsID, dtype=np.int64))
+        if remove_CustomItems_flag:
+            columns.append(np.asarray(self.items_to_ignore_ID, dtype=np.int64))
+        if columns:
+            cols = torch.from_numpy(np.concatenate(columns).astype(np.int64)).to(self.device)
+            mask[:, cols] = True
+        return mask
+
+    # -- serving ---------------------------------------------------------------
+    @torch.no_grad()
+    def recommend(
+        self,
+        user_id_array,
+        cutoff: Optional[int] = None,
+        remove_seen_flag: bool = True,
+        items_to_compute=None,
+        remove_top_pop_flag: bool = False,
+        remove_CustomItems_flag: bool = False,
+        return_scores: bool = False,
+    ):
+        """Ranked recommendation lists (reference BaseRecommender.py:155-247).
+        On a CUDA model the cutoff is at most the kernel's ``MAX_K``."""
+        if np.isscalar(user_id_array):
+            user_id_array = np.atleast_1d(user_id_array)
+            single_user = True
+        else:
+            user_id_array = np.asarray(user_id_array)
+            single_user = False
+
+        if cutoff is None:
+            cutoff = self.URM_train.shape[1] - 1
+        cutoff = min(cutoff, self.URM_train.shape[1])
+
+        uids = self._uids(user_id_array)
+        mask = self._exclusion_mask(uids, remove_seen_flag, items_to_compute,
+                                    remove_top_pop_flag, remove_CustomItems_flag)
+        U, V, cold = self._factors_device()
+        U_b = U.index_select(0, uids)
+        cold_b = cold.index_select(0, uids)
+        vals, ids = masked_topk_scores(U_b, V, mask, cutoff)
+        vals = vals.masked_fill(cold_b[:, None], float("-inf"))
+        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+        ranking_list = [ids[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
+
+        if single_user:
+            ranking_list = ranking_list[0]
+        if return_scores:
+            # the score block itself comes from the plain product
+            scores = (U_b @ V.T).masked_fill(mask | cold_b[:, None], float("-inf"))
+            return ranking_list, scores.cpu().numpy()
+        return ranking_list
+
+    @torch.no_grad()
+    def serve_all(
+        self,
+        cutoff: int = 20,
+        remove_seen_flag: bool = True,
+        block: int = 2048,
+        user_id_array=None,
+    ):
+        """Batch serving export: ranked top-``cutoff`` items for every user (or
+        ``user_id_array``) as dense ``(item_ids [n, k] int32, scores [n, k]
+        f32)`` arrays, ranked ``block`` users at a time through K1. Slots that
+        ``recommend()`` would strip come back with a -inf score, so
+        ``np.isfinite(scores[u])`` recovers its list."""
+        uids_np = (
+            np.arange(self.n_users, dtype=np.int64)
+            if user_id_array is None
+            else np.atleast_1d(np.asarray(user_id_array)).astype(np.int64)
+        )
+        n = len(uids_np)
+        k = min(cutoff, self.n_items)
+        if n == 0:
+            return np.zeros((0, k), dtype=np.int32), np.zeros((0, k), dtype=np.float32)
+        B = max(1, min(block, n))
+        U, V, cold = self._factors_device()
+        all_vals, all_ids = [], []
+        for start in range(0, n, B):
+            uids = self._uids(uids_np[start : start + B])
+            if remove_seen_flag:
+                mask = self.device_seen_rows(uids)
+            else:
+                mask = torch.zeros((len(uids), self.n_items), dtype=torch.bool, device=self.device)
+            vals, ids = masked_topk_scores(U.index_select(0, uids), V, mask, k)
+            all_vals.append(vals.masked_fill(cold.index_select(0, uids)[:, None], float("-inf")))
+            all_ids.append(ids)
+        # one device-to-host transfer each
+        vals = torch.cat(all_vals).cpu().numpy()
+        idx = torch.cat(all_ids).to(torch.int32).cpu().numpy()
+        return idx, vals
+
+    # -- persistence -------------------------------------------------------------
+    def _save_dict(self):
+        """Attributes persisted by saveModel; subclasses extend."""
+        return {}
+
+    def saveModel(self, folder_path, file_name=None):
+        file_name = file_name or self.RECOMMENDER_NAME
+        DataIO(folder_path).save_data(file_name, self._save_dict())
+
+    def loadModel(self, folder_path, file_name=None):
+        file_name = file_name or self.RECOMMENDER_NAME
+        data = DataIO(folder_path).load_data(file_name)
+        for name, value in data.items():
+            setattr(self, name, value)
+        return data

@@ -1,0 +1,99 @@
+"""Builds the port's CUDA sources into one shared library at first use.
+
+Every ``ganmf_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``build/ganmf_tpu_torch/`` at the root of the checkout,
+named by a hash of the sources and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "ganmf_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_LIB = None
+
+
+def _nvcc() -> str:
+    # PyTorch's own search: $CUDA_HOME, $CUDA_PATH, nvcc on PATH, the default prefix
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else ""
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs, headers
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    srcs, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs + headers:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"libganmf_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library for them exists; return its path.
+    Raises with nvcc's output when the compile fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    srcs, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The built kernel library, with every entry point's C signature set."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ganmf_masked_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.ganmf_masked_topk.restype = i32
+        lib.ganmf_cuda_error_string.argtypes = [i32]
+        lib.ganmf_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.ganmf_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")

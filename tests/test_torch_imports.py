@@ -1,0 +1,42 @@
+"""The port runs where JAX is not installed: no module of ganmf_tpu_torch
+imports jax or ganmf_tpu, directly or through another module."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+
+class _Refuse:
+    # a finder that fails any import of jax or ganmf_tpu, even if some
+    # earlier code had already imported them
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu")]:
+    del sys.modules[name]
+sys.meta_path.insert(0, _Refuse())
+
+import ganmf_tpu_torch
+names = ["ganmf_tpu_torch"] + [m.name for m in pkgutil.walk_packages(ganmf_tpu_torch.__path__, "ganmf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu"))
+assert not leaked, leaked
+print("IMPORTED", len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_ganmf_tpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _CHECK], capture_output=True, text=True,
+                       cwd=str(REPO), env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    # every module of the slice was imported
+    assert int(r.stdout.split("IMPORTED")[1]) >= 17, r.stdout
