@@ -7,18 +7,35 @@ Phases, in order; any failure exits nonzero:
 
 1. require CUDA;
 2. print the card's name and power limit (nvidia-smi);
-3. build the CUDA kernels from ganmf_tpu_torch/csrc and print the build time;
-4. hold K1 (the fused masked top-k scorer) against its plain PyTorch version
-   on the card, at the evaluation block's shapes in user and item
-   orientation, at a ragged item count, with exact ties and with fully
-   masked rows; print both times (median of 20 runs);
-5. drive the serving slice at GANMF's ML-1M width (num_factors=250,
+3. build the CUDA kernels from ganmf_tpu_torch/csrc (one nvcc per source, all
+   at once) and print the build time;
+4. hold K1 (the masked top-k scorer) against its plain PyTorch version on
+   the card: its fused kernel (k <= 64) at the evaluation block's shapes in
+   user and item orientation, at a ragged item count, with exact ties and
+   with fully masked rows; its wide pair (k > 64) at recommend's default
+   cutoff, at LastFM's item count and with exact ties and masked rows;
+   print both times of each form (median of 20 runs);
+5. hold K2 (exact-k row selection) against its plain PyTorch version on the
+   card, bitwise, at CFGAN's mask shapes, the streamed batch shape, the
+   widest row, with heavy ties, negative keys, signed zeros and rows with
+   k = 0 and k = I; print both times at [2048, 17632] (median of 20 runs);
+6. drive the serving slice at GANMF's ML-1M width (num_factors=250,
    emb_dim=992, random weights from a seed) on an ML-1M-shaped synthetic
-   split, in user and then item mode: recommend, serve_all and the holdout
-   evaluation, each held against the same model's plain path on the CPU;
-   check that the kernel carried the run and print eval users/s;
-6. print one JSON line with every kernel's launches, error and times, then
-   the card line, then the result line.
+   split, in user and then item mode: recommend (at cutoff 20 and at the
+   default cutoff), serve_all and the holdout evaluation, each held against
+   the same model's plain path on the CPU; check that both forms of K1
+   carried the run and print eval users/s;
+7. train CFGAN at its published LastFM width (g_nodes=1024, d_layers=5) for
+   3 epochs with early stopping on a LastFM-shaped synthetic split, in user
+   and then item mode; check that K2 drew every epoch's masks; print seconds
+   per epoch, then recommend (default cutoff), serve_all and the evaluation;
+8. hold the CFGAN path against its plain path on the CPU: one epoch from the
+   same state and draws (masks bitwise, parameters within a stated bound),
+   the generator output, and the evaluation and serve_all on the same
+   scores;
+9. print one JSON line with every kernel's launches, error and times (K1's
+   two forms on lines of their own), then the card line, then the result
+   line.
 
 Imports nothing of JAX. It needs the repository checkout: alone it fails.
 """
@@ -35,6 +52,21 @@ NUM_FACTORS, EMB_DIM = 250, 992  # GANMF's ML-1M best params (bench.py)
 SEED = 1337
 RTOL, ATOL = 1e-5, 1e-7  # f32 scores, summed in another order than cuBLAS
 METRIC_TOL = 1e-5
+# CFGAN's published best params, user mode on LastFM (scripts/parity_check.py:46-54)
+CFGAN_PARAMS = dict(
+    g_nodes=1024, g_layers=1, g_hidden_act="tanh",
+    d_nodes=4, d_layers=5, d_hidden_act="linear",
+    scheme="ZR", zr_ratio=0.4515475140394092, zr_coefficient=0.05049684341469494,
+    d_batch_size=128, g_batch_size=1024,
+    d_lr=1e-4, g_lr=0.00018640602403973558, d_reg=1e-4, g_reg=1e-4, d_steps=1, g_steps=1,
+)
+CFGAN_EPOCHS = 3
+# the evaluation on the card and on the CPU from the same score block: only
+# the order of float32 metric sums differs
+SAME_SCORES_TOL = 1e-6
+# generator output, card against CPU, same parameters: float32 sums in
+# another order; atol covers outputs near zero (about 1e-5 of their scale)
+GEN_RTOL, GEN_ATOL = 1e-5, 1e-6
 
 
 def fail(msg):
@@ -49,6 +81,17 @@ def ml1m_split():
     rng = np.random.RandomState(0)
     dense = (rng.rand(6040, 3706) < 0.0446).astype(np.float32)
     mask = rng.rand(6040, 3706) < 0.8
+    return sps.csr_matrix(dense * mask), sps.csr_matrix(dense * ~mask)
+
+
+def lastfm_split():
+    """A LastFM-shaped synthetic split (BASELINE.md:11): 1884 x 17632,
+    density 0.00279, 80/20 train/test, numpy seed 0."""
+    import scipy.sparse as sps
+
+    rng = np.random.RandomState(0)
+    dense = (rng.rand(1884, 17632) < 0.00279).astype(np.float32)
+    mask = rng.rand(1884, 17632) < 0.8
     return sps.csr_matrix(dense * mask), sps.csr_matrix(dense * ~mask)
 
 
@@ -164,7 +207,20 @@ def phase_kernel(dev, card):
     plain_ms = cuda_ms(lambda: masked_topk_scores_reference(U, V, M, 50))
     print(f"  K1 time at B=3024 K=250 I=3706 k=50: {ms:.4f} ms; plain (matmul + masked_fill +"
           f" stable sort): {plain_ms:.4f} ms  [{card}]")
-    return max(errs), ms, plain_ms
+
+    # the wide pair (k > 64): recommend's default cutoff on the slice's shape,
+    # a row past one shared-memory sort chunk, and exact ties with masked rows
+    wide_errs = []
+    Uw, Mw = U[:5].contiguous(), M[:5].contiguous()
+    wide_errs.append(compare_k1("wide: recommend's default cutoff", Uw, V, Mw, 3705))
+    Ul, Vl = factors(64, 17632, 64)
+    wide_errs.append(compare_k1("wide: LastFM item count, k=100", Ul, Vl, seen(64, 17632, 0.00279), 100))
+    wide_errs.append(compare_k1("wide: exact ties + masked rows, k=650", Ut, Vt, Mt, 650))
+    wide_ms = cuda_ms(lambda: masked_topk_scores(Uw, V, Mw, 3705))
+    wide_plain_ms = cuda_ms(lambda: masked_topk_scores_reference(Uw, V, Mw, 3705))
+    print(f"  K1 wide time at B=5 K=250 I=3706 k=3705: {wide_ms:.4f} ms; plain: "
+          f"{wide_plain_ms:.4f} ms  [{card}]")
+    return (max(errs), ms, plain_ms), (max(wide_errs), wide_ms, wide_plain_ms)
 
 
 def phase_slice(dev, card, train, test):
@@ -178,7 +234,7 @@ def phase_slice(dev, card, train, test):
 
     cpu = torch.device("cpu")
     for mode in ("user", "item"):
-        print(f"[5] GANMF {mode} mode: num_factors={NUM_FACTORS} emb_dim={EMB_DIM} "
+        print(f"[6] GANMF {mode} mode: num_factors={NUM_FACTORS} emb_dim={EMB_DIM} "
               f"on {train.shape[0]} x {train.shape[1]}")
         model = GANMF(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
         n_rows, n_cols = model._train_matrix().shape
@@ -196,6 +252,19 @@ def phase_slice(dev, card, train, test):
                 if len(a) != len(b) or not np.allclose(s[a].numpy(), s[b].numpy(), rtol=RTOL, atol=ATOL):
                     fail(f"{mode}: recommend lists differ from the plain path beyond near-ties")
         print(f"  recommend(users 0-4, cutoff=20): user 0 -> {recs[0][:10]} ...")
+        before = scorer.WIDE_LAUNCHES
+        recs = model.recommend(users)  # the default cutoff, n_items - 1
+        if scorer.WIDE_LAUNCHES != before + 1:
+            fail(f"{mode}: recommend at the default cutoff did not launch K1's wide pair")
+        precs = plain.recommend(users)
+        scores = plain.score_device(torch.as_tensor(users))
+        for u, (a, b, s) in enumerate(zip(recs, precs, scores)):
+            if len(a) != train.shape[1] - train[u].nnz or len(a) != len(b):
+                fail(f"{mode}: recommend(default cutoff) gave {len(a)} items for user {u}")
+            if a != b and not np.allclose(s[a].numpy(), s[b].numpy(), rtol=RTOL, atol=ATOL):
+                fail(f"{mode}: default-cutoff lists differ from the plain path beyond near-ties")
+        print(f"  recommend(users 0-4, default cutoff): {[len(r) for r in recs]} items, "
+              f"equal to the plain path up to near-ties")
 
         t0 = time.perf_counter()
         idx, vals = model.serve_all(cutoff=20)
@@ -239,6 +308,240 @@ def phase_slice(dev, card, train, test):
               f"{n_eval / eval_s:.1f} users/s (second call)  [{card}]")
 
 
+def select_case(name, R, I, gen, ratio=CFGAN_PARAMS["zr_ratio"], density=0.00279):
+    """CFGAN-style selection input: uniform keys, +inf at the interactions,
+    k = int(n_zeros * ratio) in float32; the first row takes k = 0 and the
+    last k = I."""
+    import torch
+
+    keys = torch.rand(R, I, generator=gen)
+    if name == "ties":
+        keys = torch.round(keys * 8)  # heavy ties across the boundary
+    elif name == "signed":
+        keys = keys - 0.5  # negative keys, and both zeros in every row
+        keys[:, 0:16:2] = 0.0
+        keys[:, 1:16:2] = -0.0
+    inter = torch.rand(R, I, generator=gen) < density
+    keys = keys.masked_fill(inter, float("inf"))
+    k = ((~inter).sum(1).to(torch.float32) * torch.tensor(ratio, dtype=torch.float32)).to(torch.int32)
+    k[0], k[-1] = 0, I
+    return keys, k
+
+
+def phase_select(dev, card):
+    import torch
+
+    from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
+    from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
+
+    print("[5] K2 against its plain version (bitwise)")
+    g = torch.Generator().manual_seed(SEED)
+    cases = [
+        ("LastFM user-mode masks", 2048, 17632, "uniform", 0.00279),
+        ("LastFM item-mode masks", 18432, 1884, "uniform", 0.00279),
+        ("ML-1M masks", 6040, 3706, "uniform", 0.0446),
+        ("streamed batch", 128, 65536, "uniform", 0.00279),
+        ("MAX_KERNEL_COLS", 5, 131072, "uniform", 0.00279),
+        ("low-resolution keys", 512, 3706, "ties", 0.0446),
+        ("negative keys and signed zeros", 512, 1000, "signed", 0.02),
+    ]
+    worst = 0.0
+    for name, R, I, kind, density in cases:
+        keys, k = (t.to(dev) for t in select_case(kind, R, I, g, density=density))
+        got = smallest_k_mask_cuda(keys, k)
+        want = smallest_k_mask_reference(keys, k)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        worst = max(worst, float(n_diff > 0))
+        if n_diff:
+            fail(f"K2 {name}: {n_diff} mask entries differ from the plain version")
+        if not torch.equal(got.sum(1), k.long()):
+            fail(f"K2 {name}: a row's count differs from its k")
+        print(f"  {name}: [{R}, {I}] {kind}, bitwise equal, every row count = k")
+    keys, k = (t.to(dev) for t in select_case("uniform", 2048, 17632, g))
+    ms = cuda_ms(lambda: smallest_k_mask_cuda(keys, k))
+    plain_ms = cuda_ms(lambda: smallest_k_mask_reference(keys, k))
+    print(f"  K2 time at [2048, 17632] (wrapper, with its range check): {ms:.4f} ms; plain "
+          f"(stable int64 sort + rank scatter): {plain_ms:.4f} ms  [{card}]")
+    return worst, ms, plain_ms
+
+
+def phase_cfgan(dev, card, train, test):
+    """CFGAN trained, served and evaluated on the card in both modes. Returns
+    the fitted models."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import CFGAN
+    from ganmf_tpu_torch.ops import select
+
+    class TimedCFGAN(CFGAN):
+        """Times each epoch (synchronized) and counts its K2 launches."""
+
+        def _run_training_loop(self, *args, epoch_fn, **kwargs):
+            self.epoch_log = []
+
+            def timed(epoch):
+                torch.cuda.synchronize()
+                before, t0 = select.LAUNCHES, time.perf_counter()
+                epoch_fn(epoch)
+                torch.cuda.synchronize()
+                self.epoch_log.append((time.perf_counter() - t0, select.LAUNCHES - before))
+
+            return super()._run_training_loop(*args, epoch_fn=timed, **kwargs)
+
+    models = {}
+    for mode in ("user", "item"):
+        print(f"[7] CFGAN {mode} mode: g_nodes={CFGAN_PARAMS['g_nodes']} d_nodes={CFGAN_PARAMS['d_nodes']} "
+              f"d_layers={CFGAN_PARAMS['d_layers']} on {train.shape[0]} x {train.shape[1]}, "
+              f"{CFGAN_EPOCHS} epochs")
+        model = TimedCFGAN(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
+        ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+        returned = model.fit(**CFGAN_PARAMS, epochs=CFGAN_EPOCHS, validation_evaluator=ev,
+                             freq=1, allow_worse=5)
+        torch.cuda.synchronize()
+        if len(model.epoch_log) != CFGAN_EPOCHS:
+            fail(f"{mode}: {len(model.epoch_log)} epochs ran, not {CFGAN_EPOCHS} (fit returned {returned})")
+        for e, (_, n) in enumerate(model.epoch_log, 1):
+            if n < 1:
+                fail(f"{mode}: epoch {e} did not launch K2")
+        secs = [t for t, _ in model.epoch_log]
+        print(f"  fit returned {returned}; epoch seconds {[round(t, 4) for t in secs]}, K2 launches per "
+              f"epoch {[n for _, n in model.epoch_log]}; median of epochs 2-3: "
+              f"{float(np.median(secs[1:])):.4f} s/epoch  [{card}]")
+        for t in model.params.parameters():
+            if not bool(torch.isfinite(t).all()):
+                fail(f"{mode}: a parameter is not finite after training")
+
+        recs = model.recommend(np.arange(5))  # the default cutoff, n_items - 1
+        seen = np.ediff1d(train.indptr)[:5]
+        for u, lst in enumerate(recs):
+            if len(lst) != train.shape[1] - seen[u] or len(set(lst)) != len(lst):
+                fail(f"{mode}: recommend(default cutoff) gave {len(lst)} items for user {u}")
+        print(f"  recommend(users 0-4, default cutoff): {[len(r) for r in recs]} items; user 0 -> {recs[0][:10]} ...")
+
+        t0 = time.perf_counter()
+        idx, vals = model.serve_all(cutoff=20)
+        serve_s = time.perf_counter() - t0
+        if idx.shape != (train.shape[0], 20) or not np.isfinite(vals).all():
+            fail(f"{mode}: serve_all returned {idx.shape} or non-finite scores")
+        print(f"  serve_all(cutoff=20): {idx.shape[0]} users in {serve_s:.4f} s")
+
+        t0 = time.perf_counter()
+        results, text = ev.evaluateRecommender(model)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        for c in CUTOFFS:
+            if not all(np.isfinite(v) for v in results[c].values()):
+                fail(f"{mode}: a metric at cutoff {c} is not finite")
+        n_eval = len(ev.usersToEvaluate)
+        print(text, end="")
+        print(f"  eval: {n_eval} users x {len(CUTOFFS)} cutoffs in {eval_s:.4f} s = "
+              f"{n_eval / eval_s:.1f} users/s (warm call)  [{card}]")
+        models[mode] = (model, ev)
+    return models
+
+
+def cfgan_epoch_inputs(mat):
+    """(urm, weights, cfgan_epoch keywords, g_dims, d_dims) for one epoch at
+    CFGAN_PARAMS on a training-orientation matrix, on the CPU."""
+    import torch
+
+    from ganmf_tpu_torch.models.gan_base import make_batches
+
+    p = CFGAN_PARAMS
+    n_rows, n_cols = mat.shape
+    d_n, d_pad = make_batches(n_rows, p["d_batch_size"])
+    g_n, g_pad = make_batches(n_rows, p["g_batch_size"])
+    padded = max(d_pad, g_pad)
+    urm = torch.zeros((padded, n_cols))
+    urm[:n_rows] = torch.from_numpy(mat.toarray())
+    w = torch.zeros(padded)
+    w[:n_rows] = 1.0
+    kw = dict(d_reg=p["d_reg"], g_reg=p["g_reg"], zr_ratio=p["zr_ratio"], zp_ratio=0.0,
+              zr_coefficient=p["zr_coefficient"], scheme=p["scheme"],
+              d_hidden_act=p["d_hidden_act"], g_hidden_act=p["g_hidden_act"],
+              d_n_batches=d_n, d_batch=p["d_batch_size"], g_n_batches=g_n,
+              g_batch=p["g_batch_size"], d_steps=p["d_steps"], g_steps=p["g_steps"])
+    g_dims = [n_cols] + [p["g_nodes"]] * p["g_layers"] + [n_cols]
+    d_dims = [2 * n_cols] + [p["d_nodes"]] * p["d_layers"] + [1]
+    return urm, w, kw, g_dims, d_dims
+
+
+def phase_cfgan_plain(dev, card, train, test, models):
+    """The CFGAN path on the card against its plain path on the CPU."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import CFGAN
+    from ganmf_tpu_torch.models import cfgan as pcf
+
+    cpu = torch.device("cpu")
+    p = CFGAN_PARAMS
+    for mode in ("user", "item"):
+        print(f"[8] CFGAN {mode} mode against the plain path on the CPU")
+        model, ev = models[mode]
+        urm, w, kw, g_dims, d_dims = cfgan_epoch_inputs(model._train_matrix())
+        padded, n_cols = urm.shape
+        d_n, g_n = kw["d_n_batches"], kw["g_n_batches"]
+        u_zr = torch.rand((padded, n_cols), generator=torch.Generator().manual_seed(SEED + 1))
+        runs = []
+        for d in (dev, cpu):
+            params = pcf.init_params(g_dims, d_dims, torch.Generator().manual_seed(SEED), d)
+            d_opt = torch.optim.Adam(params.D.parameters(), lr=p["d_lr"], betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+            g_opt = torch.optim.Adam(params.G.parameters(), lr=p["g_lr"], betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+            uniforms = (u_zr.to(d), None)
+            zr, _ = pcf.sample_negative_masks(urm.to(d), p["zr_ratio"], 0.0, p["scheme"], uniforms=uniforms)
+            pcf.cfgan_epoch(params, d_opt, g_opt, urm.to(d), uniforms, w.to(d), w.to(d), **kw)
+            runs.append((zr.cpu(), [t.detach().cpu() for t in params.parameters()]))
+        if not torch.equal(runs[0][0], runs[1][0]):
+            fail(f"{mode}: the card's ZR mask differs from the CPU's")
+        # Adam moves an element whose gradient sits at rounding level by up to
+        # about lr per step in either direction (|m_hat/sqrt(v_hat)| <= 1.1 over
+        # the first 15 steps): the bound is 2.2 * lr * steps; and the bulk, 99%
+        # of the elements, must agree to 1% of lr
+        n_g = 2 * (p["g_layers"] + 1)
+        worst = []
+        for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1])):
+            steps, lr = (g_n, p["g_lr"]) if i < n_g else (d_n, p["d_lr"])
+            diff = (a - b).abs()
+            bulk = float((diff <= 0.01 * lr).float().mean())
+            worst.append(float(diff.max()))
+            if worst[-1] > 2.2 * lr * steps or bulk < 0.99:
+                fail(f"{mode}: parameter {i} differs by {worst[-1]:.3e} (bound {2.2 * lr * steps:.3e}), "
+                     f"{bulk:.4f} of it within 0.01 lr")
+        print(f"  one epoch from the same state and draws: masks bitwise equal "
+              f"({int(runs[0][0].sum())} selected); largest parameter difference {max(worst):.3e} "
+              f"(G {max(worst[:n_g]):.3e} against bound {2.2 * p['g_lr'] * g_n:.3e}, "
+              f"D {max(worst[n_g:]):.3e} against {2.2 * p['d_lr'] * d_n:.3e})")
+
+        plain = CFGAN(train, mode=mode, seed=SEED, is_experiment=True, device=cpu)
+        plain.config = dict(model.config)
+        plain.params = pcf.params_from_jax([t.detach().cpu().numpy() for t in model.params.parameters()],
+                                           p["g_layers"], cpu)
+        card_out = model._full_generator_output()
+        plain_out = plain._full_generator_output()
+        got = card_out.cpu()
+        if not torch.allclose(got, plain_out, rtol=GEN_RTOL, atol=GEN_ATOL):
+            fail(f"{mode}: the card's generator output differs from the CPU's beyond rtol {GEN_RTOL}")
+        print(f"  generator output [{got.shape[0]}, {got.shape[1]}]: max abs diff "
+              f"{float((got - plain_out).abs().max()):.3e} (scale {float(plain_out.abs().max()):.3e}), "
+              f"within rtol {GEN_RTOL} atol {GEN_ATOL}")
+
+        plain._score_cache = got  # the card's scores: no BLAS rounding in what follows
+        results, _ = ev.evaluateRecommender(model)
+        presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(plain)
+        worst_m = max(abs(results[c][m] - presults[c][m]) for c in CUTOFFS for m in results[c])
+        if not worst_m <= SAME_SCORES_TOL:
+            fail(f"{mode}: the evaluation differs from the CPU's on the same scores by {worst_m:.3e}")
+        idx, _ = model.serve_all(cutoff=20)
+        pidx, _ = plain.serve_all(cutoff=20)
+        if not np.array_equal(idx, pidx):
+            fail(f"{mode}: serve_all ids differ from the CPU's on the same scores")
+        print(f"  on the card's scores: every metric within {worst_m:.3e} of the CPU path, "
+              f"serve_all ids equal")
+
+
 def main():
     import torch
 
@@ -250,7 +553,7 @@ def main():
     card = card_line()
     print(f"[2] card: {card}")
 
-    from ganmf_tpu_torch.ops import _build, scorer
+    from ganmf_tpu_torch.ops import _build, scorer, select
     from ganmf_tpu_torch.utils.device import cuda_device
 
     dev = cuda_device()
@@ -258,28 +561,61 @@ def main():
     _build.load_library()
     print(f"[3] built and loaded {_build.library_path().name} in {time.perf_counter() - t0:.2f} s")
 
-    max_err, ms, plain_ms = phase_kernel(dev, card)
+    (k1_err, k1_ms, k1_plain_ms), (wide_err, wide_ms, wide_plain_ms) = phase_kernel(dev, card)
+    k2_err, k2_ms, k2_plain_ms = phase_select(dev, card)
 
     train, test = ml1m_split()
-    scorer.LAUNCHES = 0  # count only the main path's launches
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = 0  # count only the main path's launches
     phase_slice(dev, card, train, test)
-    launches = scorer.LAUNCHES
-    if launches == 0:
-        fail("the main path never launched K1")
+    wide_launches = scorer.WIDE_LAUNCHES
+    k1_launches = scorer.LAUNCHES - wide_launches  # the fused kernel's
+    if k1_launches == 0 or wide_launches == 0:
+        fail(f"the GANMF path launched K1's fused kernel {k1_launches} times and its wide "
+             f"pair {wide_launches} times")
 
-    print(json.dumps({"kernels": [{
-        "name": "masked_topk_scores (K1)",
-        "route": "cuda",
-        "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
-        "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    train, test = lastfm_split()
+    select.LAUNCHES = 0
+    models = phase_cfgan(dev, card, train, test)
+    k2_launches = select.LAUNCHES
+    if k2_launches < 2 * CFGAN_EPOCHS:
+        fail(f"the CFGAN path launched K2 {k2_launches} times, under once per epoch")
+    phase_cfgan_plain(dev, card, train, test, models)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "masked_topk_scores (K1, fused kernel, k <= 64)",
+            "route": "cuda",
+            "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
+            "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
+            "launches": k1_launches,
+            "max_abs_err": k1_err,
+            "ms": k1_ms,
+            "plain_ms": k1_plain_ms,
+        },
+        {
+            "name": "masked_topk_scores (K1, wide pair, k > 64)",
+            "route": "cuda",
+            "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
+            "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
+            "launches": wide_launches,
+            "max_abs_err": wide_err,
+            "ms": wide_ms,
+            "plain_ms": wide_plain_ms,
+        },
+        {
+            "name": "smallest_k_mask (K2)",
+            "route": "cuda",
+            "source": "ganmf_tpu_torch/csrc/select.cu",
+            "replaces": "ganmf_tpu/ops/pallas_select.py:39",
+            "launches": k2_launches,
+            "max_abs_err": k2_err,
+            "ms": k2_ms,
+            "plain_ms": k2_plain_ms,
+        },
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

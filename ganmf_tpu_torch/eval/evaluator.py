@@ -7,10 +7,19 @@ accumulated on the device; only the finalization runs on the host. It returns
 the reference's (results_dict, results_string) pair, with the same metric
 order and formatting.
 
-Every block ranks through the fused scorer K1 (ops/scorer.py): the model
-provides its factors through ``_factors_device()`` and the [B, I] score
-matrix is never built. On a CUDA model the kernel runs; on a CPU model the
-scorer takes its plain version.
+Each block ranks by the route that ``Recommender._ranks_with_k1`` picks from
+the model's type, before any launch, as the JAX evaluator's ``_can_fuse``
+does (ganmf_tpu/eval/evaluator.py:231-266):
+
+- a factor model (one that provides ``_factors_device()``) ranks through the
+  masked top-k scorer K1 (ops/scorer.py) at every cutoff. On a CUDA model
+  the kernel runs; on a CPU model the scorer takes its plain version;
+- every other model takes the dense route of the JAX evaluator
+  (ganmf_tpu/eval/evaluator.py:209-222,496-535, without the mesh):
+  ``score_device`` gives the masked [B, I] block and ``evaluate_batch`` ranks
+  it with a stable top-k.
+
+The dense route is not a fallback: a K1 failure raises.
 
 Not ported: the mesh plan, the diversity object,
 ``EvaluatorNegativeItemSample``, the similarity-family fused block, and the
@@ -30,6 +39,7 @@ from ganmf_tpu_torch.data.device import padded_csr_from_sparse, padded_rows_dens
 from ganmf_tpu_torch.eval.metrics import (
     METRIC_ORDER,
     SCALAR_FIELDS,
+    evaluate_batch,
     evaluate_batch_from_topk,
     finalize_counter_metrics,
     item_novelty_terms,
@@ -144,16 +154,26 @@ class EvaluatorHoldout:
             self._test_pairs = tuple(torch.from_numpy(a).to(self.device) for a in (ids, vals, msk))
         return self._test_pairs
 
-    def _fused_block(self, model, uids: torch.Tensor, max_len: int = None, pair_len: int = None):
-        """(top values, top ids, per-user RMSE) of one block through K1."""
-        U, V, cold = model._factors_device()
-        U_b = U.index_select(0, uids)
+    def _seen_block(self, model, uids: torch.Tensor, max_len: int = None) -> torch.Tensor:
+        """[B, I] bool: the seen and ignored items of a block of users."""
         if self.exclude_seen:
             seen = model.device_seen_rows(uids, max_len=max_len)
         else:
             seen = torch.zeros((len(uids), self.n_items), dtype=torch.bool, device=self.device)
         if self._ignore_items_mask is not None:
             seen = seen | self._ignore_items_mask[None, :]
+        return seen
+
+    def _score_block(self, model, uids: torch.Tensor, max_len: int = None) -> torch.Tensor:
+        """[B, I] device scores with the seen and ignored items at -inf."""
+        return model.score_device(uids).masked_fill(
+            self._seen_block(model, uids, max_len=max_len), float("-inf"))
+
+    def _fused_block(self, model, uids: torch.Tensor, max_len: int = None, pair_len: int = None):
+        """(top values, top ids, per-user RMSE) of one block through K1."""
+        U, V, cold = model._factors_device()
+        U_b = U.index_select(0, uids)
+        seen = self._seen_block(model, uids, max_len=max_len)
         vals, idx = masked_topk_scores(U_b, V, seen, k=self.max_cutoff)
         cold_b = cold.index_select(0, uids)
         vals = vals.masked_fill(cold_b[:, None], float("-inf"))
@@ -173,10 +193,6 @@ class EvaluatorHoldout:
 
     @torch.no_grad()
     def evaluateRecommender(self, recommender_object):
-        if not hasattr(recommender_object, "_factors_device"):
-            raise TypeError(
-                f"{type(recommender_object).__name__} has no _factors_device(); the port's"
-                " evaluator ranks through the fused scorer only")
         if recommender_object.device != self.device:
             raise ValueError(
                 f"model on {recommender_object.device}, evaluator on {self.device}")
@@ -213,6 +229,7 @@ class EvaluatorHoldout:
             per_block = -(-n_eval // n_blocks)
             block_size = min(block_size, -(-per_block // 8) * 8)
         cutoffs = tuple(self.cutoff_list)
+        use_k1 = recommender_object._ranks_with_k1()
 
         scalar_acc = torch.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=torch.float32, device=self.device)
         counter_acc = torch.zeros((len(cutoffs), self.n_items), dtype=torch.float32, device=self.device)
@@ -225,20 +242,21 @@ class EvaluatorHoldout:
 
             uids = torch.from_numpy(chunk).to(self.device)
             test_rows = padded_rows_dense(self._test_padded, uids, self.n_items, max_len=crop_test)
-            top_vals, top_idx, user_rmse = self._fused_block(
-                recommender_object, uids, max_len=crop_train, pair_len=crop_test)
-            stats = evaluate_batch_from_topk(
-                top_vals,
-                top_idx,
-                test_rows,
-                self._n_pos.index_select(0, uids),
-                torch.ones(len(chunk), dtype=torch.bool, device=self.device),
-                novelty_terms,
-                pop_norm,
-                user_rmse,
-                cutoffs=cutoffs,
-                max_cutoff=self.max_cutoff,
-            )
+            n_pos = self._n_pos.index_select(0, uids)
+            valid = torch.ones(len(chunk), dtype=torch.bool, device=self.device)
+            if use_k1:
+                top_vals, top_idx, user_rmse = self._fused_block(
+                    recommender_object, uids, max_len=crop_train, pair_len=crop_test)
+                stats = evaluate_batch_from_topk(
+                    top_vals, top_idx, test_rows, n_pos, valid, novelty_terms, pop_norm,
+                    user_rmse, cutoffs=cutoffs, max_cutoff=self.max_cutoff,
+                )
+            else:
+                scores = self._score_block(recommender_object, uids, max_len=crop_train)
+                stats = evaluate_batch(
+                    scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
+                    cutoffs=cutoffs, max_cutoff=self.max_cutoff,
+                )
             scalar_acc += stats.scalars
             counter_acc += stats.counters
 

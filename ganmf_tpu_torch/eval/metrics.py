@@ -1,7 +1,8 @@
 """Vectorized ranking metrics.
 
 Port of ganmf_tpu/eval/metrics.py. One batch of users is evaluated across all
-cutoffs at once from its ranked top-k (the fused scorer's output); the
+cutoffs at once from its ranked top-k (the fused scorer's output, or the
+stable top-k of a dense score block in ``evaluate_batch``); the
 per-user scalar metrics are summed on the device and the counter metrics
 update a per-cutoff item counter with a scatter-add. The finalizers run once
 on the host in float64 and are copied from the JAX package as they are.
@@ -16,6 +17,8 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from ganmf_tpu_torch.ops.topk import topk_lowest_index
 
 #: Metric presentation order = the reference's EvaluatorMetrics enum order.
 METRIC_ORDER = [
@@ -63,6 +66,33 @@ class BatchStats(NamedTuple):
 
     scalars: torch.Tensor  # [n_cutoffs, len(SCALAR_FIELDS)] summed over users
     counters: torch.Tensor  # [n_cutoffs, n_items] recommendation counts
+
+
+def evaluate_batch(
+    scores: torch.Tensor,  # [B, I] seen-masked model scores (-inf = removed)
+    test_ratings: torch.Tensor,  # [B, I] test interaction values (0 = none)
+    n_pos: torch.Tensor,  # [B] number of test interactions per user
+    user_valid: torch.Tensor,  # [B] bool, False for rows not to count
+    item_novelty: torch.Tensor,  # [I]
+    pop_normalized: torch.Tensor,  # [I]
+    cutoffs: Sequence[int],
+    max_cutoff: int,
+) -> BatchStats:
+    """Metrics from a dense score block (the dense route): the top-k with ties
+    to the lowest item id, and the per-user RMSE over the test items from the
+    scores themselves (reference Evaluator.py:298-299)."""
+    top_vals, top_idx = topk_lowest_index(scores, max_cutoff)
+    test_mask = (test_ratings != 0).float()
+    finite_scores = torch.isfinite(scores)
+    fin = test_mask * finite_scores.float()
+    sq_err = torch.where(finite_scores, (scores - test_ratings) ** 2, 0.0) * fin
+    fin_cnt = fin.sum(1)
+    user_rmse = torch.where(
+        fin_cnt > 0, torch.sqrt(sq_err.sum(1) / fin_cnt.clamp(min=1.0)), float("nan"))
+    return _evaluate_core(
+        top_vals, top_idx, test_ratings, n_pos, user_valid, item_novelty,
+        pop_normalized, user_rmse, cutoffs, max_cutoff,
+    )
 
 
 def evaluate_batch_from_topk(

@@ -1,2 +1,3 @@
 from ganmf_tpu_torch.models.base import Recommender, check_matrix  # noqa: F401
 from ganmf_tpu_torch.models.ganmf import GANMF, GANMFParams, init_params, params_from_jax  # noqa: F401
+from ganmf_tpu_torch.models.cfgan import CFGAN, CFGANParams, MLPParams  # noqa: F401

@@ -2,12 +2,19 @@
 
 Port of ganmf_tpu/models/base.py:25-62,174-491. A recommender holds a CSR
 ``URM_train`` on the host and its dense copy on its device. ``recommend`` and
-``serve_all`` rank through the fused scorer K1 (ops/scorer.py): the model
-provides its factors through ``_factors_device()``, and the seen items, the
-top-popular and custom items to remove, and the items outside
-``items_to_compute`` are folded into the scorer's mask. The lists equal those
-of the JAX ``recommend`` and ``serve_all``, which rank the dense score block
-with ``lax.top_k`` (same scores, ties to the lowest item id).
+``serve_all`` rank on the model's device by one of two routes, chosen by
+``_ranks_with_k1`` from the model's type alone:
+
+- K1, the masked top-k scorer (ops/scorer.py), for a factor model (one that
+  provides ``_factors_device()``), at any cutoff. The seen items, the
+  top-popular and custom items to remove, and the items outside
+  ``items_to_compute`` are folded into the scorer's mask.
+- The dense route for every other model: ``score_device`` gives the [B, I]
+  block, the excluded items go to -inf and a stable top-k ranks it. This is
+  the JAX package's route for every model without factors.
+
+Both give the lists of the JAX ``recommend`` and ``serve_all`` (same scores,
+ties to the lowest item id).
 
 The matrix-factorization base class (:514-686) is not ported yet.
 """
@@ -22,6 +29,7 @@ import torch
 
 from ganmf_tpu_torch.data.device import DeviceURM, padded_csr_from_sparse, padded_rows_mask
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
+from ganmf_tpu_torch.ops.topk import topk_lowest_index
 from ganmf_tpu_torch.utils.dataio import DataIO
 from ganmf_tpu_torch.utils.device import as_device
 
@@ -117,11 +125,36 @@ class Recommender:
         pass
 
     # -- scoring ---------------------------------------------------------------
-    def _factors_device(self):
-        """(U [n_users, K], V [n_items, K], cold [n_users] bool) on the model's
-        device: scores are U @ V^T, and cold users rank nothing. Subclasses
-        override."""
-        raise NotImplementedError(f"{type(self).__name__} does not provide factors")
+    def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
+        """[B, I] scores on the model's device for a batch of external users.
+        Subclasses override."""
+        raise NotImplementedError(f"{type(self).__name__} does not override score_device")
+
+    def _compute_item_score(self, user_id_array, items_to_compute=None) -> torch.Tensor:
+        """[B, I] scores on the model's device, -inf outside
+        ``items_to_compute`` when it is given (JAX base.py:308-317, which
+        returns the same block as a numpy array)."""
+        scores = self.score_device(self._uids(np.atleast_1d(user_id_array)))
+        if items_to_compute is not None:
+            keep = torch.zeros(self.n_items, dtype=torch.bool, device=self.device)
+            keep[torch.as_tensor(np.asarray(items_to_compute, dtype=np.int64), device=self.device)] = True
+            scores = scores.masked_fill(~keep, float("-inf"))
+        return scores
+
+    def _ranks_with_k1(self) -> bool:
+        """The ranking route, chosen from the model's type alone, before any
+        launch: a factor model (one that provides ``_factors_device``) ranks
+        through K1 at every cutoff; every other model takes the dense route,
+        ``score_device`` plus a stable top-k. The dense route is not a
+        fallback: a K1 failure raises."""
+        return hasattr(self, "_factors_device")
+
+    def _k1_block(self, uids: torch.Tensor, mask: torch.Tensor, k: int):
+        """([B, k] vals, [B, k] ids) of a factor model through K1, with the
+        cold users' slots at -inf."""
+        U, V, cold = self._factors_device()
+        vals, ids = masked_topk_scores(U.index_select(0, uids), V, mask, k)
+        return vals.masked_fill(cold.index_select(0, uids)[:, None], float("-inf")), ids
 
     def _uids(self, user_id_array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(user_id_array, dtype=np.int64)).to(self.device)
@@ -160,8 +193,9 @@ class Recommender:
         remove_CustomItems_flag: bool = False,
         return_scores: bool = False,
     ):
-        """Ranked recommendation lists (reference BaseRecommender.py:155-247).
-        On a CUDA model the cutoff is at most the kernel's ``MAX_K``."""
+        """Ranked recommendation lists (reference BaseRecommender.py:155-247),
+        through K1 or the dense route as ``_ranks_with_k1`` decides. Any
+        cutoff works on either device; the default is n_items - 1."""
         if np.isscalar(user_id_array):
             user_id_array = np.atleast_1d(user_id_array)
             single_user = True
@@ -174,23 +208,36 @@ class Recommender:
         cutoff = min(cutoff, self.URM_train.shape[1])
 
         uids = self._uids(user_id_array)
-        mask = self._exclusion_mask(uids, remove_seen_flag, items_to_compute,
-                                    remove_top_pop_flag, remove_CustomItems_flag)
-        U, V, cold = self._factors_device()
-        U_b = U.index_select(0, uids)
-        cold_b = cold.index_select(0, uids)
-        vals, ids = masked_topk_scores(U_b, V, mask, cutoff)
-        vals = vals.masked_fill(cold_b[:, None], float("-inf"))
+        use_k1 = self._ranks_with_k1()
+        scores = None
+        if return_scores or not use_k1:
+            scores = self._compute_item_score(user_id_array, items_to_compute=items_to_compute)
+            scores = scores.masked_fill(
+                self._exclusion_mask(uids, remove_seen_flag, None, remove_top_pop_flag,
+                                     remove_CustomItems_flag),
+                float("-inf"))
+        if use_k1:
+            mask = self._exclusion_mask(uids, remove_seen_flag, items_to_compute,
+                                        remove_top_pop_flag, remove_CustomItems_flag)
+            vals, ids = self._k1_block(uids, mask, cutoff)
+        else:
+            vals, ids = topk_lowest_index(scores, cutoff)
         vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
         ranking_list = [ids[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
 
         if single_user:
             ranking_list = ranking_list[0]
         if return_scores:
-            # the score block itself comes from the plain product
-            scores = (U_b @ V.T).masked_fill(mask | cold_b[:, None], float("-inf"))
             return ranking_list, scores.cpu().numpy()
         return ranking_list
+
+    def _serve_block(self, uids: torch.Tensor, k: int, remove_seen_flag: bool):
+        """([B, k] vals, [B, k] ids) of one serve_all block on the dense
+        route (JAX base.py:406-412)."""
+        scores = self.score_device(uids)
+        if remove_seen_flag:
+            scores = scores.masked_fill(self.device_seen_rows(uids), float("-inf"))
+        return topk_lowest_index(scores, k)
 
     @torch.no_grad()
     def serve_all(
@@ -202,9 +249,10 @@ class Recommender:
     ):
         """Batch serving export: ranked top-``cutoff`` items for every user (or
         ``user_id_array``) as dense ``(item_ids [n, k] int32, scores [n, k]
-        f32)`` arrays, ranked ``block`` users at a time through K1. Slots that
-        ``recommend()`` would strip come back with a -inf score, so
-        ``np.isfinite(scores[u])`` recovers its list."""
+        f32)`` arrays, ranked ``block`` users at a time through K1 or the dense
+        route (``_ranks_with_k1``). Slots that ``recommend()`` would strip
+        come back with a -inf score, so ``np.isfinite(scores[u])`` recovers
+        its list."""
         uids_np = (
             np.arange(self.n_users, dtype=np.int64)
             if user_id_array is None
@@ -215,16 +263,15 @@ class Recommender:
         if n == 0:
             return np.zeros((0, k), dtype=np.int32), np.zeros((0, k), dtype=np.float32)
         B = max(1, min(block, n))
-        U, V, cold = self._factors_device()
+        use_k1 = self._ranks_with_k1()
         all_vals, all_ids = [], []
         for start in range(0, n, B):
             uids = self._uids(uids_np[start : start + B])
-            if remove_seen_flag:
-                mask = self.device_seen_rows(uids)
+            if use_k1:
+                vals, ids = self._k1_block(uids, self._exclusion_mask(uids, remove_seen_flag), k)
             else:
-                mask = torch.zeros((len(uids), self.n_items), dtype=torch.bool, device=self.device)
-            vals, ids = masked_topk_scores(U.index_select(0, uids), V, mask, k)
-            all_vals.append(vals.masked_fill(cold.index_select(0, uids)[:, None], float("-inf")))
+                vals, ids = self._serve_block(uids, k, remove_seen_flag)
+            all_vals.append(vals)
             all_ids.append(ids)
         # one device-to-host transfer each
         vals = torch.cat(all_vals).cpu().numpy()

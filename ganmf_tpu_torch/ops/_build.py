@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources into one shared library at first use.
 
-Every ``ganmf_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a library with a plain C interface, loaded with ``ctypes``.
+Every ``ganmf_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+for Hopper (``sm_90a``), all at once, and the objects are linked into one
+library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/ganmf_tpu_torch/`` at the root of the checkout,
 named by a hash of the sources and the flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. Nothing here runs at import time.
@@ -21,7 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ganmf_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _LIB = None
@@ -55,26 +56,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libganmf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path.
-    Raises with nvcc's output when the compile fails."""
+    Raises with nvcc's output when a compile fails."""
     out = library_path()
     if out.exists():
         return out
     srcs, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)])
+        lib = os.path.join(tmp, out.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
@@ -86,6 +93,10 @@ def load_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ganmf_masked_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.ganmf_masked_topk.restype = i32
+        lib.ganmf_masked_topk_wide.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.ganmf_masked_topk_wide.restype = i32
+        lib.ganmf_smallest_k_mask.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+        lib.ganmf_smallest_k_mask.restype = i32
         lib.ganmf_cuda_error_string.argtypes = [i32]
         lib.ganmf_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

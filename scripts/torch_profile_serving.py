@@ -9,6 +9,7 @@ user mode), warms up, then traces one holdout evaluation and one
 serve_all(cutoff=20) with torch.profiler. For each it prints the wall time,
 the device time summed by kernel name, and the device busy share (union of
 kernel intervals over the wall time). The chrome traces go to --out.
+``profile`` is shared with scripts/torch_profile_cfgan.py.
 """
 
 import argparse
@@ -39,7 +40,7 @@ def busy_us(events):
     return total
 
 
-def profile(name, fn, out_dir, card):
+def profile(name, fn, out_dir, card, host_ops=0):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     for _ in range(2):
@@ -60,6 +61,10 @@ def profile(name, fn, out_dir, card):
           f"{len(kernels)} device ops  [{card}]")
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"   {us / 1e3:9.4f} ms  {100 * us / max(busy, 1e-9):5.1f}%  {kname[:100]}")
+    if host_ops:
+        print(f"   host operators by self CPU time (top {host_ops}):")
+        for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_ops]:
+            print(f"   {a.self_cpu_time_total / 1e3:9.4f} ms  x{a.count:<5d} {a.key[:90]}")
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
 

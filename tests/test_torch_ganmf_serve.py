@@ -112,6 +112,25 @@ def test_evaluator_matches(mode, urm_pair):
         [line.split(" - ")[0] for line in want_text.splitlines()]
 
 
+@pytest.mark.parametrize("mode", ["user", "item"])
+def test_cutoffs_above_max_k_match(mode, urm_pair):
+    """Above K1's fused limit of 64 (K1's wide form on the card; the fixture
+    has 80 items, so a cutoff of 100 ranks them all): metrics, recommend
+    lists and serve_all ids against the JAX GANMF."""
+    _, test = urm_pair
+    jm, pm = _models(mode, urm_pair)
+    want, _ = JaxEvaluatorHoldout(test, [5, 20, 100]).evaluateRecommender(jm)
+    got, _ = EvaluatorHoldout(test, [5, 20, 100], device=CPU).evaluateRecommender(pm)
+    _assert_results_close(got, want)
+    users = np.arange(pm.n_users)
+    assert pm.recommend(users, cutoff=100) == jm.recommend(users, cutoff=100)
+    assert pm.recommend(users, cutoff=70) == jm.recommend(users, cutoff=70)
+    want_idx, want_vals = jm.serve_all(cutoff=100)
+    got_idx, got_vals = pm.serve_all(cutoff=100)
+    np.testing.assert_array_equal(got_idx, want_idx)
+    np.testing.assert_allclose(got_vals, want_vals, rtol=0, atol=1e-6)
+
+
 def test_evaluator_ignore_items_users_and_padded_seen_rows(urm_pair, monkeypatch):
     _, test = urm_pair
     jm, pm = _models("user", urm_pair)
