@@ -8,23 +8,30 @@ Phases, in order; any failure exits nonzero:
 1. require CUDA;
 2. print the card's name and power limit (nvidia-smi);
 3. build the CUDA kernels from ganmf_tpu_torch/csrc (one nvcc per source, all
-   at once) and print the build time;
+   at once), print the build time and what ptxas reports for each kernel
+   (registers, spills);
 4. hold K1 (the masked top-k scorer) against its plain PyTorch version on
    the card: its fused kernel (k <= 64) at the evaluation block's shapes in
-   user and item orientation, at a ragged item count, with exact ties and
-   with fully masked rows; its wide pair (k > 64) at recommend's default
-   cutoff, at LastFM's item count and with exact ties and masked rows;
-   print both times of each form (median of 20 runs);
+   user and item orientation, at serve_all's and recommend's, at a ragged
+   item count, with exact ties and with fully masked rows; its wide pair
+   (k > 64) at recommend's default cutoff, at LastFM's item count and with
+   exact ties and masked rows; print each form's time beside its plain
+   version's, the library composition's (matmul + masked_fill_ + topk, a
+   yardstick the port never calls) and its bound (median of 20 runs), the
+   fused kernel also at serve_all's, item mode's and recommend's shapes
+   (B=5 and B=1 at cutoff 20), with the item splits its wrapper launched;
 5. hold K2 (exact-k row selection) against its plain PyTorch version on the
    card, bitwise, at CFGAN's mask shapes, the streamed batch shape, the
    widest row, with heavy ties, negative keys, signed zeros and rows with
-   k = 0 and k = I; print both times at [2048, 17632] (median of 20 runs);
+   k = 0 and k = I; print both times and its bound at [2048, 17632]
+   (median of 20 runs);
 6. drive the serving slice at GANMF's ML-1M width (num_factors=250,
    emb_dim=992, random weights from a seed) on an ML-1M-shaped synthetic
    split, in user and then item mode: recommend (at cutoff 20 and at the
    default cutoff), serve_all and the holdout evaluation, each held against
    the same model's plain path on the CPU; check that both forms of K1
-   carried the run and print eval users/s;
+   carried the run, the fused kernel with its merge pass, and print eval
+   users/s;
 7. train CFGAN at its published LastFM width (g_nodes=1024, d_layers=5) for
    3 epochs with early stopping on a LastFM-shaped synthetic split, in user
    and then item mode; check that K2 drew every epoch's masks; print seconds
@@ -33,14 +40,15 @@ Phases, in order; any failure exits nonzero:
    same state and draws (masks bitwise, parameters within a stated bound),
    the generator output, and the evaluation and serve_all on the same
    scores;
-9. print one JSON line with every kernel's launches, error and times (K1's
-   two forms on lines of their own), then the card line, then the result
-   line.
+9. print one JSON line with every kernel's launches, error, times and bound
+   (K1's two forms as entries of their own), then the card line, then the
+   result line.
 
 Imports nothing of JAX. It needs the repository checkout: alone it fails.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,6 +60,9 @@ NUM_FACTORS, EMB_DIM = 250, 992  # GANMF's ML-1M best params (bench.py)
 SEED = 1337
 RTOL, ATOL = 1e-5, 1e-7  # f32 scores, summed in another order than cuBLAS
 METRIC_TOL = 1e-5
+# an H100 SXM's peaks (NVIDIA's data sheet): float32 FMAs on the CUDA cores
+# (no TF32: the reference scores at Precision.HIGHEST) and HBM3 bandwidth
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 # CFGAN's published best params, user mode on LastFM (scripts/parity_check.py:46-54)
 CFGAN_PARAMS = dict(
     g_nodes=1024, g_layers=1, g_hidden_act="tanh",
@@ -120,6 +131,35 @@ def cuda_ms(fn, reps=20):
     return float(np.median(times))
 
 
+def bound(flops, nbytes):
+    """(ms, what bounds it): the least time an H100 takes to do ``flops``
+    float32 operations and move ``nbytes``."""
+    ops_ms, bytes_ms = 1e3 * flops / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def k1_bound(B, I, K, k):
+    """K1's bound: the scores' FMAs; U, V and the mask read once, the lists
+    (f32 values, int64 ids) written once."""
+    return bound(2 * B * I * K, 4 * (B + I) * K + B * I + 12 * B * k)
+
+
+def ptxas_lines(report):
+    """One line per kernel from ptxas's -v report: registers, stack, spills."""
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            short = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))  # after its length
+            name = short.group(1) if short else m.group(1)
+        elif name and "bytes stack frame" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            out.append(f"  {name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return out
+
+
 def ids_agree(ids_a, ids_b, scores, finite):
     """Ids equal at every finite slot, except where the two candidates' plain
     scores differ by less than the tolerance (a near-tie the two summation
@@ -163,10 +203,28 @@ def compare_k1(name, U, V, mask, k):
     return max_abs_err
 
 
-def phase_kernel(dev, card):
+def time_k1(U, V, M, k):
+    """K1's, its plain version's and the library composition's times on the
+    same tensors, with K1's bound."""
     import torch
 
     from ganmf_tpu_torch.ops.scorer import masked_topk_scores, masked_topk_scores_reference
+
+    B, K = U.shape
+    I = V.shape[0]
+    t = {
+        "ms": cuda_ms(lambda: masked_topk_scores(U, V, M, k)),
+        "plain_ms": cuda_ms(lambda: masked_topk_scores_reference(U, V, M, k)),
+        "library_ms": cuda_ms(lambda: torch.topk(torch.matmul(U, V.T).masked_fill_(M, float("-inf")), k)),
+    }
+    t["bound_ms"], t["bound_by"] = k1_bound(B, I, K, k)
+    return t
+
+
+def phase_kernel(dev, card):
+    import torch
+
+    from ganmf_tpu_torch.ops import scorer
 
     print("[4] K1 against its plain version")
     g = torch.Generator().manual_seed(SEED)
@@ -185,12 +243,17 @@ def phase_kernel(dev, card):
     M = seen(3024, 3706)
     errs.append(compare_k1("user orientation", U, V, M, 50))
     # item orientation: ranking over the other axis (items = 6040)
-    Ui, Vi = factors(1856, 6040, NUM_FACTORS)
-    errs.append(compare_k1("item orientation", Ui, Vi, seen(1856, 6040), 50))
+    Ui, Vi = factors(3706, 6040, NUM_FACTORS)
+    Mi = seen(3706, 6040)
+    errs.append(compare_k1("item orientation", Ui, Vi, Mi, 50))
     # ragged item count and row count, serve_all's and recommend's k
     Ur, Vr = factors(37, 1001, 64)
     errs.append(compare_k1("ragged I, k=20", Ur, Vr, seen(37, 1001, 0.3), 20))
     errs.append(compare_k1("ragged I, k=5", Ur[:5].contiguous(), Vr, seen(5, 1001, 0.3), 5))
+    # serve_all's block (k=20) and recommend for one user at an explicit cutoff
+    Us, Ms = U[:2048].contiguous(), M[:2048].contiguous()
+    errs.append(compare_k1("serve_all block", Us, V, Ms, 20))
+    errs.append(compare_k1("one user, k=20", U[:1].contiguous(), V, M[:1].contiguous(), 20))
     # exact ties: duplicated item rows on an exactly representable grid, and
     # fully masked rows (plus one row with fewer than k unmasked items)
     Ut = (torch.randint(-4, 5, (64, 32), generator=g).float() / 8).to(dev)
@@ -203,10 +266,21 @@ def phase_kernel(dev, card):
     Mt[11, ::100] = False  # 7 unmasked items, k = 50
     errs.append(compare_k1("exact ties + masked rows", Ut, Vt, Mt, 50))
 
-    ms = cuda_ms(lambda: masked_topk_scores(U, V, M, 50))
-    plain_ms = cuda_ms(lambda: masked_topk_scores_reference(U, V, M, 50))
-    print(f"  K1 time at B=3024 K=250 I=3706 k=50: {ms:.4f} ms; plain (matmul + masked_fill +"
-          f" stable sort): {plain_ms:.4f} ms  [{card}]")
+    fused = {}
+    for name, (Ub, Vb, Mb, k) in {
+        "evaluation block, B=3024 K=250 I=3706 k=50": (U, V, M, 50),
+        "serve_all block, B=2048 K=250 I=3706 k=20": (Us, V, Ms, 20),
+        "item-mode evaluation, B=3706 K=250 I=6040 k=50": (Ui, Vi, Mi, 50),
+        "recommend, B=5 K=250 I=3706 k=20": (U[:5].contiguous(), V, M[:5].contiguous(), 20),
+        "recommend, B=1 K=250 I=3706 k=20": (U[:1].contiguous(), V, M[:1].contiguous(), 20),
+    }.items():
+        t = time_k1(Ub, Vb, Mb, k)
+        t["splits"] = scorer.LAST_SPLITS  # the plan of the launches just timed
+        fused[name] = t
+        print(f"  K1 fused at {name}: {t['ms']:.4f} ms over {t['splits']} item splits; plain "
+              f"(matmul + masked_fill + stable sort) {t['plain_ms']:.4f} ms; library (matmul + "
+              f"masked_fill_ + topk) {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})  [{card}]")
 
     # the wide pair (k > 64): recommend's default cutoff on the slice's shape,
     # a row past one shared-memory sort chunk, and exact ties with masked rows
@@ -216,11 +290,11 @@ def phase_kernel(dev, card):
     Ul, Vl = factors(64, 17632, 64)
     wide_errs.append(compare_k1("wide: LastFM item count, k=100", Ul, Vl, seen(64, 17632, 0.00279), 100))
     wide_errs.append(compare_k1("wide: exact ties + masked rows, k=650", Ut, Vt, Mt, 650))
-    wide_ms = cuda_ms(lambda: masked_topk_scores(Uw, V, Mw, 3705))
-    wide_plain_ms = cuda_ms(lambda: masked_topk_scores_reference(Uw, V, Mw, 3705))
-    print(f"  K1 wide time at B=5 K=250 I=3706 k=3705: {wide_ms:.4f} ms; plain: "
-          f"{wide_plain_ms:.4f} ms  [{card}]")
-    return (max(errs), ms, plain_ms), (max(wide_errs), wide_ms, wide_plain_ms)
+    wide = time_k1(Uw, V, Mw, 3705)
+    print(f"  K1 wide pair at B=5 K=250 I=3706 k=3705: {wide['ms']:.4f} ms; plain "
+          f"{wide['plain_ms']:.4f} ms; library {wide['library_ms']:.4f} ms; bound "
+          f"{wide['bound_ms']:.4f} ms ({wide['bound_by']})  [{card}]")
+    return max(errs), fused, max(wide_errs), wide
 
 
 def phase_slice(dev, card, train, test):
@@ -361,9 +435,12 @@ def phase_select(dev, card):
     keys, k = (t.to(dev) for t in select_case("uniform", 2048, 17632, g))
     ms = cuda_ms(lambda: smallest_k_mask_cuda(keys, k))
     plain_ms = cuda_ms(lambda: smallest_k_mask_reference(keys, k))
+    # keys and k read once, the bool mask written once
+    bound_ms, bound_by = bound(0, keys.numel() * 5 + k.numel() * 4)
     print(f"  K2 time at [2048, 17632] (wrapper, with its range check): {ms:.4f} ms; plain "
-          f"(stable int64 sort + rank scatter): {plain_ms:.4f} ms  [{card}]")
-    return worst, ms, plain_ms
+          f"(stable int64 sort + rank scatter): {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by})  [{card}]")
+    return worst, ms, plain_ms, bound_ms, bound_by
 
 
 def phase_cfgan(dev, card, train, test):
@@ -560,18 +637,21 @@ def main():
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[3] built and loaded {_build.library_path().name} in {time.perf_counter() - t0:.2f} s")
+    print("\n".join(ptxas_lines(_build.ptxas_report())))
 
-    (k1_err, k1_ms, k1_plain_ms), (wide_err, wide_ms, wide_plain_ms) = phase_kernel(dev, card)
-    k2_err, k2_ms, k2_plain_ms = phase_select(dev, card)
+    k1_err, fused, wide_err, wide = phase_kernel(dev, card)
+    k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_bound_by = phase_select(dev, card)
 
     train, test = ml1m_split()
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = 0  # count only the main path's launches
+    # count only the main path's launches
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
     phase_slice(dev, card, train, test)
     wide_launches = scorer.WIDE_LAUNCHES
     k1_launches = scorer.LAUNCHES - wide_launches  # the fused kernel's
-    if k1_launches == 0 or wide_launches == 0:
-        fail(f"the GANMF path launched K1's fused kernel {k1_launches} times and its wide "
-             f"pair {wide_launches} times")
+    merge_launches = scorer.MERGE_LAUNCHES
+    if k1_launches == 0 or wide_launches == 0 or merge_launches == 0:
+        fail(f"the GANMF path launched K1's fused kernel {k1_launches} times (its merge pass "
+             f"{merge_launches} times) and its wide pair {wide_launches} times")
 
     train, test = lastfm_split()
     select.LAUNCHES = 0
@@ -581,16 +661,19 @@ def main():
         fail(f"the CFGAN path launched K2 {k2_launches} times, under once per epoch")
     phase_cfgan_plain(dev, card, train, test, models)
 
+    eval_shape, *other_shapes = fused
     print(json.dumps({"kernels": [
         {
-            "name": "masked_topk_scores (K1, fused kernel, k <= 64)",
+            "name": "masked_topk_scores (K1, fused kernel and merge pass, k <= 64)",
             "route": "cuda",
             "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
             "launches": k1_launches,
+            "merge_launches": merge_launches,
             "max_abs_err": k1_err,
-            "ms": k1_ms,
-            "plain_ms": k1_plain_ms,
+            "shape": eval_shape,
+            **fused[eval_shape],
+            "other_shapes": [{"shape": name, **fused[name]} for name in other_shapes],
         },
         {
             "name": "masked_topk_scores (K1, wide pair, k > 64)",
@@ -599,8 +682,8 @@ def main():
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
             "launches": wide_launches,
             "max_abs_err": wide_err,
-            "ms": wide_ms,
-            "plain_ms": wide_plain_ms,
+            "shape": "B=5 K=250 I=3706 k=3705",
+            **wide,
         },
         {
             "name": "smallest_k_mask (K2)",
@@ -609,8 +692,12 @@ def main():
             "replaces": "ganmf_tpu/ops/pallas_select.py:39",
             "launches": k2_launches,
             "max_abs_err": k2_err,
+            "shape": "[2048, 17632]",
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound_ms,
+            "bound_by": k2_bound_by,
+            "library_ms": None,
         },
     ]}))
     print(card)

@@ -3,9 +3,14 @@
 Every ``ganmf_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
 for Hopper (``sm_90a``), all at once, and the objects are linked into one
 library with a plain C interface, loaded with ``ctypes``.
+ptxas reports each kernel's registers, shared memory and spills
+(``-Xptxas -v``); the report is kept beside the library (``ptxas_report``).
 The library lands in ``build/ganmf_tpu_torch/`` at the root of the checkout,
 named by a hash of the sources and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing here runs at import time.
+and an unchanged one is loaded as it is. A measurement script may build a
+variant of the sources with extra nvcc flags (``-D`` defines); it lands
+beside the library under a name of its own. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -22,10 +27,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ganmf_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIB = None
+_LIBS = {}
 
 
 def _nvcc() -> str:
@@ -46,10 +51,11 @@ def _sources():
     return srcs, headers
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(flags=()) -> Path:
+    """Where the library for the current sources and ``flags`` (extra nvcc
+    flags) lives, built or not."""
     srcs, headers = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
     for path in srcs + headers:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -58,19 +64,27 @@ def library_path() -> Path:
 
 def _run(cmds):
     """Run the commands side by side; raise with the output of the first
-    that fails."""
+    that fails, else return their outputs."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
     outs = [p.communicate()[0] for p in procs]
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return outs
 
 
-def build() -> Path:
-    """Compile the sources unless a library for them exists; return its path.
-    Raises with nvcc's output when a compile fails."""
-    out = library_path()
+def ptxas_report() -> str:
+    """What ptxas said about each kernel of the built library (registers,
+    shared memory, spills)."""
+    return library_path().with_suffix(".ptxas.txt").read_text()
+
+
+def build(flags=()) -> Path:
+    """Compile the sources with ``flags`` (extra nvcc flags) unless a library
+    for them exists; return its path. Raises with nvcc's output when a
+    compile fails."""
+    out = library_path(flags)
     if out.exists():
         return out
     srcs, _ = _sources()
@@ -78,29 +92,36 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)])
+        outs = _run([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, str(src)]
+                     for src, obj in zip(srcs, objs)])
+        out.with_suffix(".ptxas.txt").write_text("".join(outs))
         lib = os.path.join(tmp, out.name)
-        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        _run([[nvcc, *NVCC_FLAGS, *flags, "-shared", "-o", lib, *objs]])
         os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
-def load_library() -> ctypes.CDLL:
-    """The built kernel library, with every entry point's C signature set."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+def load_library(flags=()) -> ctypes.CDLL:
+    """The kernel library built with ``flags`` (extra nvcc flags; none for
+    the port's own), with every entry point's C signature set."""
+    flags = tuple(flags)
+    if flags not in _LIBS:
+        lib = ctypes.CDLL(str(build(flags)))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ganmf_masked_topk.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.ganmf_masked_topk.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.ganmf_masked_topk.restype = i32
+        lib.ganmf_masked_topk_smem_bytes.argtypes = []
+        lib.ganmf_masked_topk_smem_bytes.restype = i32
+        lib.ganmf_masked_topk_blocks_per_sm.argtypes = []
+        lib.ganmf_masked_topk_blocks_per_sm.restype = i32
         lib.ganmf_masked_topk_wide.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.ganmf_masked_topk_wide.restype = i32
         lib.ganmf_smallest_k_mask.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
         lib.ganmf_smallest_k_mask.restype = i32
         lib.ganmf_cuda_error_string.argtypes = [i32]
         lib.ganmf_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[flags] = lib
+    return _LIBS[flags]
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

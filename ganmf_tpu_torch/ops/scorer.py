@@ -4,12 +4,14 @@ Port of ``masked_topk_scores`` (ganmf_tpu/ops/pallas_scorer.py:173-234). The
 serving path of every factor model is ``top_k(mask(U_b @ V^T))``, at any k
 in [1, I]. On a CUDA tensor the wrapper launches the hand-written Hopper
 kernels of csrc/masked_topk.cu, chosen from k alone: for k <= ``MAX_K`` the
-fused kernel, which streams item tiles through shared memory and never
-writes the [B, I] score matrix; above it the wide pair, which writes each
-row's scores as sort keys into a scratch buffer of at most
-``WIDE_SCRATCH_BYTES`` and sorts them. On a CPU tensor it takes the plain
-version, ``masked_topk_scores_reference``: that is the tests' case, and the
-kernels are compared with it on the card.
+fused kernel, which never writes the [B, I] score matrix, over a grid of
+row blocks x item splits that ``fused_plan`` lays out, then, with more than
+one split, a merge pass over the splits' lists; above ``MAX_K`` the wide
+pair, which writes each row's scores as sort keys into a scratch buffer of
+at most ``WIDE_SCRATCH_BYTES`` and sorts them. On a CPU tensor it takes the
+plain version, ``masked_topk_scores_reference``: that is the tests' case,
+and the kernels are compared with it on the card. The merge pass's plain
+version is ``merge_partial_topk_reference``.
 
 ``masked_topk_matmul`` and ``split_bf16_planes`` are plain XLA in the JAX
 package (docstring :83-93); they belong to the similarity family and are not
@@ -17,6 +19,9 @@ ported yet.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
@@ -30,14 +35,78 @@ LAUNCHES = 0
 #: Launches of K1's wide pair (k > MAX_K) since the last reset.
 WIDE_LAUNCHES = 0
 
+#: Launches of the fused kernel's merge pass (a fused launch with more than
+#: one item split) since the last reset.
+MERGE_LAUNCHES = 0
+
+#: Item splits (the plan's S) of the last launch of the fused kernel; 0
+#: before the first.
+LAST_SPLITS = 0
+
 #: Largest k of the fused kernel (the largest ranking cutoff is 50).
 MAX_K = 64
 
 #: Largest scratch buffer of the wide pair; rows are ranked in chunks that fit.
 WIDE_SCRATCH_BYTES = 256 << 20
 
-#: Largest factor width the kernel takes (its rows stay in shared memory).
+#: Largest factor width the kernel takes (the wide pair keeps its rows in
+#: shared memory).
 MAX_FACTORS = 4096
+
+# The fused kernel's tiling, as csrc/masked_topk.cu fixes it: user rows per
+# block, items per tile, factors per staged K-slice, K-slices in flight,
+# candidate keys per row, and the most item splits the merge pass takes.
+FUSED_ROWS, FUSED_ITEMS, FUSED_SLICE, FUSED_STAGES, FUSED_CANDIDATES = 64, 128, 16, 3, 64
+MAX_SPLITS = 16
+#: Fused-kernel blocks an SM holds at once (its launch bounds; the shared
+#: memory of two blocks fits an H100's 228 KB).
+BLOCKS_PER_SM = 2
+#: Streaming multiprocessors of an H100 SXM.
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """Launch plan of K1's fused kernel for one call."""
+
+    rows_per_block: int  # BM
+    items_per_tile: int  # BN
+    splits: int  # S: item splits, each of tiles_per_split tiles (the last may be shorter)
+    tiles_per_split: int
+    grid: tuple  # (row blocks, S)
+    smem_bytes: int  # dynamic shared memory per block
+    scratch_bytes: int  # the [S, B, k] uint64 key lists the merge pass reads, 0 when S = 1
+
+
+def fused_smem_bytes() -> int:
+    """Dynamic shared memory of one fused block: each row's running top-k
+    (MAX_K keys) and candidate buffer, and the ring of K-slices of U and V
+    (factor-major, rows padded by 4 floats)."""
+    lists = FUSED_ROWS * (MAX_K + FUSED_CANDIDATES) * 8
+    slices = FUSED_STAGES * FUSED_SLICE * ((FUSED_ROWS + 4) + (FUSED_ITEMS + 4)) * 4
+    return lists + slices
+
+
+@lru_cache(maxsize=256)
+def fused_plan(B: int, I: int, k: int, num_sms: int = H100_SMS) -> FusedPlan:
+    """Splits the item tiles so that the (row blocks x splits) grid fills
+    ``num_sms`` SMs at BLOCKS_PER_SM each: of the split sizes that keep at
+    most MAX_SPLITS splits, the one with the fewest tiles per block times
+    waves of blocks, and of those the fewest splits."""
+    row_blocks = -(-B // FUSED_ROWS)
+    n_tiles = -(-I // FUSED_ITEMS)
+    slots = num_sms * BLOCKS_PER_SM
+    best = None
+    for tiles in range(n_tiles, -(-n_tiles // MAX_SPLITS) - 1, -1):
+        S = -(-n_tiles // tiles)
+        cost = -(-row_blocks * S // slots) * tiles
+        if best is None or cost < best[0]:
+            best = (cost, tiles, S)
+    _, tiles, S = best
+    return FusedPlan(
+        rows_per_block=FUSED_ROWS, items_per_tile=FUSED_ITEMS, splits=S, tiles_per_split=tiles,
+        grid=(row_blocks, S), smem_bytes=fused_smem_bytes(),
+        scratch_bytes=S * B * k * 8 if S > 1 else 0)
 
 
 def masked_topk_scores_reference(user_factors, item_factors, seen_mask, k: int):
@@ -46,6 +115,25 @@ def masked_topk_scores_reference(user_factors, item_factors, seen_mask, k: int):
     scores = torch.matmul(user_factors, item_factors.T)
     scores = scores.masked_fill(seen_mask, float("-inf"))
     return topk_lowest_index(scores, k)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def merge_partial_topk_reference(part_vals, part_ids, k: int):
+    """The plain version of the merge pass: each row's S lists (part_vals
+    [S, B, k'] f32, part_ids [S, B, k'] int64, any order) ranked together,
+    value descending and ties to the lowest id; returns the first k as
+    (vals [B, k], ids [B, k])."""
+    S, B, width = part_vals.shape
+    vals = part_vals.permute(1, 0, 2).reshape(B, S * width)
+    ids = part_ids.permute(1, 0, 2).reshape(B, S * width)
+    by_id = torch.sort(ids, dim=1, stable=True).indices
+    vals, ids = vals.gather(1, by_id), ids.gather(1, by_id)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices[:, :k]
+    return vals.gather(1, order), ids.gather(1, order)
 
 
 def _check(user_factors, item_factors, seen_mask, k: int):
@@ -75,7 +163,7 @@ def masked_topk_scores(user_factors, item_factors, seen_mask, k: int):
     int64), best first, ties to the lowest item id. A row with fewer than k
     unmasked items has -inf in its tail; the ids there are real items but
     unspecified."""
-    global LAUNCHES, WIDE_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, MERGE_LAUNCHES, LAST_SPLITS
     _check(user_factors, item_factors, seen_mask, k)
     device = user_factors.device
     if device.type == "cpu":
@@ -112,11 +200,17 @@ def masked_topk_scores(user_factors, item_factors, seen_mask, k: int):
                 vals.data_ptr(), ids.data_ptr(), scratch.data_ptr(), B, I, K, k, N,
                 chunk_rows, stream)
         else:
+            plan = fused_plan(B, I, k, _sm_count(device.index))
+            part = torch.empty(plan.scratch_bytes // 8, dtype=torch.int64, device=device)
             code = lib.ganmf_masked_topk(
                 user_factors.data_ptr(), item_factors.data_ptr(), seen_mask.data_ptr(),
-                vals.data_ptr(), ids.data_ptr(), B, I, K, k, stream)
+                vals.data_ptr(), ids.data_ptr(), part.data_ptr() or None, B, I, K, k,
+                plan.tiles_per_split, plan.splits, stream)
     check(lib, code, "K1 masked_topk wide launch" if wide else "K1 masked_topk launch")
     LAUNCHES += 1
     if wide:
         WIDE_LAUNCHES += 1
+    else:
+        LAST_SPLITS = plan.splits
+        MERGE_LAUNCHES += plan.splits > 1
     return vals, ids

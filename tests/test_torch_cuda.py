@@ -6,11 +6,19 @@ which imports jax, is skipped):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: K1 values within rtol 1e-5 / atol 1e-6 of the plain version's
-(float32 products summed in another order than cuBLAS); ids equal at every
-finite slot, except, for k > 64 where whole rows are ranked, two items whose
-plain scores lie within that tolerance (a near-tie the two summation orders
-may break either way); exact ties go to the lowest id.
+K1 is compared two ways. On continuous factors (uniform in +-0.05, the
+scale of chip_smoke.py's, at which a TF32 or bf16 product misses by orders
+of magnitude): values within rtol 1e-5 / atol 1e-7 of the plain version's
+(float32 products summed in another order than cuBLAS), ids equal at every
+finite slot except where the two items' plain scores lie within that
+tolerance (a near-tie the two summation orders may break either way). On
+factors on a grid (64ths, or eighths with duplicated items for exact ties),
+where every dot product is exact in float32 whatever the summation order:
+values and ids equal at every finite slot, exact ties to the lowest id.
+Always: the same finite slots, no masked item ranked, real ids in -inf
+tails. K1's fused kernel at k = 64 and its wide pair at k = 65 compute
+every score by the same fmaf chain, so on continuous factors their first
+64 slots are bitwise equal.
 K2 masks bitwise equal to the plain version's. One CFGAN epoch on the card
 against the CPU: masks bitwise, parameters within 2.2 * lr per Adam step (a
 gradient at rounding level may change sign and move its element by up to
@@ -39,54 +47,97 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+RTOL, ATOL = 1e-5, 1e-7
+EXACT = ("grid", "ties")  # the cases whose scores are exact in float32
+
+
 def _inputs(case, B, I, K, seed=0):
     rng = np.random.RandomState(seed)
     if case == "ties":
-        # duplicated item rows on a grid of eighths: every dot product is
-        # exact in float32, so duplicates tie bitwise in any summation order
+        # duplicated item rows on a grid of eighths: duplicates tie bitwise
         U = rng.randint(-4, 5, (B, K)).astype(np.float32) / 8
         base = rng.randint(-4, 5, (max(I // 4, 1), K)).astype(np.float32) / 8
         V = base[rng.randint(0, len(base), I)]
-    else:
-        U = rng.randn(B, K).astype(np.float32)
-        V = rng.randn(I, K).astype(np.float32)
+    elif case == "grid":
+        U = rng.randint(-64, 65, (B, K)).astype(np.float32) / 64
+        V = rng.randint(-64, 65, (I, K)).astype(np.float32) / 64
+    else:  # "random", "masked_rows": continuous factors
+        U = ((rng.rand(B, K) * 2 - 1) * 0.05).astype(np.float32)
+        V = ((rng.rand(I, K) * 2 - 1) * 0.05).astype(np.float32)
     mask = rng.rand(B, I) < 0.2
     if case == "masked_rows":
-        mask[1] = True  # fully masked
-        mask[6] = True
-        mask[6, ::9] = False  # fewer unmasked items than k when I < 9k
+        mask[1 % B] = True  # fully masked
+        mask[min(6, B - 1)] = True
+        mask[min(6, B - 1), ::9] = False  # fewer unmasked items than k when I < 9k
     return U, V, mask
 
 
-def _assert_k1_matches(U, V, mask, k, vals, ids):
+def _assert_k1_matches(U, V, mask, k, vals, ids, exact):
     ref_vals, ref_ids = masked_topk_scores_reference(U, V, mask, k)
-    scores = (U @ V.T).masked_fill(mask, float("-inf")).cpu().numpy()
     vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
     ref_vals, ref_ids = ref_vals.cpu().numpy(), ref_ids.cpu().numpy()
     fin = np.isfinite(ref_vals)
     np.testing.assert_array_equal(np.isfinite(vals), fin)
-    np.testing.assert_allclose(vals[fin], ref_vals[fin], rtol=1e-5, atol=1e-6)
-    diff = (ids != ref_ids) & fin
-    if k <= scorer.MAX_K:
-        assert not diff.any()
-    else:  # near-ties only
-        rows = np.nonzero(diff)[0]
-        a = scores[rows, ids[diff]]
-        b = scores[rows, ref_ids[diff]]
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
     assert ids.min() >= 0 and ids.max() < V.shape[0]  # -inf tails hold real items
+    assert not np.take_along_axis(mask.cpu().numpy(), ids, axis=1)[fin].any()
+    if exact:
+        np.testing.assert_array_equal(vals[fin], ref_vals[fin])
+        np.testing.assert_array_equal(ids[fin], ref_ids[fin])
+        return
+    np.testing.assert_allclose(vals[fin], ref_vals[fin], rtol=RTOL, atol=ATOL)
+    diff = (ids != ref_ids) & fin  # near-ties only
+    if diff.any():
+        rows = torch.from_numpy(np.nonzero(diff)[0]).to(U.device)
+        scores = (U[rows] @ V.T).cpu().numpy()  # the plain version's scores of those rows
+        at = np.arange(len(rows))
+        np.testing.assert_allclose(scores[at, ids[diff]], scores[at, ref_ids[diff]],
+                                   rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("case", ["random", "ties", "masked_rows"])
-@pytest.mark.parametrize("I,k", [(3706, 50), (1001, 20), (96, 5), (257, 64),
+@pytest.mark.parametrize("case", ["random", "grid", "ties", "masked_rows"])
+@pytest.mark.parametrize("I,k", [(3706, 50), (1001, 20), (96, 5), (257, 64), (6040, 50),
                                  (3706, 3705), (257, 65), (96, 96), (17632, 100)])
-def test_kernel_matches_plain(cuda, I, k, case):
-    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, 37, I, 64))
+@pytest.mark.parametrize("K", [64, 250, 33])
+@pytest.mark.parametrize("B", [1, 5, 37, 3024])
+def test_kernel_matches_plain(cuda, B, K, I, k, case):
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
     before, wide_before = scorer.LAUNCHES, scorer.WIDE_LAUNCHES
     vals, ids = masked_topk_scores(U, V, mask, k)
     assert scorer.LAUNCHES == before + 1
     assert scorer.WIDE_LAUNCHES == wide_before + (k > scorer.MAX_K)
-    _assert_k1_matches(U, V, mask, k, vals, ids)
+    _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "masked_rows"])
+@pytest.mark.parametrize("B,I,K", [(37, 3706, 250), (3024, 3706, 250), (5, 257, 33)])
+def test_fused_and_wide_share_one_arithmetic(cuda, B, I, K, case):
+    """The fused kernel at k = 64 and the wide pair at k = 65 return the same
+    bits in the first 64 slots of every row: on continuous factors, where a
+    different summation order would change the bits, and with exact ties."""
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
+    fused = masked_topk_scores(U, V, mask, scorer.MAX_K)
+    before = scorer.WIDE_LAUNCHES
+    wide = masked_topk_scores(U, V, mask, scorer.MAX_K + 1)
+    assert scorer.WIDE_LAUNCHES == before + 1
+    fin = torch.isfinite(fused[0])
+    assert torch.equal(fused[0], wide[0][:, :scorer.MAX_K])
+    assert torch.equal(fused[1][fin], wide[1][:, :scorer.MAX_K][fin])
+
+
+def test_merge_pass_at_the_evaluation_shape(cuda):
+    """At B=3024 K=250 I=3706 k=50 the plan splits the items, the merge pass
+    runs, and the result matches the plain version."""
+    from ganmf_tpu_torch.ops._build import load_library
+
+    assert load_library().ganmf_masked_topk_smem_bytes() == scorer.fused_smem_bytes()
+    plan = scorer.fused_plan(3024, 3706, 50, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.splits > 1
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", 3024, 3706, 250))
+    before = scorer.MERGE_LAUNCHES
+    vals, ids = masked_topk_scores(U, V, mask, 50)
+    assert scorer.MERGE_LAUNCHES == before + 1
+    assert scorer.LAST_SPLITS == plan.splits
+    _assert_k1_matches(U, V, mask, 50, vals, ids, exact=False)
 
 
 def test_wide_kernel_in_row_chunks(cuda, monkeypatch):
@@ -97,7 +148,7 @@ def test_wide_kernel_in_row_chunks(cuda, monkeypatch):
     monkeypatch.setattr(scorer, "WIDE_SCRATCH_BYTES", 5 * 8 * 16384)
     chunked = masked_topk_scores(U, V, mask, 500)
     assert torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1])
-    _assert_k1_matches(U, V, mask, 500, *chunked)
+    _assert_k1_matches(U, V, mask, 500, *chunked, exact=False)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
