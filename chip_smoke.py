@@ -14,17 +14,22 @@ Phases, in order; any failure exits nonzero:
    the card: its fused kernel (k <= 64) at the evaluation block's shapes in
    user and item orientation, at serve_all's and recommend's, at a ragged
    item count, with exact ties and with fully masked rows; its wide pair
-   (k > 64) at recommend's default cutoff, at LastFM's item count and with
-   exact ties and masked rows; print each form's time beside its plain
-   version's, the library composition's (matmul + masked_fill_ + topk, a
-   yardstick the port never calls) and its bound (median of 20 runs), the
-   fused kernel also at serve_all's, item mode's and recommend's shapes
-   (B=5 and B=1 at cutoff 20), with the item splits its wrapper launched;
+   (k > 64) at recommend's default cutoff (B=5 and B=1), at LastFM's item
+   count (k=100 and k=I-1) and with exact ties and masked rows; print each
+   form's time beside its plain version's, the library composition's
+   (matmul + masked_fill_ + topk, a yardstick the port never calls) and its
+   bound (median of 20 runs), the fused kernel also at serve_all's, item
+   mode's and recommend's shapes (B=5 and B=1 at cutoff 20), with the item
+   splits its wrapper launched, the wide pair at recommend's default cutoff
+   (B=5 and B=1) and at k=100 above the fused kernel's cutoffs (B=3024,
+   I=3706 and B=64, I=17632);
 5. hold K2 (exact-k row selection) against its plain PyTorch version on the
-   card, bitwise, at CFGAN's mask shapes, the streamed batch shape, the
-   widest row, with heavy ties, negative keys, signed zeros and rows with
-   k = 0 and k = I; print both times and its bound at [2048, 17632]
-   (median of 20 runs);
+   card, bitwise, at CFGAN's mask shapes (user and item mode, and the
+   padded batches), the streamed batch shape, the widest row, with heavy
+   ties, negative keys, signed zeros and rows with k = 0 and k = I; print
+   its time through the wrapper and the launch alone, its plain version's
+   and its bound at [2048, 17632], [1884, 17632] and [17632, 1884] (median
+   of 20 runs);
 6. drive the serving slice at GANMF's ML-1M width (num_factors=250,
    emb_dim=992, random weights from a seed) on an ML-1M-shaped synthetic
    split, in user and then item mode: recommend (at cutoff 20 and at the
@@ -282,18 +287,32 @@ def phase_kernel(dev, card):
               f"masked_fill_ + topk) {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})  [{card}]")
 
-    # the wide pair (k > 64): recommend's default cutoff on the slice's shape,
-    # a row past one shared-memory sort chunk, and exact ties with masked rows
+    # the wide pair (k > 64): recommend's default cutoff on the slice's shape
+    # (B=5 and B=1), LastFM's item count (35 tiles of 512) at k=100 and at
+    # k=I-1, and exact ties with masked rows
     wide_errs = []
     Uw, Mw = U[:5].contiguous(), M[:5].contiguous()
     wide_errs.append(compare_k1("wide: recommend's default cutoff", Uw, V, Mw, 3705))
+    wide_errs.append(compare_k1("wide: one user, default cutoff", U[:1].contiguous(), V,
+                                M[:1].contiguous(), 3705))
     Ul, Vl = factors(64, 17632, 64)
-    wide_errs.append(compare_k1("wide: LastFM item count, k=100", Ul, Vl, seen(64, 17632, 0.00279), 100))
+    Ml = seen(64, 17632, 0.00279)
+    wide_errs.append(compare_k1("wide: LastFM item count, k=100", Ul, Vl, Ml, 100))
+    wide_errs.append(compare_k1("wide: LastFM item count, k=I-1", Ul[:5].contiguous(), Vl,
+                                Ml[:5].contiguous(), 17631))
     wide_errs.append(compare_k1("wide: exact ties + masked rows, k=650", Ut, Vt, Mt, 650))
-    wide = time_k1(Uw, V, Mw, 3705)
-    print(f"  K1 wide pair at B=5 K=250 I=3706 k=3705: {wide['ms']:.4f} ms; plain "
-          f"{wide['plain_ms']:.4f} ms; library {wide['library_ms']:.4f} ms; bound "
-          f"{wide['bound_ms']:.4f} ms ({wide['bound_by']})  [{card}]")
+    UL, VL = factors(64, 17632, NUM_FACTORS)
+    wide = {}
+    for name, (Ub, Vb, Mb, k) in {
+        "recommend, B=5 K=250 I=3706 k=3705": (Uw, V, Mw, 3705),
+        "recommend, B=1 K=250 I=3706 k=3705": (U[:1].contiguous(), V, M[:1].contiguous(), 3705),
+        "evaluation above cutoff 64, B=3024 K=250 I=3706 k=100": (U, V, M, 100),
+        "LastFM items, B=64 K=250 I=17632 k=100": (UL, VL, Ml, 100),
+    }.items():
+        t = wide[name] = time_k1(Ub, Vb, Mb, k)
+        print(f"  K1 wide pair at {name}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+              f"library {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})  [{card}]")
     return max(errs), fused, max(wide_errs), wide
 
 
@@ -402,6 +421,36 @@ def select_case(name, R, I, gen, ratio=CFGAN_PARAMS["zr_ratio"], density=0.00279
     return keys, k
 
 
+def time_k2(keys, k):
+    """K2's time through its wrapper and as the launch alone, its plain
+    version's, and its bound: the keys and k read once, the mask written
+    once."""
+    import torch
+
+    from ganmf_tpu_torch.ops import _build
+    from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
+    from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
+
+    lib = _build.load_library()
+    R, I = keys.shape
+    out = torch.empty(R, I, dtype=torch.bool, device=keys.device)
+    stream = _build.stream_handle(keys.device)
+
+    def launch():
+        code = lib.ganmf_smallest_k_mask(keys.data_ptr(), k.data_ptr(), k.dtype == torch.int64,
+                                         out.data_ptr(), R, I, stream)
+        _build.check(lib, code, "chip_smoke: K2 launch")
+
+    t = {
+        "ms": cuda_ms(lambda: smallest_k_mask_cuda(keys, k)),
+        "launch_ms": cuda_ms(launch),
+        "plain_ms": cuda_ms(lambda: smallest_k_mask_reference(keys, k)),
+        "library_ms": None,
+    }
+    t["bound_ms"], t["bound_by"] = bound(0, keys.numel() * 5 + k.numel() * k.element_size())
+    return t
+
+
 def phase_select(dev, card):
     import torch
 
@@ -411,8 +460,10 @@ def phase_select(dev, card):
     print("[5] K2 against its plain version (bitwise)")
     g = torch.Generator().manual_seed(SEED)
     cases = [
-        ("LastFM user-mode masks", 2048, 17632, "uniform", 0.00279),
-        ("LastFM item-mode masks", 18432, 1884, "uniform", 0.00279),
+        ("LastFM user-mode masks", 1884, 17632, "uniform", 0.00279),
+        ("LastFM item-mode masks", 17632, 1884, "uniform", 0.00279),
+        ("LastFM user-mode batch", 2048, 17632, "uniform", 0.00279),
+        ("LastFM item-mode batch", 18432, 1884, "uniform", 0.00279),
         ("ML-1M masks", 6040, 3706, "uniform", 0.0446),
         ("streamed batch", 128, 65536, "uniform", 0.00279),
         ("MAX_KERNEL_COLS", 5, 131072, "uniform", 0.00279),
@@ -432,15 +483,15 @@ def phase_select(dev, card):
         if not torch.equal(got.sum(1), k.long()):
             fail(f"K2 {name}: a row's count differs from its k")
         print(f"  {name}: [{R}, {I}] {kind}, bitwise equal, every row count = k")
-    keys, k = (t.to(dev) for t in select_case("uniform", 2048, 17632, g))
-    ms = cuda_ms(lambda: smallest_k_mask_cuda(keys, k))
-    plain_ms = cuda_ms(lambda: smallest_k_mask_reference(keys, k))
-    # keys and k read once, the bool mask written once
-    bound_ms, bound_by = bound(0, keys.numel() * 5 + k.numel() * 4)
-    print(f"  K2 time at [2048, 17632] (wrapper, with its range check): {ms:.4f} ms; plain "
-          f"(stable int64 sort + rank scatter): {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by})  [{card}]")
-    return worst, ms, plain_ms, bound_ms, bound_by
+    times = {}
+    for R, I in ((2048, 17632), (1884, 17632), (17632, 1884)):
+        keys, k = (t.to(dev) for t in select_case("uniform", R, I, g))
+        t = times[f"[{R}, {I}]"] = time_k2(keys, k)
+        print(f"  K2 at [{R}, {I}]: {t['ms']:.4f} ms through the wrapper, {t['launch_ms']:.4f} ms "
+              f"the launch alone; plain (stable int64 sort + rank scatter) {t['plain_ms']:.4f} ms; "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{100 * t['bound_ms'] / t['launch_ms']:.1f}% of it  [{card}]")
+    return worst, times
 
 
 def phase_cfgan(dev, card, train, test):
@@ -640,7 +691,7 @@ def main():
     print("\n".join(ptxas_lines(_build.ptxas_report())))
 
     k1_err, fused, wide_err, wide = phase_kernel(dev, card)
-    k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_bound_by = phase_select(dev, card)
+    k2_err, k2_times = phase_select(dev, card)
 
     train, test = ml1m_split()
     # count only the main path's launches
@@ -662,6 +713,8 @@ def main():
     phase_cfgan_plain(dev, card, train, test, models)
 
     eval_shape, *other_shapes = fused
+    wide_shape, *wide_others = wide
+    k2_shape, *k2_others = k2_times
     print(json.dumps({"kernels": [
         {
             "name": "masked_topk_scores (K1, fused kernel and merge pass, k <= 64)",
@@ -682,8 +735,9 @@ def main():
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
             "launches": wide_launches,
             "max_abs_err": wide_err,
-            "shape": "B=5 K=250 I=3706 k=3705",
-            **wide,
+            "shape": wide_shape,
+            **wide[wide_shape],
+            "other_shapes": [{"shape": name, **wide[name]} for name in wide_others],
         },
         {
             "name": "smallest_k_mask (K2)",
@@ -692,12 +746,9 @@ def main():
             "replaces": "ganmf_tpu/ops/pallas_select.py:39",
             "launches": k2_launches,
             "max_abs_err": k2_err,
-            "shape": "[2048, 17632]",
-            "ms": k2_ms,
-            "plain_ms": k2_plain_ms,
-            "bound_ms": k2_bound_ms,
-            "bound_by": k2_bound_by,
-            "library_ms": None,
+            "shape": k2_shape,
+            **k2_times[k2_shape],
+            "other_shapes": [{"shape": name, **k2_times[name]} for name in k2_others],
         },
     ]}))
     print(card)

@@ -10,8 +10,8 @@
 //   then, when the items were split over blocks, a small merge pass. The
 //   [B, I] score matrix is never written to device memory.
 // - k > kMaxK (`recommend`'s default cutoff is I - 1): the wide pair. The
-//   first kernel writes every score of a chunk of rows as a 64-bit sort key,
-//   the second sorts each row's keys and writes its first k.
+//   first kernel scores a tile of items for a few rows and sorts each row's
+//   tile; the second places every kept key by rank among the row's tiles.
 //
 // Every score, in both forms, is one chain fmaf(U[b][c], V[j][c], acc) over
 // c = 0..K-1 from acc = 0.f, so exactly duplicated item factors tie bitwise
@@ -69,12 +69,33 @@
 // sweep per tile; blocks here run in no order, so the tile loop runs inside
 // the block and the splits meet in the merge pass.
 //
-// Wide pair. Pad columns j in [I, N) hold the largest key. One block of 1024
-// threads sorts one row by a bitonic network: the stages whose pairs lie
-// inside an aligned chunk of 8192 keys run on the chunk in shared memory
-// (64 KB), the others on the row in global memory. The row's scratch is 8 N
-// bytes; the wrapper sizes the chunk of rows. It is bound by its sort:
-// log2(N) * (log2(N) + 1) / 2 compare-and-swap stages over N = next_pow2(I).
+// Wide pair (k > kMaxK). Its work is small (recommend's default cutoff: B=5
+// rows, K=250, I=3706, k=3705: 9 MFLOP and 3.8 MB, a bound of 1.2 us), so
+// what it pays is latency: launches, barriers and a nearly idle card. So no
+// row is sorted by one block (a 4096-key bitonic sort is 78 stages, each
+// ending in a block barrier, on as many SMs as there are rows). Instead:
+//
+// 1. wide_tiles_kernel, grid (item tiles x row blocks): a block of 256
+//    threads scores a tile of TW items for kWideRows = 8 rows (K-slices of
+//    8192 / TW factors staged in shared memory, the next slice prefetched
+//    into registers). The wrapper picks TW: 512 once the row blocks alone
+//    fill the card or a row would take more than 32 tiles of 128, else 128,
+//    so a handful of rows still spreads over many SMs (recommend's B = 5 at
+//    I = 3706: 29 blocks of 128 items). A block of 512 items takes ~16
+//    K-slices of 32 KB each through one SM, and at a small batch that SM's
+//    load rate, not the card's, would set the time. The keys go to shared
+//    memory; then warp r sorts row r's TW keys in registers (TW / 32 a
+//    lane, a bitonic network whose strides of TW / 32 and more are
+//    shuffles): no block barrier after scoring. Each row writes the first
+//    L = min(k, TW) keys of its sorted tile to scratch [rows, T, L] (a key
+//    at place L or later in its tile ranks at least L overall, so it is
+//    never among the first k). Pad items past I take the largest key.
+// 2. rank_tiles_kernel, grid (tiles x rows): a key's place in the row is its
+//    place in its own tile plus, for every other tile, the kept keys below
+//    it (a binary search; keys are distinct). A key placed below k is
+//    written to the output. The other tiles' kept keys are searched in
+//    shared memory, 48 KB of them at a time (all at once for recommend).
+// Rows go in chunks whose scratch fits the wrapper's limit.
 //
 // Semantics kept from the reference: ties go to the lowest item id; a masked
 // item (-inf) never precedes an unmasked one; a row with fewer than k unmasked
@@ -85,11 +106,13 @@
 #include <cmath>
 #include <cstdint>
 
-// Measurement variants of the fused kernel, built only by
-// scripts/k1_breakdown.py (nvcc -DK1_BREAKDOWN=n); their lists are wrong by
-// design. 1: a later tile's candidates are compacted but never merged into
-// the running lists. 2: no selection at all; every accumulator feeds a
-// checksum, so no FMA is dropped as dead code. 0 (the default): the kernel.
+// Measurement variants, built only by scripts/k1_breakdown.py (nvcc
+// -DK1_BREAKDOWN=n); their lists are wrong by design. Fused kernel, 1: a
+// later tile's candidates are compacted but never merged into the running
+// lists; 2: no selection at all, every accumulator feeds a checksum, so no
+// FMA is dropped as dead code. Wide pair, 3: the tile kernel alone, without
+// its sort; 4: the tile kernel alone, with its sort (no rank launch).
+// 0 (the default): the kernels.
 #ifndef K1_BREAKDOWN
 #define K1_BREAKDOWN 0
 #endif
@@ -116,12 +139,36 @@ static_assert(kBN >= kMaxK, "a split's first tile fills the running top-k");
 static_assert(kFusedThreads == 256 && kBK == 16, "load_slice's copy layout");
 
 // wide pair
-constexpr int kThreads = 256;  // one item per thread in a tile
-constexpr int kTile = 256;     // items per tile
-constexpr int kRows = 8;       // user rows per block
-constexpr int kChunk = 16;     // K-slice of V staged per step
-constexpr int kSortThreads = 1024;
-constexpr int kSortChunk = 8192;  // keys of one shared-memory sort chunk
+constexpr int kWideThreads = 256;
+constexpr int kWideRows = kWideThreads / 32;  // user rows per tile block: a warp each
+constexpr int kRankThreads = 256;
+constexpr int kRankSmemKeys = 6144;  // kept keys a rank block stages at once (48 KB)
+constexpr int kMaxGridY = 65535;
+
+// The layout of a wide tile of TW items (128 or 512) for kWideRows rows.
+template <int TW>
+struct WideTile {
+  static constexpr int kCols = TW < kWideThreads ? TW : kWideThreads;  // threads along items
+  static constexpr int kItems = TW / kCols;                  // items a thread scores
+  static constexpr int kRowsPer = kWideRows * kCols / kWideThreads;  // rows a thread scores
+  static constexpr int kLane = TW / 32;                      // keys a lane sorts
+  // factors per staged K-slice: the narrower the tile, the wider the slice
+  // (fewer round trips to L2 per block at the same registers a thread)
+  static constexpr int kSlice = 16 * 512 / TW;
+  static constexpr int kVStride = TW + 1;                    // V slice rows, floats
+  // a row's keys in shared memory, one pad key every kLane so that a lane's
+  // keys lie in distinct banks
+  static constexpr int kKeyStride = TW + TW / kLane;
+  static constexpr int kFetch = TW * kSlice / kWideThreads;  // V values a thread stages
+  static constexpr int kUFetch = (kWideRows * kSlice + kWideThreads - 1) / kWideThreads;
+  // the V slice's shared memory holds the keys once scoring is done
+  static constexpr int kKeyBytes = kWideRows * kKeyStride * (int)sizeof(uint64_t);
+  static constexpr int kSliceBytes = kSlice * kVStride * (int)sizeof(float);
+  static constexpr int kSharedBytes = kKeyBytes > kSliceBytes ? kKeyBytes : kSliceBytes;
+  static_assert(kRowsPer == 4 || kRowsPer == 8, "a thread's rows are one or two float4s");
+  static_assert(kFetch * kWideThreads == TW * kSlice && kWideThreads % kSlice == 0,
+                "the slice copy covers the tile");
+};
 
 // Ascending order of the key = score descending, then id ascending.
 __device__ __forceinline__ uint64_t rank_key(float s, uint32_t j) {
@@ -516,140 +563,237 @@ merge_splits_kernel(const uint64_t* __restrict__ part, float* __restrict__ out_v
 
 // -- wide pair (k > kMaxK) ---------------------------------------------------
 
-size_t score_smem_bytes(int K) {
-  return ((size_t)kRows * K + (size_t)kChunk * (kTile + 1)) * sizeof(float);
+__device__ __forceinline__ uint64_t shfl_xor64_warp(uint64_t v, int lane_mask) {
+  const uint32_t lo = __shfl_xor_sync(0xffffffffu, (uint32_t)v, lane_mask);
+  const uint32_t hi = __shfl_xor_sync(0xffffffffu, (uint32_t)(v >> 32), lane_mask);
+  return ((uint64_t)hi << 32) | lo;
 }
 
-// Stages the block's kRows user rows in `us` (zeros past B). The first
-// barrier of score_tile orders these writes before any read.
-__device__ __forceinline__ void stage_users(float* us, const float* __restrict__ U, int row0,
-                                            int B, int K, int tid) {
-  for (int e = tid; e < kRows * K; e += kThreads) {
-    const int r = e / K;
-    const int row = row0 + r;
-    us[e] = row < B ? U[(size_t)row * K + (e - r * K)] : 0.f;
-  }
-}
-
-// acc[r] = U[row0 + r] . V[base + tid], summed in K order; zero past I.
-__device__ __forceinline__ void score_tile(const float* us, float* vs,
-                                           const float* __restrict__ V, int base, int I, int K,
-                                           int tid, float (&acc)[kRows]) {
+// Sorts the 32 E keys a warp holds (key e of lane l at index E l + e)
+// ascending by a bitonic network in registers: strides below E inside a
+// lane, the others by shuffles.
+template <int E>
+__device__ __forceinline__ void sort_warp(uint64_t (&v)[E], int lane) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-  for (int kc = 0; kc < K; kc += kChunk) {
-    const int width = min(kChunk, K - kc);
-    __syncthreads();  // the previous slice is consumed (and us is staged)
-    for (int e = tid; e < kTile * kChunk; e += kThreads) {
-      const int t = e / kChunk;
-      const int c = e - t * kChunk;
-      const int item = base + t;
-      vs[c * (kTile + 1) + t] = (item < I && c < width) ? V[(size_t)item * K + kc + c] : 0.f;
-    }
-    __syncthreads();
-    for (int c = 0; c < width; ++c) {
-      const float v = vs[c * (kTile + 1) + tid];
+  for (int size = 2; size <= 32 * E; size <<= 1) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(us[r * K + kc + c], v, acc[r]);
-    }
-  }
-}
-
-// keys[r][j] = rank_key of row r's masked score of item j, for j < I, and
-// the largest key for the pad columns j in [I, N). No state crosses item
-// tiles, so blockIdx.y spreads the tiles over blocks: a handful of rows
-// (recommend's batch) still fills the card.
-__global__ void __launch_bounds__(kThreads)
-masked_keys_kernel(const float* __restrict__ U, const float* __restrict__ V,
-                   const uint8_t* __restrict__ mask, uint64_t* __restrict__ keys, int B, int I,
-                   int K, int N) {
-  extern __shared__ float smem[];
-  float* us = smem;                    // [kRows][K] user factors
-  float* vs = us + (size_t)kRows * K;  // [kChunk][kTile + 1] V slice
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-
-  stage_users(us, U, row0, B, K, tid);
-  for (int base = blockIdx.y * kTile; base < I; base += gridDim.y * kTile) {
-    const int j = base + tid;
-    float acc[kRows];
-    score_tile(us, vs, V, base, I, K, tid, acc);
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      if (j < I && row < B) {
-        const float s = mask[(size_t)row * I + j] == 0 ? acc[r] : -INFINITY;
-        keys[(size_t)row * N + j] = rank_key(s, (uint32_t)j);
+      for (int e = 0; e < E; ++e) {
+        const int idx = lane * E + e;
+        const bool asc = (idx & size) == 0;
+        if (stride >= E) {  // the partner is key e of lane l ^ (stride / E)
+          const uint64_t o = shfl_xor64_warp(v[e], stride / E);
+          v[e] = (asc == ((idx & stride) == 0)) ? min(v[e], o) : max(v[e], o);
+        } else if ((e & stride) == 0) {  // the partner is key e + stride of this lane
+          const uint64_t x = v[e], y = v[e + stride];
+          if ((x > y) == asc) {
+            v[e] = y;
+            v[e + stride] = x;
+          }
+        }
       }
     }
   }
-  const int pad = N - I;
-  for (int e = blockIdx.y * kThreads + tid; e < kRows * pad; e += gridDim.y * kThreads) {
-    const int r = e / pad;
-    const int row = row0 + r;
-    if (row < B) keys[(size_t)row * N + I + (e - r * pad)] = ~0ull;
+}
+
+// This thread's share of K-slice kc (S = kSlice factors), into registers:
+// pv[m] = V[base + t][kc + c] with t = tid / S + (256 / S) m, c = tid % S (S
+// threads read one item's 4 S contiguous bytes), and pu[m] = U[row0 + r][kc
+// + c] with r, c = (tid + 256 m) / S, % S; zero outside [B, I, K).
+template <int TW>
+__device__ __forceinline__ void wide_fetch(float (&pv)[WideTile<TW>::kFetch],
+                                           float (&pu)[WideTile<TW>::kUFetch],
+                                           const float* __restrict__ U,
+                                           const float* __restrict__ V, int row0, int base,
+                                           int kc, int B, int I, int K, int tid) {
+  constexpr int S = WideTile<TW>::kSlice;
+  const int c = tid % S;
+  const bool in_k = kc + c < K;
+#pragma unroll
+  for (int m = 0; m < WideTile<TW>::kFetch; ++m) {
+    const int t = tid / S + m * (kWideThreads / S);
+    pv[m] = (in_k && base + t < I) ? __ldg(V + (size_t)(base + t) * K + kc + c) : 0.f;
+  }
+#pragma unroll
+  for (int m = 0; m < WideTile<TW>::kUFetch; ++m) {
+    const int e = tid + m * kWideThreads, r = e / S;
+    pu[m] = (r < kWideRows && in_k && row0 + r < B) ? __ldg(U + (size_t)(row0 + r) * K + kc + c)
+                                                    : 0.f;
   }
 }
 
-// One bitonic stage on `keys` (n keys; `offset` is their index in the row):
-// pairs (lo, lo + stride), ascending where bit `size` of the row index is 0.
-__device__ __forceinline__ void bitonic_stage(uint64_t* keys, int n, int offset, int size,
-                                              int stride, int tid) {
-  for (int q = tid; q < n / 2; q += kSortThreads) {
-    const int lo = 2 * q - (q & (stride - 1));
-    const int hi = lo + stride;
-    const uint64_t a = keys[lo], b = keys[hi];
-    if ((a > b) == (((offset + lo) & size) == 0)) {
-      keys[lo] = b;
-      keys[hi] = a;
+// One block: the masked scores of items [base, base + TW) for rows [row0,
+// row0 + kWideRows) as keys (the largest key past I), each row's tile sorted
+// by its warp; writes the first L keys of each sorted tile to part [B, T, L].
+template <int TW>
+__global__ void __launch_bounds__(kWideThreads)
+wide_tiles_kernel(const float* __restrict__ U, const float* __restrict__ V,
+                  const uint8_t* __restrict__ mask, uint64_t* __restrict__ part, int B, int I,
+                  int K, int L) {
+  using W = WideTile<TW>;
+  __shared__ __align__(16) unsigned char wide_smem[W::kSharedBytes];
+  __shared__ __align__(16) float us[W::kSlice * kWideRows];  // [c][r]
+  float* vs = reinterpret_cast<float*>(wide_smem);             // [c][kVStride]
+  uint64_t* keys = reinterpret_cast<uint64_t*>(wide_smem);     // [r][kKeyStride]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int col = tid % W::kCols, rows0 = (tid / W::kCols) * W::kRowsPer;  // this thread's share
+  const int tile = blockIdx.x, T = gridDim.x;
+  const int base = tile * TW;
+  const int row0 = blockIdx.y * kWideRows;
+
+  float acc[W::kRowsPer][W::kItems];
+#pragma unroll
+  for (int r = 0; r < W::kRowsPer; ++r) {
+#pragma unroll
+    for (int i = 0; i < W::kItems; ++i) acc[r][i] = 0.f;
+  }
+  auto step = [&](int c) {
+    float u[W::kRowsPer];
+#pragma unroll
+    for (int q = 0; q < W::kRowsPer / 4; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(us + c * kWideRows + rows0 + 4 * q);
+      u[4 * q] = a.x;
+      u[4 * q + 1] = a.y;
+      u[4 * q + 2] = a.z;
+      u[4 * q + 3] = a.w;
+    }
+#pragma unroll
+    for (int i = 0; i < W::kItems; ++i) {
+      const float v = vs[c * W::kVStride + col + i * W::kCols];
+#pragma unroll
+      for (int r = 0; r < W::kRowsPer; ++r) acc[r][i] = fmaf(u[r], v, acc[r][i]);
+    }
+  };
+  float pv[W::kFetch], pu[W::kUFetch];
+  wide_fetch<TW>(pv, pu, U, V, row0, base, 0, B, I, K, tid);
+  for (int kc = 0; kc < K; kc += W::kSlice) {
+    __syncthreads();  // the previous slice is consumed
+#pragma unroll
+    for (int m = 0; m < W::kFetch; ++m) {
+      vs[(tid % W::kSlice) * W::kVStride + tid / W::kSlice + m * (kWideThreads / W::kSlice)] =
+          pv[m];
+    }
+#pragma unroll
+    for (int m = 0; m < W::kUFetch; ++m) {
+      const int e = tid + m * kWideThreads;
+      if (e < kWideRows * W::kSlice) us[(e % W::kSlice) * kWideRows + e / W::kSlice] = pu[m];
+    }
+    __syncthreads();
+    if (kc + W::kSlice < K) {
+      wide_fetch<TW>(pv, pu, U, V, row0, base, kc + W::kSlice, B, I, K, tid);
+    }
+    const int width = min(W::kSlice, K - kc);
+    if (width == W::kSlice) {
+#pragma unroll
+      for (int c = 0; c < W::kSlice; ++c) step(c);
+    } else {  // the last slice: only its own factors, so no product is added
+      for (int c = 0; c < width; ++c) step(c);
     }
   }
-}
+  __syncthreads();  // every thread is done with the slices: the keys take their place
 
-// Bitonic stages of sizes size_from..size_to (strides below the chunk) on
-// each aligned chunk of CH keys of the row, in shared memory: a stage whose
-// stride is below CH pairs keys of one chunk.
-__device__ __forceinline__ void chunk_stages(uint64_t* row, uint64_t* chunk, int N, int CH,
-                                             int size_from, int size_to, int tid) {
-  for (int c0 = 0; c0 < N; c0 += CH) {
-    for (int e = tid; e < CH; e += kSortThreads) chunk[e] = row[c0 + e];
-    __syncthreads();
-    for (int size = size_from; size <= size_to; size <<= 1) {
-      for (int stride = min(size, CH) >> 1; stride > 0; stride >>= 1) {
-        bitonic_stage(chunk, CH, c0, size, stride, tid);
-        __syncthreads();
+#pragma unroll
+  for (int i = 0; i < W::kItems; ++i) {
+    const int j = col + i * W::kCols;
+    const int item = base + j;
+#pragma unroll
+    for (int r = 0; r < W::kRowsPer; ++r) {
+      const int row = row0 + rows0 + r;
+      uint64_t key = ~0ull;
+      if (item < I && row < B) {
+        key = rank_key(mask[(size_t)row * I + item] ? -INFINITY : acc[r][i], (uint32_t)item);
       }
+      keys[(rows0 + r) * W::kKeyStride + j + j / W::kLane] = key;
     }
-    for (int e = tid; e < CH; e += kSortThreads) row[c0 + e] = chunk[e];
+  }
+  __syncthreads();
+
+  const int row = row0 + warp;  // warp by warp from here: no block barrier
+  if (row >= B) return;
+  uint64_t* rk = keys + warp * W::kKeyStride;
+  uint64_t v[W::kLane];
+#pragma unroll
+  for (int e = 0; e < W::kLane; ++e) v[e] = rk[lane * (W::kLane + 1) + e];
+#if K1_BREAKDOWN != 3
+  sort_warp(v, lane);
+#endif
+#pragma unroll
+  for (int e = 0; e < W::kLane; ++e) rk[lane * (W::kLane + 1) + e] = v[e];
+  __syncwarp();
+  uint64_t* out = part + ((size_t)row * T + tile) * L;
+  for (int x = lane; x < L; x += 32) out[x] = rk[x + x / W::kLane];
+}
+
+// One block per (tile, row): places the tile's L kept keys among the row's
+// T tiles (part [B, T, L], each tile's keys ascending) and writes those
+// placed below k. Keys are distinct, so a key's place is its index in its
+// tile plus the keys below it in every other tile (binary searches). The
+// other tiles' kept keys are staged in shared memory, as many tiles at a
+// time as kRankSmemKeys holds (every tile at once for recommend's rows).
+__global__ void __launch_bounds__(kRankThreads)
+rank_tiles_kernel(const uint64_t* __restrict__ part, float* __restrict__ out_vals,
+                  int64_t* __restrict__ out_ids, int L, int k) {
+  extern __shared__ uint64_t kept[];  // [per][L]
+  constexpr int kMaxKeys = 2;         // keys a thread places (L <= 512)
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x, T = gridDim.x, row = blockIdx.y;
+  const uint64_t* lists = part + (size_t)row * T * L;
+  const int per = kRankSmemKeys / L;  // tiles staged at a time
+  uint64_t key[kMaxKeys];
+  int pos[kMaxKeys];
+#pragma unroll
+  for (int i = 0; i < kMaxKeys; ++i) {
+    const int x = tid + i * kRankThreads;
+    pos[i] = x < L ? x : k;  // a thread with no key places nothing
+    key[i] = x < L ? lists[(size_t)tile * L + x] : 0;
+  }
+  for (int o0 = 0; o0 < T; o0 += per) {
+    const int n = min(per, T - o0);
+    __syncthreads();  // the previous tiles are consumed
+    for (int e = tid; e < n * L; e += kRankThreads) kept[e] = lists[(size_t)o0 * L + e];
     __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kMaxKeys; ++i) {
+      if (pos[i] >= k) continue;
+      int below = 0;  // the searches are independent: unrolled, they overlap
+#pragma unroll 4
+      for (int o = 0; o < n; ++o) {
+        if (o0 + o != tile) below += count_below(kept + o * L, L, key[i]);
+      }
+      pos[i] += below;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxKeys; ++i) {
+    if (pos[i] < k) {
+      out_vals[(size_t)row * k + pos[i]] = key_score(key[i]);
+      out_ids[(size_t)row * k + pos[i]] = (int64_t)(uint32_t)key[i];
+    }
   }
 }
 
-// Sorts each row of keys [B, N] ascending (N a power of two) and writes its
-// first k as (score, id).
-__global__ void __launch_bounds__(kSortThreads)
-sort_rows_kernel(uint64_t* __restrict__ keys, float* __restrict__ out_vals,
-                 int64_t* __restrict__ out_ids, int N, int k) {
-  extern __shared__ uint64_t chunk[];
-  const int tid = threadIdx.x;
-  uint64_t* row = keys + (size_t)blockIdx.x * N;
-  const int CH = min(N, kSortChunk);
-
-  chunk_stages(row, chunk, N, CH, 2, CH, tid);  // every chunk sorted, alternating direction
-  for (int size = 2 * CH; size <= N; size <<= 1) {
-    for (int stride = size >> 1; stride >= CH; stride >>= 1) {  // pairs span chunks
-      bitonic_stage(row, N, 0, size, stride, tid);
-      __syncthreads();
-    }
-    chunk_stages(row, chunk, N, CH, size, size, tid);
+template <int TW>
+cudaError_t launch_wide(const float* U, const float* V, const uint8_t* mask, float* vals,
+                        int64_t* ids, uint64_t* part, int B, int I, int K, int k,
+                        int chunk_rows, cudaStream_t s) {
+  const int T = (I + TW - 1) / TW;
+  const int L = min(k, TW);
+  const size_t rank_smem = (size_t)min(T, kRankSmemKeys / L) * L * sizeof(uint64_t);
+  for (int r0 = 0; r0 < B; r0 += chunk_rows) {
+    const int rows = min(chunk_rows, B - r0);
+    const dim3 tile_grid(T, (rows + kWideRows - 1) / kWideRows);
+    wide_tiles_kernel<TW><<<tile_grid, kWideThreads, 0, s>>>(
+        U + (size_t)r0 * K, V, mask + (size_t)r0 * I, part, rows, I, K, L);
+#if K1_BREAKDOWN < 3
+    rank_tiles_kernel<<<dim3(T, rows), kRankThreads, rank_smem, s>>>(
+        part, vals + (size_t)r0 * k, ids + (size_t)r0 * k, L, k);
+#endif
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-
-  for (int x = tid; x < k; x += kSortThreads) {
-    const uint64_t key = row[x];
-    out_vals[(size_t)blockIdx.x * k + x] = key_score(key);
-    out_ids[(size_t)blockIdx.x * k + x] = (int64_t)(uint32_t)key;
-  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -711,39 +855,28 @@ int ganmf_masked_topk(const void* U, const void* V, const void* mask, void* vals
 
 // Launches K1's wide pair (any k in [1, I]) on `stream`, `chunk_rows` rows at
 // a time, and returns the first CUDA error (0 on success). Arguments as for
-// ganmf_masked_topk, plus scratch [chunk_rows, N] uint64 with N the smallest
-// power of two >= I.
+// ganmf_masked_topk, plus the tile width (128 or 512 items) and scratch
+// [chunk_rows, T, L] uint64: T = ceil(I / tile) tiles of L = min(k, tile)
+// kept keys. chunk_rows is at most 65535.
 int ganmf_masked_topk_wide(const void* U, const void* V, const void* mask, void* vals,
-                           void* ids, void* scratch, int B, int I, int K, int k, int N,
+                           void* ids, void* scratch, int B, int I, int K, int k, int tile,
                            int chunk_rows, void* stream) {
-  if (B <= 0 || I <= 0 || K <= 0 || k <= 0 || k > I || N < I || (N & (N - 1)) != 0 ||
-      chunk_rows <= 0) {
+  if (B <= 0 || I <= 0 || K <= 0 || k <= 0 || k > I || chunk_rows <= 0 ||
+      chunk_rows > kMaxGridY || scratch == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t key_smem = score_smem_bytes(K);
-  const size_t sort_smem = (size_t)min(N, kSortChunk) * sizeof(uint64_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      masked_keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)key_smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      sort_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sort_smem);
-  if (err != cudaSuccess) return (int)err;
+  const auto* u = static_cast<const float*>(U);
+  const auto* v = static_cast<const float*>(V);
+  const auto* m = static_cast<const uint8_t*>(mask);
+  auto* vl = static_cast<float*>(vals);
+  auto* id = static_cast<int64_t*>(ids);
+  auto* part = static_cast<uint64_t*>(scratch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint64_t* keys = static_cast<uint64_t*>(scratch);
-  const int tiles = min((I + kTile - 1) / kTile, 65535);
-  for (int r0 = 0; r0 < B; r0 += chunk_rows) {
-    const int rows = min(chunk_rows, B - r0);
-    const dim3 key_grid((rows + kRows - 1) / kRows, tiles);
-    masked_keys_kernel<<<key_grid, kThreads, key_smem, s>>>(
-        static_cast<const float*>(U) + (size_t)r0 * K, static_cast<const float*>(V),
-        static_cast<const uint8_t*>(mask) + (size_t)r0 * I, keys, rows, I, K, N);
-    sort_rows_kernel<<<rows, kSortThreads, sort_smem, s>>>(
-        keys, static_cast<float*>(vals) + (size_t)r0 * k,
-        static_cast<int64_t*>(ids) + (size_t)r0 * k, N, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  switch (tile) {
+    case 128: return (int)launch_wide<128>(u, v, m, vl, id, part, B, I, K, k, chunk_rows, s);
+    case 512: return (int)launch_wide<512>(u, v, m, vl, id, part, B, I, K, k, chunk_rows, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaSuccess;
 }
 
 const char* ganmf_cuda_error_string(int code) {

@@ -15,6 +15,7 @@ time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -116,8 +117,10 @@ def load_library(flags=()) -> ctypes.CDLL:
         lib.ganmf_masked_topk_blocks_per_sm.restype = i32
         lib.ganmf_masked_topk_wide.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.ganmf_masked_topk_wide.restype = i32
-        lib.ganmf_smallest_k_mask.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+        lib.ganmf_smallest_k_mask.argtypes = [ptr, ptr, i32, ptr, i32, i32, ptr]
         lib.ganmf_smallest_k_mask.restype = i32
+        lib.ganmf_smallest_k_mask_blocks_per_sm.argtypes = [i32]
+        lib.ganmf_smallest_k_mask_blocks_per_sm.restype = i32
         lib.ganmf_cuda_error_string.argtypes = [i32]
         lib.ganmf_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[flags] = lib
@@ -129,3 +132,23 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.ganmf_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def on_device(device):
+    """A guard that makes the CUDA ``device`` current for a launch; none when
+    it is current already (the usual case), which saves the host a device
+    switch."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_handle(device) -> int:
+    """The raw handle of the CUDA ``device``'s current stream (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a Stream object on every launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)

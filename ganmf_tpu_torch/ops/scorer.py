@@ -7,11 +7,13 @@ kernels of csrc/masked_topk.cu, chosen from k alone: for k <= ``MAX_K`` the
 fused kernel, which never writes the [B, I] score matrix, over a grid of
 row blocks x item splits that ``fused_plan`` lays out, then, with more than
 one split, a merge pass over the splits' lists; above ``MAX_K`` the wide
-pair, which writes each row's scores as sort keys into a scratch buffer of
-at most ``WIDE_SCRATCH_BYTES`` and sorts them. On a CPU tensor it takes the
-plain version, ``masked_topk_scores_reference``: that is the tests' case,
-and the kernels are compared with it on the card. The merge pass's plain
-version is ``merge_partial_topk_reference``.
+pair, which ``wide_plan`` lays out: its first kernel scores and sorts tiles
+of 128 or 512 items per row and keeps each tile's first min(k, tile) keys
+in a scratch buffer of at most ``WIDE_SCRATCH_BYTES`` (rows go in chunks
+that fit), its second ranks those keys across the row's tiles. On a CPU
+tensor it takes the plain version, ``masked_topk_scores_reference``: that
+is the tests' case, and the kernels are compared with it on the card. The
+merge pass's plain version is ``merge_partial_topk_reference``.
 
 ``masked_topk_matmul`` and ``split_bf16_planes`` are plain XLA in the JAX
 package (docstring :83-93); they belong to the similarity family and are not
@@ -25,6 +27,7 @@ from functools import lru_cache
 
 import torch
 
+from ganmf_tpu_torch.ops._build import check, load_library, on_device, stream_handle
 from ganmf_tpu_torch.ops.topk import topk_lowest_index
 
 #: Kernel launches since the last reset; incremented only where the wrapper
@@ -49,9 +52,20 @@ MAX_K = 64
 #: Largest scratch buffer of the wide pair; rows are ranked in chunks that fit.
 WIDE_SCRATCH_BYTES = 256 << 20
 
-#: Largest factor width the kernel takes (the wide pair keeps its rows in
-#: shared memory).
-MAX_FACTORS = 4096
+#: Scratch buffers up to this size (recommend's, a few rows) are kept, one
+#: per device and stream, and reused by the next launch on that stream, which
+#: saves the host an allocation on the latency-bound calls.
+KEEP_SCRATCH_BYTES = 1 << 20
+_KEPT_SCRATCH = {}
+
+#: The wide pair's tile widths (items; csrc/masked_topk.cu instantiates
+#: these), its user rows per tile block, the most tiles a row takes at a
+#: width below the widest, and the most rows one chunk takes (a grid's y
+#: extent).
+WIDE_TILES = (128, 512)
+WIDE_ROWS = 8
+WIDE_MAX_TILES = 32
+WIDE_MAX_CHUNK_ROWS = 65535
 
 # The fused kernel's tiling, as csrc/masked_topk.cu fixes it: user rows per
 # block, items per tile, factors per staged K-slice, K-slices in flight,
@@ -107,6 +121,54 @@ def fused_plan(B: int, I: int, k: int, num_sms: int = H100_SMS) -> FusedPlan:
         rows_per_block=FUSED_ROWS, items_per_tile=FUSED_ITEMS, splits=S, tiles_per_split=tiles,
         grid=(row_blocks, S), smem_bytes=fused_smem_bytes(),
         scratch_bytes=S * B * k * 8 if S > 1 else 0)
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """Launch plan of K1's wide pair for one call."""
+
+    tile: int  # TW: items per tile, one of WIDE_TILES
+    tiles: int  # T: item tiles per row
+    kept: int  # L: keys each sorted tile keeps, min(k, TW)
+    chunk_rows: int  # rows per launch pair; the scratch holds one chunk
+    scratch_bytes: int  # the [chunk_rows, T, L] uint64 kept keys
+
+
+def wide_plan(B: int, I: int, k: int, num_sms: int = H100_SMS, tile: int | None = None) -> WidePlan:
+    """The tile width: the widest once the row blocks alone fill ``num_sms``
+    SMs, else the narrowest that keeps a row to WIDE_MAX_TILES tiles (so a
+    small batch spreads over many SMs; the rank kernel's searches grow with
+    the tile count), else the widest; ``tile`` sets it instead (the
+    measurement scripts and tests compare the widths). Each sorted tile
+    keeps its first min(k, tile) keys (a key past that place in its tile is
+    never among the row's first k); as many rows a chunk as
+    WIDE_SCRATCH_BYTES holds, at least one."""
+    if tile is None:
+        widest = WIDE_TILES[-1]
+        tile = widest
+        if -(-B // WIDE_ROWS) * -(-I // widest) < num_sms:
+            tile = next((t for t in WIDE_TILES if -(-I // t) <= WIDE_MAX_TILES), widest)
+    if tile not in WIDE_TILES:
+        raise ValueError(f"the wide pair's tile is one of {WIDE_TILES}, not {tile}")
+    tiles = -(-I // tile)
+    kept = min(k, tile)
+    row_bytes = 8 * tiles * kept
+    chunk_rows = max(1, min(B, WIDE_MAX_CHUNK_ROWS, WIDE_SCRATCH_BYTES // row_bytes))
+    return WidePlan(tile=tile, tiles=tiles, kept=kept, chunk_rows=chunk_rows,
+                    scratch_bytes=chunk_rows * row_bytes)
+
+
+def _scratch(device: torch.device, stream: int, nbytes: int) -> torch.Tensor:
+    """An int64 scratch buffer of at least ``nbytes`` for a launch on
+    ``stream``. One of at most KEEP_SCRATCH_BYTES is the one kept for that
+    device and stream: launches on one stream run in order, so the next
+    launch that reuses it starts after this one is done with it."""
+    if nbytes > KEEP_SCRATCH_BYTES:
+        return torch.empty(nbytes // 8, dtype=torch.int64, device=device)
+    key = (device.index, stream)
+    if key not in _KEPT_SCRATCH:
+        _KEPT_SCRATCH[key] = torch.empty(KEEP_SCRATCH_BYTES // 8, dtype=torch.int64, device=device)
+    return _KEPT_SCRATCH[key]
 
 
 def masked_topk_scores_reference(user_factors, item_factors, seen_mask, k: int):
@@ -170,16 +232,12 @@ def masked_topk_scores(user_factors, item_factors, seen_mask, k: int):
         return masked_topk_scores_reference(user_factors, item_factors, seen_mask, k)
     if device.type != "cuda":
         raise ValueError(f"masked_topk_scores runs on CPU or CUDA tensors, not {device}")
-    if user_factors.shape[1] > MAX_FACTORS:
-        raise ValueError(f"the K1 kernel takes at most {MAX_FACTORS} factors")
     if item_factors.shape[0] > 1 << 30:
         raise ValueError("the K1 kernel takes at most 2**30 items")
     for name, t in (("user_factors", user_factors), ("item_factors", item_factors),
                     ("seen_mask", seen_mask)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-
-    from ganmf_tpu_torch.ops._build import check, load_library
 
     lib = load_library()
     B, K = user_factors.shape
@@ -189,23 +247,21 @@ def masked_topk_scores(user_factors, item_factors, seen_mask, k: int):
     if B == 0:
         return vals, ids
     wide = k > MAX_K
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    sms = _sm_count(device.index)
+    plan = wide_plan(B, I, k, sms) if wide else fused_plan(B, I, k, sms)
+    stream = stream_handle(device)
+    part = _scratch(device, stream, plan.scratch_bytes) if plan.scratch_bytes else None
+    with on_device(device):
         if wide:
-            N = 1 << (I - 1).bit_length()  # the row's keys, padded to a power of two
-            chunk_rows = max(1, min(B, WIDE_SCRATCH_BYTES // (8 * N)))
-            scratch = torch.empty((chunk_rows, N), dtype=torch.int64, device=device)
             code = lib.ganmf_masked_topk_wide(
                 user_factors.data_ptr(), item_factors.data_ptr(), seen_mask.data_ptr(),
-                vals.data_ptr(), ids.data_ptr(), scratch.data_ptr(), B, I, K, k, N,
-                chunk_rows, stream)
+                vals.data_ptr(), ids.data_ptr(), part.data_ptr(), B, I, K, k, plan.tile,
+                plan.chunk_rows, stream)
         else:
-            plan = fused_plan(B, I, k, _sm_count(device.index))
-            part = torch.empty(plan.scratch_bytes // 8, dtype=torch.int64, device=device)
             code = lib.ganmf_masked_topk(
                 user_factors.data_ptr(), item_factors.data_ptr(), seen_mask.data_ptr(),
-                vals.data_ptr(), ids.data_ptr(), part.data_ptr() or None, B, I, K, k,
-                plan.tiles_per_split, plan.splits, stream)
+                vals.data_ptr(), ids.data_ptr(), part.data_ptr() if part is not None else None,
+                B, I, K, k, plan.tiles_per_split, plan.splits, stream)
     check(lib, code, "K1 masked_topk wide launch" if wide else "K1 masked_topk launch")
     LAUNCHES += 1
     if wide:

@@ -19,7 +19,14 @@ Always: the same finite slots, no masked item ranked, real ids in -inf
 tails. K1's fused kernel at k = 64 and its wide pair at k = 65 compute
 every score by the same fmaf chain, so on continuous factors their first
 64 slots are bitwise equal.
-K2 masks bitwise equal to the plain version's. One CFGAN epoch on the card
+The wide pair is also held to that at the widths where its layout changes
+(one tile, the tile boundary, rows whose kept keys no longer fit the rank
+kernel's shared memory) and at k just above 64 and k = I - 1.
+K2 masks bitwise equal to the plain version's, on each of its three paths
+(short rows in 128-thread blocks, longer rows in shared memory, streamed
+rows) and their boundaries, and for any k (clamped to [0, I] as the JAX
+function does).
+Neither wrapper synchronizes the host. One CFGAN epoch on the card
 against the CPU: masks bitwise, parameters within 2.2 * lr per Adam step (a
 gradient at rounding level may change sign and move its element by up to
 about lr either way), with 99% of the elements within 1% of lr.
@@ -140,12 +147,42 @@ def test_merge_pass_at_the_evaluation_shape(cuda):
     _assert_k1_matches(U, V, mask, 50, vals, ids, exact=False)
 
 
+@pytest.mark.parametrize("case", ["random", "grid"])
+@pytest.mark.parametrize("I", [97, 3706, 17632, 65536])
+@pytest.mark.parametrize("B", [1, 5, 37])
+@pytest.mark.parametrize("at", ["k=65", "k=I-1"])
+def test_wide_pair_matches_plain(cuda, B, I, at, case):
+    """The wide pair at one tile (97 items), recommend's catalog, LastFM's
+    and a row of 128 tiles, just above the fused kernel's k and at I - 1."""
+    k = scorer.MAX_K + 1 if at == "k=65" else I - 1
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, 64))
+    before = scorer.WIDE_LAUNCHES
+    vals, ids = masked_topk_scores(U, V, mask, k)
+    assert scorer.WIDE_LAUNCHES == before + 1
+    _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
+
+
+@pytest.mark.parametrize("tile", scorer.WIDE_TILES)
+@pytest.mark.parametrize("I,k", [(128, 127), (129, 128), (512, 100), (513, 512), (6144, 6143),
+                                 (6145, 6144), (6145, 100), (40000, 39999)])
+def test_wide_pair_at_its_layout_boundaries(cuda, I, k, tile, monkeypatch):
+    """Every tile width at rows of exactly one tile and one item more, and
+    where the rank kernel's kept keys (48 KB a round: 12 tiles x 512 at k >=
+    512) first take a second round, and many rounds (40000 items)."""
+    plan = scorer.wide_plan
+    monkeypatch.setattr(scorer, "wide_plan", lambda B, I, k, sms: plan(B, I, k, sms, tile=tile))
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("masked_rows", 9, I, 33))
+    vals, ids = masked_topk_scores(U, V, mask, k)
+    _assert_k1_matches(U, V, mask, k, vals, ids, exact=False)
+
+
 def test_wide_kernel_in_row_chunks(cuda, monkeypatch):
-    """The wide pair ranks the rows in chunks that fit its scratch buffer;
-    chunks of 5 rows give the lists of one chunk, bitwise."""
+    """The wide pair ranks the rows in chunks whose kept keys fit its
+    scratch buffer; chunks of 4 rows give the lists of one chunk, bitwise."""
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", 37, 9000, 32))
     whole = masked_topk_scores(U, V, mask, 500)
-    monkeypatch.setattr(scorer, "WIDE_SCRATCH_BYTES", 5 * 8 * 16384)
+    monkeypatch.setattr(scorer, "WIDE_SCRATCH_BYTES", 4 * 8 * 18 * 500)  # 18 tiles of 500
+    assert scorer.wide_plan(37, 9000, 500).chunk_rows == 4
     chunked = masked_topk_scores(U, V, mask, 500)
     assert torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1])
     _assert_k1_matches(U, V, mask, 500, *chunked, exact=False)
@@ -208,7 +245,14 @@ def _select_case(case, R, I, seed=0):
 
 
 @pytest.mark.parametrize("case", ["uniform", "ties", "signed"])
-@pytest.mark.parametrize("R,I", [(2048, 17632), (6040, 3706), (128, 65536), (5, 131072), (7, 97)])
+@pytest.mark.parametrize("R,I", [
+    (2048, 17632), (6040, 3706), (128, 65536), (5, 131072), (7, 97),
+    (1884, 17632),  # CFGAN's user mode: a row in shared memory
+    (17632, 1884),  # item mode: short rows, 128-thread blocks
+    (4099, 97), (33, 1883), (3, 2048),  # short rows, ragged (I % 4 != 0) and the widest
+    (9, 2049), (5, 17633),  # the narrowest row of the 512-thread blocks, and a ragged one
+    (3, 56320), (3, 56321),  # the widest row kept in shared memory, and one streamed
+])
 def test_k2_matches_plain(cuda, R, I, case):
     keys, k = (t.to(cuda) for t in _select_case(case, R, I))
     before = select.LAUNCHES
@@ -219,15 +263,53 @@ def test_k2_matches_plain(cuda, R, I, case):
     assert torch.equal(got.sum(1), k.long())
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("I", [97, 17632, 65536])
+def test_k2_takes_k_outside_its_range(cuda, I, dtype):
+    """k < 0 selects nothing and k > I everything, as in the JAX function
+    and the plain version, on each of the kernel's three paths."""
+    keys, _ = _select_case("uniform", 6, I)
+    k = torch.tensor([-1, I + 3, -(2 ** 31), 2 ** 31 - 1, 0, I], dtype=dtype)
+    if dtype == torch.int64:
+        k[2], k[3] = -(2 ** 40), 2 ** 40
+    got = smallest_k_mask(keys.to(cuda), k.to(cuda))
+    assert torch.equal(got.cpu(), smallest_k_mask_reference(keys, k))
+    assert got[0].sum() == 0 and bool(got[1].all()) and bool(got[3].all())
+
+
+@pytest.mark.parametrize("what", ["K1 fused", "K1 wide pair", "K2"])
+def test_wrappers_do_not_synchronize(cuda, what):
+    """Each wrapper only enqueues: under sync debug mode "error" any
+    host-device synchronization in it would raise."""
+    if what == "K2":
+        keys, k = (t.to(cuda) for t in _select_case("uniform", 64, 17632))
+        call = lambda: smallest_k_mask(keys, k)  # noqa: E731
+    else:
+        U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", 5, 3706, 250))
+        kk = 20 if what == "K1 fused" else 3705
+        call = lambda: masked_topk_scores(U, V, mask, kk)  # noqa: E731
+    call()  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def test_k2_rejects_what_it_does_not_take(cuda):
     keys = torch.rand(4, 10, device=cuda)
     k = torch.full((4,), 3, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        select.smallest_k_mask_cuda(keys, k + 8)  # k > I
+    assert torch.equal(select.smallest_k_mask_cuda(keys, k + 8),  # k > I: every column
+                       torch.ones(4, 10, dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError):
         select.smallest_k_mask_cuda(keys.T.contiguous().T, k)  # not contiguous
     with pytest.raises(ValueError):
         select.smallest_k_mask_cuda(keys, k.cpu())  # devices differ
+    wide = torch.rand(1, select.MAX_COLS + 1, device=cuda)
+    with pytest.raises(ValueError):
+        select.smallest_k_mask_cuda(wide, k[:1])  # past the 16-bit counts
 
 
 def test_cfgan_epoch_on_card_matches_cpu(cuda):

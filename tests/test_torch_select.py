@@ -105,10 +105,13 @@ def test_monotone_image_orders_as_the_uint32_map():
 def test_wrappers_reject_what_they_do_not_take():
     keys = torch.rand(4, 10)
     k = torch.full((4,), 3, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        smallest_k_mask(keys, torch.full((4,), 11, dtype=torch.int32))  # k > I
-    with pytest.raises(ValueError):
-        smallest_k_mask(keys, torch.full((4,), -1, dtype=torch.int32))
+    # k outside [0, I] is taken, as the JAX function takes it: the JAX masks
+    for bad in (-1, 10 + 3):
+        kk = np.full(4, bad, np.int32)
+        got, pallas, xla = _both(keys.numpy(), kk)
+        np.testing.assert_array_equal(got, pallas)
+        np.testing.assert_array_equal(got, xla)
+        assert got.all() if bad > 0 else not got.any()
     with pytest.raises(TypeError):
         smallest_k_mask(keys.double(), k)
     with pytest.raises(TypeError):
@@ -122,3 +125,18 @@ def test_wrappers_reject_what_they_do_not_take():
     assert select.LAUNCHES == before
     assert torch.equal(smallest_k_mask(keys, k), smallest_k_mask_reference(keys, k))
     assert select.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("I", [1, 97, 130])
+def test_k_outside_its_range_is_clamped_as_in_jax(I, dtype):
+    """k <= 0 selects nothing and k >= I every column, in the port as in the
+    Pallas kernel and the XLA bisection; rows in between as usual."""
+    rng = np.random.RandomState(I)
+    keys = rng.rand(6, I).astype(np.float32)
+    keys[rng.rand(6, I) < 0.3] = np.inf
+    k = np.array([-1, I + 3, -7, 2 * I, 0, I // 2], dtype)
+    got, pallas, xla = _both(keys, k)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(got.sum(1), np.clip(k, 0, I))
