@@ -37,17 +37,28 @@ Phases, in order; any failure exits nonzero:
    the same model's plain path on the CPU; check that both forms of K1
    carried the run, the fused kernel with its merge pass, and print eval
    users/s;
-7. train CFGAN at its published LastFM width (g_nodes=1024, d_layers=5) for
+7. train GANMF at its ML-1M best params (num_factors=250, emb_dim=992,
+   batch_size=64, m=10; bench.py) on the same split for 3 epochs, with early
+   stopping evaluating the test split every epoch, in user and then item
+   mode; check that those evaluations launched K1's fused kernel and that
+   recommend at the default cutoff on the trained model launched the wide
+   pair; print seconds per epoch and the final losses, and check that the
+   losses are finite and every parameter moved;
+8. hold GANMF's training against its plain path on the CPU: one epoch from
+   the same state and permutation (parameters within a stated bound, the
+   mean losses within rtol 1e-4), and the trained model's evaluation on the
+   card against its copy on the CPU (every metric within 1e-5);
+9. train CFGAN at its published LastFM width (g_nodes=1024, d_layers=5) for
    3 epochs with early stopping on a LastFM-shaped synthetic split, in user
    and then item mode; check that K2 drew every epoch's masks; print seconds
    per epoch, then recommend (default cutoff), serve_all and the evaluation;
-8. hold the CFGAN path against its plain path on the CPU: one epoch from the
-   same state and draws (masks bitwise, parameters within a stated bound),
-   the generator output, and the evaluation and serve_all on the same
-   scores;
-9. print one JSON line with every kernel's launches, error, times and bound
-   (K1's two forms as entries of their own), then the card line, then the
-   result line.
+10. hold the CFGAN path against its plain path on the CPU: one epoch from the
+    same state and draws (masks bitwise, parameters within a stated bound),
+    the generator output, and the evaluation and serve_all on the same
+    scores;
+11. print one JSON line with every kernel's launches, error, times and bound
+    (K1's two forms as entries of their own), then the card line, then the
+    result line.
 
 Imports nothing of JAX. It needs the repository checkout: alone it fails.
 """
@@ -77,6 +88,13 @@ CFGAN_PARAMS = dict(
     d_lr=1e-4, g_lr=0.00018640602403973558, d_reg=1e-4, g_reg=1e-4, d_steps=1, g_steps=1,
 )
 CFGAN_EPOCHS = 3
+# GANMF's published best params on ML-1M (bench.py:42-46); g_reg stays 0
+GANMF_PARAMS = dict(
+    num_factors=NUM_FACTORS, emb_dim=EMB_DIM, batch_size=64, m=10,
+    d_lr=1e-4, g_lr=0.0001653241474168571, d_reg=1e-4, recon_coefficient=0.01,
+)
+GANMF_EPOCHS = 3
+LOSS_RTOL = 1e-4  # the epoch's mean losses, card against CPU
 # the evaluation on the card and on the CPU from the same score block: only
 # the order of float32 metric sums differs
 SAME_SCORES_TOL = 1e-6
@@ -401,6 +419,156 @@ def phase_slice(dev, card, train, test):
               f"{n_eval / eval_s:.1f} users/s (second call)  [{card}]")
 
 
+def adam_bound_check(name, card_params, cpu_params, steps_lrs):
+    """Parameters after the same Adam steps on the card and on the CPU. An
+    element whose gradient sits at rounding level may move by up to about lr
+    a step in either direction (|m_hat / sqrt(v_hat)| <= 1.1 over the first
+    steps): the bound is 2.2 * lr * steps; and the bulk, 99% of the
+    elements, must agree to 1% of lr. Returns the largest difference."""
+    worst = 0.0
+    for i, (a, b, (steps, lr)) in enumerate(zip(card_params, cpu_params, steps_lrs)):
+        diff = (a - b).abs()
+        bulk = float((diff <= 0.01 * lr).float().mean())
+        worst = max(worst, float(diff.max()))
+        if float(diff.max()) > 2.2 * lr * steps or bulk < 0.99:
+            fail(f"{name}: parameter {i} differs by {float(diff.max()):.3e} (bound "
+                 f"{2.2 * lr * steps:.3e}), {bulk:.4f} of it within 0.01 lr")
+    return worst
+
+
+def phase_ganmf_train(dev, card, train, test):
+    """GANMF trained on the card in both modes through fit() with early
+    stopping, then recommend on the trained model. Returns the models."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import GANMF, init_params
+    from ganmf_tpu_torch.ops import scorer
+
+    class TimedGANMF(GANMF):
+        """Times each epoch (synchronized)."""
+
+        def _run_training_loop(self, *args, epoch_fn, **kwargs):
+            self.epoch_log = []
+
+            def timed(epoch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                epoch_fn(epoch)
+                torch.cuda.synchronize()
+                self.epoch_log.append(time.perf_counter() - t0)
+
+            return super()._run_training_loop(*args, epoch_fn=timed, **kwargs)
+
+    models = {}
+    for mode in ("user", "item"):
+        print(f"[7] GANMF training, {mode} mode: {GANMF_PARAMS} on {train.shape[0]} x "
+              f"{train.shape[1]}, {GANMF_EPOCHS} epochs, early stopping every epoch")
+        model = TimedGANMF(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
+        ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+        fused_before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+        returned = model.fit(**GANMF_PARAMS, epochs=GANMF_EPOCHS, validation_evaluator=ev, freq=1)
+        torch.cuda.synchronize()
+        fused = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - fused_before
+        if len(model.epoch_log) != GANMF_EPOCHS:
+            fail(f"{mode}: {len(model.epoch_log)} epochs ran, not {GANMF_EPOCHS} (fit returned {returned})")
+        if fused < GANMF_EPOCHS:
+            fail(f"{mode}: the early-stopping evaluations launched K1's fused kernel {fused} times")
+        secs = model.epoch_log
+        print(f"  fit returned {returned}; epoch seconds {[round(t, 4) for t in secs]}; median of "
+              f"epochs 2-3: {float(np.median(secs[1:])):.4f} s/epoch; K1 fused launches in the "
+              f"early-stopping evaluations: {fused}  [{card}]")
+        losses = [(float(d), float(g)) for d, g in zip(model.train_d_loss, model.train_g_loss)]
+        if not np.isfinite(losses).all():
+            fail(f"{mode}: a loss is not finite: {losses}")
+        print(f"  (d_loss, g_loss) per epoch: {[(round(d, 6), round(g, 6)) for d, g in losses]}")
+        n_rows, n_cols = model._train_matrix().shape
+        init = init_params(n_rows, n_cols, NUM_FACTORS, EMB_DIM, torch.Generator().manual_seed(SEED), dev)
+        for name, t, t0 in zip(("user_emb", "item_emb", "enc_w", "enc_b", "dec_w", "dec_b"),
+                               model.params.parameters(), init.parameters()):
+            if not bool(torch.isfinite(t).all()):
+                fail(f"{mode}: {name} is not finite after training")
+            if not bool((t != t0).any()):
+                fail(f"{mode}: {name} did not move in training")
+
+        before = scorer.WIDE_LAUNCHES
+        recs = model.recommend(np.arange(5))  # the default cutoff, n_items - 1
+        if scorer.WIDE_LAUNCHES != before + 1:
+            fail(f"{mode}: recommend at the default cutoff on the trained model did not launch K1's wide pair")
+        seen = np.ediff1d(train.indptr)[:5]
+        for u, lst in enumerate(recs):
+            if len(lst) != train.shape[1] - seen[u] or len(set(lst)) != len(lst):
+                fail(f"{mode}: recommend(default cutoff) gave {len(lst)} items for user {u}")
+        print(f"  recommend(users 0-4, default cutoff) on the trained model: {[len(r) for r in recs]} "
+              f"items; user 0 -> {recs[0][:10]} ...")
+        models[mode] = (model, ev)
+    return models
+
+
+def phase_ganmf_train_plain(dev, card, train, test, models):
+    """GANMF's training and the trained model on the card against the plain
+    path on the CPU."""
+    import copy
+
+    import torch
+
+    from ganmf_tpu_torch.data.device import dense_from_sparse
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import GANMF, init_params
+    from ganmf_tpu_torch.models import ganmf as pgm
+    from ganmf_tpu_torch.models.gan_base import make_batches, padded_weights, shuffled_padded_perm
+
+    cpu = torch.device("cpu")
+    p = GANMF_PARAMS
+    bs = p["batch_size"]
+    for mode in ("user", "item"):
+        print(f"[8] GANMF training, {mode} mode, against the plain path on the CPU")
+        model, ev = models[mode]
+        mat = model._train_matrix()
+        n_rows, n_cols = mat.shape
+        n, padded = make_batches(n_rows, bs)
+        perm = torch.from_numpy(shuffled_padded_perm(np.random.RandomState(SEED), n_rows, padded))
+        w = torch.from_numpy(padded_weights(n_rows, padded))
+        runs = []
+        for d in (dev, cpu):
+            params = init_params(n_rows, n_cols, NUM_FACTORS, EMB_DIM, torch.Generator().manual_seed(SEED), d)
+            d_opt = torch.optim.Adam(params.d_params(), lr=p["d_lr"], betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+            item_opt = torch.optim.Adam([params.item_emb], lr=p["g_lr"], betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+            urm = dense_from_sparse(mat, d)
+            t0 = time.perf_counter()
+            dl, gl = pgm.ganmf_epoch(
+                params, d_opt, item_opt, pgm.user_adam_state(params.user_emb), urm,
+                perm.to(d, torch.int64), w.to(d), g_lr=p["g_lr"], m=p["m"],
+                recon_coefficient=p["recon_coefficient"], d_reg=p["d_reg"], g_reg=0.0,
+                n_batches=n, batch_size=bs, d_steps=1, g_steps=1)
+            losses = (float(dl), float(gl))  # waits for the epoch
+            runs.append(([t.detach().cpu() for t in params.parameters()], losses, time.perf_counter() - t0))
+        (card_p, card_losses, card_s), (cpu_p, cpu_losses, cpu_s) = runs
+        worst = adam_bound_check(mode, card_p, cpu_p, [(n, p["g_lr"])] * 2 + [(n, p["d_lr"])] * 4)
+        if not np.allclose(card_losses, cpu_losses, rtol=LOSS_RTOL, atol=0):
+            fail(f"{mode}: the epoch's mean losses {card_losses} differ from the CPU's {cpu_losses}")
+        print(f"  one epoch ({n} minibatches in each phase) from the same state and "
+              f"permutation: largest parameter difference {worst:.3e} (bounds G {2.2 * p['g_lr'] * n:.3e}, "
+              f"D {2.2 * p['d_lr'] * n:.3e}); losses card {card_losses} CPU {cpu_losses}; "
+              f"card {card_s:.4f} s (first call), CPU {cpu_s:.4f} s")
+
+        plain = GANMF(train, mode=mode, seed=SEED, is_experiment=True, device=cpu)
+        plain.params = copy.deepcopy(model.params).to(cpu)
+        results, _ = ev.evaluateRecommender(model)
+        presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(plain)
+        worst_m = 0.0
+        for c in CUTOFFS:
+            for metric, value in results[c].items():
+                ref = presults[c][metric]
+                if not (np.isfinite(value) and np.isfinite(ref)):
+                    fail(f"{mode}: trained {metric}@{c} is not finite ({value}, CPU {ref})")
+                worst_m = max(worst_m, abs(value - ref))
+        if worst_m > METRIC_TOL:
+            fail(f"{mode}: a trained model's metric differs from the CPU copy's by {worst_m:.3e}")
+        print(f"  trained model: every metric at every cutoff within {worst_m:.3e} of its CPU copy "
+              f"(MAP@5 {results[5]['MAP']:.6f}, NDCG@10 {results[10]['NDCG']:.6f})")
+
+
 def select_case(name, R, I, gen, ratio=CFGAN_PARAMS["zr_ratio"], density=0.00279):
     """CFGAN-style selection input: uniform keys, +inf at the interactions,
     k = int(n_zeros * ratio) in float32; the first row takes k = 0 and the
@@ -520,7 +688,7 @@ def phase_cfgan(dev, card, train, test):
 
     models = {}
     for mode in ("user", "item"):
-        print(f"[7] CFGAN {mode} mode: g_nodes={CFGAN_PARAMS['g_nodes']} d_nodes={CFGAN_PARAMS['d_nodes']} "
+        print(f"[9] CFGAN {mode} mode: g_nodes={CFGAN_PARAMS['g_nodes']} d_nodes={CFGAN_PARAMS['d_nodes']} "
               f"d_layers={CFGAN_PARAMS['d_layers']} on {train.shape[0]} x {train.shape[1]}, "
               f"{CFGAN_EPOCHS} epochs")
         model = TimedCFGAN(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
@@ -607,7 +775,7 @@ def phase_cfgan_plain(dev, card, train, test, models):
     cpu = torch.device("cpu")
     p = CFGAN_PARAMS
     for mode in ("user", "item"):
-        print(f"[8] CFGAN {mode} mode against the plain path on the CPU")
+        print(f"[10] CFGAN {mode} mode against the plain path on the CPU")
         model, ev = models[mode]
         urm, w, kw, g_dims, d_dims = cfgan_epoch_inputs(model._train_matrix())
         padded, n_cols = urm.shape
@@ -624,24 +792,14 @@ def phase_cfgan_plain(dev, card, train, test, models):
             runs.append((zr.cpu(), [t.detach().cpu() for t in params.parameters()]))
         if not torch.equal(runs[0][0], runs[1][0]):
             fail(f"{mode}: the card's ZR mask differs from the CPU's")
-        # Adam moves an element whose gradient sits at rounding level by up to
-        # about lr per step in either direction (|m_hat/sqrt(v_hat)| <= 1.1 over
-        # the first 15 steps): the bound is 2.2 * lr * steps; and the bulk, 99%
-        # of the elements, must agree to 1% of lr
         n_g = 2 * (p["g_layers"] + 1)
-        worst = []
-        for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1])):
-            steps, lr = (g_n, p["g_lr"]) if i < n_g else (d_n, p["d_lr"])
-            diff = (a - b).abs()
-            bulk = float((diff <= 0.01 * lr).float().mean())
-            worst.append(float(diff.max()))
-            if worst[-1] > 2.2 * lr * steps or bulk < 0.99:
-                fail(f"{mode}: parameter {i} differs by {worst[-1]:.3e} (bound {2.2 * lr * steps:.3e}), "
-                     f"{bulk:.4f} of it within 0.01 lr")
+        card_p, cpu_p = runs[0][1], runs[1][1]
+        worst_g = adam_bound_check(mode, card_p[:n_g], cpu_p[:n_g], [(g_n, p["g_lr"])] * n_g)
+        worst_d = adam_bound_check(mode, card_p[n_g:], cpu_p[n_g:], [(d_n, p["d_lr"])] * (len(card_p) - n_g))
         print(f"  one epoch from the same state and draws: masks bitwise equal "
-              f"({int(runs[0][0].sum())} selected); largest parameter difference {max(worst):.3e} "
-              f"(G {max(worst[:n_g]):.3e} against bound {2.2 * p['g_lr'] * g_n:.3e}, "
-              f"D {max(worst[n_g:]):.3e} against {2.2 * p['d_lr'] * d_n:.3e})")
+              f"({int(runs[0][0].sum())} selected); largest parameter difference {max(worst_g, worst_d):.3e} "
+              f"(G {worst_g:.3e} against bound {2.2 * p['g_lr'] * g_n:.3e}, "
+              f"D {worst_d:.3e} against {2.2 * p['d_lr'] * d_n:.3e})")
 
         plain = CFGAN(train, mode=mode, seed=SEED, is_experiment=True, device=cpu)
         plain.config = dict(model.config)
@@ -704,6 +862,18 @@ def main():
         fail(f"the GANMF path launched K1's fused kernel {k1_launches} times (its merge pass "
              f"{merge_launches} times) and its wide pair {wide_launches} times")
 
+    # GANMF's training path, its counts read alone
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    ganmf_models = phase_ganmf_train(dev, card, train, test)
+    train_wide = scorer.WIDE_LAUNCHES
+    train_fused = scorer.LAUNCHES - train_wide
+    train_merge = scorer.MERGE_LAUNCHES
+    if train_fused == 0 or train_wide == 0:
+        fail(f"GANMF's training path launched K1's fused kernel {train_fused} times and its wide "
+             f"pair {train_wide} times")
+    phase_ganmf_train_plain(dev, card, train, test, ganmf_models)
+    del ganmf_models
+
     train, test = lastfm_split()
     select.LAUNCHES = 0
     models = phase_cfgan(dev, card, train, test)
@@ -715,14 +885,18 @@ def main():
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide
     k2_shape, *k2_others = k2_times
+    # K1 carries two GANMF paths, serving (phase 6) and training (phase 7, its
+    # early-stopping evaluations and recommend on the trained model): its
+    # launches are the sum of the two runs, each counted alone
     print(json.dumps({"kernels": [
         {
             "name": "masked_topk_scores (K1, fused kernel and merge pass, k <= 64)",
             "route": "cuda",
             "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
-            "launches": k1_launches,
-            "merge_launches": merge_launches,
+            "launches": k1_launches + train_fused,
+            "launches_by_path": {"GANMF serving": k1_launches, "GANMF training": train_fused},
+            "merge_launches": merge_launches + train_merge,
             "max_abs_err": k1_err,
             "shape": eval_shape,
             **fused[eval_shape],
@@ -733,7 +907,8 @@ def main():
             "route": "cuda",
             "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
-            "launches": wide_launches,
+            "launches": wide_launches + train_wide,
+            "launches_by_path": {"GANMF serving": wide_launches, "GANMF training": train_wide},
             "max_abs_err": wide_err,
             "shape": wide_shape,
             **wide[wide_shape],

@@ -29,7 +29,7 @@ raises instead of falling back to another path.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sps
@@ -95,11 +95,12 @@ class EvaluatorHoldout:
         ignore_items=None,
         ignore_users=None,
         *,
-        device: torch.device,
+        device: Optional[torch.device] = None,
     ):
+        # the card unless the caller asks for the CPU; raises without a card
+        self.device = as_device(device)
         if isinstance(URM_test, list):
             raise ValueError("List of URM_test not supported")
-        self.device = as_device(device)
 
         self.URM_test = sps.csr_matrix(URM_test).copy()
         self.URM_test.eliminate_zeros()

@@ -59,7 +59,9 @@ class Recommender:
     # seen rows are scatter-built per block from padded-CSR storage.
     _DENSE_URM_BYTE_LIMIT = 6 << 30
 
-    def __init__(self, URM_train, *, device: torch.device):
+    def __init__(self, URM_train, *, device: Optional[torch.device] = None):
+        """``device`` defaults to the card; without one this raises before any
+        work. The CPU runs a model only when it is asked for."""
         self.device = as_device(device)
         self.URM_train = check_matrix(URM_train.copy(), "csr", dtype=np.float32)
         self.URM_train.eliminate_zeros()
@@ -73,6 +75,7 @@ class Recommender:
         self._cold_user_mask = np.ediff1d(self.URM_train.indptr) == 0
         self._durm: Optional[DeviceURM] = None
         self._seen_padded = None
+        self._stream_seen = False  # set by a fit on padded-CSR storage
 
     # -- device caches ---------------------------------------------------------
     def device_urm(self) -> DeviceURM:
@@ -81,8 +84,11 @@ class Recommender:
         return self._durm
 
     def _urm_streams(self) -> bool:
-        """True when the dense [U, I] URM would not reasonably fit on the
-        device, so seen rows come from padded-CSR storage instead."""
+        """True when seen rows come from padded-CSR storage: the model trained
+        with ``urm_storage="csr"``, or the dense [U, I] URM would not
+        reasonably fit on the device."""
+        if self._stream_seen:
+            return True
         return 4 * self.n_users * self.n_items > self._DENSE_URM_BYTE_LIMIT
 
     def device_seen_rows(self, uids: torch.Tensor, max_len: int = None) -> torch.Tensor:

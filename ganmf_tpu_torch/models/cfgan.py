@@ -33,7 +33,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ganmf_tpu_torch.data.device import dense_from_sparse
-from ganmf_tpu_torch.models.gan_base import AdversarialRecommender, make_batches, padded_weights
+from ganmf_tpu_torch.models.gan_base import (  # noqa: F401  (ADAM_* re-exported)
+    ADAM_BETAS,
+    ADAM_EPS,
+    AdversarialRecommender,
+    apply_grads,
+    make_batches,
+    padded_weights,
+)
 from ganmf_tpu_torch.ops.topk import smallest_k_mask
 
 ACTIVATIONS = {
@@ -43,8 +50,6 @@ ACTIVATIONS = {
     "relu": torch.relu,
     "LeakyReLU": F.leaky_relu,  # slope 0.01, as jax.nn.leaky_relu
 }
-
-ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8  # optax.scale_by_adam's defaults
 
 
 class MLPParams(nn.Module):
@@ -173,13 +178,6 @@ def g_loss(G: MLPParams, D: MLPParams, cond, tmask, zmask, w, g_reg: float,
     return _bce(d_fake, 1.0, w) + g_reg * _l2(G) + zr_coefficient * zr_loss
 
 
-def _step(opt: torch.optim.Optimizer, params, loss) -> None:
-    """One Adam step on ``params`` only: the other network stays frozen."""
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
-        p.grad = g
-    opt.step()
-
-
 def cfgan_epoch(
     params: CFGANParams, d_opt: torch.optim.Optimizer, g_opt: torch.optim.Optimizer,
     urm: torch.Tensor, uniforms, d_weights: torch.Tensor, g_weights: torch.Tensor,
@@ -205,14 +203,15 @@ def cfgan_epoch(
     for step in range(d_steps * d_n_batches):
         b = (step % d_n_batches) * d_batch
         cond, tmask, w = urm[b : b + d_batch], train_full[b : b + d_batch], d_weights[b : b + d_batch]
-        _step(d_opt, d_params, d_loss(D, G, cond, tmask, w, d_reg, d_hidden_act, g_hidden_act, cd))
+        loss = d_loss(D, G, cond, tmask, w, d_reg, d_hidden_act, g_hidden_act, cd)
+        apply_grads(d_opt, d_params, torch.autograd.grad(loss, d_params))
 
     for step in range(g_steps * g_n_batches):
         b = (step % g_n_batches) * g_batch
         cond, tmask, w = urm[b : b + g_batch], train_full[b : b + g_batch], g_weights[b : b + g_batch]
         zmask = zr_full[b : b + g_batch]
-        _step(g_opt, g_params, g_loss(G, D, cond, tmask, zmask, w, g_reg, zr_coefficient,
-                                      d_hidden_act, g_hidden_act, cd))
+        loss = g_loss(G, D, cond, tmask, zmask, w, g_reg, zr_coefficient, d_hidden_act, g_hidden_act, cd)
+        apply_grads(g_opt, g_params, torch.autograd.grad(loss, g_params))
 
     d_opt.zero_grad(set_to_none=True)
     g_opt.zero_grad(set_to_none=True)

@@ -2,20 +2,20 @@
 
 Port of ganmf_tpu/models/gan_base.py: user and item training modes via
 transposition, the best-weight snapshot that early stopping drives, the
-shared epoch loop with its metrics-logger and checkpointer hooks and crash
-resume (:90-96,115-173), the batching helpers ``make_batches`` and
-``padded_weights`` (:210-214,226-229), and the saveModel layout
-(``param_0..param_n`` in parameter order, plus ``config`` and ``mode``),
-which is the JAX package's, so either package reads the other's zips.
-
-Not ported yet, because no ported model calls them: the loss histories
-(:98-113, their checkpoint aux and ``_save_loss_plots``) and
-``shuffled_padded_perm`` (:216-223). GANMF's epoch is their first caller.
+shared epoch loop with its metrics-logger and checkpointer hooks, crash
+resume with the loss histories beside the state (:90-173), the loss-curve
+plot at the loop's end (:175-190), the batching helpers ``make_batches``,
+``shuffled_padded_perm`` and ``padded_weights`` (:210-229), and the saveModel
+layout (``param_0..param_n`` in parameter order, plus ``config`` and
+``mode``), which is the JAX package's, so either package reads the other's
+zips.
 """
 
 from __future__ import annotations
 
 import copy
+import datetime
+import os
 from typing import Optional
 
 import numpy as np
@@ -24,6 +24,7 @@ import torch
 from ganmf_tpu_torch.data.device import dense_from_sparse
 from ganmf_tpu_torch.models.base import Recommender
 from ganmf_tpu_torch.models.early_stopping import EarlyStoppingScheduler
+from ganmf_tpu_torch.utils.analysis import plot_loss
 
 
 class AdversarialRecommender(Recommender):
@@ -33,7 +34,7 @@ class AdversarialRecommender(Recommender):
     SUPPORTS_ITEM_MODE = True
 
     def __init__(self, URM_train, mode: str = "user", seed: int = 1234, verbose: bool = False,
-                 is_experiment: bool = False, *, device: torch.device):
+                 is_experiment: bool = False, *, device: Optional[torch.device] = None):
         if self.SUPPORTS_ITEM_MODE and mode not in ("user", "item"):
             raise ValueError(f"Accepted training modes are `user` and `item`. Given was {mode}.")
         # external orientation is always users x items; item mode transposes
@@ -44,6 +45,10 @@ class AdversarialRecommender(Recommender):
         self.verbose = verbose
         self.is_experiment = is_experiment
         self.config: Optional[dict] = None
+        # the reference keeps a per-run plots folder (GANMF.py:40-45), made
+        # when the first plot is written
+        self.logsdir = os.path.join(
+            "plots", self.RECOMMENDER_NAME, datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
 
         self.params: Optional[torch.nn.Module] = None  # current parameters
         self.best_params: Optional[torch.nn.Module] = None  # early-stopping snapshot
@@ -87,16 +92,38 @@ class AdversarialRecommender(Recommender):
     def _restore_checkpoint_state(self, state):
         self.params.load_state_dict(state["params"])
 
+    _LOSS_ATTRS = ("train_d_loss", "train_g_loss", "train_pg_loss", "train_ng_loss")
+
+    def _checkpoint_aux(self) -> dict:
+        """Variable-length side state (the loss histories) saved beside the
+        checkpoint, so that a resumed run keeps its whole loss curves. Reads
+        each loss to the host."""
+        aux = {}
+        for name in self._LOSS_ATTRS:
+            vals = getattr(self, name, None)
+            if vals:
+                aux[name] = np.asarray([float(v) for v in vals], np.float32)
+        return aux
+
+    def _restore_checkpoint_aux(self, aux: dict) -> None:
+        for name in self._LOSS_ATTRS:
+            if name in aux:
+                setattr(self, name, [float(v) for v in aux[name]])
+
     def resume_from_checkpoint(self) -> int:
-        """Restore the latest training checkpoint, returning the epoch to
-        continue from (1 when no checkpoint exists). Requires
-        ``self.checkpointer`` and the model to be mid-fit (state built)."""
+        """Restore the latest training checkpoint and its loss histories,
+        returning the epoch to continue from (1 when no checkpoint exists).
+        Requires ``self.checkpointer`` and the model to be mid-fit (state
+        built)."""
         if self.checkpointer is None:
             return 1
         latest = self.checkpointer.latest_epoch()
         if latest is None:
             return 1
         self._restore_checkpoint_state(self.checkpointer.restore(latest, self._checkpoint_state()))
+        aux = self.checkpointer.restore_aux(latest)
+        if aux:
+            self._restore_checkpoint_aux(aux)
         return latest + 1
 
     def _run_training_loop(self, epochs, validation_evaluator, validation_set, sample_every,
@@ -122,7 +149,7 @@ class AdversarialRecommender(Recommender):
             if self.metrics_logger is not None:
                 self.metrics_logger.log_epoch(epoch)
             if self.checkpointer is not None:
-                self.checkpointer.maybe_save(epoch, self._checkpoint_state())
+                self.checkpointer.maybe_save(epoch, self._checkpoint_state(), aux=self._checkpoint_aux())
 
             if validation_set is not None and sample_every is not None and epoch % sample_every == 0:
                 results, results_string = validation_evaluator.evaluateRecommender(self)
@@ -138,7 +165,22 @@ class AdversarialRecommender(Recommender):
 
             epoch += 1
 
+        if not self.is_experiment:
+            self._save_loss_plots()
+
         return epoch - 1 if self._stop_training else epoch
+
+    def _save_loss_plots(self):
+        """The loss curves as a plot in ``logsdir``, like the reference's plot
+        sinks (Utils_.plot_loss_acc, Utils_.py:109)."""
+        curves = {}
+        for name in self._LOSS_ATTRS:
+            values = getattr(self, name, None)
+            if values:
+                curves[name] = [float(v) for v in values]
+        if curves:
+            plot_loss(curves, os.path.join(self.logsdir, "losses.png"), ylabel="loss",
+                      title=self.RECOMMENDER_NAME)
 
     # -- persistence ----------------------------------------------------------
     def _save_dict(self):
@@ -158,10 +200,32 @@ def _json_safe(v):
     return isinstance(v, (int, float, str, bool, list, tuple, type(None)))
 
 
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8  # optax.scale_by_adam's and TF1's defaults
+
+
+def apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
+    """One optimizer step on ``params`` with ``grads`` (each phase takes the
+    gradient of its own parameters only; the other network stays frozen)."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+
+
 def make_batches(n_rows: int, batch_size: int):
     """Static batching plan: number of batches and padded length."""
     n_batches = int(np.ceil(n_rows / batch_size))
     return n_batches, n_batches * batch_size
+
+
+def shuffled_padded_perm(rng: np.random.RandomState, n_rows: int, padded: int) -> np.ndarray:
+    """The epoch's shuffle on the host (reference np.random.shuffle,
+    GANMF.py:175); padding slots replay row 0 with zero weight. Kept in numpy
+    so that both packages draw the same permutation from one seed."""
+    perm = np.arange(n_rows)
+    rng.shuffle(perm)
+    out = np.zeros(padded, dtype=np.int32)
+    out[:n_rows] = perm
+    return out
 
 
 def padded_weights(n_rows: int, padded: int) -> np.ndarray:

@@ -15,9 +15,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def as_device(device) -> torch.device:
+def as_device(device=None) -> torch.device:
     """``device`` as a torch.device with its index filled in, so that it
-    compares equal to the ``.device`` of the tensors placed on it."""
+    compares equal to the ``.device`` of the tensors placed on it. None means
+    the card (``cuda_device``), which raises when there is none: the entry
+    points run on the CPU only when the caller asks for it."""
+    if device is None:
+        return cuda_device()
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

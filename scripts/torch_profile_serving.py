@@ -7,8 +7,9 @@ Builds the same model and split as chip_smoke.py (GANMF at num_factors=250,
 emb_dim=992, random weights from seed 1337, the ML-1M-shaped synthetic split,
 user mode), warms up, then traces one holdout evaluation and one
 serve_all(cutoff=20) with torch.profiler. For each it prints the wall time,
-the device time summed by kernel name, and the device busy share (union of
-kernel intervals over the wall time). The chrome traces go to --out.
+the device time summed by kernel name and by class (GEMMs, optimizer,
+reductions, ...), and the device busy share (union of the intervals of
+kernels, copies and fills over the wall time). The chrome traces go to --out.
 ``profile`` is shared with scripts/torch_profile_cfgan.py.
 """
 
@@ -40,6 +41,24 @@ def busy_us(events):
     return total
 
 
+KERNEL_CLASSES = (  # (class, substrings of the kernel names in it), first match wins
+    ("K1/K2", ("masked_topk", "merge_splits", "wide_tiles", "rank_tiles", "select_block")),
+    ("GEMM", ("gemm", "Kernel2<cutlass", "splitKreduce", "gemv")),
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+    ("sort/top-k", ("Sort", "sort", "mbtopk")),
+    ("reduction", ("reduce_kernel",)),
+    ("copy/fill", ("Memcpy", "Memset", "copy_kernel", "fill")),
+    ("index/scatter/gather", ("index", "scatter", "gather")),
+)
+
+
+def kernel_class(name):
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "elementwise/other"
+
+
 def profile(name, fn, out_dir, card, host_ops=0):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -51,7 +70,11 @@ def profile(name, fn, out_dir, card, host_ops=0):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels, copies and fills: a record_function span (torch.optim's
+    # "Optimizer.step#Adam.step") also has a device-side range, which covers
+    # the idle gaps between its kernels and is no device work
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
@@ -59,6 +82,11 @@ def profile(name, fn, out_dir, card, host_ops=0):
     print(f"== {name}: wall {wall_us / 1e3:.4f} ms, device busy {busy / 1e3:.4f} ms "
           f"({100 * busy / wall_us:.1f}% of wall, idle {100 - 100 * busy / wall_us:.1f}%), "
           f"{len(kernels)} device ops  [{card}]")
+    by_class = {}
+    for kname, us in by_name.items():
+        by_class[kernel_class(kname)] = by_class.get(kernel_class(kname), 0.0) + us
+    print("   device time by class: " + "; ".join(
+        f"{cls} {us / 1e3:.4f} ms" for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1])))
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"   {us / 1e3:9.4f} ms  {100 * us / max(busy, 1e-9):5.1f}%  {kname[:100]}")
     if host_ops:

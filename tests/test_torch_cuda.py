@@ -26,10 +26,14 @@ K2 masks bitwise equal to the plain version's, on each of its three paths
 (short rows in 128-thread blocks, longer rows in shared memory, streamed
 rows) and their boundaries, and for any k (clamped to [0, I] as the JAX
 function does).
-Neither wrapper synchronizes the host. One CFGAN epoch on the card
+Neither wrapper synchronizes the host, nor does a GANMF epoch. One CFGAN
+epoch, and one GANMF epoch in both modes and both URM storages, on the card
 against the CPU: masks bitwise, parameters within 2.2 * lr per Adam step (a
 gradient at rounding level may change sign and move its element by up to
-about lr either way), with 99% of the elements within 1% of lr.
+about lr either way), with 99% of the elements within 1% of lr; GANMF's mean
+losses within rtol 1e-4. A GANMF fit with early stopping on the card launches
+K1 from its evaluations, and run_best trains and scores on the card by
+default.
 """
 
 import numpy as np
@@ -37,9 +41,12 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+from ganmf_tpu_torch.data.device import padded_csr_from_sparse
 from ganmf_tpu_torch.eval import EvaluatorHoldout
 from ganmf_tpu_torch.models import GANMF, init_params
 from ganmf_tpu_torch.models import cfgan as pcf
+from ganmf_tpu_torch.models import ganmf as pgm
+from ganmf_tpu_torch.models.gan_base import make_batches, padded_weights, shuffled_padded_perm
 from ganmf_tpu_torch.ops import scorer, select
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores, masked_topk_scores_reference
 from ganmf_tpu_torch.ops.topk import smallest_k_mask, smallest_k_mask_reference
@@ -361,3 +368,118 @@ def test_recommend_default_cutoff_on_card(cuda):
     got, _ = EvaluatorHoldout(train, [5, 100], device=cuda).evaluateRecommender(card)
     assert np.isfinite(got[100]["MAP"])
     assert scorer.WIDE_LAUNCHES >= before + 2
+
+
+def _ganmf_epoch_inputs(dev, mode, storage, seed=0):
+    """(params, optimizers, TF1 state, urm, perm, weights) for one GANMF
+    epoch on ``dev`` at a small width: 300 x 500, K=16, E=64, batches of 32."""
+    rng = np.random.RandomState(seed)
+    mat = sps.csr_matrix((rng.rand(300, 500) < 0.05).astype(np.float32))
+    if mode == "item":
+        mat = mat.T.tocsr()
+    n_rows, n_cols = mat.shape
+    n_batches, padded = make_batches(n_rows, 32)
+    perm = shuffled_padded_perm(np.random.RandomState(seed), n_rows, padded)
+    p = pgm.init_params(n_rows, n_cols, 16, 64, torch.Generator().manual_seed(seed), dev)
+    d_opt = torch.optim.Adam(p.d_params(), lr=1e-3, betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+    item_opt = torch.optim.Adam([p.item_emb], lr=2e-3, betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+    urm = padded_csr_from_sparse(mat, dev) if storage == "csr" else torch.from_numpy(mat.toarray()).to(dev)
+    return (p, d_opt, item_opt, pgm.user_adam_state(p.user_emb), urm,
+            torch.from_numpy(perm).to(dev, torch.int64),
+            torch.from_numpy(padded_weights(n_rows, padded)).to(dev), n_batches)
+
+
+_GANMF_KW = dict(g_lr=2e-3, m=1.5, recon_coefficient=0.2, d_reg=1e-4, g_reg=1e-4, batch_size=32,
+                 d_steps=1, g_steps=1)
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["dense_adam", "lazy_adam"])
+@pytest.mark.parametrize("storage", ["dense", "csr"])
+@pytest.mark.parametrize("mode", ["user", "item"])
+def test_ganmf_epoch_on_card_matches_cpu(cuda, mode, storage, lazy):
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        p, d_opt, item_opt, state, urm, perm, w, n = _ganmf_epoch_inputs(dev, mode, storage)
+        dl, gl = pgm.ganmf_epoch(p, d_opt, item_opt, state, urm, perm, w, n_batches=n,
+                                 lazy_user_adam=lazy, **_GANMF_KW)
+        assert dl.device == perm.device and dl.dim() == 0  # a device scalar
+        runs.append(([t.detach().cpu() for t in p.parameters()], (float(dl), float(gl)), float(state["t"])))
+    (card_p, card_l, card_t), (cpu_p, cpu_l, cpu_t) = runs
+    assert card_t == cpu_t == n
+    np.testing.assert_allclose(card_l, cpu_l, rtol=1e-4, atol=0)
+    for i, (a, b) in enumerate(zip(card_p, cpu_p)):
+        lr = 2e-3 if i < 2 else 1e-3
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 2.2 * lr * n, i
+        assert float((diff <= 0.01 * lr).float().mean()) >= 0.99, i
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["dense_adam", "lazy_adam"])
+@pytest.mark.parametrize("storage", ["dense", "csr"])
+def test_ganmf_epoch_does_not_synchronize(cuda, storage, lazy):
+    """A GANMF epoch only enqueues: no host-device synchronization in its
+    steps, its optimizers or its losses (sync debug mode "error")."""
+    p, d_opt, item_opt, state, urm, perm, w, n = _ganmf_epoch_inputs(cuda, "user", storage)
+    for compute_dtype in ("f32", "bf16"):
+        run = lambda: pgm.ganmf_epoch(p, d_opt, item_opt, state, urm, perm, w, n_batches=n,  # noqa: E731
+                                      lazy_user_adam=lazy, compute_dtype=compute_dtype, **_GANMF_KW)
+        run()  # the optimizers make their state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(x)) for x in losses)
+
+
+def test_ganmf_fit_on_card_launches_k1(cuda):
+    """A 3-epoch fit with early stopping at every epoch, on the card by
+    default: the evaluations launch K1's fused kernel, and the trained model
+    scores like its CPU copy (every metric within 1e-5)."""
+    import copy
+
+    rng = np.random.RandomState(2)
+    full = (rng.rand(300, 500) < 0.05).astype(np.float32)
+    held = rng.rand(300, 500) < 0.2
+    train, test = sps.csr_matrix(full * ~held), sps.csr_matrix(full * held)
+    for mode in ("user", "item"):
+        model = GANMF(train, mode=mode, seed=5, is_experiment=True)
+        assert model.device == cuda
+        ev = EvaluatorHoldout(test, [5, 10, 20, 50])
+        before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+        returned = model.fit(num_factors=16, emb_dim=64, epochs=3, batch_size=32, d_lr=1e-3, g_lr=1e-3,
+                             validation_evaluator=ev, freq=1, allow_worse=5)
+        assert returned == 4 and len(model.train_d_loss) == 3
+        assert scorer.LAUNCHES - scorer.WIDE_LAUNCHES >= before + 3
+        plain = GANMF(train, mode=mode, device=torch.device("cpu"))
+        plain.params = copy.deepcopy(model.params).cpu()
+        got, _ = ev.evaluateRecommender(model)
+        want, _ = EvaluatorHoldout(test, [5, 10, 20, 50], device=torch.device("cpu")).evaluateRecommender(plain)
+        for c in want:
+            for metric, value in want[c].items():
+                assert got[c][metric] == pytest.approx(value, abs=1e-5), (mode, c, metric)
+
+
+def test_run_best_on_card(cuda, tmp_path, monkeypatch):
+    """run_best trains GANMF on the card by default and writes its results."""
+    import pickle
+
+    from ganmf_tpu_torch.cli.run_best import run
+    from ganmf_tpu_torch.data.splits import make_experiment_splits, save_experiment_splits
+
+    rng = np.random.RandomState(0)
+    splits = make_experiment_splits(sps.csr_matrix((rng.rand(200, 300) < 0.1).astype(np.float32)))
+    save_experiment_splits(splits, "synth", str(tmp_path / "splits"))
+    monkeypatch.setenv("GANMF_TPU_SPLIT_DIR", str(tmp_path / "splits"))
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "experiments" / "GANMF_item_synth").mkdir(parents=True)
+    (tmp_path / "experiments" / "GANMF_item_synth" / "best_params.pkl").write_bytes(
+        pickle.dumps(dict(num_factors=8, emb_dim=32, epochs=2, batch_size=32)))
+    before = scorer.LAUNCHES
+    results = run("synth", "GANMF", train_mode="item")
+    assert scorer.LAUNCHES > before
+    out = tmp_path / "test_results" / "GANMF_item_synth"
+    assert sorted(p.name for p in out.iterdir()) == ["GANMF.zip", "test_results.pkl", "test_results.txt"]
+    assert np.isfinite(results[5]["MAP"])

@@ -191,4 +191,4 @@ def test_init_params_and_snapshot(urm_pair):
     codes = pm.autoencoder_codes()
     assert codes.shape == (50, 8) and np.isfinite(codes).all()
     with pytest.raises(NotImplementedError):
-        pm.fit()
+        pm.fit(mesh_plan=object())  # training is ported; the mesh plan is not

@@ -38,5 +38,6 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
     r = subprocess.run([sys.executable, "-c", _CHECK], capture_output=True, text=True,
                        cwd=str(REPO), env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    # every module of the slice was imported
-    assert int(r.stdout.split("IMPORTED")[1]) >= 17, r.stdout
+    # every module of the port was imported, the training slice's host
+    # copies and the run_best entry point among them
+    assert int(r.stdout.split("IMPORTED")[1]) >= 30, r.stdout
