@@ -19,17 +19,20 @@ Phases, in order; any failure exits nonzero:
    form's time beside its plain version's, the library composition's
    (matmul + masked_fill_ + topk, a yardstick the port never calls) and its
    bound (median of 20 runs), the fused kernel also at serve_all's, item
-   mode's and recommend's shapes (B=5 and B=1 at cutoff 20), with the item
-   splits its wrapper launched, the wide pair at recommend's default cutoff
-   (B=5 and B=1) and at k=100 above the fused kernel's cutoffs (B=3024,
+   mode's and recommend's shapes (B=5 and B=1 at cutoff 20) and at
+   DisGANMF's (B=1884 K=95 I=17632) and PureSVD's (B=3024 K=41 I=3706)
+   evaluation blocks, with the item splits its wrapper launched, the wide
+   pair at recommend's default cutoff (B=5 and B=1, and DisGANMF's and
+   PureSVD's B=5) and at k=100 above the fused kernel's cutoffs (B=3024,
    I=3706 and B=64, I=17632);
 5. hold K2 (exact-k row selection) against its plain PyTorch version on the
    card, bitwise, at CFGAN's mask shapes (user and item mode, and the
-   padded batches), the streamed batch shape, the widest row, with heavy
-   ties, negative keys, signed zeros and rows with k = 0 and k = I; print
-   its time through the wrapper and the launch alone, its plain version's
-   and its bound at [2048, 17632], [1884, 17632] and [17632, 1884] (median
-   of 20 runs);
+   padded batches), the streamed batch shape, the widest row, CAAE's G-phase
+   shape (negated Gumbel keys, +inf on seen items, k = int(n_nonint * S)),
+   with heavy ties, negative keys, signed zeros and rows with k = 0 and
+   k = I; print its time through the wrapper and the launch alone, its plain
+   version's and its bound at [2048, 17632], [1884, 17632], [17632, 1884]
+   and [32, 3706] (median of 20 runs);
 6. drive the serving slice at GANMF's ML-1M width (num_factors=250,
    emb_dim=992, random weights from a seed) on an ML-1M-shaped synthetic
    split, in user and then item mode: recommend (at cutoff 20 and at the
@@ -56,9 +59,37 @@ Phases, in order; any failure exits nonzero:
     same state and draws (masks bitwise, parameters within a stated bound),
     the generator output, and the evaluation and serve_all on the same
     scores;
-11. print one JSON line with every kernel's launches, error, times and bound
-    (K1's two forms as entries of their own), then the card line, then the
-    result line.
+11. train DisGANMF at the repo's tuned LastFM params (num_factors=95,
+    d_layers=1, d_nodes=996, relu, batch_size=64;
+    runs/tuning/DisGANMF_user_LastFM/best_params.pkl) for 3 epochs with early
+    stopping every epoch on the LastFM-shaped split, in user and then item
+    mode; check that those evaluations launched K1's fused kernel and that
+    recommend at the default cutoff launched its wide pair; print seconds per
+    epoch, then evaluate, recommend (cutoff 20 and default), recommend_fused
+    and serve_all; hold one epoch against the CPU (parameters within the Adam
+    bound, losses finite and within rtol 1e-4) over the epoch's first 8
+    minibatches of each phase (the model is chaotic at these params: a
+    one-ulp change moves a whole epoch past the bound), and the trained
+    model's metrics against its CPU copy (1e-5);
+12. fit PureSVD at its ML-1M best params (num_factors=41;
+    experiments/PureSVDRecommender__1M/best_params.pkl) on the ML-1M-shaped
+    split with four users made cold (empty training rows); print the fit's
+    seconds, evaluate, recommend (cutoff 20 and default, cold users empty),
+    recommend_fused and serve_all through K1; hold the fit against the CPU's
+    from the same Omega (scores within 2e-4 of their scale) and the model's
+    metrics against its CPU copy (1e-5);
+13. train CAAE at the reference's ML-1M best params (d_steps=10, g_layers=5,
+    g_units=100, num_factors=43, d_bsize=9216, lr=1e-3, beta=0.1;
+    scripts/caae_dphase_roofline.py:54-55) for 3 epochs with early stopping
+    every epoch on the ML-1M-shaped split; check that K2 drew the G phase's
+    masks every epoch; print seconds per epoch, then evaluate, recommend,
+    recommend_fused and serve_all; hold one epoch against the CPU from the
+    same state and draws (the D-phase negatives drawn from each device's
+    tables, every tensor within 1% of the distance the epoch moved it) and
+    the evaluation on the card's scores against the CPU (1e-6);
+14. print one JSON line with every kernel's launches (by path), error, times
+    and bound (K1's two forms as entries of their own), then the card line,
+    then the result line.
 
 Imports nothing of JAX. It needs the repository checkout: alone it fails.
 """
@@ -94,6 +125,35 @@ GANMF_PARAMS = dict(
     d_lr=1e-4, g_lr=0.0001653241474168571, d_reg=1e-4, recon_coefficient=0.01,
 )
 GANMF_EPOCHS = 3
+# the repo's tuned DisGANMF params, user mode on LastFM
+# (runs/tuning/DisGANMF_user_LastFM/best_params.pkl, its epochs cut to 3)
+DISGANMF_PARAMS = dict(
+    num_factors=95, d_layers=1, d_nodes=996, d_hidden_act="relu", batch_size=64,
+    d_lr=0.00379028764686026, g_lr=0.0005006548473852376, d_reg=2.5412502795903484e-05,
+    recon_coefficient=0.2507022478602805,
+)
+DISGANMF_EPOCHS = 3
+# DisGANMF's epoch, card against CPU, is held over its first minibatches: at
+# these params a one-ulp change of D's first kernel moves half the elements
+# of a whole epoch's parameters past 1% of lr, but stays under 2e-6 over 8
+# minibatches of each phase (a CPU measurement on a LastFM-shaped split with
+# 8000 items)
+DISGANMF_HELD_BATCHES = 8
+# PureSVD's ML-1M best params (experiments/PureSVDRecommender__1M/best_params.pkl)
+PURESVD_PARAMS = dict(num_factors=41)
+SVD_COLD_USERS = [3, 2048, 4100, 6039]  # training rows emptied: K1's cold mask
+# each float32 fit lies within 3.5e-5 of the largest score of the float64 fit
+# on this split (a CPU measurement), so two fits lie within 2e-4 of it
+SVD_SCORE_RTOL = 2e-4
+# the reference's CAAE best params on ML-1M (scripts/caae_dphase_roofline.py:54-55);
+# the rest at fit's defaults
+CAAE_PARAMS = dict(d_steps=10, g_layers=5, g_units=100, num_factors=43, d_bsize=9216, lr=1e-3, beta=0.1)
+CAAE_EPOCHS = 3
+CAAE_S = 0.3  # fit's default share of the non-interactions in Nu
+# one CAAE epoch, card against CPU: every tensor within this share of the
+# distance the epoch moved it (atomics reorder the D phase's duplicate-row
+# sums; a draw at the edge of a bucket or of K2's k-th key may flip)
+CAAE_MOVE_SHARE = 1e-2
 LOSS_RTOL = 1e-4  # the epoch's mean losses, card against CPU
 # the evaluation on the card and on the CPU from the same score block: only
 # the order of float32 metric sums differs
@@ -288,6 +348,12 @@ def phase_kernel(dev, card):
     Mt[11, :] = True
     Mt[11, ::100] = False  # 7 unmasked items, k = 50
     errs.append(compare_k1("exact ties + masked rows", Ut, Vt, Mt, 50))
+    # DisGANMF's evaluation block (LastFM, K=95) and PureSVD's (ML-1M, K=41)
+    Ud, Vd = factors(1884, 17632, DISGANMF_PARAMS["num_factors"])
+    Md = seen(1884, 17632, 0.00279 * 0.8)
+    errs.append(compare_k1("DisGANMF evaluation block", Ud, Vd, Md, 50))
+    Up, Vp = factors(3024, 3706, PURESVD_PARAMS["num_factors"])
+    errs.append(compare_k1("PureSVD evaluation block", Up, Vp, M, 50))
 
     fused = {}
     for name, (Ub, Vb, Mb, k) in {
@@ -296,6 +362,8 @@ def phase_kernel(dev, card):
         "item-mode evaluation, B=3706 K=250 I=6040 k=50": (Ui, Vi, Mi, 50),
         "recommend, B=5 K=250 I=3706 k=20": (U[:5].contiguous(), V, M[:5].contiguous(), 20),
         "recommend, B=1 K=250 I=3706 k=20": (U[:1].contiguous(), V, M[:1].contiguous(), 20),
+        "DisGANMF evaluation, B=1884 K=95 I=17632 k=50": (Ud, Vd, Md, 50),
+        "PureSVD evaluation, B=3024 K=41 I=3706 k=50": (Up, Vp, M, 50),
     }.items():
         t = time_k1(Ub, Vb, Mb, k)
         t["splits"] = scorer.LAST_SPLITS  # the plan of the launches just timed
@@ -319,6 +387,10 @@ def phase_kernel(dev, card):
     wide_errs.append(compare_k1("wide: LastFM item count, k=I-1", Ul[:5].contiguous(), Vl,
                                 Ml[:5].contiguous(), 17631))
     wide_errs.append(compare_k1("wide: exact ties + masked rows, k=650", Ut, Vt, Mt, 650))
+    wide_errs.append(compare_k1("wide: DisGANMF's default cutoff", Ud[:5].contiguous(), Vd,
+                                Md[:5].contiguous(), 17631))
+    wide_errs.append(compare_k1("wide: PureSVD's default cutoff", Up[:5].contiguous(), Vp,
+                                M[:5].contiguous(), 3705))
     UL, VL = factors(64, 17632, NUM_FACTORS)
     wide = {}
     for name, (Ub, Vb, Mb, k) in {
@@ -326,6 +398,8 @@ def phase_kernel(dev, card):
         "recommend, B=1 K=250 I=3706 k=3705": (U[:1].contiguous(), V, M[:1].contiguous(), 3705),
         "evaluation above cutoff 64, B=3024 K=250 I=3706 k=100": (U, V, M, 100),
         "LastFM items, B=64 K=250 I=17632 k=100": (UL, VL, Ml, 100),
+        "DisGANMF recommend, B=5 K=95 I=17632 k=17631": (Ud[:5].contiguous(), Vd, Md[:5].contiguous(), 17631),
+        "PureSVD recommend, B=5 K=41 I=3706 k=3705": (Up[:5].contiguous(), Vp, M[:5].contiguous(), 3705),
     }.items():
         t = wide[name] = time_k1(Ub, Vb, Mb, k)
         print(f"  K1 wide pair at {name}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
@@ -405,15 +479,7 @@ def phase_slice(dev, card, train, test):
         print(text, end="")
 
         presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(plain)
-        worst = 0.0
-        for c in CUTOFFS:
-            for metric, value in results[c].items():
-                ref = presults[c][metric]
-                if not (np.isfinite(value) and np.isfinite(ref)):
-                    fail(f"{mode}: {metric}@{c} is not finite ({value}, plain {ref})")
-                worst = max(worst, abs(value - ref))
-        if worst > METRIC_TOL:
-            fail(f"{mode}: a metric differs from the plain CPU path by {worst:.3e} > {METRIC_TOL}")
+        worst = worst_metric_diff(f"GANMF {mode}", results, presults, METRIC_TOL)
         print(f"  every metric at every cutoff within {worst:.3e} of the plain CPU path")
         print(f"  eval: {n_eval} users x {len(CUTOFFS)} cutoffs in {eval_s:.4f} s = "
               f"{n_eval / eval_s:.1f} users/s (second call)  [{card}]")
@@ -445,26 +511,11 @@ def phase_ganmf_train(dev, card, train, test):
     from ganmf_tpu_torch.models import GANMF, init_params
     from ganmf_tpu_torch.ops import scorer
 
-    class TimedGANMF(GANMF):
-        """Times each epoch (synchronized)."""
-
-        def _run_training_loop(self, *args, epoch_fn, **kwargs):
-            self.epoch_log = []
-
-            def timed(epoch):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                epoch_fn(epoch)
-                torch.cuda.synchronize()
-                self.epoch_log.append(time.perf_counter() - t0)
-
-            return super()._run_training_loop(*args, epoch_fn=timed, **kwargs)
-
     models = {}
     for mode in ("user", "item"):
         print(f"[7] GANMF training, {mode} mode: {GANMF_PARAMS} on {train.shape[0]} x "
               f"{train.shape[1]}, {GANMF_EPOCHS} epochs, early stopping every epoch")
-        model = TimedGANMF(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
+        model = timed(GANMF)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
         ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
         fused_before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
         returned = model.fit(**GANMF_PARAMS, epochs=GANMF_EPOCHS, validation_evaluator=ev, freq=1)
@@ -474,7 +525,7 @@ def phase_ganmf_train(dev, card, train, test):
             fail(f"{mode}: {len(model.epoch_log)} epochs ran, not {GANMF_EPOCHS} (fit returned {returned})")
         if fused < GANMF_EPOCHS:
             fail(f"{mode}: the early-stopping evaluations launched K1's fused kernel {fused} times")
-        secs = model.epoch_log
+        secs = [t for t, _ in model.epoch_log]
         print(f"  fit returned {returned}; epoch seconds {[round(t, 4) for t in secs]}; median of "
               f"epochs 2-3: {float(np.median(secs[1:])):.4f} s/epoch; K1 fused launches in the "
               f"early-stopping evaluations: {fused}  [{card}]")
@@ -556,27 +607,22 @@ def phase_ganmf_train_plain(dev, card, train, test, models):
         plain.params = copy.deepcopy(model.params).to(cpu)
         results, _ = ev.evaluateRecommender(model)
         presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(plain)
-        worst_m = 0.0
-        for c in CUTOFFS:
-            for metric, value in results[c].items():
-                ref = presults[c][metric]
-                if not (np.isfinite(value) and np.isfinite(ref)):
-                    fail(f"{mode}: trained {metric}@{c} is not finite ({value}, CPU {ref})")
-                worst_m = max(worst_m, abs(value - ref))
-        if worst_m > METRIC_TOL:
-            fail(f"{mode}: a trained model's metric differs from the CPU copy's by {worst_m:.3e}")
+        worst_m = worst_metric_diff(f"trained GANMF {mode}", results, presults, METRIC_TOL)
         print(f"  trained model: every metric at every cutoff within {worst_m:.3e} of its CPU copy "
               f"(MAP@5 {results[5]['MAP']:.6f}, NDCG@10 {results[10]['NDCG']:.6f})")
 
 
 def select_case(name, R, I, gen, ratio=CFGAN_PARAMS["zr_ratio"], density=0.00279):
-    """CFGAN-style selection input: uniform keys, +inf at the interactions,
-    k = int(n_zeros * ratio) in float32; the first row takes k = 0 and the
-    last k = I."""
+    """CFGAN-style selection input: uniform keys (or CAAE's negated Gumbel
+    keys), +inf at the interactions, k = int(n_zeros * ratio) in float32; the
+    first row takes k = 0 and the last k = I."""
     import torch
 
     keys = torch.rand(R, I, generator=gen)
-    if name == "ties":
+    if name == "gumbel":  # CAAE's G phase: -(log p + Gumbel noise)
+        p = torch.softmax(torch.randn(R, I, generator=gen), dim=1)
+        keys = -(torch.log(p.clamp(min=1e-30)) - torch.log(-torch.log(keys.clamp(min=1e-20) + 1e-20)))
+    elif name == "ties":
         keys = torch.round(keys * 8)  # heavy ties across the boundary
     elif name == "signed":
         keys = keys - 0.5  # negative keys, and both zeros in every row
@@ -637,10 +683,12 @@ def phase_select(dev, card):
         ("MAX_KERNEL_COLS", 5, 131072, "uniform", 0.00279),
         ("low-resolution keys", 512, 3706, "ties", 0.0446),
         ("negative keys and signed zeros", 512, 1000, "signed", 0.02),
+        ("CAAE G-phase keys, +inf on seen items", 32, 3706, "gumbel", 0.0446),
     ]
     worst = 0.0
     for name, R, I, kind, density in cases:
-        keys, k = (t.to(dev) for t in select_case(kind, R, I, g, density=density))
+        ratio = CAAE_S if kind == "gumbel" else CFGAN_PARAMS["zr_ratio"]
+        keys, k = (t.to(dev) for t in select_case(kind, R, I, g, ratio=ratio, density=density))
         got = smallest_k_mask_cuda(keys, k)
         want = smallest_k_mask_reference(keys, k)
         torch.cuda.synchronize()
@@ -652,8 +700,11 @@ def phase_select(dev, card):
             fail(f"K2 {name}: a row's count differs from its k")
         print(f"  {name}: [{R}, {I}] {kind}, bitwise equal, every row count = k")
     times = {}
-    for R, I in ((2048, 17632), (1884, 17632), (17632, 1884)):
-        keys, k = (t.to(dev) for t in select_case("uniform", R, I, g))
+    for R, I, kind, ratio, density in ((2048, 17632, "uniform", CFGAN_PARAMS["zr_ratio"], 0.00279),
+                                       (1884, 17632, "uniform", CFGAN_PARAMS["zr_ratio"], 0.00279),
+                                       (17632, 1884, "uniform", CFGAN_PARAMS["zr_ratio"], 0.00279),
+                                       (32, 3706, "gumbel", CAAE_S, 0.0446)):
+        keys, k = (t.to(dev) for t in select_case(kind, R, I, g, ratio=ratio, density=density))
         t = times[f"[{R}, {I}]"] = time_k2(keys, k)
         print(f"  K2 at [{R}, {I}]: {t['ms']:.4f} ms through the wrapper, {t['launch_ms']:.4f} ms "
               f"the launch alone; plain (stable int64 sort + rank scatter) {t['plain_ms']:.4f} ms; "
@@ -669,29 +720,13 @@ def phase_cfgan(dev, card, train, test):
 
     from ganmf_tpu_torch.eval import EvaluatorHoldout
     from ganmf_tpu_torch.models import CFGAN
-    from ganmf_tpu_torch.ops import select
-
-    class TimedCFGAN(CFGAN):
-        """Times each epoch (synchronized) and counts its K2 launches."""
-
-        def _run_training_loop(self, *args, epoch_fn, **kwargs):
-            self.epoch_log = []
-
-            def timed(epoch):
-                torch.cuda.synchronize()
-                before, t0 = select.LAUNCHES, time.perf_counter()
-                epoch_fn(epoch)
-                torch.cuda.synchronize()
-                self.epoch_log.append((time.perf_counter() - t0, select.LAUNCHES - before))
-
-            return super()._run_training_loop(*args, epoch_fn=timed, **kwargs)
 
     models = {}
     for mode in ("user", "item"):
         print(f"[9] CFGAN {mode} mode: g_nodes={CFGAN_PARAMS['g_nodes']} d_nodes={CFGAN_PARAMS['d_nodes']} "
               f"d_layers={CFGAN_PARAMS['d_layers']} on {train.shape[0]} x {train.shape[1]}, "
               f"{CFGAN_EPOCHS} epochs")
-        model = TimedCFGAN(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
+        model = timed(CFGAN)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
         ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
         returned = model.fit(**CFGAN_PARAMS, epochs=CFGAN_EPOCHS, validation_evaluator=ev,
                              freq=1, allow_worse=5)
@@ -828,6 +863,390 @@ def phase_cfgan_plain(dev, card, train, test, models):
               f"serve_all ids equal")
 
 
+def timed(model_class):
+    """A subclass of ``model_class`` whose fit logs each epoch's seconds
+    (synchronized) and K2 launches in ``epoch_log``."""
+    import torch
+
+    from ganmf_tpu_torch.ops import select
+
+    class Timed(model_class):
+        def _run_training_loop(self, *args, epoch_fn, **kwargs):
+            self.epoch_log = []
+
+            def run(epoch):
+                torch.cuda.synchronize()
+                before, t0 = select.LAUNCHES, time.perf_counter()
+                epoch_fn(epoch)
+                torch.cuda.synchronize()
+                self.epoch_log.append((time.perf_counter() - t0, select.LAUNCHES - before))
+
+            return super()._run_training_loop(*args, epoch_fn=run, **kwargs)
+
+    return Timed
+
+
+def check_trained(name, params, init):
+    """Every trained tensor finite and moved from its initial value."""
+    import torch
+
+    for i, (t, t0) in enumerate(zip(params.parameters(), init.parameters())):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{name}: parameter {i} is not finite after training")
+        if not bool((t != t0).any()):
+            fail(f"{name}: parameter {i} did not move in training")
+
+
+def worst_metric_diff(name, results, presults, tol, nan_ok=()):
+    """The largest difference between two evaluations; fails past ``tol``
+    or on a metric that is not finite (those of ``nan_ok`` may be NaN in
+    both)."""
+    worst = 0.0
+    for c in CUTOFFS:
+        for metric, value in results[c].items():
+            ref = presults[c][metric]
+            if metric in nan_ok and np.isnan(value) and np.isnan(ref):
+                continue
+            if not (np.isfinite(value) and np.isfinite(ref)):
+                fail(f"{name}: {metric}@{c} is not finite ({value}, CPU {ref})")
+            worst = max(worst, abs(value - ref))
+    if worst > tol:
+        fail(f"{name}: a metric differs from the CPU's by {worst:.3e} > {tol}")
+    return worst
+
+
+def serve_checks(name, model, ev, train, card, cold=()):
+    """Evaluate, recommend (cutoff 20 and the default), recommend_fused and
+    serve_all on a trained model; cold users get empty lists and -inf
+    scores. A factor model must launch K1's wide pair at the default
+    cutoff. Every metric must be finite, but RMSE, which is NaN when an
+    evaluated user has no finite score (a cold user), as in the JAX
+    evaluator. Returns the evaluation."""
+    import torch
+
+    from ganmf_tpu_torch.ops import scorer
+
+    t0 = time.perf_counter()
+    results, text = ev.evaluateRecommender(model)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    for c in CUTOFFS:
+        if not all(np.isfinite(v) for m, v in results[c].items() if not (cold and m == "RMSE")):
+            fail(f"{name}: a metric at cutoff {c} is not finite")
+    print(text, end="")
+    n_eval = len(ev.usersToEvaluate)
+    print(f"  eval: {n_eval} users x {len(CUTOFFS)} cutoffs in {eval_s:.4f} s = {n_eval / eval_s:.1f} "
+          f"users/s  [{card}]")
+
+    users = np.arange(5)
+    recs = model.recommend(users, cutoff=20)
+    if model.recommend_fused(users, cutoff=20) != recs:
+        fail(f"{name}: recommend_fused's lists differ from recommend's")
+    before = scorer.WIDE_LAUNCHES
+    full = model.recommend(users)  # the default cutoff, n_items - 1
+    if model._ranks_with_k1() and scorer.WIDE_LAUNCHES != before + 1:
+        fail(f"{name}: recommend at the default cutoff did not launch K1's wide pair")
+    seen = np.ediff1d(train.indptr)
+    for u, (short, lst) in enumerate(zip(recs, full)):
+        want = 0 if u in cold else train.shape[1] - seen[u]
+        if len(lst) != want or len(set(lst)) != len(lst) or len(short) != min(20, want):
+            fail(f"{name}: recommend gave {len(short)} / {len(lst)} items for user {u}, not {want}")
+    t0 = time.perf_counter()
+    idx, vals = model.serve_all(cutoff=20)
+    serve_s = time.perf_counter() - t0
+    warm = np.setdiff1d(np.arange(train.shape[0]), cold)
+    if idx.shape != (train.shape[0], 20) or not np.isfinite(vals[warm]).all():
+        fail(f"{name}: serve_all returned {idx.shape} or non-finite scores for warm users")
+    if len(cold) and not np.isneginf(vals[list(cold)]).all():
+        fail(f"{name}: serve_all scored a cold user")
+    print(f"  recommend(users 0-4): cutoff 20 and recommend_fused equal, default cutoff "
+          f"{[len(r) for r in full]} items; serve_all(cutoff=20): {idx.shape[0]} users in {serve_s:.4f} s")
+    return results
+
+
+def phase_disganmf(dev, card, train, test):
+    """DisGANMF trained on the card in both modes through fit() with early
+    stopping, then evaluated and served. Returns the models."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import DisGANMF
+    from ganmf_tpu_torch.models import disganmf as pdg
+    from ganmf_tpu_torch.ops import scorer
+
+    p = DISGANMF_PARAMS
+    models = {}
+    for mode in ("user", "item"):
+        print(f"[11] DisGANMF training, {mode} mode: {p} on {train.shape[0]} x {train.shape[1]}, "
+              f"{DISGANMF_EPOCHS} epochs, early stopping every epoch")
+        model = timed(DisGANMF)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
+        ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+        fused_before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+        returned = model.fit(**p, epochs=DISGANMF_EPOCHS, validation_evaluator=ev, freq=1)
+        torch.cuda.synchronize()
+        fused = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - fused_before
+        if len(model.epoch_log) != DISGANMF_EPOCHS:
+            fail(f"DisGANMF {mode}: {len(model.epoch_log)} epochs ran (fit returned {returned})")
+        if fused < DISGANMF_EPOCHS:
+            fail(f"DisGANMF {mode}: the early-stopping evaluations launched K1's fused kernel {fused} times")
+        secs = [t for t, _ in model.epoch_log]
+        print(f"  fit returned {returned}; epoch seconds {[round(t, 4) for t in secs]}; median of epochs "
+              f"2-3: {float(np.median(secs[1:])):.4f} s/epoch; K1 fused launches in the early-stopping "
+              f"evaluations: {fused}  [{card}]")
+        n_rows, n_cols = model._train_matrix().shape
+        check_trained(f"DisGANMF {mode}", model.params, pdg.init_params(
+            n_rows, n_cols, p["num_factors"], p["d_layers"], p["d_nodes"], torch.Generator().manual_seed(SEED), dev))
+        serve_checks(f"DisGANMF {mode}", model, ev, train, card)
+        models[mode] = (model, ev)
+    return models
+
+
+def phase_disganmf_plain(dev, card, train, test, models):
+    """The first DISGANMF_HELD_BATCHES minibatches of each phase of one
+    DisGANMF epoch on the card against the CPU from the same state and
+    permutation, and the trained models' evaluations against their CPU
+    copies."""
+    import copy
+
+    import torch
+
+    from ganmf_tpu_torch.data.device import dense_from_sparse
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import DisGANMF
+    from ganmf_tpu_torch.models import disganmf as pdg
+    from ganmf_tpu_torch.models import ganmf as pgm
+    from ganmf_tpu_torch.models.gan_base import make_batches, padded_weights, shuffled_padded_perm
+
+    cpu = torch.device("cpu")
+    p = DISGANMF_PARAMS
+    bs = p["batch_size"]
+    for mode in ("user", "item"):
+        print(f"[11] DisGANMF {mode} mode against the plain path on the CPU")
+        model, ev = models[mode]
+        mat = model._train_matrix()
+        n_rows, n_cols = mat.shape
+        n_batches, padded = make_batches(n_rows, bs)
+        n = min(DISGANMF_HELD_BATCHES, n_batches)
+        perm = torch.from_numpy(shuffled_padded_perm(np.random.RandomState(SEED), n_rows, padded))
+        w = torch.from_numpy(padded_weights(n_rows, padded))
+        runs = []
+        for d in (dev, cpu):
+            params = pdg.init_params(n_rows, n_cols, p["num_factors"], p["d_layers"], p["d_nodes"],
+                                     torch.Generator().manual_seed(SEED), d)
+            d_opt = torch.optim.Adam(params.d_params(), lr=p["d_lr"], betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+            item_opt = torch.optim.Adam([params.item_emb], lr=p["g_lr"], betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+            t0 = time.perf_counter()
+            dl, gl = pdg.disganmf_epoch(
+                params, d_opt, item_opt, pgm.user_adam_state(params.user_emb), dense_from_sparse(mat, d),
+                perm.to(d, torch.int64), w.to(d), g_lr=p["g_lr"], recon_coefficient=p["recon_coefficient"],
+                d_reg=p["d_reg"], g_reg=0.0, n_batches=n, batch_size=bs, d_steps=1, g_steps=1,
+                d_hidden_act=p["d_hidden_act"], lazy_user_adam=mode == "user")
+            losses = (float(dl), float(gl))  # waits for the epoch
+            runs.append(([t.detach().cpu() for t in params.parameters()], losses, time.perf_counter() - t0))
+        (card_p, card_losses, card_s), (cpu_p, cpu_losses, cpu_s) = runs
+        if not np.isfinite(card_losses + cpu_losses).all():
+            fail(f"DisGANMF {mode}: a loss is not finite: card {card_losses}, CPU {cpu_losses}")
+        worst = adam_bound_check(f"DisGANMF {mode}", card_p, cpu_p,
+                                 [(n, p["g_lr"])] * 2 + [(n, p["d_lr"])] * (len(card_p) - 2))
+        if not np.allclose(card_losses, cpu_losses, rtol=LOSS_RTOL, atol=0):
+            fail(f"DisGANMF {mode}: the epoch's mean losses {card_losses} differ from the CPU's {cpu_losses}")
+        print(f"  the epoch's first {n} minibatches of each phase from the same state and permutation: "
+              f"largest parameter difference {worst:.3e} (bounds G {2.2 * p['g_lr'] * n:.3e}, D "
+              f"{2.2 * p['d_lr'] * n:.3e}); losses card {card_losses} CPU {cpu_losses}; card {card_s:.4f} s "
+              f"(first call), CPU {cpu_s:.4f} s")
+        plain = DisGANMF(train, mode=mode, seed=SEED, is_experiment=True, device=cpu)
+        plain.params = copy.deepcopy(model.params).to(cpu)
+        results, _ = ev.evaluateRecommender(model)
+        presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(plain)
+        worst_m = worst_metric_diff(f"DisGANMF {mode}", results, presults, METRIC_TOL)
+        print(f"  trained model: every metric at every cutoff within {worst_m:.3e} of its CPU copy "
+              f"(MAP@5 {results[5]['MAP']:.6f}, NDCG@10 {results[10]['NDCG']:.6f})")
+
+
+def ml1m_cold_split():
+    """The ML-1M-shaped split with the training rows of SVD_COLD_USERS
+    emptied (their test rows kept)."""
+    import scipy.sparse as sps
+
+    train, test = ml1m_split()
+    train = train.tolil()
+    train[SVD_COLD_USERS, :] = 0
+    train = sps.csr_matrix(train)
+    train.eliminate_zeros()
+    return train, test
+
+
+def phase_puresvd(dev, card, train, test):
+    """PureSVD fitted on the card, evaluated and served through K1."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import PureSVDRecommender
+
+    print(f"[12] PureSVD: {PURESVD_PARAMS} on {train.shape[0]} x {train.shape[1]} with cold users "
+          f"{SVD_COLD_USERS}")
+    model = PureSVDRecommender(train, device=dev)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(**PURESVD_PARAMS)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    U, V, cold = model._factors_device()
+    if not (bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())):
+        fail("PureSVD: the factors are not finite")
+    if sorted(torch.nonzero(cold).flatten().tolist()) != SVD_COLD_USERS:
+        fail("PureSVD: the cold users are not the ones emptied")
+    print(f"  fit: {secs[0]:.4f} s (first call), {secs[1]:.4f} s (second); U {tuple(U.shape)}, "
+          f"V {tuple(V.shape)}  [{card}]")
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    serve_checks("PureSVD", model, ev, train, card, cold=SVD_COLD_USERS)
+    return model, ev
+
+
+def phase_puresvd_plain(dev, card, train, test, model, ev):
+    """PureSVD's fit on the card against the CPU's from the same Omega, and
+    the card's factors evaluated on the card and on the CPU."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import PureSVDRecommender
+
+    cpu = torch.device("cpu")
+    print("[12] PureSVD against the plain path on the CPU")
+    plain = PureSVDRecommender(train, device=cpu)
+    t0 = time.perf_counter()
+    plain.fit(**PURESVD_PARAMS)
+    cpu_s = time.perf_counter() - t0
+    users = np.setdiff1d(np.arange(train.shape[0]), SVD_COLD_USERS)
+    got = model.score_device(torch.from_numpy(users).to(dev)).cpu()
+    want = plain.score_device(torch.from_numpy(users))
+    diff, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not diff <= SVD_SCORE_RTOL * scale:
+        fail(f"PureSVD: the card's scores differ from the CPU fit's by {diff:.3e} (scale {scale:.3e})")
+    print(f"  fit from the same Omega: scores of the {len(users)} warm users within {diff:.3e} of the CPU "
+          f"fit's (scale {scale:.3e}, bound {SVD_SCORE_RTOL * scale:.3e}); CPU fit {cpu_s:.4f} s")
+    copy = PureSVDRecommender(train, device=cpu)
+    copy.USER_factors, copy.ITEM_factors = model.USER_factors, model.ITEM_factors
+    results, _ = ev.evaluateRecommender(model)
+    presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(copy)
+    worst = worst_metric_diff("PureSVD", results, presults, METRIC_TOL, nan_ok=("RMSE",))
+    print(f"  the card's factors: every metric at every cutoff within {worst:.3e} on the card and on the "
+          f"CPU (MAP@5 {results[5]['MAP']:.6f}, NDCG@10 {results[10]['NDCG']:.6f})")
+
+
+def phase_caae(dev, card, train, test):
+    """CAAE trained on the card through fit() with early stopping, then
+    evaluated and served."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import CAAE
+    from ganmf_tpu_torch.models import caae as pca
+
+    print(f"[13] CAAE training: {CAAE_PARAMS} on {train.shape[0]} x {train.shape[1]}, {CAAE_EPOCHS} epochs, "
+          f"early stopping every epoch")
+    model = timed(CAAE)(train, seed=SEED, is_experiment=True, device=dev)
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    returned = model.fit(**CAAE_PARAMS, epochs=CAAE_EPOCHS, validation_evaluator=ev, freq=1)
+    torch.cuda.synchronize()
+    if len(model.epoch_log) != CAAE_EPOCHS:
+        fail(f"CAAE: {len(model.epoch_log)} epochs ran, not {CAAE_EPOCHS} (fit returned {returned})")
+    for e, (_, n) in enumerate(model.epoch_log, 1):
+        if n < 1:
+            fail(f"CAAE: epoch {e} did not launch K2")
+    secs = [t for t, _ in model.epoch_log]
+    print(f"  fit returned {returned}; epoch seconds {[round(t, 4) for t in secs]}, K2 launches per epoch "
+          f"{[n for _, n in model.epoch_log]}; median of epochs 2-3: {float(np.median(secs[1:])):.4f} "
+          f"s/epoch  [{card}]")
+    g_dims = [train.shape[1]] + [CAAE_PARAMS["g_units"]] * CAAE_PARAMS["g_layers"] + [train.shape[1]]
+    check_trained("CAAE", model.params, pca.init_params(
+        *train.shape, CAAE_PARAMS["num_factors"], g_dims, torch.Generator().manual_seed(SEED), dev))
+    serve_checks("CAAE", model, ev, train, card)
+    return model, ev
+
+
+def phase_caae_plain(dev, card, train, test, model, ev):
+    """One CAAE epoch on the card against the CPU from the same state and
+    draws, and the evaluation on the card's scores on both."""
+    import torch
+
+    from ganmf_tpu_torch.data.device import dense_from_sparse
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import CAAE
+    from ganmf_tpu_torch.models import caae as pca
+
+    cpu = torch.device("cpu")
+    p = CAAE_PARAMS
+    print("[13] CAAE against the plain path on the CPU")
+    n_users, n_items = train.shape
+    coo = train.tocoo()
+    n_chunks = int(np.ceil(coo.nnz / p["d_bsize"]))
+    pad = n_chunks * p["d_bsize"] - coo.nnz
+    inter = [torch.from_numpy(np.concatenate([a, np.zeros(pad, a.dtype)]).astype(np.int64)) for a in (coo.row, coo.col)]
+    weight = torch.from_numpy(np.concatenate([np.ones(coo.nnz, np.float32), np.zeros(pad, np.float32)]))
+    n_samples = max(1, 2 * int(np.median(np.ediff1d(train.indptr))))
+    n_steps = p["d_steps"] * n_chunks
+    draws = pca.draw_epoch(torch.Generator().manual_seed(SEED + 2), cpu, len(weight), n_users, n_items,
+                           n_steps * p["d_bsize"], 1, 1, 32, n_samples)
+    g_dims = [n_items] + [p["g_units"]] * p["g_layers"] + [n_items]
+    runs = []
+    for d in (dev, cpu):
+        params = pca.init_params(n_users, n_items, p["num_factors"], g_dims, torch.Generator().manual_seed(SEED), d)
+        dd = pca.CAAEDraws(*(t.to(d) for t in draws))
+        urm = dense_from_sparse(train, d)
+        users, items, w = (t.to(d) for t in (*inter, weight))
+        with torch.no_grad():  # the D-phase negatives from this device's tables
+            tables = [pca.bucketed_cdf_tables(torch.softmax(pca._autoencode(net, urm), dim=1))
+                      for net in (params.G, params.Gpr)]
+            rows = users.index_select(0, dd.perm).reshape(n_chunks, -1).repeat(p["d_steps"], 1).reshape(-1)
+            negs = torch.cat(pca.d_phase_negatives(*tables, rows, dd.d_uniforms, n_items)).cpu()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = pca.caae_epoch(params, urm, users, items, w, dd, lr=p["lr"], beta=p["beta"], lmbda=0.5, S=CAAE_S,
+                                d_bsize=p["d_bsize"], n_d_chunks=n_chunks, d_steps=p["d_steps"], g_steps=1,
+                                gpr_steps=1, m_batch=32, n_samples=n_samples)
+        losses = [float(x) for x in losses]  # waits for the epoch
+        runs.append((negs, [t.detach().cpu() for t in params.parameters()], losses, time.perf_counter() - t0))
+    (card_neg, card_p, card_l, card_s), (cpu_neg, cpu_p, cpu_l, cpu_s) = runs
+    flips = int((card_neg != cpu_neg).sum())
+    if flips > 1e-3 * card_neg.numel():
+        fail(f"CAAE: {flips} of {card_neg.numel()} D-phase negatives differ between the card and the CPU")
+    if not np.isfinite(card_l + cpu_l).all():
+        fail(f"CAAE: a loss is not finite: card {card_l}, CPU {cpu_l}")
+    init = pca.init_params(n_users, n_items, p["num_factors"], g_dims, torch.Generator().manual_seed(SEED), cpu)
+    worst_share = 0.0
+    for i, (a, b, t0) in enumerate(zip(card_p, cpu_p, init.parameters())):
+        moved = float((b - t0.detach()).abs().max())
+        diff = float((a - b).abs().max())
+        if not (moved > 0 and diff <= CAAE_MOVE_SHARE * moved):
+            fail(f"CAAE: parameter {i} differs by {diff:.3e} from the CPU's, which moved {moved:.3e}")
+        worst_share = max(worst_share, diff / moved)
+    print(f"  one epoch ({2 * n_steps} D updates, 1 G and 1 G' step) from the same state and draws: "
+          f"{flips} of {card_neg.numel()} D-phase negatives differ; every tensor within {worst_share:.3e} of "
+          f"the distance it moved (bound {CAAE_MOVE_SHARE}); losses (D, G, G') card {card_l} CPU {cpu_l}; "
+          f"card {card_s:.4f} s, CPU {cpu_s:.4f} s")
+
+    plain = CAAE(train, seed=SEED, is_experiment=True, device=cpu)
+    plain.params = pca.params_from_jax([t.detach().cpu().numpy() for t in model.params.parameters()], cpu)
+    card_scores = model.score_device(torch.arange(n_users, device=dev)).cpu()
+    plain_scores = plain.score_device(torch.arange(n_users))
+    if not torch.allclose(card_scores, plain_scores, rtol=GEN_RTOL, atol=GEN_ATOL):
+        fail(f"CAAE: the card's scores differ from the CPU's beyond rtol {GEN_RTOL}")
+    plain._score_cache = card_scores  # the card's scores: no BLAS rounding in what follows
+    results, _ = ev.evaluateRecommender(model)
+    presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(plain)
+    worst = worst_metric_diff("CAAE", results, presults, SAME_SCORES_TOL)
+    idx, _ = model.serve_all(cutoff=20)
+    pidx, _ = plain.serve_all(cutoff=20)
+    if not np.array_equal(idx, pidx):
+        fail("CAAE: serve_all ids differ from the CPU's on the same scores")
+    print(f"  scores within rtol {GEN_RTOL} of the CPU's; on the card's scores every metric within "
+          f"{worst:.3e} of the CPU path, serve_all ids equal")
+
+
 def main():
     import torch
 
@@ -843,6 +1262,11 @@ def main():
     from ganmf_tpu_torch.utils.device import cuda_device
 
     dev = cuda_device()
+    start = time.perf_counter()
+
+    def elapsed(done):
+        print(f"  [{time.perf_counter() - start:.1f} s since the build began: {done}]")
+
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[3] built and loaded {_build.library_path().name} in {time.perf_counter() - t0:.2f} s")
@@ -850,6 +1274,7 @@ def main():
 
     k1_err, fused, wide_err, wide = phase_kernel(dev, card)
     k2_err, k2_times = phase_select(dev, card)
+    elapsed("the kernel phases")
 
     train, test = ml1m_split()
     # count only the main path's launches
@@ -872,6 +1297,7 @@ def main():
         fail(f"GANMF's training path launched K1's fused kernel {train_fused} times and its wide "
              f"pair {train_wide} times")
     phase_ganmf_train_plain(dev, card, train, test, ganmf_models)
+    elapsed("GANMF")
     del ganmf_models
 
     train, test = lastfm_split()
@@ -881,22 +1307,65 @@ def main():
     if k2_launches < 2 * CFGAN_EPOCHS:
         fail(f"the CFGAN path launched K2 {k2_launches} times, under once per epoch")
     phase_cfgan_plain(dev, card, train, test, models)
+    elapsed("CFGAN")
+    del models
+
+    # DisGANMF's training path on the LastFM-shaped split, its counts read alone
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    dis_models = phase_disganmf(dev, card, train, test)
+    dis_wide = scorer.WIDE_LAUNCHES
+    dis_fused = scorer.LAUNCHES - dis_wide
+    dis_merge = scorer.MERGE_LAUNCHES
+    if dis_fused == 0 or dis_wide == 0:
+        fail(f"DisGANMF's training path launched K1's fused kernel {dis_fused} times and its wide pair "
+             f"{dis_wide} times")
+    phase_disganmf_plain(dev, card, train, test, dis_models)
+    elapsed("DisGANMF")
+    del dis_models
+
+    # PureSVD's serving path on the ML-1M-shaped split with cold users
+    train, test = ml1m_cold_split()
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    svd, svd_ev = phase_puresvd(dev, card, train, test)
+    svd_wide = scorer.WIDE_LAUNCHES
+    svd_fused = scorer.LAUNCHES - svd_wide
+    svd_merge = scorer.MERGE_LAUNCHES
+    if svd_fused == 0 or svd_wide == 0:
+        fail(f"PureSVD's serving path launched K1's fused kernel {svd_fused} times and its wide pair "
+             f"{svd_wide} times")
+    phase_puresvd_plain(dev, card, train, test, svd, svd_ev)
+    elapsed("PureSVD")
+    del svd
+
+    # CAAE's training path on the ML-1M-shaped split, its K2 count read alone
+    train, test = ml1m_split()
+    select.LAUNCHES = 0
+    caae, caae_ev = phase_caae(dev, card, train, test)
+    caae_k2 = select.LAUNCHES
+    if caae_k2 < CAAE_EPOCHS:
+        fail(f"the CAAE path launched K2 {caae_k2} times, under once per epoch")
+    phase_caae_plain(dev, card, train, test, caae, caae_ev)
+    elapsed("CAAE")
 
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide
     k2_shape, *k2_others = k2_times
-    # K1 carries two GANMF paths, serving (phase 6) and training (phase 7, its
-    # early-stopping evaluations and recommend on the trained model): its
-    # launches are the sum of the two runs, each counted alone
+    # each path's counts were set to 0 just before it and read just after; a
+    # kernel's launches are the sum over the paths it carries
+    fused_by_path = {"GANMF serving": k1_launches, "GANMF training": train_fused,
+                     "DisGANMF training": dis_fused, "PureSVD serving": svd_fused}
+    wide_by_path = {"GANMF serving": wide_launches, "GANMF training": train_wide,
+                    "DisGANMF training": dis_wide, "PureSVD serving": svd_wide}
+    k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2}
     print(json.dumps({"kernels": [
         {
             "name": "masked_topk_scores (K1, fused kernel and merge pass, k <= 64)",
             "route": "cuda",
             "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
-            "launches": k1_launches + train_fused,
-            "launches_by_path": {"GANMF serving": k1_launches, "GANMF training": train_fused},
-            "merge_launches": merge_launches + train_merge,
+            "launches": sum(fused_by_path.values()),
+            "launches_by_path": fused_by_path,
+            "merge_launches": merge_launches + train_merge + dis_merge + svd_merge,
             "max_abs_err": k1_err,
             "shape": eval_shape,
             **fused[eval_shape],
@@ -907,8 +1376,8 @@ def main():
             "route": "cuda",
             "source": "ganmf_tpu_torch/csrc/masked_topk.cu",
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
-            "launches": wide_launches + train_wide,
-            "launches_by_path": {"GANMF serving": wide_launches, "GANMF training": train_wide},
+            "launches": sum(wide_by_path.values()),
+            "launches_by_path": wide_by_path,
             "max_abs_err": wide_err,
             "shape": wide_shape,
             **wide[wide_shape],
@@ -919,7 +1388,8 @@ def main():
             "route": "cuda",
             "source": "ganmf_tpu_torch/csrc/select.cu",
             "replaces": "ganmf_tpu/ops/pallas_select.py:39",
-            "launches": k2_launches,
+            "launches": sum(k2_by_path.values()),
+            "launches_by_path": k2_by_path,
             "max_abs_err": k2_err,
             "shape": k2_shape,
             **k2_times[k2_shape],

@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 
 from ganmf_tpu_torch.data.splits import SplitSet, load_reference_splits, make_experiment_splits, save_experiment_splits
-from ganmf_tpu_torch.models import CFGAN, GANMF
+from ganmf_tpu_torch.models import CAAE, CFGAN, GANMF, DisGANMF, PureSVDRecommender
 from ganmf_tpu_torch.utils.seeding import set_seed
 
 SEED = 1337
@@ -32,8 +32,11 @@ ALL_RECOMMENDERS = [
 SIMILARITIES = ["cosine", "jaccard", "tversky", "dice", "euclidean", "asymmetric"]
 
 DICT_REC_CLASSES = {
+    "PureSVD": PureSVDRecommender,
     "CFGAN": CFGAN,
+    "CAAE": CAAE,
     "GANMF": GANMF,
+    "DisGANMF": DisGANMF,
 }
 
 

@@ -25,12 +25,14 @@ import torch
 from ganmf_tpu_torch.cli.experiment import (
     ALL_DATASETS,
     ALL_RECOMMENDERS,
+    DICT_REC_CLASSES,
     SEED,
     SIMILARITIES,
     load_urms,
     rec_class,
 )
 from ganmf_tpu_torch.eval import EvaluatorHoldout
+from ganmf_tpu_torch.models import GAN_MODELS
 from ganmf_tpu_torch.utils.device import as_device
 from ganmf_tpu_torch.utils.seeding import set_seed
 
@@ -74,11 +76,14 @@ def run(
     splits = load_urms(dataset)
     evaluator = EvaluatorHoldout(splits.test, [5, 10, 20, 50], exclude_seen=True, device=device)
 
-    # every ported model is adversarial (models.GAN_MODELS)
     t0 = time.time()
-    model = model_class(splits.train, mode=train_mode or "user", seed=seed, is_experiment=True,
-                        device=device)
-    model.fit(validation_evaluator=None, **best_params)
+    if model_class in GAN_MODELS:
+        model = model_class(splits.train, mode=train_mode or "user", seed=seed, is_experiment=True,
+                            device=device)
+        model.fit(validation_evaluator=None, **best_params)
+    else:
+        model = model_class(splits.train, device=device)
+        model.fit(**best_params)
     if device.type == "cuda":
         torch.cuda.synchronize(device)  # the training time includes the device's work
     train_seconds = time.time() - t0
@@ -105,7 +110,8 @@ USAGE = (
     "usage: ganmf-torch-run-best <dataset> <rec> [--user|--item] [<similarity>]"
     " [--force] [--bp DIR]\n"
     "  datasets:     " + " ".join(sorted(ALL_DATASETS)) + "\n"
-    "  recommenders: " + " ".join(sorted(ALL_RECOMMENDERS)) + " (ported: CFGAN GANMF)\n"
+    "  recommenders: " + " ".join(sorted(ALL_RECOMMENDERS))
+    + " (ported: " + " ".join(sorted(DICT_REC_CLASSES)) + ")\n"
     "  similarities: " + " ".join(sorted(SIMILARITIES))
 )
 

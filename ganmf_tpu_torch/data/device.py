@@ -82,6 +82,20 @@ def padded_csr_from_sparse(mat: sps.spmatrix, device: torch.device) -> PaddedCSR
     return PaddedCSR(idx.view(R, L), val.view(R, L))
 
 
+def dense_bf16_from_padded(idx: torch.Tensor, val: torch.Tensor, n_cols: int, chunk: int) -> torch.Tensor:
+    """The padded-CSR rows as a dense bfloat16 [R, n_cols] matrix, built
+    ``chunk`` rows at a time (ganmf_tpu/data/device.py:200-217): half the
+    bytes of float32, and exact when every stored value is bf16-representable
+    (binary data always is). R must be a multiple of ``chunk``."""
+    R = idx.shape[0]
+    out = torch.empty((R, n_cols), dtype=torch.bfloat16, device=idx.device)
+    for lo in range(0, R, chunk):
+        block = torch.zeros((chunk, n_cols + 1), dtype=torch.float32, device=idx.device)
+        block.scatter_add_(1, idx[lo : lo + chunk], val[lo : lo + chunk].float())
+        out[lo : lo + chunk] = block[:, :n_cols]
+    return out
+
+
 def padded_rows_dense(
     pc: PaddedCSR, uids: torch.Tensor, n_cols: int, max_len: int = None
 ) -> torch.Tensor:

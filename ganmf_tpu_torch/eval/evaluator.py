@@ -21,6 +21,11 @@ does (ganmf_tpu/eval/evaluator.py:231-266):
 
 The dense route is not a fallback: a K1 failure raises.
 
+The constructor takes the JAX package's positional order (URM_test,
+cutoff_list, minRatingsPerUser, exclude_seen, diversity_object, ignore_items,
+ignore_users, mesh_plan). ``diversity_object`` and ``mesh_plan`` are not
+ported and raise when given.
+
 Not ported: the mesh plan, the diversity object,
 ``EvaluatorNegativeItemSample``, the similarity-family fused block, and the
 two RESOURCE_EXHAUSTED degrades of the JAX evaluator. An out-of-memory error
@@ -92,11 +97,17 @@ class EvaluatorHoldout:
         cutoff_list: Sequence[int],
         minRatingsPerUser: int = 1,
         exclude_seen: bool = True,
+        diversity_object=None,
         ignore_items=None,
         ignore_users=None,
+        mesh_plan=None,
         *,
         device: Optional[torch.device] = None,
     ):
+        if diversity_object is not None:
+            raise NotImplementedError("diversity_object is not ported")
+        if mesh_plan is not None:
+            raise NotImplementedError("mesh_plan is not ported")
         # the card unless the caller asks for the CPU; raises without a card
         self.device = as_device(device)
         if isinstance(URM_test, list):

@@ -14,9 +14,14 @@ Port of ganmf_tpu/models/base.py:25-62,174-491. A recommender holds a CSR
   the JAX package's route for every model without factors.
 
 Both give the lists of the JAX ``recommend`` and ``serve_all`` (same scores,
-ties to the lowest item id).
+ties to the lowest item id). ``recommend_fused`` (:372-399, :642-671) ranks a
+factor model through K1 and every other model through ``recommend``: the
+lists are ``recommend``'s either way.
 
-The matrix-factorization base class (:514-686) is not ported yet.
+``MatrixFactorizationRecommender`` (:514-686) scores U @ V^T from factor
+stores that hold host arrays or device tensors, folds the optional bias terms
+into the factors and masks cold users. Its ``"itemKNN"`` cold-user fallback
+needs the similarity family, which is not ported yet, and raises.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ganmf_tpu_torch.data.device import DeviceURM, padded_csr_from_sparse, padded_rows_mask
+from ganmf_tpu_torch.data.device import DeviceURM, PaddedCSR, padded_csr_from_sparse, padded_rows_mask
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
 from ganmf_tpu_torch.ops.topk import topk_lowest_index
 from ganmf_tpu_torch.utils.dataio import DataIO
@@ -91,15 +96,27 @@ class Recommender:
             return True
         return 4 * self.n_users * self.n_items > self._DENSE_URM_BYTE_LIMIT
 
+    def _padded_urm(self) -> PaddedCSR:
+        """The training URM's padded-CSR planes on the device, built once."""
+        if self._seen_padded is None:
+            self._seen_padded = padded_csr_from_sparse(self.URM_train, self.device)
+        return self._seen_padded
+
     def device_seen_rows(self, uids: torch.Tensor, max_len: int = None) -> torch.Tensor:
         """[B, I] bool seen-mask rows for the given users. ``max_len`` (padded
         storage only) crops the scatter to a row-length bound the caller
         guarantees."""
         if self._urm_streams():
-            if self._seen_padded is None:
-                self._seen_padded = padded_csr_from_sparse(self.URM_train, self.device)
-            return padded_rows_mask(self._seen_padded, uids, self.n_items, max_len=max_len)
+            return padded_rows_mask(self._padded_urm(), uids, self.n_items, max_len=max_len)
         return self.device_urm().mask.index_select(0, uids)
+
+    def _urm_values_bf16_exact(self) -> bool:
+        """True when every URM value is exactly representable in bfloat16
+        (binary data always is; half-star ratings are too)."""
+        if getattr(self, "_urm_bf16_exact", None) is None:
+            d = torch.from_numpy(np.asarray(self.URM_train.data, dtype=np.float32))
+            self._urm_bf16_exact = bool(torch.equal(d.to(torch.bfloat16).float(), d))
+        return self._urm_bf16_exact
 
     def _invalidate_device_cache(self):
         self._durm = None
@@ -114,6 +131,7 @@ class Recommender:
         self.URM_train = check_matrix(URM_train_new.copy(), "csr", dtype=np.float32)
         self.URM_train.eliminate_zeros()
         self._cold_user_mask = np.ediff1d(self.URM_train.indptr) == 0
+        self._urm_bf16_exact = None
         self._invalidate_device_cache()
 
     def _get_cold_user_mask(self):
@@ -237,6 +255,23 @@ class Recommender:
             return ranking_list, scores.cpu().numpy()
         return ranking_list
 
+    @torch.no_grad()
+    def recommend_fused(self, user_id_array, cutoff: int = 20, remove_seen_flag: bool = True,
+                        tile=None):
+        """The fused-serving call of the JAX package (base.py:372-399,
+        :642-671): a factor model ranks through K1, which never writes the
+        [B, I] scores, and a cold user gets an empty list; every other model
+        returns ``recommend``'s lists. ``tile`` is taken for the JAX
+        signature's sake and not used: K1's plan chooses its own tiling."""
+        if not self._ranks_with_k1():
+            return self.recommend(user_id_array, cutoff=cutoff, remove_seen_flag=remove_seen_flag)
+        user_id_array = np.atleast_1d(np.asarray(user_id_array))
+        uids = self._uids(user_id_array)
+        vals, ids = self._k1_block(uids, self._exclusion_mask(uids, remove_seen_flag),
+                                   min(cutoff, self.n_items))
+        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+        return [ids[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
+
     def _serve_block(self, uids: torch.Tensor, k: int, remove_seen_flag: bool):
         """([B, k] vals, [B, k] ids) of one serve_all block on the dense
         route (JAX base.py:406-412)."""
@@ -299,3 +334,113 @@ class Recommender:
         for name, value in data.items():
             setattr(self, name, value)
         return data
+
+
+class MatrixFactorizationRecommender(Recommender):
+    """Dot-product scoring from ``USER_factors`` and ``ITEM_factors`` (JAX
+    base.py:514-686; reference Base/BaseMatrixFactorizationRecommender.py),
+    ranked through K1, with the cold-user estimate of ``set_URM_train``.
+
+    The factor stores take host arrays or device tensors. A fit that builds
+    its factors on the device (PureSVD) stores the tensors, and the host copy
+    is made the first time something reads the property, so scoring and
+    evaluation never pay the transfer."""
+
+    RECOMMENDER_NAME = "BaseMatrixFactorizationRecommender"
+
+    def __init__(self, URM_train, *, device: Optional[torch.device] = None):
+        super().__init__(URM_train, device=device)
+        self._USER_factors_store = None
+        self._ITEM_factors_store = None
+        self.use_bias = False
+        # rating-prediction biases (reference :118-124), folded into the
+        # device factors so that every scoring path gets them from one product
+        self.USER_bias = None
+        self.ITEM_bias = None
+        self.GLOBAL_bias = 0.0
+        self._device_factors = None
+
+    @property
+    def USER_factors(self) -> Optional[np.ndarray]:
+        if isinstance(self._USER_factors_store, torch.Tensor):
+            self._USER_factors_store = self._USER_factors_store.detach().cpu().numpy()
+        return self._USER_factors_store
+
+    @USER_factors.setter
+    def USER_factors(self, value):
+        self._USER_factors_store = value
+        self._device_factors = None
+
+    @property
+    def ITEM_factors(self) -> Optional[np.ndarray]:
+        if isinstance(self._ITEM_factors_store, torch.Tensor):
+            self._ITEM_factors_store = self._ITEM_factors_store.detach().cpu().numpy()
+        return self._ITEM_factors_store
+
+    @ITEM_factors.setter
+    def ITEM_factors(self, value):
+        self._ITEM_factors_store = value
+        self._device_factors = None
+
+    def _on_device(self, x) -> torch.Tensor:
+        """A factor store as a contiguous float32 tensor on the device (K1
+        takes contiguous factors; a fit may store a transposed view)."""
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(self.device, torch.float32).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
+
+    def _factors_device(self):
+        """(U, V, cold) on the device. With ``use_bias`` the biases fold in as
+        [U | bU | 1] @ [V | 1 | bV + g]^T = U V^T + bU + bV + g (JAX
+        :567-587), so K1 ranks the biased scores from one product."""
+        if self._device_factors is None:
+            U = self._on_device(self._USER_factors_store)
+            V = self._on_device(self._ITEM_factors_store)
+            if self.use_bias and self.USER_bias is not None:
+                bU = self._on_device(self.USER_bias).reshape(-1)
+                bV = self._on_device(self.ITEM_bias).reshape(-1)
+                g = np.asarray(self.GLOBAL_bias, dtype=np.float32).reshape(-1)[0]
+                U = torch.cat([U, bU[:, None], torch.ones_like(bU)[:, None]], dim=1)
+                V = torch.cat([V, torch.ones_like(bV)[:, None], (bV + torch.tensor(g))[:, None]], dim=1)
+            cold = torch.from_numpy(np.asarray(self._cold_user_mask, dtype=bool)).to(self.device)
+            self._device_factors = (U, V, cold)
+        return self._device_factors
+
+    def _invalidate_device_cache(self):
+        super()._invalidate_device_cache()
+        self._device_factors = None
+
+    @torch.no_grad()
+    def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
+        """[B, I] scores; cold users' rows are -inf (JAX :606-618)."""
+        U, V, cold = self._factors_device()
+        scores = U.index_select(0, user_ids) @ V.T
+        return scores.masked_fill(cold.index_select(0, user_ids)[:, None], float("-inf"))
+
+    def set_URM_train(self, URM_train_new, estimate_model_for_cold_users=None, topK: int = 100, **kwargs):
+        """Replace the training URM (JAX :620-640). ``"mean_item_factors"``
+        estimates every user's factors as URM @ ITEM_factors / sqrt(profile
+        length); ``"itemKNN"`` needs the similarity family and raises."""
+        if estimate_model_for_cold_users == "itemKNN":
+            raise NotImplementedError("the itemKNN cold-user estimate is not ported")
+        super().set_URM_train(URM_train_new)
+        if estimate_model_for_cold_users == "mean_item_factors":
+            profile_length = np.ediff1d(self.URM_train.indptr)
+            sqrt_len = np.sqrt(np.maximum(profile_length, 1))
+            self.USER_factors = np.asarray(self.URM_train.dot(self.ITEM_factors), dtype=np.float32)
+            self.USER_factors /= sqrt_len[:, None]
+            self._cold_user_mask = profile_length == 0
+            self._invalidate_device_cache()
+
+    def _save_dict(self):
+        out = {
+            "USER_factors": np.asarray(self.USER_factors),
+            "ITEM_factors": np.asarray(self.ITEM_factors),
+            "use_bias": bool(self.use_bias),
+        }
+        if self.use_bias and self.USER_bias is not None:
+            # the reference's artifact keys (:217-219)
+            out["USER_bias"] = np.asarray(self.USER_bias)
+            out["ITEM_bias"] = np.asarray(self.ITEM_bias)
+            out["GLOBAL_bias"] = self.GLOBAL_bias
+        return out

@@ -20,6 +20,10 @@ Scores are the generator's factor product, so the port ranks GANMF through the
 fused scorer K1 (its ``_factors_device``), where the JAX package ranks its
 dense score block with ``lax.top_k``; the lists and metrics are the same.
 
+The epoch loop (``mf_generator_epoch``) and the model base
+(``MFGeneratorRecommender``: storage, optimizers, shuffle stream, crash
+resume, scoring) are shared with DisGANMF, which has another discriminator.
+
 Not ported: ``mesh_plan``.
 """
 
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -209,6 +213,55 @@ def tf1_adam_(param: torch.Tensor, grad: torch.Tensor, state: Dict[str, torch.Te
         param.sub_(torch.where(rows, lr_t * m / (torch.sqrt(v) + eps), 0.0))
 
 
+def mf_generator_epoch(
+    params: nn.Module, d_opt: torch.optim.Optimizer, item_opt: torch.optim.Optimizer,
+    user_state: Dict[str, torch.Tensor], urm: Union[torch.Tensor, PaddedCSR],
+    perm: torch.Tensor, weights: torch.Tensor, d_loss_fn: Callable, g_loss_fn: Callable,
+    *, g_lr: float, n_batches: int, batch_size: int, d_steps: int, g_steps: int,
+    lazy_user_adam: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The epoch of an MF generator against a discriminator, in place: GANMF's
+    and DisGANMF's (JAX ganmf.py:138-222, disganmf.py:139-221), which differ
+    only in their losses. ``d_steps * n_batches`` D minibatches step D with
+    ``d_opt``, then ``g_steps * n_batches`` G minibatches step the item
+    embeddings with ``item_opt`` and the user embeddings with ``tf1_adam_``
+    at ``g_lr``. ``d_loss_fn(uids, real, w)`` and ``g_loss_fn`` give one
+    minibatch's losses. Returns the mean losses as device scalars."""
+    n_cols = params.item_emb.shape[0]
+    d_params, g_params = params.d_params(), params.g_params()
+
+    def batch(step):
+        lo = (step % n_batches) * batch_size
+        uids, w = perm[lo : lo + batch_size], weights[lo : lo + batch_size]
+        if isinstance(urm, PaddedCSR):
+            return uids, padded_rows_dense(urm, uids, n_cols), w
+        return uids, urm.index_select(0, uids), w
+
+    d_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
+    for step in range(d_steps * n_batches):
+        loss = d_loss_fn(*batch(step))
+        apply_grads(d_opt, d_params, torch.autograd.grad(loss, d_params))
+        d_sum += loss.detach()
+
+    g_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
+    user_emb, item_emb = g_params
+    for step in range(g_steps * n_batches):
+        uids, real, w = batch(step)
+        loss = g_loss_fn(uids, real, w)
+        g_user, g_item = torch.autograd.grad(loss, g_params)
+        row_mask = None
+        if lazy_user_adam:
+            row_mask = torch.zeros(user_emb.shape[0], dtype=torch.float32, device=w.device)
+            row_mask.scatter_reduce_(0, uids, w, reduce="amax")
+        tf1_adam_(user_emb, g_user, user_state, g_lr, row_mask)
+        apply_grads(item_opt, [item_emb], [g_item])
+        g_sum += loss.detach()
+
+    d_opt.zero_grad(set_to_none=True)
+    item_opt.zero_grad(set_to_none=True)
+    return d_sum / (n_batches * d_steps), g_sum / (n_batches * g_steps)
+
+
 def ganmf_epoch(
     params: "GANMFParams", d_opt: torch.optim.Optimizer, item_opt: torch.optim.Optimizer,
     user_state: Dict[str, torch.Tensor], urm: Union[torch.Tensor, PaddedCSR],
@@ -228,43 +281,120 @@ def ganmf_epoch(
     d_lr, ``item_opt`` Adam over the item embeddings with g_lr; the user
     embeddings step with ``tf1_adam_`` at ``g_lr``, state ``user_state``."""
     cd = torch.bfloat16 if compute_dtype == "bf16" else None
-    n_cols = params.dec_b.shape[0]
-    d_params, g_params = params.d_params(), params.g_params()
-
-    def batch(step):
-        lo = (step % n_batches) * batch_size
-        uids, w = perm[lo : lo + batch_size], weights[lo : lo + batch_size]
-        if isinstance(urm, PaddedCSR):
-            return uids, padded_rows_dense(urm, uids, n_cols), w
-        return uids, urm.index_select(0, uids), w
-
-    d_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
-    for step in range(d_steps * n_batches):
-        uids, real, w = batch(step)
-        loss = d_loss(params, uids, real, w, m, d_reg, cd)
-        apply_grads(d_opt, d_params, torch.autograd.grad(loss, d_params))
-        d_sum += loss.detach()
-
-    g_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
-    user_emb, item_emb = g_params
-    for step in range(g_steps * n_batches):
-        uids, real, w = batch(step)
-        loss = g_loss(params, uids, real, w, recon_coefficient, g_reg, cd)
-        g_user, g_item = torch.autograd.grad(loss, g_params)
-        row_mask = None
-        if lazy_user_adam:
-            row_mask = torch.zeros(user_emb.shape[0], dtype=torch.float32, device=w.device)
-            row_mask.scatter_reduce_(0, uids, w, reduce="amax")
-        tf1_adam_(user_emb, g_user, user_state, g_lr, row_mask)
-        apply_grads(item_opt, [item_emb], [g_item])
-        g_sum += loss.detach()
-
-    d_opt.zero_grad(set_to_none=True)
-    item_opt.zero_grad(set_to_none=True)
-    return d_sum / (n_batches * d_steps), g_sum / (n_batches * g_steps)
+    return mf_generator_epoch(
+        params, d_opt, item_opt, user_state, urm, perm, weights,
+        lambda uids, real, w: d_loss(params, uids, real, w, m, d_reg, cd),
+        lambda uids, real, w: g_loss(params, uids, real, w, recon_coefficient, g_reg, cd),
+        g_lr=g_lr, n_batches=n_batches, batch_size=batch_size, d_steps=d_steps, g_steps=g_steps,
+        lazy_user_adam=lazy_user_adam)
 
 
-class GANMF(AdversarialRecommender):
+class MFGeneratorRecommender(AdversarialRecommender):
+    """What GANMF and DisGANMF share: the MF generator's URM storage,
+    optimizers, shuffle stream and crash-resume state, and its scores, the
+    factor product, ranked through K1."""
+
+    def _training_urm(self, urm_storage: str, compute_dtype: str):
+        """(URM in training orientation, (rows, cols)): dense on the device,
+        or its padded-CSR planes for ``urm_storage="csr"``, in bfloat16 for
+        ``compute_dtype="bf16"``."""
+        if compute_dtype not in ("f32", "bf16"):
+            raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {compute_dtype!r}")
+        train_csr = self._train_matrix()
+        if urm_storage == "csr":
+            urm = padded_csr_from_sparse(train_csr, self.device)
+            if compute_dtype == "bf16":
+                urm = urm._replace(val=urm.val.to(torch.bfloat16))
+        elif urm_storage == "dense":
+            urm = self._train_dense()
+            if compute_dtype == "bf16":
+                urm = urm.to(torch.bfloat16)
+        else:
+            raise ValueError(f"urm_storage must be 'dense' or 'csr', got {urm_storage!r}")
+        self._stream_seen = urm_storage == "csr"
+        return urm, train_csr.shape
+
+    def _fit_generator(self, n_rows: int, batch_size: int, d_lr: float, g_lr: float,
+                       run_epoch: Callable, epochs, loop_args):
+        """Make the optimizers, resume from a checkpoint, and run the training
+        loop: each epoch draws its permutation from the numpy shuffle stream
+        seeded with ``seed`` and calls ``run_epoch(perm, weights, n_batches)``
+        with both on the device. Returns the loop's value."""
+        self._d_opt = torch.optim.Adam(self.params.d_params(), lr=d_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+        self._item_opt = torch.optim.Adam([self.params.item_emb], lr=g_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+        self._user_adam = user_adam_state(self.params.user_emb)
+        start_epoch = self.resume_from_checkpoint()
+
+        n_batches, padded = make_batches(n_rows, int(batch_size))
+        weights = torch.from_numpy(padded_weights(n_rows, padded)).to(self.device)
+        rng = np.random.RandomState(self.seed)
+        # fast-forward the shuffle stream past the completed epochs, so that a
+        # resumed run continues the uninterrupted run's permutations
+        for _ in range(start_epoch - 1):
+            shuffled_padded_perm(rng, n_rows, padded)
+
+        def epoch_fn(epoch):
+            # the epoch's permutation goes to the device once, before its steps
+            perm = torch.from_numpy(shuffled_padded_perm(rng, n_rows, padded)).to(self.device, torch.int64)
+            run_epoch(perm, weights, n_batches)
+
+        result = self._run_training_loop(epochs, *loop_args, epoch_fn=epoch_fn, start_epoch=start_epoch)
+        self._invalidate_device_cache()
+        return result
+
+    # -- crash resume (full training state) -----------------------------------
+    def _checkpoint_state(self):
+        return {
+            "params": self.params.state_dict(),
+            "d_state": self._d_opt.state_dict(),
+            "item_state": self._item_opt.state_dict(),
+            "user_state": dict(self._user_adam),
+        }
+
+    def _restore_checkpoint_state(self, state):
+        self.params.load_state_dict(state["params"])
+        self._d_opt.load_state_dict(state["d_state"])
+        self._item_opt.load_state_dict(state["item_state"])
+        for name, value in state["user_state"].items():
+            self._user_adam[name].copy_(value)
+
+    def _require_params(self) -> nn.Module:
+        if self.params is None:
+            raise RuntimeError(f"{self.RECOMMENDER_NAME} has no parameters: fit it or load them first")
+        return self.params
+
+    def _factors_device(self):
+        """(U, V, cold) with scores = U @ V^T for external users. In item mode
+        the model was trained on URM^T, so external users are the rows of
+        item_emb and external items those of user_emb (JAX :359-363).
+
+        GANMF and DisGANMF never mask cold users (their JAX score_device does
+        not, unlike the MF base at ganmf_tpu/models/base.py:606-618), so every
+        user is reported warm: otherwise K1 would drop cold-in-train users
+        that the JAX dense path ranks."""
+        p = self._require_params()
+        if self.mode == "item":
+            U, V = p.item_emb, p.user_emb
+        else:
+            U, V = p.user_emb, p.item_emb
+        cold = torch.zeros(self.n_users, dtype=torch.bool, device=self.device)
+        return U.detach(), V.detach(), cold
+
+    @torch.no_grad()
+    def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
+        """[B, I] scores for external users, in both modes."""
+        U, V, _ = self._factors_device()
+        return U.index_select(0, user_ids) @ V.T
+
+    # -- introspection (reference GANMF.py:294-307) ---------------------------
+    def user_factors(self) -> np.ndarray:
+        return self._require_params().user_emb.detach().cpu().numpy()
+
+    def item_factors(self) -> np.ndarray:
+        return self._require_params().item_emb.detach().cpu().numpy()
+
+
+class GANMF(MFGeneratorRecommender):
     RECOMMENDER_NAME = "GANMF"
 
     def fit(
@@ -304,8 +434,7 @@ class GANMF(AdversarialRecommender):
         ``mesh_plan`` is not ported and raises."""
         if mesh_plan is not None:
             raise NotImplementedError("mesh_plan is not ported")
-        if compute_dtype not in ("f32", "bf16"):
-            raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {compute_dtype!r}")
+        urm, (n_rows, n_cols) = self._training_urm(urm_storage, compute_dtype)
         self.config = dict(
             num_factors=num_factors, emb_dim=emb_dim, epochs=epochs, batch_size=batch_size,
             d_lr=d_lr, g_lr=g_lr, d_steps=d_steps, g_steps=g_steps, d_reg=d_reg, g_reg=g_reg,
@@ -313,41 +442,12 @@ class GANMF(AdversarialRecommender):
         )
         self.num_factors = int(num_factors)
         self.emb_dim = int(emb_dim)
-
-        train_csr = self._train_matrix()
-        n_rows, n_cols = train_csr.shape
-        if urm_storage == "csr":
-            urm = padded_csr_from_sparse(train_csr, self.device)
-            if compute_dtype == "bf16":
-                urm = urm._replace(val=urm.val.to(torch.bfloat16))
-        elif urm_storage == "dense":
-            urm = self._train_dense()
-            if compute_dtype == "bf16":
-                urm = urm.to(torch.bfloat16)
-        else:
-            raise ValueError(f"urm_storage must be 'dense' or 'csr', got {urm_storage!r}")
-        self._stream_seen = urm_storage == "csr"
-
         self.params = init_params(n_rows, n_cols, self.num_factors, self.emb_dim,
                                   torch.Generator().manual_seed(self.seed), self.device)
-        self._d_opt = torch.optim.Adam(self.params.d_params(), lr=d_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
-        self._item_opt = torch.optim.Adam([self.params.item_emb], lr=g_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
-        self._user_adam = user_adam_state(self.params.user_emb)
-
+        # resume (in _fit_generator) restores the loss histories
         self.train_d_loss, self.train_g_loss = [], []
-        start_epoch = self.resume_from_checkpoint()  # also restores the loss histories
 
-        n_batches, padded = make_batches(n_rows, int(batch_size))
-        weights = torch.from_numpy(padded_weights(n_rows, padded)).to(self.device)
-        rng = np.random.RandomState(self.seed)
-        # fast-forward the shuffle stream past the completed epochs, so that a
-        # resumed run continues the uninterrupted run's permutations
-        for _ in range(start_epoch - 1):
-            shuffled_padded_perm(rng, n_rows, padded)
-
-        def epoch_fn(epoch):
-            # the epoch's permutation goes to the device once, before its steps
-            perm = torch.from_numpy(shuffled_padded_perm(rng, n_rows, padded)).to(self.device, torch.int64)
+        def run_epoch(perm, weights, n_batches):
             dl, gl = ganmf_epoch(
                 self.params, self._d_opt, self._item_opt, self._user_adam, urm, perm, weights,
                 g_lr=float(g_lr), m=float(m), recon_coefficient=float(recon_coefficient),
@@ -359,64 +459,9 @@ class GANMF(AdversarialRecommender):
             self.train_d_loss.append(dl)
             self.train_g_loss.append(gl)
 
-        result = self._run_training_loop(
-            epochs, validation_evaluator, validation_set, sample_every,
-            allow_worse, freq, list(metrics), after, epoch_fn=epoch_fn, start_epoch=start_epoch,
-        )
-        self._invalidate_device_cache()
-        return result
-
-    # -- crash resume (full training state) -----------------------------------
-    def _checkpoint_state(self):
-        return {
-            "params": self.params.state_dict(),
-            "d_state": self._d_opt.state_dict(),
-            "item_state": self._item_opt.state_dict(),
-            "user_state": dict(self._user_adam),
-        }
-
-    def _restore_checkpoint_state(self, state):
-        self.params.load_state_dict(state["params"])
-        self._d_opt.load_state_dict(state["d_state"])
-        self._item_opt.load_state_dict(state["item_state"])
-        for name, value in state["user_state"].items():
-            self._user_adam[name].copy_(value)
-
-    def _require_params(self) -> GANMFParams:
-        if self.params is None:
-            raise RuntimeError("GANMF has no parameters: fit it or load them first")
-        return self.params
-
-    def _factors_device(self):
-        """(U, V, cold) with scores = U @ V^T for external users. In item mode
-        the model was trained on URM^T, so external users are the rows of
-        item_emb and external items those of user_emb (JAX :359-363).
-
-        GANMF never masks cold users (its JAX score_device does not, unlike
-        the MF base at ganmf_tpu/models/base.py:606-618), so every user is
-        reported warm: otherwise K1 would drop cold-in-train users that the
-        JAX dense path ranks."""
-        p = self._require_params()
-        if self.mode == "item":
-            U, V = p.item_emb, p.user_emb
-        else:
-            U, V = p.user_emb, p.item_emb
-        cold = torch.zeros(self.n_users, dtype=torch.bool, device=self.device)
-        return U.detach(), V.detach(), cold
-
-    # -- scoring (reference GANMF.py:285-292) ---------------------------------
-    @torch.no_grad()
-    def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
-        """[B, I] scores for external users, in both modes."""
-        U, V, _ = self._factors_device()
-        return U.index_select(0, user_ids) @ V.T
-
-    # -- introspection (reference GANMF.py:294-307) ---------------------------
-    def user_factors(self) -> np.ndarray:
-        return self._require_params().user_emb.detach().cpu().numpy()
-
-    def item_factors(self) -> np.ndarray:
-        return self._require_params().item_emb.detach().cpu().numpy()
+        return self._fit_generator(
+            n_rows, batch_size, d_lr, g_lr, run_epoch, epochs,
+            (validation_evaluator, validation_set, sample_every, allow_worse, freq, list(metrics), after))
 
     @torch.no_grad()
     def autoencoder_codes(self) -> np.ndarray:

@@ -26,14 +26,18 @@ K2 masks bitwise equal to the plain version's, on each of its three paths
 (short rows in 128-thread blocks, longer rows in shared memory, streamed
 rows) and their boundaries, and for any k (clamped to [0, I] as the JAX
 function does).
-Neither wrapper synchronizes the host, nor does a GANMF epoch. One CFGAN
-epoch, and one GANMF epoch in both modes and both URM storages, on the card
-against the CPU: masks bitwise, parameters within 2.2 * lr per Adam step (a
-gradient at rounding level may change sign and move its element by up to
-about lr either way), with 99% of the elements within 1% of lr; GANMF's mean
-losses within rtol 1e-4. A GANMF fit with early stopping on the card launches
-K1 from its evaluations, and run_best trains and scores on the card by
-default.
+Neither wrapper synchronizes the host, nor does a GANMF, DisGANMF or CAAE
+epoch. One CFGAN epoch, and one GANMF and one DisGANMF epoch in both modes,
+on the card against the CPU: masks bitwise, parameters within 2.2 * lr per
+Adam step (a gradient at rounding level may change sign and move its element
+by up to about lr either way), with 99% of the elements within 1% of lr; the
+mean losses within rtol 1e-4. One CAAE epoch from the same draws: every
+tensor within 1% of the distance the epoch moved it (CUDA's index_add_ sums
+duplicate rows in another order). A PureSVD fit on the card: scores within
+2e-4 of their scale of the CPU fit's from the same Omega, cold users empty in
+recommend_fused and serve_all. A GANMF fit with early stopping on the card
+launches K1 from its evaluations, and run_best trains and scores on the card
+by default.
 """
 
 import numpy as np
@@ -483,3 +487,145 @@ def test_run_best_on_card(cuda, tmp_path, monkeypatch):
     out = tmp_path / "test_results" / "GANMF_item_synth"
     assert sorted(p.name for p in out.iterdir()) == ["GANMF.zip", "test_results.pkl", "test_results.txt"]
     assert np.isfinite(results[5]["MAP"])
+
+
+def _disganmf_epoch_inputs(dev, mode, seed=0):
+    """(params, optimizers, TF1 state, urm, perm, weights, n_batches) for one
+    DisGANMF epoch on ``dev``: 300 x 500, K=16, one relu layer of 64."""
+    from ganmf_tpu_torch.models import disganmf as pdg
+
+    rng = np.random.RandomState(seed)
+    mat = sps.csr_matrix((rng.rand(300, 500) < 0.05).astype(np.float32))
+    if mode == "item":
+        mat = mat.T.tocsr()
+    n_rows, n_cols = mat.shape
+    n_batches, padded = make_batches(n_rows, 32)
+    perm = shuffled_padded_perm(np.random.RandomState(seed), n_rows, padded)
+    p = pdg.init_params(n_rows, n_cols, 16, 1, 64, torch.Generator().manual_seed(seed), dev)
+    d_opt = torch.optim.Adam(p.d_params(), lr=1e-3, betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+    item_opt = torch.optim.Adam([p.item_emb], lr=2e-3, betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+    return (p, d_opt, item_opt, pgm.user_adam_state(p.user_emb), torch.from_numpy(mat.toarray()).to(dev),
+            torch.from_numpy(perm).to(dev, torch.int64),
+            torch.from_numpy(padded_weights(n_rows, padded)).to(dev), n_batches)
+
+
+_DIS_KW = dict(g_lr=2e-3, recon_coefficient=0.25, d_reg=1e-4, g_reg=0.0, batch_size=32, d_steps=1, g_steps=1,
+               d_hidden_act="relu")
+
+
+@pytest.mark.parametrize("mode", ["user", "item"])
+def test_disganmf_epoch_on_card_matches_cpu(cuda, mode):
+    from ganmf_tpu_torch.models import disganmf as pdg
+
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        p, d_opt, item_opt, state, urm, perm, w, n = _disganmf_epoch_inputs(dev, mode)
+        dl, gl = pdg.disganmf_epoch(p, d_opt, item_opt, state, urm, perm, w, n_batches=n,
+                                    lazy_user_adam=mode == "user", **_DIS_KW)
+        runs.append(([t.detach().cpu() for t in p.parameters()], (float(dl), float(gl))))
+    (card_p, card_l), (cpu_p, cpu_l) = runs
+    np.testing.assert_allclose(card_l, cpu_l, rtol=1e-4, atol=0)
+    for i, (a, b) in enumerate(zip(card_p, cpu_p)):
+        lr = 2e-3 if i < 2 else 1e-3
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 2.2 * lr * n, i
+        assert float((diff <= 0.01 * lr).float().mean()) >= 0.99, i
+
+
+def test_disganmf_epoch_does_not_synchronize(cuda):
+    from ganmf_tpu_torch.models import disganmf as pdg
+
+    p, d_opt, item_opt, state, urm, perm, w, n = _disganmf_epoch_inputs(cuda, "user")
+    for compute_dtype in ("f32", "bf16"):
+        run = lambda: pdg.disganmf_epoch(p, d_opt, item_opt, state, urm.to(  # noqa: E731
+            torch.bfloat16 if compute_dtype == "bf16" else torch.float32), perm, w, n_batches=n,
+            lazy_user_adam=True, compute_dtype=compute_dtype, **_DIS_KW)
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(x)) for x in losses)
+
+
+def test_puresvd_fit_on_card_matches_cpu(cuda):
+    from ganmf_tpu_torch.models import PureSVDRecommender
+
+    rng = np.random.RandomState(3)
+    full = (rng.rand(400, 600) < 0.05).astype(np.float32)
+    full[[5, 77]] = 0.0  # cold users
+    train = sps.csr_matrix(full)
+    card, plain = PureSVDRecommender(train), PureSVDRecommender(train, device=torch.device("cpu"))
+    assert card.device == cuda
+    card.fit(num_factors=20)
+    plain.fit(num_factors=20)
+    users = np.setdiff1d(np.arange(400), [5, 77])
+    got = card.score_device(torch.from_numpy(users).to(cuda)).cpu()
+    want = plain.score_device(torch.from_numpy(users))
+    assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
+    before = scorer.LAUNCHES
+    lists = card.recommend_fused(np.arange(10), cutoff=20)
+    assert scorer.LAUNCHES == before + 1 and lists[5] == [] and all(len(lists[u]) == 20 for u in (0, 1, 9))
+    idx, vals = card.serve_all(cutoff=20)
+    assert np.isneginf(vals[[5, 77]]).all() and np.isfinite(vals[users]).all()
+
+
+def _caae_epoch_args(dev, seed=0):
+    """(params, urm, interactions, draws, keywords) for one CAAE epoch on
+    ``dev``: 300 x 500, K=8, G and G' with one layer of 32, chunks of 512."""
+    from ganmf_tpu_torch.models import caae as pca
+
+    rng = np.random.RandomState(seed)
+    urm = (rng.rand(300, 500) < 0.05).astype(np.float32)
+    rows, cols = np.nonzero(urm)
+    B = 512
+    n_chunks = -(-len(rows) // B)
+    pad = n_chunks * B - len(rows)
+    inter = [torch.from_numpy(np.concatenate([a, np.zeros(pad, a.dtype)]).astype(np.int64)).to(dev)
+             for a in (rows, cols)]
+    weight = torch.from_numpy(np.concatenate([np.ones(len(rows)), np.zeros(pad)]).astype(np.float32)).to(dev)
+    draws = pca.draw_epoch(torch.Generator().manual_seed(seed), torch.device("cpu"), n_chunks * B, 300, 500,
+                           2 * n_chunks * B, 1, 1, 16, 20)
+    params = pca.init_params(300, 500, 8, [500, 32, 500], torch.Generator().manual_seed(seed), dev)
+    kw = dict(lr=1e-2, beta=0.01, lmbda=0.5, S=0.3, d_bsize=B, n_d_chunks=n_chunks, d_steps=2, g_steps=1,
+              gpr_steps=1, m_batch=16, n_samples=20)
+    return (params, torch.from_numpy(urm).to(dev), *inter, weight,
+            pca.CAAEDraws(*(t.to(dev) for t in draws)), kw)
+
+
+def test_caae_epoch_on_card_matches_cpu(cuda):
+    from ganmf_tpu_torch.models import caae as pca
+
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params, urm, users, items, w, draws, kw = _caae_epoch_args(dev)
+        before = select.LAUNCHES
+        losses = pca.caae_epoch(params, urm, users, items, w, draws, **kw)
+        assert select.LAUNCHES == before + (dev.type == "cuda")  # K2 drew Nu on the card
+        runs.append([t.detach().cpu() for t in params.parameters()])
+        assert all(np.isfinite(float(x)) for x in losses)
+    init = _caae_epoch_args(torch.device("cpu"))[0]
+    for i, (a, b, t0) in enumerate(zip(*runs, init.parameters())):
+        moved = float((b - t0.detach()).abs().max())
+        assert moved > 0 and float((a - b).abs().max()) <= 1e-2 * moved, i
+
+
+def test_caae_epoch_does_not_synchronize(cuda):
+    from ganmf_tpu_torch.models import caae as pca
+
+    params, urm, users, items, w, draws, kw = _caae_epoch_args(cuda)
+    pca.caae_epoch(params, urm, users, items, w, draws, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = pca.caae_epoch(params, urm, users, items, w, draws, **kw)
+        draws = pca.draw_epoch(torch.Generator(device=cuda).manual_seed(1), cuda, len(w), 300, 500,
+                               len(draws.d_uniforms[0, 0]), 1, 1, 16, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    assert torch.equal(torch.sort(draws.perm).values, torch.arange(len(w), device=cuda))

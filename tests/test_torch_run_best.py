@@ -4,11 +4,12 @@ the CPU.
 A synthetic dataset gets its five-way split from the port's
 ``make_experiment_splits`` (which must equal the JAX package's), saved under
 $GANMF_TPU_SPLIT_DIR as tests/test_cli.py:17-32 does. Both packages'
-``run_best`` then train GANMF (user and item mode) and CFGAN from the same
-best params. The JAX initial weights go into the port (``init_params``
-monkeypatched), and for CFGAN also JAX's per-epoch mask draws, replayed from
-its key chain as tests/test_torch_cfgan.py does; GANMF's shuffles are the
-same numpy draws in both packages.
+``run_best`` then train GANMF (user and item mode), DisGANMF, CFGAN, CAAE and
+PureSVD from the same best params. The JAX initial weights go into the port
+(``init_params`` monkeypatched), for CFGAN also JAX's per-epoch mask draws,
+replayed from its key chain as tests/test_torch_cfgan.py does, for CAAE its
+epoch draws (tests/test_torch_caae.py), and for PureSVD JAX's Omega; the
+GAN shuffles are the same numpy draws in both packages.
 
 Tolerance: every metric of test_results.pkl within 1e-5 of JAX's (float32
 training taken in another order, as in tests/test_torch_ganmf_train.py). The
@@ -30,6 +31,7 @@ import jax
 from ganmf_tpu.cli.run_best import run as jax_run_best
 from ganmf_tpu.data.splits import make_experiment_splits as jax_make_experiment_splits
 from ganmf_tpu.models import cfgan as jcf
+from ganmf_tpu.models import disganmf as jdg
 from ganmf_tpu.models import ganmf as jgm
 from ganmf_tpu_torch.cli import experiment, run_best
 from ganmf_tpu_torch.cli.run_best import run
@@ -40,7 +42,10 @@ from ganmf_tpu_torch.data.splits import (
     save_experiment_splits,
 )
 from ganmf_tpu_torch.models import cfgan as pcf
+from ganmf_tpu_torch.models import disganmf as pdg
 from ganmf_tpu_torch.models import ganmf as pgm
+from ganmf_tpu_torch.models import puresvd as psvd
+from test_torch_caae import _inject as _inject_caae
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -51,6 +56,10 @@ BEST = {
     "CFGAN": dict(d_nodes=8, g_nodes=16, d_layers=1, g_layers=1, scheme="ZR", d_hidden_act="tanh",
                   g_hidden_act="tanh", epochs=3, d_lr=1e-3, g_lr=1e-3, d_reg=1e-4, g_reg=1e-4,
                   d_batch_size=16, g_batch_size=32, zr_ratio=0.3, zr_coefficient=0.05),
+    "DisGANMF": dict(num_factors=4, d_layers=1, d_nodes=8, d_hidden_act="relu", epochs=3, batch_size=16,
+                     d_lr=1e-3, g_lr=1e-3, d_reg=1e-4, recon_coefficient=0.2),
+    "CAAE": dict(epochs=2, d_steps=2, g_layers=1, g_units=16, num_factors=6, d_bsize=64, lr=0.05, beta=0.01),
+    "PureSVD": dict(num_factors=5),
 }
 
 
@@ -99,6 +108,20 @@ def _inject_jax_state(algo, monkeypatch):
 
         monkeypatch.setattr(pgm, "init_params", init)
         return
+    if algo == "DisGANMF":
+        def init(n_rows, n_cols, k, layers, nodes, generator, device):
+            leaves = jdg._init_params(jax.random.PRNGKey(SEED), n_rows, n_cols, k, layers, nodes)
+            return pdg.params_from_jax([np.asarray(x) for x in jax.tree_util.tree_leaves(leaves)], device)
+
+        monkeypatch.setattr(pdg, "init_params", init)
+        return
+    if algo == "CAAE":
+        _inject_caae(monkeypatch, SEED)
+        return
+    if algo == "PureSVD":
+        monkeypatch.setattr(psvd, "draw_omega", lambda n_cols, k, random_seed, device: torch.from_numpy(
+            np.array(jax.random.normal(jax.random.PRNGKey(random_seed), (n_cols, k)))).to(device))
+        return
     k_g, k_d, chain = jax.random.split(jax.random.PRNGKey(SEED), 3)
     keys = {"epoch": chain}
 
@@ -120,9 +143,11 @@ def _numbers_out(text):
     return [re.sub(r"-?\d+\.\d+", "#", line) for line in text.splitlines()]
 
 
-@pytest.mark.parametrize("algo,mode", [("GANMF", "user"), ("GANMF", "item"), ("CFGAN", "user")])
+@pytest.mark.parametrize("algo,mode", [("GANMF", "user"), ("GANMF", "item"), ("CFGAN", "user"),
+                                       ("DisGANMF", "user"), ("CAAE", "user"), ("PureSVD", "")])
 def test_run_best_matches_jax(algo, mode, synth, monkeypatch, capsys):
-    name = f"{algo}_{mode}_synth"
+    rec_name = experiment.DICT_REC_CLASSES[algo].RECOMMENDER_NAME
+    name = f"{rec_name}_{mode}_synth"
     (synth / "experiments" / name).mkdir(parents=True)
     (synth / "experiments" / name / "best_params.pkl").write_bytes(pickle.dumps(BEST[algo]))
 
@@ -132,7 +157,7 @@ def test_run_best_matches_jax(algo, mode, synth, monkeypatch, capsys):
 
     out, jax_out = synth / "test_results" / name, synth / "jax_results" / name
     assert sorted(os.listdir(out)) == sorted(os.listdir(jax_out)) == [
-        f"{algo}.zip", "test_results.pkl", "test_results.txt"]
+        f"{rec_name}.zip", "test_results.pkl", "test_results.txt"]
     saved = pickle.loads((out / "test_results.pkl").read_bytes())
     jax_saved = pickle.loads((jax_out / "test_results.pkl").read_bytes())
     assert list(saved) == list(jax_saved) == [5, 10, 20, 50]
