@@ -20,11 +20,11 @@ Phases, in order; any failure exits nonzero:
    (matmul + masked_fill_ + topk, a yardstick the port never calls) and its
    bound (median of 20 runs), the fused kernel also at serve_all's, item
    mode's and recommend's shapes (B=5 and B=1 at cutoff 20) and at
-   DisGANMF's (B=1884 K=95 I=17632) and PureSVD's (B=3024 K=41 I=3706)
-   evaluation blocks, with the item splits its wrapper launched, the wide
-   pair at recommend's default cutoff (B=5 and B=1, and DisGANMF's and
-   PureSVD's B=5) and at k=100 above the fused kernel's cutoffs (B=3024,
-   I=3706 and B=64, I=17632);
+   DisGANMF's (B=1884 K=95 I=17632), PureSVD's (B=3024 K=41 I=3706) and
+   IALS's (B=1884 K=130 I=17632) evaluation blocks, with the item splits its
+   wrapper launched, the wide pair at recommend's default cutoff (B=5 and
+   B=1, and DisGANMF's, PureSVD's and IALS's B=5) and at k=100 above the
+   fused kernel's cutoffs (B=3024, I=3706 and B=64, I=17632);
 5. hold K2 (exact-k row selection) against its plain PyTorch version on the
    card, bitwise, at CFGAN's mask shapes (user and item mode, and the
    padded batches), the streamed batch shape, the widest row, CAAE's G-phase
@@ -87,7 +87,31 @@ Phases, in order; any failure exits nonzero:
     same state and draws (the D-phase negatives drawn from each device's
     tables, every tensor within 1% of the distance the epoch moved it) and
     the evaluation on the card's scores against the CPU (1e-6);
-14. print one JSON line with every kernel's launches (by path), error, times
+14. fit TopPop on the ML-1M-shaped split; evaluate, recommend (cutoff 20 and
+    default), recommend_fused and serve_all by the dense route (no kernel);
+    hold the lists against the CPU (ids equal) and the metrics (1e-6);
+15. IALS: run_best("LastFM", "ALS") with the committed best params
+    (experiments/IALSRecommender__LastFM/best_params.pkl: K=130, alpha 38.6,
+    80 epochs, the published width and depth) on a LastFM-shaped five-way
+    split under build/chip_smoke; print seconds per epoch, CG iterations per
+    chunk, the host reads of CG's exit test and the test metrics, and check
+    that the test evaluation launched K1. Fit at the same params with early
+    stopping (epochs cut to 10, a validation every 5; the validations launch
+    K1's fused kernel), then evaluate, recommend (the wide pair at the
+    default cutoff), recommend_fused and serve_all. Fit with urm_storage
+    "csr" in padded and flat form for 2 epochs each, within rtol 2e-4 / atol
+    2e-6 of the dense fit on the card. One dense epoch at bench.py's ML-1M
+    configuration (K=50, alpha=5) from the same initial factors on the card
+    and the CPU: every factor row within 1e-4 of its norm (IALS_ROW_GAP); the
+    card's factors' metrics within 1e-5 on the CPU;
+16. the tuner (RecSysExp) on an ML-1M-shaped five-way split under
+    build/chip_smoke: ALS (epochs Categorical([10])) with 3 fresh evaluations
+    and a resume to 5, whose 2 points the GP proposes without scikit-learn;
+    GANMF (epochs Categorical([3])) with 2; check every artifact, that the
+    validations launched K1 and that run_best trains from the tuned
+    best_params.pkl; read every committed experiments/*/checkpoint.pkl
+    through the port's load and print its trial count and best value;
+17. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own), then the card line,
     then the result line.
 
@@ -95,7 +119,9 @@ Imports nothing of JAX. It needs the repository checkout: alone it fails.
 """
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -161,6 +187,27 @@ SAME_SCORES_TOL = 1e-6
 # generator output, card against CPU, same parameters: float32 sums in
 # another order; atol covers outputs near zero (about 1e-5 of their scale)
 GEN_RTOL, GEN_ATOL = 1e-5, 1e-6
+# IALS at the committed LastFM params (K=130, 80 epochs), read by run_best
+# from BP_DIR/IALSRecommender__LastFM/best_params.pkl
+BP_DIR = "experiments"
+IALS_K = 130  # its num_factors
+IALS_ES_EPOCHS, IALS_CSR_EPOCHS = 10, 2  # cuts from 80 for the early-stopping and csr fits
+IALS_BENCH_PARAMS = dict(num_factors=50, alpha=5.0)  # bench.py's ML-1M IALS row
+# IALS storages on the card against each other: the JAX package's csr-vs-dense
+# tolerance (tests/test_parallel.py:284-289); the forms run the same products
+IALS_RTOL, IALS_ATOL = 2e-4, 2e-6
+# IALS, card against CPU: each factor row within this share of its norm. CG
+# stops at a residual of 1e-5 of ||b||, so two summation orders leave a
+# solution up to about cond(A) x 1e-5 apart, and near-zero entries miss an
+# elementwise atol (the port against JAX at this configuration on the CPU:
+# rows within 6.9e-6, 267 of 302000 entries past rtol 2e-4 / atol 2e-6)
+IALS_ROW_GAP = 1e-4
+# the tuner: ALS with epochs Categorical([10]) in place of [300], 3 fresh
+# evaluations and a resume to 5 (the GP proposes the last 2); GANMF with
+# epochs Categorical([3]), 2 evaluations
+TUNER_ALS_EPOCHS, TUNER_ALS_EVALS = 10, (3, 5)
+TUNER_GANMF_EPOCHS, TUNER_GANMF_EVALS = 3, 2
+SCRATCH = "build/chip_smoke"  # splits, logs and results of the new phases (gitignored)
 
 
 def fail(msg):
@@ -354,6 +401,9 @@ def phase_kernel(dev, card):
     errs.append(compare_k1("DisGANMF evaluation block", Ud, Vd, Md, 50))
     Up, Vp = factors(3024, 3706, PURESVD_PARAMS["num_factors"])
     errs.append(compare_k1("PureSVD evaluation block", Up, Vp, M, 50))
+    # IALS's evaluation block at the committed LastFM params (K=130)
+    Ua, Va = factors(1884, 17632, IALS_K)
+    errs.append(compare_k1("IALS evaluation block", Ua, Va, Md, 50))
 
     fused = {}
     for name, (Ub, Vb, Mb, k) in {
@@ -364,6 +414,7 @@ def phase_kernel(dev, card):
         "recommend, B=1 K=250 I=3706 k=20": (U[:1].contiguous(), V, M[:1].contiguous(), 20),
         "DisGANMF evaluation, B=1884 K=95 I=17632 k=50": (Ud, Vd, Md, 50),
         "PureSVD evaluation, B=3024 K=41 I=3706 k=50": (Up, Vp, M, 50),
+        f"IALS evaluation, B=1884 K={IALS_K} I=17632 k=50": (Ua, Va, Md, 50),
     }.items():
         t = time_k1(Ub, Vb, Mb, k)
         t["splits"] = scorer.LAST_SPLITS  # the plan of the launches just timed
@@ -391,6 +442,8 @@ def phase_kernel(dev, card):
                                 Md[:5].contiguous(), 17631))
     wide_errs.append(compare_k1("wide: PureSVD's default cutoff", Up[:5].contiguous(), Vp,
                                 M[:5].contiguous(), 3705))
+    wide_errs.append(compare_k1("wide: IALS's default cutoff", Ua[:5].contiguous(), Va,
+                                Md[:5].contiguous(), 17631))
     UL, VL = factors(64, 17632, NUM_FACTORS)
     wide = {}
     for name, (Ub, Vb, Mb, k) in {
@@ -400,6 +453,7 @@ def phase_kernel(dev, card):
         "LastFM items, B=64 K=250 I=17632 k=100": (UL, VL, Ml, 100),
         "DisGANMF recommend, B=5 K=95 I=17632 k=17631": (Ud[:5].contiguous(), Vd, Md[:5].contiguous(), 17631),
         "PureSVD recommend, B=5 K=41 I=3706 k=3705": (Up[:5].contiguous(), Vp, M[:5].contiguous(), 3705),
+        f"IALS recommend, B=5 K={IALS_K} I=17632 k=17631": (Ua[:5].contiguous(), Va, Md[:5].contiguous(), 17631),
     }.items():
         t = wide[name] = time_k1(Ub, Vb, Mb, k)
         print(f"  K1 wide pair at {name}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
@@ -1247,6 +1301,274 @@ def phase_caae_plain(dev, card, train, test, model, ev):
           f"{worst:.3e} of the CPU path, serve_all ids equal")
 
 
+def phase_toppop(dev, card, train, test):
+    """TopPop on the card: fit, evaluate, recommend, recommend_fused and
+    serve_all by the dense route, held against the CPU (ids equal, metrics
+    within SAME_SCORES_TOL: the scores are equal)."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import TopPop
+
+    cpu = torch.device("cpu")
+    print(f"[14] TopPop on {train.shape[0]} x {train.shape[1]}")
+    model, plain = TopPop(train, device=dev), TopPop(train, device=cpu)
+    model.fit()
+    plain.fit()
+    results = serve_checks("TopPop", model, EvaluatorHoldout(test, CUTOFFS, device=dev), train, card)
+    presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(plain)
+    worst = worst_metric_diff("TopPop", results, presults, SAME_SCORES_TOL)
+    users = np.arange(5)
+    for cutoff in (20, None):
+        if model.recommend(users, cutoff=cutoff) != plain.recommend(users, cutoff=cutoff):
+            fail(f"TopPop: recommend(cutoff={cutoff}) differs from the CPU's")
+    idx, vals = model.serve_all(cutoff=20)
+    pidx, pvals = plain.serve_all(cutoff=20)
+    if not (np.array_equal(idx, pidx) and np.array_equal(vals, pvals)):
+        fail("TopPop: serve_all differs from the CPU's")
+    print(f"  recommend and serve_all ids equal to the CPU's; every metric within {worst:.3e}")
+
+
+def timed_ials():
+    """A subclass of IALSRecommender that logs each epoch's seconds
+    (synchronized) in ``epoch_log`` and keeps its fitted instances."""
+    import torch
+
+    from ganmf_tpu_torch.models import IALSRecommender
+
+    class TimedIALS(IALSRecommender):
+        instances = []
+
+        def fit(self, *args, **kwargs):
+            self.epoch_log = []
+            TimedIALS.instances.append(self)
+            return super().fit(*args, **kwargs)
+
+        def _run_epoch(self, num_epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._run_epoch(num_epoch)
+            torch.cuda.synchronize()
+            self.epoch_log.append(time.perf_counter() - t0)
+
+    return TimedIALS
+
+
+def cg_summary(model):
+    """CG iterations per chunk (the first and last epoch's) and host reads."""
+    its = [[it for it, _ in epoch] for epoch in model.cg_log]
+    reads = sum(r for epoch in model.cg_log for _, r in epoch)
+    return (f"CG iterations per chunk (user step's chunks, then the item step's): epoch 1 {its[0]}, "
+            f"epoch {len(its)} {its[-1]}, mean {float(np.mean(sum(its, []))):.2f}; {reads} host reads of the "
+            f"exit test in {len(its)} epochs")
+
+
+def ials_best_params():
+    import pickle
+
+    with open(os.path.join(BP_DIR, "IALSRecommender__LastFM", "best_params.pkl"), "rb") as fh:
+        return pickle.load(fh)
+
+
+def phase_ials_run_best(dev, card, split_dir, scratch):
+    """run_best("LastFM", "ALS") with the committed best params (K=130, 80
+    epochs) on a LastFM-shaped five-way split: training on the card, the test
+    evaluation through K1."""
+    from ganmf_tpu_torch.cli import experiment, run_best
+    from ganmf_tpu_torch.data.splits import make_experiment_splits, save_experiment_splits
+
+    train, test = lastfm_split()
+    save_experiment_splits(make_experiment_splits(train + test, seed=SEED), "LastFM", split_dir)
+    os.environ["GANMF_TPU_SPLIT_DIR"] = split_dir
+    print(f"[15] IALS run_best on a LastFM-shaped five-way split: {ials_best_params()}")
+    TimedIALS = timed_ials()
+    saved = experiment.DICT_REC_CLASSES["ALS"]
+    experiment.DICT_REC_CLASSES["ALS"] = TimedIALS
+    try:
+        t0 = time.perf_counter()
+        results = run_best.run("LastFM", "ALS", bp_dir=BP_DIR, out_root=os.path.join(scratch, "test_results"),
+                               force=True, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        experiment.DICT_REC_CLASSES["ALS"] = saved
+    (model,) = TimedIALS.instances
+    secs = model.epoch_log
+    if len(secs) != ials_best_params()["epochs"]:
+        fail(f"IALS run_best: {len(secs)} epochs ran")
+    for c in CUTOFFS:
+        if not all(np.isfinite(results[c][m]) for m in ("PRECISION", "RECALL", "MAP", "NDCG")):
+            fail(f"IALS run_best: a ranking metric at cutoff {c} is not finite")
+    print(f"  {len(secs)} epochs: median {float(np.median(secs)):.4f} s/epoch (first {secs[0]:.4f} s, min "
+          f"{min(secs):.4f}, max {max(secs):.4f}); run_best wall {wall:.2f} s  [{card}]")
+    print(f"  {cg_summary(model)}")
+    print(f"  test: MAP@5 {results[5]['MAP']:.6f}, NDCG@10 {results[10]['NDCG']:.6f}, "
+          f"RECALL@50 {results[50]['RECALL']:.6f}")
+
+
+def phase_ials_train(dev, card, train, test):
+    """IALS with early stopping at the committed params, epochs cut to
+    IALS_ES_EPOCHS and a validation every 5: the validations launch K1's
+    fused kernel, then evaluate, recommend and serve_all (the default cutoff
+    through the wide pair)."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.ops import scorer
+
+    params = dict(ials_best_params(), epochs=IALS_ES_EPOCHS)
+    print(f"[15] IALS with early stopping: {params}, a validation every 5 epochs, on {train.shape[0]} x "
+          f"{train.shape[1]}")
+    model = timed_ials()(train, device=dev)
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    fused_before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+    model.fit(**params, validation_every_n=5, stop_on_validation=True, validation_metric="MAP",
+              lower_validations_allowed=5, evaluator_object=ev)
+    torch.cuda.synchronize()
+    fused = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - fused_before
+    if fused < IALS_ES_EPOCHS // 5:
+        fail(f"IALS: the early-stopping validations launched K1's fused kernel {fused} times")
+    secs = model.epoch_log
+    print(f"  epochs_best {model.epochs_best}; median {float(np.median(secs)):.4f} s/epoch over {len(secs)} "
+          f"epochs; K1 fused launches in the validations: {fused}  [{card}]")
+    print(f"  {cg_summary(model)}")
+    serve_checks("IALS", model, ev, train, card)
+
+
+def phase_ials_csr(dev, card, train):
+    """IALS with csr storage, padded and flat, against the dense form on the
+    card (IALS_RTOL / IALS_ATOL), IALS_CSR_EPOCHS epochs each."""
+    from ganmf_tpu_torch.models import ials
+
+    params = dict(ials_best_params(), epochs=IALS_CSR_EPOCHS)
+    print(f"[15] IALS csr storage against dense on the card, {IALS_CSR_EPOCHS} epochs")
+    fits = {}
+    for form in ("dense", "padded", "flat"):
+        model = timed_ials()(train, device=dev)
+        limit = ials._PAD_PLANE_BYTE_LIMIT
+        if form == "flat":
+            ials._PAD_PLANE_BYTE_LIMIT = 1
+        try:
+            model.fit(**params, urm_storage="dense" if form == "dense" else "csr")
+        finally:
+            ials._PAD_PLANE_BYTE_LIMIT = limit
+        if model._store_users[0] != form or model._store_items[0] != form:
+            fail(f"IALS: urm_storage gave {model._store_users[0]} / {model._store_items[0]}, not {form}")
+        fits[form] = model
+    U, V = fits["dense"]._U_dev.cpu().numpy(), fits["dense"]._V_dev.cpu().numpy()
+    for form in ("padded", "flat"):
+        m = fits[form]
+        Uf, Vf = m._U_dev.cpu().numpy(), m._V_dev.cpu().numpy()
+        if not (np.allclose(Uf, U, rtol=IALS_RTOL, atol=IALS_ATOL) and np.allclose(Vf, V, rtol=IALS_RTOL, atol=IALS_ATOL)):
+            fail(f"IALS {form}: the factors differ from the dense form's beyond rtol {IALS_RTOL} / atol {IALS_ATOL}")
+        print(f"  {form}: factors within {max(np.abs(Uf - U).max(), np.abs(Vf - V).max()):.3e} of the dense "
+              f"form's; {float(np.median(m.epoch_log)):.4f} s/epoch (dense {float(np.median(fits['dense'].epoch_log)):.4f})"
+              f"  [{card}]")
+
+
+def row_gap(got, want):
+    """The largest distance between two factor rows, relative to the row's norm."""
+    return float((np.linalg.norm(got - want, axis=1) / np.maximum(np.linalg.norm(want, axis=1), 1e-30)).max())
+
+
+def phase_ials_plain(dev, card, train, test):
+    """One dense IALS epoch at bench.py's ML-1M configuration from the same
+    initial factors on the card and on the CPU (rows within IALS_ROW_GAP),
+    and the card's factors evaluated on the card and on the CPU (1e-5)."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import IALSRecommender
+
+    cpu = torch.device("cpu")
+    print(f"[15] IALS against the plain path on the CPU: one epoch at {IALS_BENCH_PARAMS} on {train.shape[0]} x "
+          f"{train.shape[1]}")
+    runs = []
+    for d in (dev, cpu):
+        model = timed_ials()(train, device=d)
+        model.fit(epochs=1, **IALS_BENCH_PARAMS)
+        runs.append(model)
+    card_m, cpu_m = runs
+    for name, a, b in (("USER", card_m._U_dev, cpu_m._U_dev), ("ITEM", card_m._V_dev, cpu_m._V_dev)):
+        a, b = a.cpu().numpy(), b.numpy()
+        gap = row_gap(a, b)
+        if not gap <= IALS_ROW_GAP:
+            fail(f"IALS: the card's {name} factors differ from the CPU's by {gap:.3e} of a row's norm")
+        outside = int((np.abs(a - b) > 2e-4 * np.abs(b) + 2e-6).sum())
+        print(f"  {name} factors: rows within {gap:.3e} of their norm (bound {IALS_ROW_GAP}); max abs diff "
+              f"{np.abs(a - b).max():.3e}; {outside} of {a.size} entries past rtol 2e-4 / atol 2e-6")
+    print(f"  one epoch: card {card_m.epoch_log[0]:.4f} s (first call), CPU {cpu_m.epoch_log[0]:.4f} s; "
+          f"card {cg_summary(card_m)}")
+    copy = IALSRecommender(train, device=cpu)
+    copy.USER_factors, copy.ITEM_factors = card_m.USER_factors, card_m.ITEM_factors
+    results, _ = EvaluatorHoldout(test, CUTOFFS, device=dev).evaluateRecommender(card_m)
+    presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(copy)
+    worst = worst_metric_diff("IALS", results, presults, METRIC_TOL)
+    print(f"  the card's factors: every metric at every cutoff within {worst:.3e} on the card and on the CPU "
+          f"(MAP@5 {results[5]['MAP']:.6f})")
+
+
+def phase_tuner(dev, card, split_dir, scratch):
+    """RecSysExp on an ML-1M-shaped five-way split: ALS with 3 fresh
+    evaluations and a resume to 5 (the GP proposes the last 2), GANMF with 2;
+    the artifacts, run_best on the tuned ALS params, and every committed
+    checkpoint read by the port's load."""
+    import glob
+    import pickle
+
+    from ganmf_tpu_torch.cli import run_best
+    from ganmf_tpu_torch.cli.experiment import RecSysExp
+    from ganmf_tpu_torch.cli.spaces import DICT_DIMENSIONS
+    from ganmf_tpu_torch.data.splits import make_experiment_splits, save_experiment_splits
+    from ganmf_tpu_torch.models import GANMF, IALSRecommender
+    from ganmf_tpu_torch.tune import Categorical
+    from ganmf_tpu_torch.tune.gp import load
+
+    train, test = ml1m_split()
+    save_experiment_splits(make_experiment_splits(train + test, seed=SEED), "1M", split_dir)
+    os.environ["GANMF_TPU_SPLIT_DIR"] = split_dir
+    logs_root = os.path.join(scratch, "experiments")
+
+    def dims_of(algo, epochs):
+        """The space with ``epochs`` set to [epochs], in its place or appended."""
+        dims = [Categorical([epochs], name="epochs") if d.name == "epochs" else d for d in DICT_DIMENSIONS[algo]]
+        return dims if any(d.name == "epochs" for d in dims) else dims + [Categorical([epochs], name="epochs")]
+
+    runs = [(IALSRecommender, "", TUNER_ALS_EPOCHS, evals) for evals in TUNER_ALS_EVALS]
+    runs.append((GANMF, "user", TUNER_GANMF_EPOCHS, TUNER_GANMF_EVALS))
+    for cls, mode, epochs, evals in runs:
+        dims = dims_of("ALS" if cls is IALSRecommender else "GANMF", epochs)
+        print(f"[16] tuner: {cls.RECOMMENDER_NAME} {mode or '-'}, {evals} evaluations, epochs [{epochs}]")
+        exp = RecSysExp(cls, "1M", fit_param_names=[d.name for d in dims], train_mode=mode, logs_root=logs_root,
+                        device=dev)
+        checkpoint = os.path.join(exp.logsdir, "checkpoint.pkl")
+        done = len(load(checkpoint).func_vals) if os.path.exists(checkpoint) else 0
+        t0 = time.perf_counter()
+        exp.tune(dims, evals=evals)
+        wall = time.perf_counter() - t0
+        names = sorted(os.listdir(exp.logsdir))
+        if names != ["best_params.pkl", "best_params.txt", "checkpoint.pkl", "results.txt"]:
+            fail(f"tuner {cls.RECOMMENDER_NAME}: the experiment wrote {names}")
+        result = load(checkpoint)
+        if len(result.func_vals) != evals:
+            fail(f"tuner {cls.RECOMMENDER_NAME}: {len(result.func_vals)} trials, not {evals}")
+        with open(os.path.join(exp.logsdir, "best_params.pkl"), "rb") as fh:
+            best = pickle.load(fh)
+        print(f"  {evals - done} trials in {wall:.2f} s, {wall / (evals - done):.2f} s a trial  [{card}]; best "
+              f"{result.fun:.6f}; new points {result.x_iters[done:]}; best_params {best}")
+    print("[16] run_best on the tuned ALS params")
+    results = run_best.run("1M", "ALS", bp_dir=logs_root, out_root=os.path.join(scratch, "tuned_results"),
+                           force=True, device=dev)
+    if not np.isfinite(results[5]["MAP"]):
+        fail("run_best on the tuned ALS params gave a MAP@5 that is not finite")
+    print("[16] the committed checkpoints through the port's load")
+    paths = sorted(glob.glob(os.path.join("experiments", "*", "checkpoint.pkl")))
+    if not paths:
+        fail("no committed experiments/*/checkpoint.pkl")
+    for path in paths:
+        r = load(path)
+        print(f"  {path}: {len(r.func_vals)} trials, best {r.fun:.6f} at {r.x}")
+
+
 def main():
     import torch
 
@@ -1346,6 +1668,52 @@ def main():
         fail(f"the CAAE path launched K2 {caae_k2} times, under once per epoch")
     phase_caae_plain(dev, card, train, test, caae, caae_ev)
     elapsed("CAAE")
+    del caae
+
+    # TopPop on the ML-1M-shaped split: the dense route, no kernel
+    scorer.LAUNCHES = 0
+    phase_toppop(dev, card, train, test)
+    if scorer.LAUNCHES:
+        fail(f"TopPop's path launched K1 {scorer.LAUNCHES} times: it ranks by the dense route")
+    elapsed("TopPop")
+
+    # the new phases write their splits, logs and results under SCRATCH
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    split_dir = os.path.join(SCRATCH, "splits")
+    os.makedirs(split_dir)
+    # IALS's serving path: run_best at the committed LastFM params
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    phase_ials_run_best(dev, card, split_dir, SCRATCH)
+    ials_serve_wide = scorer.WIDE_LAUNCHES
+    ials_serve_fused = scorer.LAUNCHES - ials_serve_wide
+    ials_serve_merge = scorer.MERGE_LAUNCHES
+    if ials_serve_fused == 0:
+        fail("IALS run_best's test evaluation did not launch K1's fused kernel")
+    # IALS's training path: early stopping, then serving on the trained model
+    train, test = lastfm_split()
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    phase_ials_train(dev, card, train, test)
+    ials_wide = scorer.WIDE_LAUNCHES
+    ials_fused = scorer.LAUNCHES - ials_wide
+    ials_merge = scorer.MERGE_LAUNCHES
+    if ials_fused == 0 or ials_wide == 0:
+        fail(f"IALS's training path launched K1's fused kernel {ials_fused} times and its wide pair "
+             f"{ials_wide} times")
+    phase_ials_csr(dev, card, train)
+    train, test = ml1m_split()
+    phase_ials_plain(dev, card, train, test)
+    elapsed("IALS")
+
+    # the tuner on the ML-1M-shaped split, its counts read alone
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    phase_tuner(dev, card, split_dir, SCRATCH)
+    tuner_wide = scorer.WIDE_LAUNCHES
+    tuner_fused = scorer.LAUNCHES - tuner_wide
+    tuner_merge = scorer.MERGE_LAUNCHES
+    if tuner_fused == 0:
+        fail("the tuner's validations did not launch K1's fused kernel")
+    shutil.rmtree(SCRATCH)
+    elapsed("the tuner")
 
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide
@@ -1353,9 +1721,10 @@ def main():
     # each path's counts were set to 0 just before it and read just after; a
     # kernel's launches are the sum over the paths it carries
     fused_by_path = {"GANMF serving": k1_launches, "GANMF training": train_fused,
-                     "DisGANMF training": dis_fused, "PureSVD serving": svd_fused}
+                     "DisGANMF training": dis_fused, "PureSVD serving": svd_fused,
+                     "IALS serving": ials_serve_fused, "IALS training": ials_fused, "tuner": tuner_fused}
     wide_by_path = {"GANMF serving": wide_launches, "GANMF training": train_wide,
-                    "DisGANMF training": dis_wide, "PureSVD serving": svd_wide}
+                    "DisGANMF training": dis_wide, "PureSVD serving": svd_wide, "IALS training": ials_wide}
     k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2}
     print(json.dumps({"kernels": [
         {
@@ -1365,7 +1734,8 @@ def main():
             "replaces": "ganmf_tpu/ops/pallas_scorer.py:26",
             "launches": sum(fused_by_path.values()),
             "launches_by_path": fused_by_path,
-            "merge_launches": merge_launches + train_merge + dis_merge + svd_merge,
+            "merge_launches": (merge_launches + train_merge + dis_merge + svd_merge + ials_serve_merge
+                               + ials_merge + tuner_merge),
             "max_abs_err": k1_err,
             "shape": eval_shape,
             **fused[eval_shape],

@@ -4,6 +4,8 @@ from ganmf_tpu_torch.models.cfgan import CFGAN, CFGANParams, MLPParams  # noqa: 
 from ganmf_tpu_torch.models.disganmf import DisGANMF, DisGANMFParams  # noqa: F401
 from ganmf_tpu_torch.models.caae import CAAE, CAAEParams  # noqa: F401
 from ganmf_tpu_torch.models.puresvd import PureSVDRecommender  # noqa: F401
+from ganmf_tpu_torch.models.ials import IALSRecommender  # noqa: F401
+from ganmf_tpu_torch.models.toppop import GlobalEffects, Random, TopPop  # noqa: F401
 
 #: the adversarial models ported so far, as the JAX package's GAN_MODELS
 GAN_MODELS = (GANMF, DisGANMF, CFGAN, CAAE)

@@ -37,7 +37,12 @@ duplicate rows in another order). A PureSVD fit on the card: scores within
 2e-4 of their scale of the CPU fit's from the same Omega, cold users empty in
 recommend_fused and serve_all. A GANMF fit with early stopping on the card
 launches K1 from its evaluations, and run_best trains and scores on the card
-by default.
+by default. One IALS epoch on the card in each storage: every factor row
+within 1e-4 of its norm of the CPU's (CG's residual exit at 1e-5 of ||b||
+bounds how far two summation orders leave a solution), the csr forms within
+rtol 2e-4 / atol 2e-6 of the card's dense form; TF32 off through an IALS fit
+whose validations launch K1; TopPop's lists on the card equal to the CPU's;
+one tuner trial on the card writes the experiment's artifacts.
 """
 
 import numpy as np
@@ -629,3 +634,108 @@ def test_caae_epoch_does_not_synchronize(cuda):
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(x)) for x in losses)
     assert torch.equal(torch.sort(draws.perm).values, torch.arange(len(w), device=cuda))
+
+
+def _ials_urm(seed=4):
+    rng = np.random.RandomState(seed)
+    full = (rng.rand(600, 900) < 0.03).astype(np.float32)
+    full[[3, 44]] = 0.0  # cold users
+    return sps.csr_matrix(full)
+
+
+def _row_gap(got, want):
+    return float((np.linalg.norm(got - want, axis=1) / np.maximum(np.linalg.norm(want, axis=1), 1e-30)).max())
+
+
+@pytest.mark.parametrize("storage", ["dense", "padded", "flat"])
+def test_ials_epoch_on_card_matches_cpu(cuda, storage, monkeypatch):
+    """One IALS epoch (K=32, alpha=5) from the same initial factors on the
+    card and on the CPU: every factor row within 1e-4 of its norm (CG stops
+    at a residual of 1e-5 of ||b||, so two summation orders leave the
+    solutions up to about cond(A) x 1e-5 apart); the card's three storages
+    within rtol 2e-4 / atol 2e-6 of its dense form."""
+    from ganmf_tpu_torch.models import IALSRecommender
+    from ganmf_tpu_torch.models import ials
+
+    urm = _ials_urm()
+    cfg = dict(epochs=1, num_factors=32, alpha=5.0, reg=1e-3)
+    card, plain = IALSRecommender(urm), IALSRecommender(urm, device=torch.device("cpu"))
+    assert card.device == cuda
+    plain.fit(**cfg)
+    dense = IALSRecommender(urm)
+    dense.fit(**cfg)
+    if storage == "flat":
+        monkeypatch.setattr(ials, "_PAD_PLANE_BYTE_LIMIT", 1)
+    card.fit(**cfg, urm_storage="dense" if storage == "dense" else "csr")
+    assert card._store_users[0] == storage
+    for got, ref, want in zip((card._U_dev, card._V_dev), (dense._U_dev, dense._V_dev), (plain._U_dev, plain._V_dev)):
+        assert got.device == cuda
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=2e-4, atol=2e-6)
+        assert _row_gap(got.cpu().numpy(), want.numpy()) <= 1e-4
+    assert card.USER_factors[3].tolist() == plain.USER_factors[3].tolist()  # cold rows untouched
+
+
+def test_ials_fits_without_tf32(cuda, monkeypatch):
+    """TF32 stays off in every product of an IALS fit on the card, and its
+    early-stopping validations launch K1."""
+    from ganmf_tpu_torch.models import IALSRecommender
+
+    urm = _ials_urm()
+    model = IALSRecommender(urm)
+    seen = []
+    orig = model._run_epoch
+
+    def epoch(n):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()))
+        orig(n)
+
+    model._run_epoch = epoch
+    before = scorer.LAUNCHES
+    model.fit(epochs=4, num_factors=16, alpha=5.0, validation_every_n=2, validation_metric="MAP",
+              evaluator_object=EvaluatorHoldout(urm, [5]))
+    assert seen == [(False, "highest")] * 4
+    assert scorer.LAUNCHES >= before + 2
+    assert model.epochs_best in (2, 4) and isinstance(model._USER_factors_store, torch.Tensor)
+
+
+def test_toppop_on_card_matches_cpu(cuda):
+    from ganmf_tpu_torch.models import TopPop
+
+    urm = _ials_urm()
+    card, plain = TopPop(urm), TopPop(urm, device=torch.device("cpu"))
+    card.fit()
+    plain.fit()
+    users = np.arange(50)
+    assert card.recommend(users, cutoff=20) == plain.recommend(users, cutoff=20)
+    assert card.recommend(users[:5]) == plain.recommend(users[:5])
+    idx, vals = card.serve_all(cutoff=20)
+    pidx, pvals = plain.serve_all(cutoff=20)
+    np.testing.assert_array_equal(idx, pidx)
+    np.testing.assert_array_equal(vals, pvals)
+
+
+def test_tuner_trial_on_card(cuda, tmp_path, monkeypatch):
+    """One ALS trial of RecSysExp on the card by default: the artifacts are
+    written, and the early-stopping and validation evaluations launch K1."""
+    import pickle
+
+    from ganmf_tpu_torch.cli import experiment
+    from ganmf_tpu_torch.cli.spaces import DICT_DIMENSIONS
+    from ganmf_tpu_torch.data.splits import make_experiment_splits, save_experiment_splits
+    from ganmf_tpu_torch.tune import Categorical
+
+    rng = np.random.RandomState(0)
+    splits = make_experiment_splits(sps.csr_matrix((rng.rand(200, 300) < 0.1).astype(np.float32)))
+    save_experiment_splits(splits, "synth", str(tmp_path / "splits"))
+    monkeypatch.setenv("GANMF_TPU_SPLIT_DIR", str(tmp_path / "splits"))
+    monkeypatch.chdir(tmp_path)
+    dims = list(DICT_DIMENSIONS["ALS"]) + [Categorical([10], name="epochs")]
+    exp = experiment.RecSysExp(experiment.IALSRecommender, "synth", fit_param_names=[d.name for d in dims])
+    assert exp.device == cuda
+    before = scorer.LAUNCHES
+    exp.tune(dims, evals=1)
+    assert scorer.LAUNCHES >= before + 3  # two early-stopping validations and the trial's
+    out = tmp_path / "experiments" / "IALSRecommender__synth"
+    assert sorted(p.name for p in out.iterdir()) == ["best_params.pkl", "best_params.txt", "checkpoint.pkl",
+                                                    "results.txt"]
+    assert pickle.loads((out / "best_params.pkl").read_bytes())["epochs"] in (0, 5, 10)

@@ -1,5 +1,6 @@
-"""The port runs where JAX is not installed: no module of ganmf_tpu_torch
-imports jax or ganmf_tpu, directly or through another module."""
+"""The port runs where JAX and scikit-learn are not installed: no module of
+ganmf_tpu_torch imports jax, ganmf_tpu or sklearn, directly or through another
+module."""
 
 import os
 import subprocess
@@ -12,14 +13,14 @@ _CHECK = r"""
 import importlib, pkgutil, sys
 
 class _Refuse:
-    # a finder that fails any import of jax or ganmf_tpu, even if some
-    # earlier code had already imported them
+    # a finder that fails any import of jax, ganmf_tpu or sklearn, even if
+    # some earlier code had already imported them
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn"):
             raise ImportError(f"the port imported {name}")
         return None
 
-for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu")]:
+for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn")]:
     del sys.modules[name]
 sys.meta_path.insert(0, _Refuse())
 
@@ -27,7 +28,7 @@ import ganmf_tpu_torch
 names = ["ganmf_tpu_torch"] + [m.name for m in pkgutil.walk_packages(ganmf_tpu_torch.__path__, "ganmf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu"))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn"))
 assert not leaked, leaked
 print("IMPORTED", len(names))
 """
@@ -39,6 +40,6 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
                        cwd=str(REPO), env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     # every module of the port was imported, the training slice's host
-    # copies, the run_best entry point and the DisGANMF, PureSVD and CAAE
-    # models among them
-    assert int(r.stdout.split("IMPORTED")[1]) >= 33, r.stdout
+    # copies, the run_best and experiment entry points, the tuner and the
+    # DisGANMF, PureSVD, CAAE, IALS and TopPop models among them
+    assert int(r.stdout.split("IMPORTED")[1]) >= 39, r.stdout

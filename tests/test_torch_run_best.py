@@ -4,12 +4,14 @@ the CPU.
 A synthetic dataset gets its five-way split from the port's
 ``make_experiment_splits`` (which must equal the JAX package's), saved under
 $GANMF_TPU_SPLIT_DIR as tests/test_cli.py:17-32 does. Both packages'
-``run_best`` then train GANMF (user and item mode), DisGANMF, CFGAN, CAAE and
-PureSVD from the same best params. The JAX initial weights go into the port
+``run_best`` then train GANMF (user and item mode), DisGANMF, CFGAN, CAAE,
+PureSVD, TopPop and IALS from the same best params. The JAX initial weights go
+into the port
 (``init_params`` monkeypatched), for CFGAN also JAX's per-epoch mask draws,
 replayed from its key chain as tests/test_torch_cfgan.py does, for CAAE its
 epoch draws (tests/test_torch_caae.py), and for PureSVD JAX's Omega; the
-GAN shuffles are the same numpy draws in both packages.
+GAN shuffles and the IALS initialisation are the same numpy draws in both
+packages.
 
 Tolerance: every metric of test_results.pkl within 1e-5 of JAX's (float32
 training taken in another order, as in tests/test_torch_ganmf_train.py). The
@@ -60,6 +62,12 @@ BEST = {
                      d_lr=1e-3, g_lr=1e-3, d_reg=1e-4, recon_coefficient=0.2),
     "CAAE": dict(epochs=2, d_steps=2, g_layers=1, g_units=16, num_factors=6, d_bsize=64, lr=0.05, beta=0.01),
     "PureSVD": dict(num_factors=5),
+    "TopPop": {},
+    # the factors agree within ~1e-5 (CG's residual exit), so the ranking
+    # metrics need scores without near-ties: at these params no two
+    # consecutive scores of a test user's ranking lie within 5.5e-5 (a CPU
+    # measurement), 9x the largest score gap between the packages
+    "ALS": dict(num_factors=8, confidence_scaling="linear", alpha=5.0, reg=1e-3, epochs=4),
 }
 
 
@@ -118,6 +126,8 @@ def _inject_jax_state(algo, monkeypatch):
     if algo == "CAAE":
         _inject_caae(monkeypatch, SEED)
         return
+    if algo in ("TopPop", "ALS"):
+        return  # no draws, or the same numpy initialisation in both packages
     if algo == "PureSVD":
         monkeypatch.setattr(psvd, "draw_omega", lambda n_cols, k, random_seed, device: torch.from_numpy(
             np.array(jax.random.normal(jax.random.PRNGKey(random_seed), (n_cols, k)))).to(device))
@@ -144,7 +154,8 @@ def _numbers_out(text):
 
 
 @pytest.mark.parametrize("algo,mode", [("GANMF", "user"), ("GANMF", "item"), ("CFGAN", "user"),
-                                       ("DisGANMF", "user"), ("CAAE", "user"), ("PureSVD", "")])
+                                       ("DisGANMF", "user"), ("CAAE", "user"), ("PureSVD", ""),
+                                       ("TopPop", ""), ("ALS", "")])
 def test_run_best_matches_jax(algo, mode, synth, monkeypatch, capsys):
     rec_name = experiment.DICT_REC_CLASSES[algo].RECOMMENDER_NAME
     name = f"{rec_name}_{mode}_synth"
@@ -181,8 +192,8 @@ def test_run_best_needs_a_card_and_a_ported_model(synth, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run("synth", "GANMF", train_mode="user")
-    with pytest.raises(NotImplementedError, match="TopPop is not ported"):
-        run("synth", "TopPop", device="cpu")
+    with pytest.raises(NotImplementedError, match="SLIMBPR is not ported"):
+        run("synth", "SLIMBPR", device="cpu")
     assert not (synth / "test_results").exists()
 
 
