@@ -111,7 +111,37 @@ Phases, in order; any failure exits nonzero:
     validations launched K1 and that run_best trains from the tuned
     best_params.pkl; read every committed experiments/*/checkpoint.pkl
     through the port's load and print its trial count and best value;
-17. print one JSON line with every kernel's launches (by path), error, times
+17. ItemKNN-CF on the LastFM-shaped split at the JAX package's defaults
+    (topK=50, shrink=100) with the cosine, asymmetric and euclidean
+    similarities: the Gram on the card bitwise equal to the CPU's, also by
+    the streamed route (``_DENSE_A_BYTE_LIMIT`` lowered) with its wall; W
+    from it within rtol 1e-6 of the CPU's, ids equal but at near ties; the
+    similarity route's ranking (``masked_topk_matmul``) of 256 users on the
+    card against the CPU's from the same W and profile rows, values within
+    rtol 1e-6 and ids equal but at near ties; the fit's wall and the
+    evaluation's users/s by the similarity route;
+18. P3alpha: run_best("LastFM", "P3Alpha") at the committed params
+    (experiments/P3alphaRecommender__LastFM/best_params.pkl: topK=462,
+    alpha=0.642) on phase 15's LastFM-shaped five-way split, on the card and
+    on the CPU: the training and testing seconds, the two W within rtol 1e-5
+    but at near ties, the similarity route's ranking of 256 users held as in
+    phase 17 on the card's W, and the metrics' largest gap to the CPU run;
+19. SLIM-BPR at the committed LastFM params
+    (experiments/SLIM_BPR_Recommender__LastFM/best_params.pkl: topK=761, 85
+    epochs, symmetric, adagrad): one epoch on the card against the CPU from
+    the same state and triples (W within 1e-5), then run_best's 85
+    epochs, with the epoch wall (median, min, max) and the prunes' walls;
+20. RecSysExp on phase 16's ML-1M-shaped five-way split: 2 SLIM-BPR trials
+    (epochs [10], early stopping) and 2 ItemKNN trials with the cosine
+    similarity;
+21. PureSVD (K=41) with the "itemKNN" cold-user estimate on the ML-1M-shaped
+    split with cold users: the estimate's build timed; the model ranked by
+    the dense route (no K1 launch) with metrics within 1e-5 of a CPU copy's.
+    The estimate itself scores no user, in the JAX package as here (the cold
+    and warm masks come from one URM; ROADMAP section 3): this is checked and
+    printed, and the scores are the factor product's. Phases 17-21 launch
+    neither K1 nor K2 (their counts are set to 0 before each and read after);
+22. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own), then the card line,
     then the result line.
 
@@ -208,6 +238,33 @@ IALS_ROW_GAP = 1e-4
 TUNER_ALS_EPOCHS, TUNER_ALS_EVALS = 10, (3, 5)
 TUNER_GANMF_EPOCHS, TUNER_GANMF_EVALS = 3, 2
 SCRATCH = "build/chip_smoke"  # splits, logs and results of the new phases (gitignored)
+# the similarity family (phases 17-21): float32 products and tiled_topk, no
+# kernel of the repo. ItemKNN-CF at the JAX package's defaults (topK=50,
+# shrink=100) in three families; on 0/1 data the Gram is exact, and W from
+# the same Gram is held within SIM_RTOL (exp, log, pow and the ranking's
+# near ties are another library's on the CPU)
+ITEMKNN_TOPK, ITEMKNN_SHRINK = 50, 100
+ITEMKNN_SIMILARITIES = ("cosine", "asymmetric", "euclidean")
+SIM_RTOL = 1e-6
+# users whose similarity-route ranking is held card against CPU (the CPU's
+# product for them is 2 x 256 x 17632^2 = 0.16 TFLOP)
+SIM_RANK_USERS = 256
+# P3alpha's run_best: the card's metrics against a CPU run of the same
+# run_best; the walk's float32 sums meet many exact ties on a sparse
+# synthetic split, which the two summation orders may break either way, so
+# the gap is printed and held only to this sanity bound
+P3_METRIC_BOUND = 1e-3
+# P3alpha's similarity-route ranking, card against CPU from the same W:
+# real-valued W, float32 sums of a profile's entries in another order
+P3_RANK_RTOL = 1e-5
+# the tuner on the similarity family: SLIM-BPR's epochs Categorical([1500])
+# cut to [10] (early stopping validates every 5), 2 trials each
+SIM_TUNER_SLIM_EPOCHS, SIM_TUNER_EVALS = 10, 2
+# one SLIM-BPR epoch, card against CPU from the same state and triples: only
+# index_add_'s atomic order of duplicate rows differs, a few ulps of W's
+# entries (7.451e-9 measured on an H100); an update with a flipped sign
+# moves an entry by about lr (0.054)
+SLIM_EPOCH_ATOL = 1e-5
 
 
 def fail(msg):
@@ -1569,6 +1626,410 @@ def phase_tuner(dev, card, split_dir, scratch):
         print(f"  {path}: {len(r.func_vals)} trials, best {r.fun:.6f} at {r.x}")
 
 
+def similarity_best_params(name):
+    import pickle
+
+    with open(os.path.join(BP_DIR, name, "best_params.pkl"), "rb") as fh:
+        return pickle.load(fh)
+
+
+def run_best_seconds(out_dir):
+    """(training, testing) seconds of run_best's last test_results.txt entry."""
+    with open(os.path.join(out_dir, "test_results.txt")) as fh:
+        text = fh.read()
+    train_s = float(re.findall(r"Training time: ([0-9.]+) s", text)[-1])
+    test_s = float(re.findall(r"Testing time: ([0-9.]+) s", text)[-1])
+    return train_s, test_s
+
+
+def ranked_agree(name, vals, ids, pvals, pids, W_full, rtol):
+    """Per-column top-k (values, ids) of the card against the CPU's: values
+    within rtol, ids equal except where the two rows' similarities in the
+    card's unpruned W lie within rtol of each other (a near tie). Returns
+    (largest value gap relative to its value, near-tie slots)."""
+    import torch
+
+    pv = pvals.to(vals.device)
+    gap = float(((vals - pv).abs() / pv.abs().clamp_min(1e-30)).max())
+    if not bool(((vals - pv).abs() <= rtol * pv.abs()).all()):
+        fail(f"{name}: W's values differ from the CPU's beyond rtol {rtol} ({gap:.3e})")
+    pi = pids.to(ids.device)
+    diff = ids != pi
+    n_diff = int(diff.sum())
+    if n_diff:
+        cols = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)[diff]
+        sa, sb = W_full[ids[diff], cols], W_full[pi[diff], cols]
+        if not bool(((sa - sb).abs() <= rtol * sb.abs()).all()):
+            fail(f"{name}: W's ids differ from the CPU's beyond a near tie")
+    return gap, n_diff
+
+
+def sim_ranking_agree(name, model, users, rtol):
+    """The similarity route's ranking (masked_topk_matmul: one float32
+    product, the seen mask from the profile rows, tiled_topk) of
+    SIM_RANK_USERS users spread over ``users``, on the card against the CPU
+    from the same W and profile rows: values within rtol, ids equal but at
+    near ties in the card's scores. Returns (largest relative value gap,
+    near-tie slots)."""
+    import torch
+
+    from ganmf_tpu_torch.ops.simscore import masked_topk_matmul
+
+    pick = np.asarray(users)[np.linspace(0, len(users) - 1, SIM_RANK_USERS).astype(np.int64)]
+    uids = torch.from_numpy(pick).to(model.device)
+    rows, W = model._fused_serving_operands(uids)
+    pairs = torch.zeros((len(pick), 1), dtype=torch.int64, device=model.device)
+    k = max(CUTOFFS)
+    vals, ids, _, _ = masked_topk_matmul(rows, W, None, pairs, k, mask_from_rows=True)
+    pvals, pids, _, _ = masked_topk_matmul(rows.cpu(), W.cpu(), None, pairs.cpu(), k, mask_from_rows=True)
+    scores = (rows @ W).masked_fill(rows != 0, float("-inf"))
+    return ranked_agree(name, vals, ids, pvals, pids, scores.T, rtol)
+
+
+def phase_itemknn(dev, card, train, test):
+    """ItemKNN-CF on the LastFM-shaped split in three families: the Gram on
+    the card bitwise equal to the CPU's, on the dense route and with
+    _DENSE_A_BYTE_LIMIT lowered on the streamed route; W from it within
+    SIM_RTOL of the CPU's with ids equal but at near ties; the similarity
+    route's ranking held against the CPU's; the fit and the evaluation
+    timed."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import ItemKNNCFRecommender
+    from ganmf_tpu_torch.ops import similarity as psim
+    from ganmf_tpu_torch.ops.topk import scatter_col_topk_dense
+
+    cpu = torch.device("cpu")
+    n_rows, n = train.shape
+    print(f"[17] ItemKNN-CF on {n_rows} x {n}: topK {ITEMKNN_TOPK}, shrink {ITEMKNN_SHRINK}, "
+          f"{', '.join(ITEMKNN_SIMILARITIES)}")
+    ones, pones = torch.ones(n_rows, device=dev), torch.ones(n_rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G, ss2, route = psim.build_gram(train, ones, False, dev)
+    torch.cuda.synchronize()
+    gram_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Gp, ss2p, _ = psim.build_gram(train, pones, False, cpu)
+    cpu_gram_s = time.perf_counter() - t0
+    if route != "dense" or not torch.equal(G.cpu(), Gp) or not torch.equal(ss2.cpu(), ss2p):
+        fail(f"ItemKNN: the {route} Gram on the card is not the CPU's bitwise")
+    print(f"  Gram (dense route, float32, TF32 off): {1e3 * gram_s:.3f} ms on the card, bitwise equal to the "
+          f"CPU's ({cpu_gram_s:.2f} s); largest co-rating count {int(G.max())}  [{card}]")
+    saved = psim._DENSE_A_BYTE_LIMIT
+    psim._DENSE_A_BYTE_LIMIT = 1
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Gs, _, got = psim.build_gram(train, ones, False, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        psim._DENSE_A_BYTE_LIMIT = saved
+    if got != "streamed" or not torch.equal(Gs, G):
+        fail(f"ItemKNN: the streamed Gram ({got}) differs from the dense route's")
+    print(f"  Gram by the streamed route (_DENSE_A_BYTE_LIMIT lowered, chunks of {psim._STREAM_CHUNK} rows): "
+          f"{1e3 * wall:.3f} ms, equal to the dense route's")
+    del Gs
+    del Gp
+
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    for similarity in ITEMKNN_SIMILARITIES:
+        w_kw = dict(shrink=float(ITEMKNN_SHRINK), normalize=True, asymmetric_alpha=0.5, tversky_alpha=1.0,
+                    tversky_beta=1.0, normalize_avg_row=False, distance_mode="lin", use_row_weights=False)
+        model = ItemKNNCFRecommender(train, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(topK=ITEMKNN_TOPK, shrink=ITEMKNN_SHRINK, similarity=similarity)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        vals, ids = psim._similarity_topk_from_gram(G, ss2, ones, n_rows, mode=similarity, topk=ITEMKNN_TOPK,
+                                                    **w_kw)
+        if not torch.equal(model._device_w, scatter_col_topk_dense(vals, ids)):
+            fail(f"ItemKNN {similarity}: the fit's W is not the build's from the same Gram")
+        t0 = time.perf_counter()
+        pvals, pids = psim._similarity_topk_from_gram(G.cpu(), ss2p, pones, n_rows, mode=similarity,
+                                                      topk=ITEMKNN_TOPK, **w_kw)
+        cpu_s = time.perf_counter() - t0
+        W_full = psim._w_block(G, ss2, ss2, 0, n_rows, ones, similarity, **w_kw)
+        gap, ties = ranked_agree(f"ItemKNN {similarity}", vals, ids, pvals, pids, W_full, SIM_RTOL)
+        del W_full
+        if not ev._can_fuse_sim(model):
+            fail(f"ItemKNN {similarity}: the evaluator would not take the similarity route")
+        t0 = time.perf_counter()
+        results, _ = ev.evaluateRecommender(model)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        if not all(np.isfinite(results[c][m]) for c in CUTOFFS for m in ("PRECISION", "RECALL", "MAP", "NDCG")):
+            fail(f"ItemKNN {similarity}: a ranking metric is not finite")
+        n_eval = len(ev.usersToEvaluate)
+        rgap, rties = sim_ranking_agree(f"ItemKNN {similarity} ranking", model, ev.usersToEvaluate, SIM_RTOL)
+        print(f"  {similarity}: fit {fit_s:.4f} s; W within {gap:.3e} (relative) of the CPU's from the same Gram "
+              f"({cpu_s:.2f} s on the CPU), {ties} near-tie id slots of {ids.numel()}; eval {n_eval} users in "
+              f"{eval_s:.4f} s = {n_eval / eval_s:.1f} users/s by the similarity route; MAP@5 "
+              f"{results[5]['MAP']:.6f}  [{card}]")
+        print(f"    ranking of {SIM_RANK_USERS} users (top {max(CUTOFFS)}, masked_topk_matmul) within {rgap:.3e} "
+              f"(relative) of the CPU's from the same W and rows, {rties} near-tie id slots")
+        del model
+    del G
+
+
+def csr_topk_agree(name, got, want, rtol):
+    """Two per-column top-K matrices (scipy): the same count a column, the
+    entries both keep within rtol, and an entry kept by one only within rtol
+    of the other's smallest kept value in its column (a near tie). Returns
+    (largest relative gap, entries kept by one only)."""
+    g, w = got.tocsc(), want.tocsc()
+    g.sort_indices()
+    w.sort_indices()
+    if not np.array_equal(np.diff(g.indptr), np.diff(w.indptr)):
+        fail(f"{name}: W keeps another count of entries in some column than the CPU's")
+    n = g.shape[0]
+    keys = [np.repeat(np.arange(m.shape[1], dtype=np.int64), np.diff(m.indptr)) * n + m.indices for m in (g, w)]
+    common, gi, wi = np.intersect1d(keys[0], keys[1], assume_unique=True, return_indices=True)
+    gap = float(np.max(np.abs(g.data[gi] - w.data[wi]) / np.abs(w.data[wi]))) if len(common) else 0.0
+    if gap > rtol:
+        fail(f"{name}: W differs from the CPU's by {gap:.3e} > rtol {rtol}")
+    only = 0
+    for a, b, ka, kb in ((g, w, keys[0], keys[1]), (w, g, keys[1], keys[0])):
+        lone = ~np.isin(ka, kb, assume_unique=True)
+        only += int(lone.sum())
+        nonempty = np.diff(b.indptr) > 0
+        edge = np.zeros(b.shape[1], np.float32)
+        edge[nonempty] = np.minimum.reduceat(b.data, b.indptr[:-1][nonempty])
+        cols = ka[lone] // n
+        if not np.all(np.abs(a.data[lone] - edge[cols]) <= rtol * np.abs(edge[cols])):
+            fail(f"{name}: W keeps an entry the CPU's does not, beyond a near tie")
+    return gap, only
+
+
+def phase_p3alpha_run_best(dev, card, scratch):
+    """run_best("LastFM", "P3Alpha") at the committed params on the
+    LastFM-shaped five-way split, on the card and on the CPU: W within
+    rtol 1e-5 but at near ties, the metrics' gap printed."""
+    import torch
+
+    from ganmf_tpu_torch.cli import experiment, run_best
+    from ganmf_tpu_torch.models import P3alphaRecommender
+
+    class Kept(P3alphaRecommender):
+        instances = []
+
+        def fit(self, *args, **kwargs):
+            Kept.instances.append(self)
+            return super().fit(*args, **kwargs)
+
+    params = similarity_best_params("P3alphaRecommender__LastFM")
+    print(f"[18] P3alpha run_best on the LastFM-shaped five-way split: {params}")
+    out = {}
+    saved = experiment.DICT_REC_CLASSES["P3Alpha"]
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        root = os.path.join(scratch, f"p3alpha_{label}")
+        experiment.DICT_REC_CLASSES["P3Alpha"] = Kept
+        t0 = time.perf_counter()
+        try:
+            out[label] = run_best.run("LastFM", "P3Alpha", bp_dir=BP_DIR, out_root=root, force=True, device=device)
+        finally:
+            experiment.DICT_REC_CLASSES["P3Alpha"] = saved
+        wall = time.perf_counter() - t0
+        train_s, test_s = run_best_seconds(os.path.join(root, "P3alphaRecommender__LastFM"))
+        print(f"  {label}: training {train_s:.3f} s, testing {test_s:.3f} s, run_best wall {wall:.2f} s"
+              + (f"  [{card}]" if label == "card" else ""))
+    results, presults = out["card"], out["cpu"]
+    worst = 0.0
+    for c in CUTOFFS:
+        for metric, value in results[c].items():
+            ref = presults[c][metric]
+            if np.isnan(value) and np.isnan(ref):
+                continue
+            if not (np.isfinite(value) and np.isfinite(ref)):
+                fail(f"P3alpha run_best: {metric}@{c} is not finite ({value}, CPU {ref})")
+            worst = max(worst, abs(value - ref))
+    if worst > P3_METRIC_BOUND:
+        fail(f"P3alpha run_best: the card's metrics differ from the CPU run's by {worst:.3e}")
+    card_m, cpu_m = Kept.instances
+    gap, only = csr_topk_agree("P3alpha", card_m.W_sparse, cpu_m.W_sparse, 1e-5)
+    print(f"  W ({card_m.W_sparse.nnz} entries) within {gap:.3e} (relative) of the CPU run's, {only} entries kept "
+          f"by one only, each a near tie at its column's edge")
+    users = np.flatnonzero(np.ediff1d(card_m.URM_train.indptr) > 0)
+    rgap, rties = sim_ranking_agree("P3alpha ranking", card_m, users, P3_RANK_RTOL)
+    print(f"  ranking of {SIM_RANK_USERS} users (top {max(CUTOFFS)}) on the card's W within {rgap:.3e} (relative) "
+          f"of the CPU's from the same W and rows, {rties} near-tie id slots")
+    print(f"  largest metric gap to the CPU run {worst:.3e}; test MAP@5 {results[5]['MAP']:.6f}, NDCG@10 "
+          f"{results[10]['NDCG']:.6f}, RECALL@50 {results[50]['RECALL']:.6f}")
+
+
+def phase_slim(dev, card, train, scratch):
+    """SLIM-BPR at the committed LastFM params: one epoch on the card against
+    the CPU from the same state and triples (W within SLIM_EPOCH_ATOL), then
+    run_best's full 85 epochs, with the epochs and the prunes timed."""
+    import statistics
+
+    import torch
+
+    from ganmf_tpu_torch.cli import experiment, run_best
+    from ganmf_tpu_torch.models import SLIM_BPR
+    from ganmf_tpu_torch.models import slim_bpr as ps
+
+    cpu = torch.device("cpu")
+    params = similarity_best_params("SLIM_BPR_Recommender__LastFM")
+    lr = params["learning_rate"]
+    print(f"[19] SLIM-BPR at the committed LastFM params: {params}")
+    mask = train.copy()
+    mask.data = (mask.data >= 1).astype(np.float32)
+    mask.eliminate_zeros()
+    tables, ptables = ps.build_tables(mask, dev), ps.build_tables(mask, cpu)
+    chunk = 64
+    n_chunks = -(-train.shape[0] // chunk)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    triples = [t.view(n_chunks, chunk) for t in ps.draw_triples(tables, n_chunks * chunk, gen)]
+    hyper = dict(learning_rate=lr, li_reg=params["lambda_i"], lj_reg=params["lambda_j"], gamma=0.995, beta_1=0.9,
+                 beta_2=0.999, sgd_mode=params["sgd_mode"], symmetric=params["symmetric"])
+    state = ps.init_state(train.shape[1], 0.9, 0.999, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ps.bpr_epoch(state, tables.urm, triples, **hyper)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    want = ps.bpr_epoch(ps.OptState(*(t.cpu() for t in state)), ptables.urm, [t.cpu() for t in triples], **hyper)
+    gap = float((got.W.cpu() - want.W).abs().max())
+    moved = int((want.W != 0).sum())
+    same = int((got.W.cpu() == want.W).sum())
+    if gap > SLIM_EPOCH_ATOL or moved == 0:
+        fail(f"SLIM-BPR: one epoch on the card differs from the CPU's by {gap:.3e} > {SLIM_EPOCH_ATOL} ({moved} "
+             f"entries moved)")
+    print(f"  one epoch ({n_chunks} chunks of {chunk}) on the card in {epoch_s:.4f} s; W within {gap:.3e} of the "
+          f"CPU's (gate {SLIM_EPOCH_ATOL}; lr {lr:.3e}), {moved} entries moved, {same} of {want.W.numel()} bitwise equal; "
+          f"cache within {float((got.cache.cpu() - want.cache).abs().max()):.3e}  [{card}]")
+    del got, want, state, tables, ptables
+
+    class TimedSLIM(SLIM_BPR):
+        instances = []
+
+        def fit(self, *args, **kwargs):
+            self.epoch_log = []
+            TimedSLIM.instances.append(self)
+            return super().fit(*args, **kwargs)
+
+        def _run_epoch(self, num_epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._run_epoch(num_epoch)
+            torch.cuda.synchronize()
+            self.epoch_log.append(time.perf_counter() - t0)
+
+    prunes = []
+    prune = ps.prune_topk_device
+
+    def timed_prune(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prune(*args, **kwargs)
+        torch.cuda.synchronize()
+        prunes.append(time.perf_counter() - t0)
+        return out
+
+    saved = experiment.DICT_REC_CLASSES["SLIMBPR"]
+    experiment.DICT_REC_CLASSES["SLIMBPR"], ps.prune_topk_device = TimedSLIM, timed_prune
+    root = os.path.join(scratch, "slim")
+    try:
+        t0 = time.perf_counter()
+        results = run_best.run("LastFM", "SLIMBPR", bp_dir=BP_DIR, out_root=root, force=True, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        experiment.DICT_REC_CLASSES["SLIMBPR"], ps.prune_topk_device = saved, prune
+    (model,) = TimedSLIM.instances
+    secs = model.epoch_log
+    if len(secs) != params["epochs"]:
+        fail(f"SLIM-BPR run_best: {len(secs)} epochs ran")
+    for c in CUTOFFS:
+        if not all(np.isfinite(results[c][m]) for m in ("PRECISION", "RECALL", "MAP", "NDCG")):
+            fail(f"SLIM-BPR run_best: a ranking metric at cutoff {c} is not finite")
+    train_s, test_s = run_best_seconds(os.path.join(root, "SLIM_BPR_Recommender__LastFM"))
+    print(f"  run_best: {len(secs)} epochs, median {statistics.median(secs):.4f} s/epoch (min {min(secs):.4f}, "
+          f"max {max(secs):.4f}); prunes (topK {params['topK']}) {', '.join(f'{p:.4f}' for p in prunes)} s; "
+          f"training {train_s:.3f} s, testing {test_s:.3f} s, wall {wall:.2f} s  [{card}]")
+    print(f"  test: MAP@5 {results[5]['MAP']:.6f}, NDCG@10 {results[10]['NDCG']:.6f}, "
+          f"RECALL@50 {results[50]['RECALL']:.6f}; W_sparse nnz {model.W_sparse.nnz}")
+
+
+def phase_sim_tuner(dev, card, split_dir, scratch):
+    """RecSysExp on the ML-1M-shaped five-way split: SLIM-BPR (early
+    stopping) and ItemKNN with the cosine similarity, 2 trials each."""
+    from ganmf_tpu_torch.cli.experiment import RecSysExp
+    from ganmf_tpu_torch.cli.spaces import DICT_DIMENSIONS, similarity_extra_dimensions
+    from ganmf_tpu_torch.models import SLIM_BPR, ItemKNNCFRecommender
+    from ganmf_tpu_torch.tune import Categorical
+    from ganmf_tpu_torch.tune.gp import load
+
+    os.environ["GANMF_TPU_SPLIT_DIR"] = split_dir
+    logs_root = os.path.join(scratch, "sim_experiments")
+    slim_dims = [Categorical([SIM_TUNER_SLIM_EPOCHS], name="epochs") if d.name == "epochs" else d
+                 for d in DICT_DIMENSIONS["SLIMBPR"]]
+    knn_dims = (list(DICT_DIMENSIONS["ItemKNN"]) + [Categorical(["cosine"], name="similarity")]
+                + similarity_extra_dimensions("cosine"))
+    for cls, dims, sim in ((SLIM_BPR, slim_dims, ""), (ItemKNNCFRecommender, knn_dims, "cosine")):
+        print(f"[20] tuner: {cls.RECOMMENDER_NAME} {sim or '-'}, {SIM_TUNER_EVALS} evaluations")
+        exp = RecSysExp(cls, "1M", fit_param_names=[d.name for d in dims], similarity_mode=sim, logs_root=logs_root,
+                        device=dev)
+        t0 = time.perf_counter()
+        exp.tune(dims, evals=SIM_TUNER_EVALS)
+        wall = time.perf_counter() - t0
+        names = sorted(os.listdir(exp.logsdir))
+        if names != ["best_params.pkl", "best_params.txt", "checkpoint.pkl", "results.txt"]:
+            fail(f"tuner {cls.RECOMMENDER_NAME}: the experiment wrote {names}")
+        result = load(os.path.join(exp.logsdir, "checkpoint.pkl"))
+        if len(result.func_vals) != SIM_TUNER_EVALS:
+            fail(f"tuner {cls.RECOMMENDER_NAME}: {len(result.func_vals)} trials")
+        best = exp.load_best_params()
+        if cls is SLIM_BPR and "epochs" not in best:
+            fail("tuner SLIM-BPR: early stopping's epochs are not in best_params.pkl")
+        print(f"  {SIM_TUNER_EVALS} trials in {wall:.2f} s, {wall / SIM_TUNER_EVALS:.2f} s a trial  [{card}]; "
+              f"best {result.fun:.6f}; best_params {best}")
+
+
+def phase_puresvd_itemknn(dev, card, train, test):
+    """PureSVD with the "itemKNN" cold-user estimate on the ML-1M-shaped split
+    with cold users: evaluated by the dense route (no K1 launch), its
+    metrics held against a CPU copy with the same factors. The estimate
+    scores no user (the cold and warm masks come from one URM, as in the JAX
+    package), so the scores are the factor product's; this is checked."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import PureSVDRecommender
+
+    print(f"[21] PureSVD ({PURESVD_PARAMS}) with the itemKNN cold-user estimate (topK 100) on "
+          f"{train.shape[0]} x {train.shape[1]}, users {SVD_COLD_USERS} cold")
+    model = PureSVDRecommender(train, device=dev)
+    model.fit(**PURESVD_PARAMS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.set_URM_train(train, estimate_model_for_cold_users="itemKNN", topK=100)
+    torch.cuda.synchronize()
+    est_s = time.perf_counter() - t0
+    plain = PureSVDRecommender(train, device=torch.device("cpu"))
+    plain.USER_factors, plain.ITEM_factors = model.USER_factors, model.ITEM_factors
+    plain.set_URM_train(train, estimate_model_for_cold_users="itemKNN", topK=100)
+    if model._ranks_with_k1():
+        fail("PureSVD with the itemKNN estimate would rank through K1")
+    takers = int((model._cold_user_mask & model._warm_user_KNN_mask).sum())
+    if takers:
+        fail(f"PureSVD's itemKNN estimate would score {takers} users; the JAX package's scores none")
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    t0 = time.perf_counter()
+    results, _ = ev.evaluateRecommender(model)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    presults, _ = EvaluatorHoldout(test, CUTOFFS, device=torch.device("cpu")).evaluateRecommender(plain)
+    worst = worst_metric_diff("PureSVD itemKNN", results, presults, METRIC_TOL, nan_ok=("RMSE",))
+    n_eval = len(ev.usersToEvaluate)
+    print(f"  estimate (item factors' W, top 100 a column) built in {est_s:.4f} s; it scores 0 users (the cold "
+          f"and warm masks come from one URM); eval {n_eval} users in {eval_s:.4f} s = {n_eval / eval_s:.1f} "
+          f"users/s by the dense route; every metric within {worst:.3e} of the CPU copy's  [{card}]")
+
+
 def main():
     import torch
 
@@ -1712,8 +2173,26 @@ def main():
     tuner_merge = scorer.MERGE_LAUNCHES
     if tuner_fused == 0:
         fail("the tuner's validations did not launch K1's fused kernel")
-    shutil.rmtree(SCRATCH)
     elapsed("the tuner")
+
+    # the similarity family: each path's counts set to 0 just before it and
+    # read just after; no kernel of the repo runs there
+    def no_kernel(run, what):
+        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = 0
+        run()
+        if scorer.LAUNCHES or select.LAUNCHES:
+            fail(f"{what} launched K1 {scorer.LAUNCHES} times and K2 {select.LAUNCHES} times")
+        print(f"  K1 and K2 launches on the {what} path: 0")
+        elapsed(what)
+
+    train, test = lastfm_split()
+    no_kernel(lambda: phase_itemknn(dev, card, train, test), "ItemKNN")
+    no_kernel(lambda: phase_p3alpha_run_best(dev, card, SCRATCH), "P3alpha run_best")
+    no_kernel(lambda: phase_slim(dev, card, train, SCRATCH), "SLIM-BPR")
+    no_kernel(lambda: phase_sim_tuner(dev, card, split_dir, SCRATCH), "similarity tuner")
+    train, test = ml1m_cold_split()
+    no_kernel(lambda: phase_puresvd_itemknn(dev, card, train, test), "PureSVD itemKNN")
+    shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide

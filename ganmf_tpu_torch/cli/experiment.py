@@ -8,8 +8,8 @@ checkpoint resume, the GAN and baseline branches, and the five committed URM
 splits as inputs. ``run_best`` shares its names and ``load_urms``.
 
 Models and evaluators run on the card unless ``RecSysExp`` is given
-``device="cpu"``. ``DICT_REC_CLASSES`` holds the models ported so far;
-``rec_class`` names any other as not ported.
+``device="cpu"``. ``DICT_REC_CLASSES`` holds a class for every name of
+``ALL_RECOMMENDERS``; ``rec_class`` raises for any other name.
 
 CLI: python -m ganmf_tpu_torch.cli.experiment [--build-dataset] <dataset> <rec>
          [--user | --item] [<similarity>] [--evals N]
@@ -37,7 +37,10 @@ from ganmf_tpu_torch.models import (
     GANMF,
     DisGANMF,
     IALSRecommender,
+    ItemKNNCFRecommender,
+    P3alphaRecommender,
     PureSVDRecommender,
+    SLIM_BPR,
     TopPop,
 )
 from ganmf_tpu_torch.tune import Categorical, Integer
@@ -69,14 +72,17 @@ DICT_REC_CLASSES = {
     "TopPop": TopPop,
     "ALS": IALSRecommender,
     "PureSVD": PureSVDRecommender,
+    "SLIMBPR": SLIM_BPR,
+    "P3Alpha": P3alphaRecommender,
+    "ItemKNN": ItemKNNCFRecommender,
 }
 
-# the JAX package's list also holds SLIM_BPR, which is not ported
-EARLY_STOPPING_ALGOS = [IALSRecommender]
+EARLY_STOPPING_ALGOS = [IALSRecommender, SLIM_BPR]
 
 
 def rec_class(algo: str):
-    """The model class for a recommender name of ``ALL_RECOMMENDERS``."""
+    """The model class for a recommender name of ``ALL_RECOMMENDERS``;
+    raises for any other name."""
     if algo not in DICT_REC_CLASSES:
         raise NotImplementedError(
             f"{algo} is not ported to ganmf_tpu_torch yet (ported: {', '.join(sorted(DICT_REC_CLASSES))})")

@@ -6,11 +6,16 @@ from it; the padded-CSR planes hold each row's column ids and values,
 left-justified and padded with the sentinel column ``n_cols``, for matrices
 whose dense form is too large and for the evaluator's test rows.
 
+A similarity matrix too large to hold dense goes to the device as a torch
+sparse CSR tensor (``sparse_csr_from_sparse``), multiplied there and read by
+rows (``csr_rows_dense``).
+
 The content-digest LRU of ``padded_csr_from_sparse`` is not ported yet.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -120,3 +125,33 @@ def padded_rows_mask(
 ) -> torch.Tensor:
     """Boolean seen-mask rows from the padded storage."""
     return padded_rows_dense(pc, uids, n_cols, max_len=max_len) != 0
+
+
+def sparse_csr_from_sparse(mat: sps.spmatrix, device: torch.device) -> torch.Tensor:
+    """A float32 torch sparse CSR tensor of ``mat`` on the device, exact
+    zeros dropped (for ``torch.sparse.mm``)."""
+    csr = sps.csr_matrix(mat, dtype=np.float32)
+    csr.eliminate_zeros()
+    csr.sort_indices()
+    with warnings.catch_warnings():  # torch calls its sparse CSR layout beta
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr.astype(np.int64)), torch.from_numpy(csr.indices.astype(np.int64)),
+            torch.from_numpy(csr.data), size=csr.shape, check_invariants=False,
+        ).to(device)
+
+
+def csr_rows_dense(W: torch.Tensor, rows: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """[B, n_cols] dense copies of the given rows of the sparse CSR tensor
+    W, gathered and scattered on the device (one host read: the rows' entry
+    count)."""
+    crow, col, val = W.crow_indices(), W.col_indices(), W.values()
+    starts = crow.index_select(0, rows)
+    lens = crow.index_select(0, rows + 1) - starts
+    total = int(lens.sum())
+    b = torch.repeat_interleave(torch.arange(len(rows), device=rows.device), lens, output_size=total)
+    first = torch.cumsum(lens, 0) - lens
+    pos = torch.arange(total, device=rows.device) - first[b] + starts[b]
+    out = torch.zeros((len(rows), n_cols), dtype=val.dtype, device=val.device)
+    out[b, col[pos]] = val[pos]  # a CSR row holds each column once
+    return out

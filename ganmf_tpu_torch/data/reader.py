@@ -5,9 +5,10 @@ dataset builders need, which use no framework: streaming interaction parsing
 with dedup (reference datasets/DataReader.py:275-379, the Python parser
 only), dense user/item reindexing (:386-480), iterative k-core filtering and
 the per-user multinomial train/test/validation assignment (:482-633), and the
-config-compared process cache (:700-792). The splitter reproduces the
-reference's numpy RNG call sequence exactly. Not copied: the native parser,
-the item-feature (ICM) readers and the k-fold generator.
+config-compared process cache (:700-792), and the item-feature (ICM)
+readers that feed ItemKNNCBFRecommender. The splitter reproduces the
+reference's numpy RNG call sequence exactly. Not copied: the native parser
+and the k-fold generator.
 """
 
 from __future__ import annotations
@@ -84,6 +85,79 @@ def read_interactions(
     cols = np.asarray(cols, dtype=np.int64)
     data = np.asarray(data, dtype=np.float32)
     return _dedup(rows, cols, data, keep=duplicate)
+
+
+def read_item_features(
+    path: str,
+    item_col: int = 0,
+    feature_col: int = 2,
+    delimiter: str = "::",
+    feature_sep: str = "|",
+    header: bool = False,
+) -> Tuple[np.ndarray, List[str]]:
+    """Parse an item-metadata file into (item_id, feature_token) pairs.
+
+    Covers movies.dat-style files (``MovieID::Title::Genres`` with
+    ``|``-separated genre tokens). The reference has no ICM ingestion at
+    root — this is the minimal path that feeds ItemKNNCBFRecommender
+    (reference KNN/ItemKNNCBFRecommender.py:24-27 takes a prebuilt ICM).
+    Returns parallel arrays of raw item ids and feature token strings.
+    """
+    item_ids: List[int] = []
+    tokens: List[str] = []
+    with open(path, "r", errors="replace") as fh:
+        first = True
+        for line in fh:
+            if first and header:
+                first = False
+                continue
+            first = False
+            line = line.strip()
+            if not line:
+                continue
+            parts = line.split(delimiter)
+            if len(parts) <= max(item_col, feature_col):
+                continue
+            iid = int(parts[item_col])
+            for tok in parts[feature_col].split(feature_sep):
+                tok = tok.strip()
+                if tok:
+                    item_ids.append(iid)
+                    tokens.append(tok)
+    return np.asarray(item_ids, dtype=np.int64), tokens
+
+
+def build_icm(
+    item_ids: np.ndarray,
+    feature_tokens: List[str],
+    col_to_item: Dict[int, int],
+    n_items: Optional[int] = None,
+) -> Tuple[sps.csr_matrix, Dict[str, int]]:
+    """Build a binary ICM [n_items, n_features] aligned to the URM's item axis.
+
+    ``col_to_item`` is the raw-item-id -> URM-column map produced by
+    build_urm; items absent from it (filtered by k-core / top-pop removal)
+    are dropped. Features are indexed in sorted-token order for
+    determinism. Returns (ICM csr, feature_token -> column map).
+    """
+    n_items = n_items if n_items is not None else len(col_to_item)
+    feat_names = sorted(set(feature_tokens))
+    feat_to_col = {f: c for c, f in enumerate(feat_names)}
+
+    rows: List[int] = []
+    cols: List[int] = []
+    for iid, tok in zip(item_ids, feature_tokens):
+        col = col_to_item.get(int(iid))
+        if col is not None:
+            rows.append(col)
+            cols.append(feat_to_col[tok])
+    icm = sps.csr_matrix(
+        (np.ones(len(rows), dtype=np.float32), (rows, cols)),
+        shape=(n_items, len(feat_names)),
+    )
+    icm.sum_duplicates()
+    icm.data[:] = np.minimum(icm.data, 1.0)
+    return icm, feat_to_col
 
 
 def build_urm(

@@ -7,19 +7,23 @@ accumulated on the device; only the finalization runs on the host. It returns
 the reference's (results_dict, results_string) pair, with the same metric
 order and formatting.
 
-Each block ranks by the route that ``Recommender._ranks_with_k1`` picks from
-the model's type, before any launch, as the JAX evaluator's ``_can_fuse``
-does (ganmf_tpu/eval/evaluator.py:231-266):
+Each block ranks by a route picked from the model before any launch, as the
+JAX evaluator's ``_can_fuse`` and ``_can_fuse_sim`` pick it
+(ganmf_tpu/eval/evaluator.py:231-306,435-438):
 
-- a factor model (one that provides ``_factors_device()``) ranks through the
-  masked top-k scorer K1 (ops/scorer.py) at every cutoff. On a CUDA model
-  the kernel runs; on a CPU model the scorer takes its plain version;
+- a factor model (``Recommender._ranks_with_k1``) ranks through the masked
+  top-k scorer K1 (ops/scorer.py) at every cutoff. On a CUDA model the
+  kernel runs; on a CPU model the scorer takes its plain version;
+- an item-based or user-based similarity model whose W is dense on the
+  device takes the similarity route (:308-356): ``masked_topk_matmul``
+  (ops/simscore.py) scores the block with one float32 product, masks it and
+  ranks it with ``tiled_topk``, and its test-pair probe gives the RMSE. An
+  item-based model's seen mask comes from its own profile rows;
 - every other model takes the dense route of the JAX evaluator
-  (ganmf_tpu/eval/evaluator.py:209-222,496-535, without the mesh):
-  ``score_device`` gives the masked [B, I] block and ``evaluate_batch`` ranks
-  it with a stable top-k.
+  (:209-222,496-535, without the mesh): ``score_device`` gives the masked
+  [B, I] block and ``evaluate_batch`` ranks it with a stable top-k.
 
-The dense route is not a fallback: a K1 failure raises.
+No route is a fallback: a failure raises.
 
 The constructor takes the JAX package's positional order (URM_test,
 cutoff_list, minRatingsPerUser, exclude_seen, diversity_object, ignore_items,
@@ -27,9 +31,9 @@ ignore_users, mesh_plan). ``diversity_object`` and ``mesh_plan`` are not
 ported and raise when given.
 
 Not ported: the mesh plan, the diversity object,
-``EvaluatorNegativeItemSample``, the similarity-family fused block, and the
-two RESOURCE_EXHAUSTED degrades of the JAX evaluator. An out-of-memory error
-raises instead of falling back to another path.
+``EvaluatorNegativeItemSample``, and the two RESOURCE_EXHAUSTED degrades of
+the JAX evaluator. An out-of-memory error raises instead of falling back to
+another path.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from ganmf_tpu_torch.eval.metrics import (
     normalized_popularity,
 )
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
+from ganmf_tpu_torch.ops.simscore import masked_topk_matmul
 from ganmf_tpu_torch.utils.device import as_device
 
 
@@ -62,8 +67,16 @@ def _pair_rmse(U_b, V, cold_b, ids, tvals, pvalid, seen_pairs):
     ve = V[ids]  # [B, P, K]
     s = torch.einsum("bk,bpk->bp", U_b, ve)
     s = s.masked_fill(cold_b[:, None] | seen_pairs, float("-inf"))
-    fin = pvalid & torch.isfinite(s)
-    sq = torch.where(fin, (s - tvals) ** 2, 0.0)
+    fin = torch.isfinite(s)
+    return _pair_rmse_from_probe(torch.where(fin, s, 0.0), fin.float(), tvals, pvalid)
+
+
+def _pair_rmse_from_probe(ps, pf, tvals, pvalid):
+    """Per-user RMSE from the similarity route's test-pair probe (JAX
+    :83-91): ps[b, p] is the masked score at test item p (0 where masked),
+    pf[b, p] > 0 where that score was finite."""
+    fin = pvalid & (pf > 0)
+    sq = torch.where(fin, (ps - tvals) ** 2, 0.0)
     cnt = fin.sum(1).float()
     return torch.where(cnt > 0, torch.sqrt(sq.sum(1) / cnt.clamp(min=1.0)), float("nan"))
 
@@ -201,6 +214,42 @@ class EvaluatorHoldout:
         )
         return vals, idx, user_rmse
 
+    def _can_fuse_sim(self, model) -> bool:
+        """True for an item-based or user-based similarity model whose W is
+        dense on the device (JAX :283-306). A W adopted on the device is
+        checked first, so that the host CSR is not made just to decide."""
+        from ganmf_tpu_torch.models.base import ItemSimilarityRecommender, UserSimilarityRecommender
+
+        if not isinstance(model, (ItemSimilarityRecommender, UserSimilarityRecommender)):
+            return False
+        if not isinstance(model._device_w, torch.Tensor) and model.W_sparse is None:
+            return False
+        return model._w_device() is not False
+
+    def _fused_sim_block(self, model, uids: torch.Tensor, max_len: int = None, pair_len: int = None):
+        """(top values, top ids, per-user RMSE) of one block by the
+        similarity route (JAX :308-356)."""
+        from ganmf_tpu_torch.models.base import ItemSimilarityRecommender
+
+        rows, right = model._fused_serving_operands(uids, max_len=max_len)
+        # an item-based model scores with the very profile that defines
+        # "seen": the mask comes from the left operand
+        mask_from_rows = (
+            self.exclude_seen
+            and self._ignore_items_mask is None
+            and isinstance(model, ItemSimilarityRecommender)
+        )
+        seen = None if mask_from_rows else self._seen_block(model, uids, max_len=max_len)
+
+        ids, tvals, pvalid = self._padded_test_arrays()
+        tp = pair_len if pair_len is not None else ids.shape[1]
+        pair_ids = ids.index_select(0, uids)[:, :tp]
+        vals, idx, ps, pf = masked_topk_matmul(rows, right, seen, pair_ids, k=self.max_cutoff,
+                                               mask_from_rows=mask_from_rows)
+        user_rmse = _pair_rmse_from_probe(
+            ps, pf, tvals.index_select(0, uids)[:, :tp], pvalid.index_select(0, uids)[:, :tp])
+        return vals, idx, user_rmse
+
     # -- main entry ------------------------------------------------------------
 
     @torch.no_grad()
@@ -242,6 +291,7 @@ class EvaluatorHoldout:
             block_size = min(block_size, -(-per_block // 8) * 8)
         cutoffs = tuple(self.cutoff_list)
         use_k1 = recommender_object._ranks_with_k1()
+        use_sim = not use_k1 and self._can_fuse_sim(recommender_object)
 
         scalar_acc = torch.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=torch.float32, device=self.device)
         counter_acc = torch.zeros((len(cutoffs), self.n_items), dtype=torch.float32, device=self.device)
@@ -256,8 +306,9 @@ class EvaluatorHoldout:
             test_rows = padded_rows_dense(self._test_padded, uids, self.n_items, max_len=crop_test)
             n_pos = self._n_pos.index_select(0, uids)
             valid = torch.ones(len(chunk), dtype=torch.bool, device=self.device)
-            if use_k1:
-                top_vals, top_idx, user_rmse = self._fused_block(
+            if use_k1 or use_sim:
+                block = self._fused_block if use_k1 else self._fused_sim_block
+                top_vals, top_idx, user_rmse = block(
                     recommender_object, uids, max_len=crop_train, pair_len=crop_test)
                 stats = evaluate_batch_from_topk(
                     top_vals, top_idx, test_rows, n_pos, valid, novelty_terms, pop_norm,

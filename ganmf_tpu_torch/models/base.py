@@ -1,7 +1,7 @@
-"""Recommender base class.
+"""Recommender base classes.
 
-Port of ganmf_tpu/models/base.py:25-62,174-491. A recommender holds a CSR
-``URM_train`` on the host and its dense copy on its device. ``recommend`` and
+Port of ganmf_tpu/models/base.py. A recommender holds a CSR ``URM_train``
+on the host and its dense copy on its device. ``recommend`` and
 ``serve_all`` rank on the model's device by one of two routes, chosen by
 ``_ranks_with_k1`` from the model's type alone:
 
@@ -20,8 +20,18 @@ lists are ``recommend``'s either way.
 
 ``MatrixFactorizationRecommender`` (:514-686) scores U @ V^T from factor
 stores that hold host arrays or device tensors, folds the optional bias terms
-into the factors and masks cold users. Its ``"itemKNN"`` cold-user fallback
-needs the similarity family, which is not ported yet, and raises.
+into the factors and masks cold users; its ``"itemKNN"`` cold-user estimate
+adds an item-item model over the item factors and ranks by the dense route
+(the estimate scores no user, as in the JAX package: ``score_device``).
+
+``ItemSimilarityRecommender`` and ``UserSimilarityRecommender`` (:688-876)
+score URM[u] @ W and W[u] @ URM on the device. W is dense there when its
+float32 bytes are within ``_DENSE_W_BYTE_LIMIT``: a fit may leave it only
+there (``_adopt_device_w``), and the host CSR ``W_sparse`` is then made when
+something reads it. Past the limit W goes to the device as a torch sparse
+CSR tensor and is multiplied there; the JAX package multiplies on the host
+in that case (:760-764, :853-857). The evaluator ranks these models by the
+similarity route (eval/evaluator.py).
 """
 
 from __future__ import annotations
@@ -32,9 +42,19 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ganmf_tpu_torch.data.device import DeviceURM, PaddedCSR, padded_csr_from_sparse, padded_rows_mask
+from ganmf_tpu_torch.data.device import (
+    DeviceURM,
+    PaddedCSR,
+    csr_rows_dense,
+    dense_from_sparse,
+    padded_csr_from_sparse,
+    padded_rows_dense,
+    padded_rows_mask,
+    sparse_csr_from_sparse,
+)
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
-from ganmf_tpu_torch.ops.topk import topk_lowest_index
+from ganmf_tpu_torch.ops.similarity import csc_from_col_topk
+from ganmf_tpu_torch.ops.topk import tiled_topk, topk_lowest_index
 from ganmf_tpu_torch.utils.dataio import DataIO
 from ganmf_tpu_torch.utils.device import as_device
 
@@ -55,6 +75,90 @@ def check_matrix(X, format: str = "csc", dtype=np.float32):
     if not isinstance(X, cls):
         X = cls(X)
     return X.astype(dtype)
+
+
+# padded host block (elements) above which the sparse column prune runs on
+# the device instead (a near-dense column makes the host block quadratic)
+_DEVICE_PRUNE_THRESHOLD = 1 << 26
+
+
+def _device_column_topk(W: sps.spmatrix, k: int, device: torch.device) -> sps.csc_matrix:
+    """Column-wise top-k over the stored nonzeros (negatives kept), computed
+    on the device (JAX :65-83); only the [n, k] winners come back."""
+    n = W.shape[1]
+    A = dense_from_sparse(sps.csr_matrix(W), device)
+    sent = torch.where(A == 0, float("-inf"), A)
+    del A
+    vals, idx = tiled_topk(sent.T, min(k, n))  # per column j: its top rows
+    return csc_from_col_topk(vals, idx, n)
+
+
+def row_col_topk(S: torch.Tensor, k: int, l1_normalize: bool = False):
+    """The reference's double top-K prune of a square matrix on the device
+    (JAX p3alpha.py:38-47, slim_bpr.py:158-180): each row's top k nonzeros
+    (-inf keys for exact zeros, so negative weights survive), the rows
+    optionally L1-normalized, then each column's top k nonzeros. Returns the
+    per-column [n, k] values and row ids, empty slots as 0."""
+    n = S.shape[0]
+    v, ix = tiled_topk(torch.where(S != 0, S, float("-inf")), k)  # row-wise
+    v = torch.where(torch.isfinite(v), v, 0.0)
+    S1 = torch.zeros((n, n), dtype=v.dtype, device=v.device).scatter_(1, ix, v)
+    if l1_normalize:
+        s = torch.sum(torch.abs(S1), dim=1, keepdim=True)
+        S1 = torch.where(s > 0, S1 / torch.clamp_min(s, 1e-30), S1)
+    sent = torch.where(S1 != 0, S1, float("-inf"))
+    del S1
+    cv, cix = tiled_topk(sent.T, k)  # column-wise
+    return torch.where(torch.isfinite(cv), cv, 0.0), cix
+
+
+def similarity_matrix_topk(item_weights, k: int = 100, device=None) -> sps.csc_matrix:
+    """Column-wise top-K pruning of a square similarity matrix, dense or
+    sparse (JAX :86-171; reference Base/Recommender_utils.py:48-115). A large
+    sparse matrix with a near-dense column is pruned on ``device`` (the card
+    unless the caller asks for the CPU); the rest is the JAX package's host
+    code."""
+    if item_weights.shape[0] != item_weights.shape[1]:
+        raise ValueError(f"the similarity matrix must be square, got {item_weights.shape}")
+    n = item_weights.shape[1]
+    k = min(k, n)
+
+    if sps.issparse(item_weights) and n <= 8192:
+        item_weights = np.asarray(item_weights.todense(), dtype=np.float32)
+    elif sps.issparse(item_weights):
+        # large sparse: scatter the CSC structure into a padded [n, max_nnz]
+        # block with one vectorized write, then one argpartition
+        W = check_matrix(item_weights, "csc", np.float32)
+        nnz_per_col = np.diff(W.indptr).astype(np.int64)
+        max_nnz = int(nnz_per_col.max()) if n else 0
+        if max_nnz == 0:
+            return sps.csc_matrix((n, n), dtype=np.float32)
+        if n * max_nnz > _DEVICE_PRUNE_THRESHOLD:
+            return _device_column_topk(W, k, as_device(device))
+        col_of = np.repeat(np.arange(n), nnz_per_col)
+        slot = np.arange(W.nnz, dtype=np.int64) - np.repeat(W.indptr[:-1], nnz_per_col)
+        # padding and stored zeros get a -inf key, so that the top-k runs over
+        # the column's nonzeros and keeps negative weights
+        # (Recommender_utils.py:98-104)
+        padded_v = np.full((n, max_nnz), -np.inf, np.float32)
+        padded_r = np.zeros((n, max_nnz), np.int32)
+        padded_v[col_of, slot] = W.data
+        padded_v[padded_v == 0] = -np.inf
+        padded_r[col_of, slot] = W.indices
+        if max_nnz > k:
+            top = np.argpartition(-padded_v, k - 1, axis=1)[:, :k]
+            padded_v = np.take_along_axis(padded_v, top, axis=1)
+            padded_r = np.take_along_axis(padded_r, top, axis=1)
+        return csc_from_col_topk(padded_v, padded_r, n)
+
+    A = np.asarray(item_weights, dtype=np.float32)
+    # zeros -> -inf: selection over the nonzeros, negative weights kept
+    A = np.where(A != 0, A, -np.inf)
+    if k < n:
+        top = np.argpartition(-A, k - 1, axis=0)[:k]  # [k, n] row ids per column
+    else:
+        top = np.broadcast_to(np.arange(n)[:, None], (n, n))
+    return csc_from_col_topk(np.take_along_axis(A, top, axis=0).T, top.T, n)
 
 
 class Recommender:
@@ -109,6 +213,17 @@ class Recommender:
         if self._urm_streams():
             return padded_rows_mask(self._padded_urm(), uids, self.n_items, max_len=max_len)
         return self.device_urm().mask.index_select(0, uids)
+
+    def device_train_mask(self) -> torch.Tensor:
+        """The dense [U, I] bool training mask on the device."""
+        return self.device_urm().mask
+
+    def device_profile_rows(self, uids: torch.Tensor, max_len: int = None) -> torch.Tensor:
+        """[B, I] float32 rating-profile rows, by ``device_seen_rows``'s
+        streaming policy."""
+        if self._urm_streams():
+            return padded_rows_dense(self._padded_urm(), uids, self.n_items, max_len=max_len)
+        return self.device_urm().rows(uids)
 
     def _urm_values_bf16_exact(self) -> bool:
         """True when every URM value is exactly representable in bfloat16
@@ -336,6 +451,17 @@ class Recommender:
         return data
 
 
+def compute_W_sparse_from_item_latent_factors(ITEM_factors, topK: int = 100, device=None) -> sps.csr_matrix:
+    """Item-item dot-product similarity of the item factors, top-K a column
+    (JAX :494-511; reference Base/BaseMatrixFactorizationRecommender.py:17-70):
+    one float32 product and ``tiled_topk`` on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    device = as_device(device)
+    V = torch.from_numpy(np.array(ITEM_factors, dtype=np.float32)).to(device)
+    vals, idx = tiled_topk((V @ V.T).T, min(topK, V.shape[0]))  # per column
+    return csc_from_col_topk(vals, idx, V.shape[0]).tocsr()
+
+
 class MatrixFactorizationRecommender(Recommender):
     """Dot-product scoring from ``USER_factors`` and ``ITEM_factors`` (JAX
     base.py:514-686; reference Base/BaseMatrixFactorizationRecommender.py),
@@ -359,6 +485,9 @@ class MatrixFactorizationRecommender(Recommender):
         self.ITEM_bias = None
         self.GLOBAL_bias = 0.0
         self._device_factors = None
+        self._cold_user_KNN_model_available = False
+        self._ItemKNNRecommender = None
+        self._warm_user_KNN_mask = None
 
     @property
     def USER_factors(self) -> Optional[np.ndarray]:
@@ -410,21 +539,48 @@ class MatrixFactorizationRecommender(Recommender):
         super()._invalidate_device_cache()
         self._device_factors = None
 
+    def _ranks_with_k1(self) -> bool:
+        """K1, unless the ``"itemKNN"`` cold-user estimate is on: K1 cannot
+        fold its item-item rows into the factor product, and the dense route
+        ranks them (the JAX evaluator's ``_can_fuse`` says no there too,
+        ganmf_tpu/eval/evaluator.py:243)."""
+        return not self._cold_user_KNN_model_available
+
     @torch.no_grad()
     def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
-        """[B, I] scores; cold users' rows are -inf (JAX :606-618)."""
+        """[B, I] scores; cold users' rows are -inf (JAX :606-618). With the
+        ``"itemKNN"`` estimate, the users cold for the factors and warm in the
+        estimated item-item model take that model's rows."""
         U, V, cold = self._factors_device()
         scores = U.index_select(0, user_ids) @ V.T
-        return scores.masked_fill(cold.index_select(0, user_ids)[:, None], float("-inf"))
+        cold_batch = cold.index_select(0, user_ids)
+        if self._cold_user_KNN_model_available:
+            # JAX's set_URM_train takes both masks from the same URM, so no
+            # user is cold and warm at once and the estimate scores no one
+            # (ROADMAP §3); its product is made only when someone takes it
+            knn_users = np.asarray(self._cold_user_mask, dtype=bool) & self._warm_user_KNN_mask
+            if knn_users.any():
+                use_knn = torch.from_numpy(knn_users).to(self.device).index_select(0, user_ids)
+                knn_scores = self._ItemKNNRecommender.score_device(user_ids)
+                scores = torch.where(use_knn[:, None], knn_scores, scores)
+                cold_batch = cold_batch & ~use_knn
+        return scores.masked_fill(cold_batch[:, None], float("-inf"))
 
     def set_URM_train(self, URM_train_new, estimate_model_for_cold_users=None, topK: int = 100, **kwargs):
-        """Replace the training URM (JAX :620-640). ``"mean_item_factors"``
-        estimates every user's factors as URM @ ITEM_factors / sqrt(profile
-        length); ``"itemKNN"`` needs the similarity family and raises."""
-        if estimate_model_for_cold_users == "itemKNN":
-            raise NotImplementedError("the itemKNN cold-user estimate is not ported")
+        """Replace the training URM (JAX :620-640). ``"itemKNN"`` fits an
+        item-item model on the new URM from the item factors' dot-product
+        similarity (top ``topK`` a column); ``"mean_item_factors"`` estimates
+        every user's factors as URM @ ITEM_factors / sqrt(profile length)."""
         super().set_URM_train(URM_train_new)
-        if estimate_model_for_cold_users == "mean_item_factors":
+        if estimate_model_for_cold_users == "itemKNN":
+            from ganmf_tpu_torch.models.itemknn import ItemKNNCustomSimilarityRecommender
+
+            W_sparse = compute_W_sparse_from_item_latent_factors(self.ITEM_factors, topK=topK, device=self.device)
+            self._ItemKNNRecommender = ItemKNNCustomSimilarityRecommender(self.URM_train, device=self.device)
+            self._ItemKNNRecommender.fit(W_sparse, topK=topK)
+            self._cold_user_KNN_model_available = True
+            self._warm_user_KNN_mask = np.ediff1d(self.URM_train.indptr) > 0
+        elif estimate_model_for_cold_users == "mean_item_factors":
             profile_length = np.ediff1d(self.URM_train.indptr)
             sqrt_len = np.sqrt(np.maximum(profile_length, 1))
             self.USER_factors = np.asarray(self.URM_train.dot(self.ITEM_factors), dtype=np.float32)
@@ -444,3 +600,119 @@ class MatrixFactorizationRecommender(Recommender):
             out["ITEM_bias"] = np.asarray(self.ITEM_bias)
             out["GLOBAL_bias"] = self.GLOBAL_bias
         return out
+
+
+class _SimilarityMatrixRecommender(Recommender):
+    """The W storage the item-based and user-based models share (JAX
+    :688-876): ``W_sparse`` on the host, and on the device either the dense W
+    (``_w_device``) or, above ``_DENSE_W_BYTE_LIMIT``,
+    a sparse CSR form. A dense W adopted from a fit on the device is
+    authoritative: the host CSR is made from it when something reads
+    ``W_sparse``."""
+
+    _DENSE_W_BYTE_LIMIT = 4 << 30
+
+    def __init__(self, URM_train, *, device: Optional[torch.device] = None):
+        super().__init__(URM_train, device=device)
+        self._W_sparse_store: Optional[sps.csr_matrix] = None
+        self._drop_device_w()
+
+    def _drop_device_w(self):
+        self._device_w = None  # dense W; False above the byte limit
+        self._device_w_sparse = None  # the sparse CSR form above the limit
+
+    @property
+    def W_sparse(self) -> Optional[sps.csr_matrix]:
+        if self._W_sparse_store is None and isinstance(self._device_w, torch.Tensor):
+            # the nonzeros' positions in row-major order: CSR as they come
+            W = self._device_w
+            rc = W.nonzero()
+            data = W[rc[:, 0], rc[:, 1]].cpu().numpy()
+            rc = rc.cpu().numpy()
+            self._W_sparse_store = check_matrix(
+                sps.csr_matrix((data, (rc[:, 0], rc[:, 1])), shape=tuple(W.shape)), "csr", np.float32)
+        return self._W_sparse_store
+
+    @W_sparse.setter
+    def W_sparse(self, value):
+        self._W_sparse_store = value
+        self._drop_device_w()
+
+    def _adopt_device_w(self, W_dev: torch.Tensor):
+        """Make a dense W on the device authoritative."""
+        self._W_sparse_store = None
+        self._drop_device_w()
+        self._device_w = W_dev
+
+    def _w_device(self):
+        """The dense W on the device, or False when its float32 bytes pass
+        ``_DENSE_W_BYTE_LIMIT``."""
+        if self._device_w is None:
+            n = self._W_sparse_store.shape[0]
+            if 4 * n * n <= self._DENSE_W_BYTE_LIMIT:
+                self._device_w = dense_from_sparse(sps.csr_matrix(self._W_sparse_store), self.device)
+            else:
+                self._device_w = False
+        return self._device_w
+
+    def _invalidate_device_cache(self):
+        super()._invalidate_device_cache()
+        _ = self.W_sparse  # keep a device-only W on the host before dropping it
+        self._drop_device_w()
+
+    def _save_dict(self):
+        return {"W_sparse": check_matrix(self.W_sparse, "csr", np.float32)}
+
+
+class ItemSimilarityRecommender(_SimilarityMatrixRecommender):
+    """Scores = URM[u] @ W (JAX :688-780; reference
+    Base/BaseSimilarityMatrixRecommender.py:73-92)."""
+
+    RECOMMENDER_NAME = "BaseItemSimilarityMatrixRecommender"
+
+    @torch.no_grad()
+    def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
+        profiles = self.device_profile_rows(user_ids)
+        W = self._w_device()
+        if W is False:
+            # W^T as sparse CSR on the device: (W^T @ profiles^T)^T
+            if self._device_w_sparse is None:
+                self._device_w_sparse = sparse_csr_from_sparse(self.W_sparse.T, self.device)
+            return torch.sparse.mm(self._device_w_sparse, profiles.T).T
+        return profiles @ W
+
+    def _fused_serving_operands(self, uids: torch.Tensor, max_len: int = None):
+        """(rows, right) of the similarity route: the profile rows and W;
+        None above the dense limit."""
+        W = self._w_device()
+        if W is False:
+            return None
+        return self.device_profile_rows(uids, max_len=max_len), W
+
+
+class UserSimilarityRecommender(_SimilarityMatrixRecommender):
+    """Scores = W[u] @ URM (JAX :783-876; reference
+    Base/BaseSimilarityMatrixRecommender.py:97-116)."""
+
+    RECOMMENDER_NAME = "BaseUserSimilarityMatrixRecommender"
+
+    @torch.no_grad()
+    def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
+        W = self._w_device()
+        if W is False:
+            # W's rows from its sparse CSR form, then (URM^T @ rows^T)^T
+            if self._device_w_sparse is None:
+                self._device_w_sparse = (sparse_csr_from_sparse(self.W_sparse, self.device),
+                                         sparse_csr_from_sparse(self.URM_train.T, self.device))
+            W_csr, urm_t = self._device_w_sparse
+            rows = csr_rows_dense(W_csr, user_ids, self.n_users)
+            return torch.sparse.mm(urm_t, rows.T).T
+        return W.index_select(0, user_ids) @ self.device_urm().dense
+
+    def _fused_serving_operands(self, uids: torch.Tensor, max_len: int = None):
+        """(rows, right): W's rows and the dense URM; None above the dense
+        limit. ``max_len`` bounds profile lengths, which W's rows are not."""
+        W = self._w_device()
+        if W is False:
+            return None
+        return W.index_select(0, uids), self.device_urm().dense

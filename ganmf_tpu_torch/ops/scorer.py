@@ -15,9 +15,8 @@ tensor it takes the plain version, ``masked_topk_scores_reference``: that
 is the tests' case, and the kernels are compared with it on the card. The
 merge pass's plain version is ``merge_partial_topk_reference``.
 
-``masked_topk_matmul`` and ``split_bf16_planes`` are plain XLA in the JAX
-package (docstring :83-93); they belong to the similarity family and are not
-ported yet.
+``masked_topk_matmul`` is plain XLA in the JAX package (docstring :83-93);
+its port, plain torch, is ops/simscore.py.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ The reference scores and ranks at ``Precision.HIGHEST``
 (ganmf_tpu/models/ganmf.py:358, ganmf_tpu/eval/evaluator.py:39). On an H100 a
 float32 matmul may run in TF32, which keeps about three decimal digits, and a
 float32 convolution does so by default. Both are switched off here, when the
-package is imported, so that no TF32 reaches scoring or ranking.
+package is imported, so that no TF32 reaches scoring or ranking. So is the
+reduced-precision reduction of bf16 products, which cuBLAS may otherwise sum
+in bf16: a bf16 product's partial sums stay float32.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def as_device(device=None) -> torch.device:

@@ -43,6 +43,15 @@ bounds how far two summation orders leave a solution), the csr forms within
 rtol 2e-4 / atol 2e-6 of the card's dense form; TF32 off through an IALS fit
 whose validations launch K1; TopPop's lists on the card equal to the CPU's;
 one tuner trial on the card writes the experiment's artifacts.
+The similarity family launches no kernel of the repo: ``tiled_topk`` on the
+card bitwise the CPU's; the Gram of 0/1 data bitwise the CPU's on both routes;
+ItemKNN's W on 0/1 data within rtol 1e-6 of the CPU's; on real-valued data
+(where scores have no exact ties for two summation orders to break either
+way) each model's W within rtol 1e-5 and its metrics within 1e-5; the sparse
+W route within 1e-6 of the dense one; one SLIM-BPR epoch within 2.2 x lr;
+PureSVD's itemKNN estimate, from factors on a grid (exact scores): its W
+bitwise the CPU's, and the model ranked by the dense route with the CPU's
+metrics (the estimate scores no user, as in the JAX package).
 """
 
 import numpy as np
@@ -739,3 +748,180 @@ def test_tuner_trial_on_card(cuda, tmp_path, monkeypatch):
     assert sorted(p.name for p in out.iterdir()) == ["best_params.pkl", "best_params.txt", "checkpoint.pkl",
                                                     "results.txt"]
     assert pickle.loads((out / "best_params.pkl").read_bytes())["epochs"] in (0, 5, 10)
+
+
+# -- the similarity family (no kernel: float32 products, tiled_topk) -----------
+
+
+def _sim_split(seed=6, n_users=300, n_items=700, binary=False):
+    """A train/test split; its training values are 1 + U(0, 1) unless
+    ``binary``. On 0/1 data many scores are exactly equal sums of equal
+    similarities, which the card's and the CPU's summation orders rank
+    either way, so the metric comparisons take real values (all >= 1: every
+    entry is a positive of SLIM-BPR's threshold)."""
+    rng = np.random.RandomState(seed)
+    full = (rng.rand(n_users, n_items) < 0.03).astype(np.float32)
+    held = rng.rand(n_users, n_items) < 0.2
+    train = full * ~held
+    if not binary:
+        train = train * (1.0 + rng.rand(n_users, n_items)).astype(np.float32)
+    return sps.csr_matrix(train), sps.csr_matrix(full * held)
+
+
+def _assert_topk_close(got, want, rtol, atol=1e-12):
+    """Per-column top-K matrices: common entries within rtol, the same count a
+    column, and an entry kept by one only within rtol of the other's smallest
+    kept value in the column (a near tie)."""
+    got, want = sps.csc_matrix(got), sps.csc_matrix(want)
+    np.testing.assert_array_equal(np.diff(got.indptr), np.diff(want.indptr))
+    g, w = got.toarray(), want.toarray()
+    both = (g != 0) & (w != 0)
+    np.testing.assert_allclose(g[both], w[both], rtol=rtol, atol=atol)
+    for a, b in ((g, w), (w, g)):
+        for r, c in zip(*np.nonzero((a != 0) & (b == 0))):
+            edge = b[:, c][b[:, c] != 0].min()
+            assert abs(a[r, c] - edge) <= rtol * abs(edge) + atol
+
+
+def _metrics_close(model, plain, test, tol=1e-5):
+    got, _ = EvaluatorHoldout(test, [5, 10, 20, 50]).evaluateRecommender(model)
+    want, _ = EvaluatorHoldout(test, [5, 10, 20, 50], device=torch.device("cpu")).evaluateRecommender(plain)
+    for c in want:
+        for m, v in want[c].items():
+            assert got[c][m] == pytest.approx(v, abs=tol, nan_ok=True), (c, m)
+
+
+def test_tiled_topk_on_card_is_the_cpus(cuda):
+    from ganmf_tpu_torch.ops.topk import tiled_topk
+
+    rng = np.random.RandomState(0)
+    w = np.floor(rng.rand(64, 5000) * 4).astype(np.float32)
+    w[3] = -np.inf
+    w[5, :2500] = -np.inf
+    for k in (50, 761, 3000):
+        got = tiled_topk(torch.from_numpy(w).to(cuda), k)
+        want = tiled_topk(torch.from_numpy(w), k)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_similarity_gram_on_card_is_bitwise(cuda, monkeypatch):
+    from ganmf_tpu_torch.ops import similarity as psim
+
+    train, _ = _sim_split(binary=True)
+    ones_c, ones = torch.ones(train.shape[0], device=cuda), torch.ones(train.shape[0])
+    G, ss2, route = psim.build_gram(train, ones_c, False, cuda)
+    Gp, ss2p, _ = psim.build_gram(train, ones, False, torch.device("cpu"))
+    assert route == "dense" and torch.equal(G.cpu(), Gp) and torch.equal(ss2.cpu(), ss2p)
+    monkeypatch.setattr(psim, "_DENSE_A_BYTE_LIMIT", 1)
+    monkeypatch.setattr(psim, "_STREAM_CHUNK", 64)
+    Gs, _, route = psim.build_gram(train, ones_c, False, cuda)
+    assert route == "streamed" and torch.equal(Gs, G)
+
+
+@pytest.mark.parametrize("similarity", ["cosine", "asymmetric", "euclidean", "jaccard"])
+def test_itemknn_w_on_card_binary(cuda, similarity):
+    """On 0/1 data W built on the card within rtol 1e-6 of the CPU's."""
+    from ganmf_tpu_torch.models import ItemKNNCFRecommender
+
+    train, _ = _sim_split(binary=True)
+    card, plain = ItemKNNCFRecommender(train), ItemKNNCFRecommender(train, device=torch.device("cpu"))
+    card.fit(topK=50, shrink=10, similarity=similarity)
+    plain.fit(topK=50, shrink=10, similarity=similarity)
+    _assert_topk_close(card.W_sparse, plain.W_sparse, 1e-6)
+
+
+@pytest.mark.parametrize("cls,params", [
+    ("ItemKNNCFRecommender", dict(topK=50, shrink=100)),
+    ("ItemKNNCFRecommender", dict(topK=50, shrink=10, similarity="asymmetric", asymmetric_alpha=0.3)),
+    ("ItemKNNCFRecommender", dict(topK=50, shrink=10, similarity="euclidean")),
+    ("ItemKNNCFRecommender", dict(topK=30, shrink=10, feature_weighting="BM25")),
+    ("UserKNNCFRecommender", dict(topK=40, shrink=10)),
+    ("P3alphaRecommender", dict(topK=80, alpha=0.642)),
+    ("RP3betaRecommender", dict(topK=80, alpha=0.8, beta=0.4)),
+])
+def test_similarity_models_on_card_match_cpu(cuda, cls, params):
+    """W built on the card within rtol 1e-5 of the CPU build (real-valued
+    data), and the metrics of the card's model within 1e-5 of the CPU
+    copy's, by the similarity route; K1 is never launched."""
+    import ganmf_tpu_torch.models as pm
+
+    rtol = 1e-5
+    train, test = _sim_split()
+    card, plain = getattr(pm, cls)(train), getattr(pm, cls)(train, device=torch.device("cpu"))
+    card.fit(**params)
+    plain.fit(**params)
+    assert isinstance(card._device_w, torch.Tensor) and card._device_w.device == cuda
+    _assert_topk_close(card.W_sparse, plain.W_sparse, rtol)
+    before = scorer.LAUNCHES
+    _metrics_close(card, plain, test)
+    users = np.arange(20)
+    assert card.recommend(users, cutoff=10) == plain.recommend(users, cutoff=10)
+    assert scorer.LAUNCHES == before
+
+
+def test_sparse_w_route_on_card(cuda, monkeypatch):
+    from ganmf_tpu_torch.models import ItemKNNCFRecommender, UserKNNCFRecommender
+
+    train, _ = _sim_split()
+    users = torch.arange(train.shape[0], device=cuda)
+    for cls in (ItemKNNCFRecommender, UserKNNCFRecommender):
+        dense = cls(train)
+        dense.fit(topK=30, shrink=5)
+        want = dense.score_device(users)
+        model = cls(train)
+        monkeypatch.setattr(cls, "_DENSE_W_BYTE_LIMIT", 1)
+        model.fit(topK=30, shrink=5)
+        got = model.score_device(users)
+        monkeypatch.undo()
+        assert got.device == cuda and model._device_w is False
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_slim_bpr_on_card_matches_cpu(cuda):
+    """One SLIM-BPR epoch from the same state and triples: every entry of W
+    within 2.2 x lr of the CPU's (index_add_ sums duplicate rows by atomics);
+    then a fit on the card scores within 1e-5 of its W on the CPU."""
+    from ganmf_tpu_torch.models import SLIM_BPR
+    from ganmf_tpu_torch.models import slim_bpr as ps
+
+    train, test = _sim_split()
+    mask = train.copy()
+    mask.data[:] = 1.0  # the positives (every entry passes the threshold of 1)
+    tables, cpu_tables = ps.build_tables(mask, cuda), ps.build_tables(mask, torch.device("cpu"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n_chunks, chunk = -(-train.shape[0] // 64), 64
+    triples = [t.view(n_chunks, chunk) for t in ps.draw_triples(tables, n_chunks * chunk, gen)]
+    hyper = dict(learning_rate=0.0539, li_reg=2.93e-4, lj_reg=9.39e-9, gamma=0.995, beta_1=0.9, beta_2=0.999,
+                 sgd_mode="adagrad", symmetric=True)
+    state = ps.init_state(train.shape[1], 0.9, 0.999, cuda)
+    got = ps.bpr_epoch(state, tables.urm, triples, **hyper)
+    want = ps.bpr_epoch(ps.OptState(*(t.cpu() for t in state)), cpu_tables.urm, [t.cpu() for t in triples],
+                        **hyper)
+    assert float((got.W.cpu() - want.W).abs().max()) <= 2.2 * 0.0539
+    assert float(got.W.abs().max()) > 0
+
+    model = SLIM_BPR(train)
+    model.fit(epochs=3, topK=100, learning_rate=0.0539, lambda_i=2.93e-4)
+    copy = SLIM_BPR(train, device=torch.device("cpu"))
+    copy.W_sparse = model.W_sparse
+    _metrics_close(model, copy, test)
+
+
+def test_itemknn_cold_estimate_on_card(cuda):
+    from ganmf_tpu_torch.models import PureSVDRecommender
+
+    train, test = _sim_split()
+    card, plain = PureSVDRecommender(train), PureSVDRecommender(train, device=torch.device("cpu"))
+    card.fit(num_factors=12)
+    # the card's factors on a grid of 64ths: every score and every entry of
+    # the estimated W is exact in float32 whatever the summation order, so
+    # the card and the CPU rank alike, exact ties to the lowest id
+    U, V = (np.round(f * 64) / 64 for f in (card.USER_factors, card.ITEM_factors))
+    for m in (card, plain):
+        m.USER_factors, m.ITEM_factors = U.astype(np.float32), V.astype(np.float32)
+        m.set_URM_train(train, estimate_model_for_cold_users="itemKNN", topK=50)
+    assert (card._ItemKNNRecommender.W_sparse != plain._ItemKNNRecommender.W_sparse).nnz == 0
+    before = scorer.LAUNCHES
+    _metrics_close(card, plain, test)
+    assert scorer.LAUNCHES == before  # the dense route ranks it

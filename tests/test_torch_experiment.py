@@ -17,8 +17,15 @@ tests/test_torch_run_best.py, each under its own logs root:
   every epoch with no patience, so that the last-epoch rule of
   RecSysExp.py:223-226 may rewrite ``epochs``: the same parameters are
   recorded, metrics within 1e-5;
-- ``main`` parses the JAX command lines into the same RecSysExp arguments
-  and raises for the models not ported yet; the card is the default device;
+- ItemKNN with a similarity (its extra dimensions appended, as ``main``
+  does): 2 evaluations, the same records, metrics within 1e-5;
+- SLIM-BPR (its space with ``epochs`` Categorical([5])) takes the
+  early-stopping branch, with JAX's draws replayed
+  (tests/test_torch_slim_bpr.py): 2 evaluations, early stopping's epochs in
+  best_params.pkl, the same records, metrics within 1e-5;
+- ``main`` parses the JAX command lines into the same RecSysExp arguments,
+  every name of ``ALL_RECOMMENDERS`` has a class and any other name raises;
+  the card is the default device;
   a trial that runs the card out of memory scores 0, any other error raises.
 """
 
@@ -39,6 +46,7 @@ from ganmf_tpu_torch.cli import experiment, spaces
 from ganmf_tpu_torch.tune import Categorical
 from ganmf_tpu_torch.tune.gp import load
 from test_torch_run_best import _inject_jax_state, synth  # noqa: F401  (a fixture)
+from test_torch_slim_bpr import _jax_draws
 
 NUM = re.compile(r"-?\d+\.\d+(?:e-?\d+)?")
 
@@ -48,15 +56,17 @@ def _dims(module, categorical, algo, epochs):
     return dims + ([categorical([epochs], name="epochs")] if epochs is not None else [])
 
 
-def _tune_both(algo, evals, epochs=None, mode="", before_tune=None):
+def _tune_both(algo, evals, epochs=None, mode="", before_tune=None, similarity=""):
     """Tune ``algo`` with both packages; returns the two experiment dirs."""
     out = []
     for pkg, module, cat, root in ((jexp, jspaces, JaxCategorical, "jax_experiments"),
                                    (experiment, spaces, Categorical, "experiments")):
         dims = _dims(module, cat, algo, epochs)
+        if similarity:  # as main appends them
+            dims += [cat([similarity], name="similarity")] + module.similarity_extra_dimensions(similarity)
         kw = dict(device="cpu") if pkg is experiment else {}
         exp = pkg.RecSysExp(pkg.DICT_REC_CLASSES[algo], "synth", fit_param_names=[d.name for d in dims],
-                            train_mode=mode, logs_root=root, **kw)
+                            train_mode=mode, similarity_mode=similarity, logs_root=root, **kw)
         if before_tune:
             before_tune(exp)
         exp.tune(dims, evals=evals)
@@ -134,6 +144,24 @@ def test_als_tunes_and_resumes_as_jax(synth):
     assert np.isfinite(results[5]["MAP"])
 
 
+@pytest.mark.parametrize("similarity", ["cosine", "asymmetric"])
+def test_itemknn_with_a_similarity_tunes_as_jax(similarity, synth):
+    jax_dir, dir_ = _tune_both("ItemKNN", evals=2, similarity=similarity)
+    assert dir_.endswith(f"ItemKNNCFRecommender_{similarity}_synth")
+    _assert_same_experiment(jax_dir, dir_, n_trials=2)
+    with open(os.path.join(dir_, "best_params.pkl"), "rb") as fh:
+        assert pickle.load(fh)["similarity"] == similarity
+
+
+def test_slimbpr_takes_the_early_stopping_branch_as_jax(synth, monkeypatch):
+    _jax_draws(monkeypatch, 1234, presample=False, chunk=64)  # fit's defaults
+    jax_dir, dir_ = _tune_both("SLIMBPR", evals=2, epochs=5)
+    _assert_same_experiment(jax_dir, dir_, n_trials=2)
+    with open(os.path.join(dir_, "best_params.pkl"), "rb") as fh:
+        best = pickle.load(fh)
+    assert best["epochs"] == 5  # early stopping's, from the validation after epoch 5
+
+
 def _every_epoch_no_patience(exp):
     exp.my_early_stopping.update(freq=1, allow_worse=0)
 
@@ -198,6 +226,10 @@ COMMAND_LINES = [
     ["PureSVD", "hetrec2011", "cosine"],
     ["DisGANMF", "--user", "1M", "--user", "--item"],
     ["CAAE", "LastFM", "--evals", "1"],
+    ["LastFM", "SLIMBPR"],
+    ["ItemKNN", "LastFM", "cosine"],
+    ["P3Alpha", "1M"],
+    ["--evals", "3", "ItemKNN", "asymmetric", "hetrec2011"],
 ]
 
 
@@ -222,8 +254,11 @@ def test_main_usage_build_and_unported(monkeypatch, capsys):
     experiment.main(["--build-dataset", "LastFM", "GANMF"])
     assert built == ["LastFM"]
     monkeypatch.setattr(experiment, "RecSysExp", _Recorder)
-    for args in (["LastFM", "SLIMBPR"], ["ItemKNN", "LastFM", "cosine"], ["P3Alpha", "1M"]):
-        with pytest.raises(NotImplementedError, match="is not ported"):
-            experiment.main(args)
+    # every recommender of the JAX package's list is ported
+    for algo in experiment.ALL_RECOMMENDERS:
+        assert experiment.rec_class(algo) is experiment.DICT_REC_CLASSES[algo]
+    assert experiment.EARLY_STOPPING_ALGOS == [experiment.IALSRecommender, experiment.SLIM_BPR]
+    with pytest.raises(NotImplementedError, match="MF_BPR is not ported"):
+        experiment.rec_class("MF_BPR")
     with pytest.raises(ValueError, match="no similarity"):
         experiment.main(["ItemKNN", "LastFM"])

@@ -1,6 +1,6 @@
 """The port runs where JAX and scikit-learn are not installed: no module of
 ganmf_tpu_torch imports jax, ganmf_tpu or sklearn, directly or through another
-module."""
+module. Importing it turns TF32 and bf16 reduced-precision reductions off."""
 
 import os
 import subprocess
@@ -40,6 +40,27 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
                        cwd=str(REPO), env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     # every module of the port was imported, the training slice's host
-    # copies, the run_best and experiment entry points, the tuner and the
-    # DisGANMF, PureSVD, CAAE, IALS and TopPop models among them
-    assert int(r.stdout.split("IMPORTED")[1]) >= 39, r.stdout
+    # copies, the run_best and experiment entry points, the tuner, the
+    # DisGANMF, PureSVD, CAAE, IALS and TopPop models and the similarity
+    # family (ops/similarity, ops/simscore, utils/weighting, the ItemKNN,
+    # P3alpha and SLIM-BPR models) among them
+    assert int(r.stdout.split("IMPORTED")[1]) >= 45, r.stdout
+
+
+_PRECISION = r"""
+import torch
+assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction  # PyTorch's default
+import ganmf_tpu_torch.models
+m = torch.backends.cuda.matmul
+print("FLAGS", m.allow_tf32, m.allow_bf16_reduced_precision_reduction, torch.backends.cudnn.allow_tf32)
+"""
+
+
+def test_importing_the_port_turns_off_reduced_precision():
+    # TF32 and bf16 reduced-precision reductions stay off on every build and
+    # scoring path: the Gram of 0/1 data must be exact
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _PRECISION], capture_output=True, text=True,
+                       cwd=str(REPO), env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split("FLAGS")[1].split() == ["False", "False", "False"]

@@ -14,8 +14,9 @@ Tolerances:
   counterpart to about 3e-6 at this size, so 1e-5 holds it there);
 - every metric at cutoffs 5/10/20/50: 1e-5 (the rankings are equal; the
   float32 metric sums run in another order, most in NOVELTY@50);
-- the biased scores, the mean-item-factors estimate and the saved arrays:
-  1e-6 relative (one float32 product either way).
+- the biased scores, the mean-item-factors estimate, the itemKNN
+  estimate's W and the saved arrays: 1e-6 relative (one float32 product
+  either way).
 """
 
 import numpy as np
@@ -178,8 +179,15 @@ def test_mean_item_factors_and_itemknn(split):
     np.testing.assert_array_equal(pm._get_cold_user_mask(), jm._get_cold_user_mask())
     assert pm._get_cold_user_mask().sum() == len(COLD) - 1
     assert pm.recommend([COLD[0]], cutoff=5) == jm.recommend([COLD[0]], cutoff=5) != [[]]
-    with pytest.raises(NotImplementedError, match="itemKNN"):
-        pm.set_URM_train(new, estimate_model_for_cold_users="itemKNN")
+    # the itemKNN estimate (ported with the similarity family): JAX's
+    # item-item model, and the dense route in place of K1
+    for m in (jm, pm):
+        m.set_URM_train(new, estimate_model_for_cold_users="itemKNN", topK=10)
+    assert pm._cold_user_KNN_model_available and not pm._ranks_with_k1()
+    np.testing.assert_allclose(pm._ItemKNNRecommender.W_sparse.toarray(),
+                               jm._ItemKNNRecommender.W_sparse.toarray(), rtol=1e-6, atol=1e-7)
+    users = list(range(8)) + COLD
+    assert pm.recommend(users, cutoff=5) == jm.recommend(users, cutoff=5)
 
 
 @pytest.mark.parametrize("use_bias", [False, True], ids=["plain", "bias"])

@@ -5,13 +5,15 @@ A synthetic dataset gets its five-way split from the port's
 ``make_experiment_splits`` (which must equal the JAX package's), saved under
 $GANMF_TPU_SPLIT_DIR as tests/test_cli.py:17-32 does. Both packages'
 ``run_best`` then train GANMF (user and item mode), DisGANMF, CFGAN, CAAE,
-PureSVD, TopPop and IALS from the same best params. The JAX initial weights go
+PureSVD, TopPop, IALS, P3alpha, ItemKNN (with its similarity) and SLIM-BPR
+from the same best params. The JAX initial weights go
 into the port
 (``init_params`` monkeypatched), for CFGAN also JAX's per-epoch mask draws,
 replayed from its key chain as tests/test_torch_cfgan.py does, for CAAE its
-epoch draws (tests/test_torch_caae.py), and for PureSVD JAX's Omega; the
-GAN shuffles and the IALS initialisation are the same numpy draws in both
-packages.
+epoch draws (tests/test_torch_caae.py), for PureSVD JAX's Omega and for
+SLIM-BPR JAX's triples (tests/test_torch_slim_bpr.py); the GAN shuffles and
+the IALS initialisation are the same numpy draws in both packages, and
+P3alpha and ItemKNN draw nothing.
 
 Tolerance: every metric of test_results.pkl within 1e-5 of JAX's (float32
 training taken in another order, as in tests/test_torch_ganmf_train.py). The
@@ -48,6 +50,7 @@ from ganmf_tpu_torch.models import disganmf as pdg
 from ganmf_tpu_torch.models import ganmf as pgm
 from ganmf_tpu_torch.models import puresvd as psvd
 from test_torch_caae import _inject as _inject_caae
+from test_torch_slim_bpr import _jax_draws as _inject_slim_draws
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -68,6 +71,11 @@ BEST = {
     # consecutive scores of a test user's ranking lie within 5.5e-5 (a CPU
     # measurement), 9x the largest score gap between the packages
     "ALS": dict(num_factors=8, confidence_scaling="linear", alpha=5.0, reg=1e-3, epochs=4),
+    "P3Alpha": dict(topK=12, alpha=0.642, normalize_similarity=False),
+    "ItemKNN": dict(topK=10, shrink=5, similarity="cosine", normalize=True),
+    # presample: JAX's draws in one pass, which the port's fit replays
+    "SLIMBPR": dict(topK=15, epochs=3, symmetric=True, sgd_mode="adagrad", lambda_i=2.9e-4, lambda_j=9.4e-9,
+                    learning_rate=0.05, presample=True),
 }
 
 
@@ -126,8 +134,11 @@ def _inject_jax_state(algo, monkeypatch):
     if algo == "CAAE":
         _inject_caae(monkeypatch, SEED)
         return
-    if algo in ("TopPop", "ALS"):
+    if algo in ("TopPop", "ALS", "P3Alpha", "ItemKNN"):
         return  # no draws, or the same numpy initialisation in both packages
+    if algo == "SLIMBPR":
+        _inject_slim_draws(monkeypatch, 1234, chunk=64)  # fit's default random_seed and chunk_size
+        return
     if algo == "PureSVD":
         monkeypatch.setattr(psvd, "draw_omega", lambda n_cols, k, random_seed, device: torch.from_numpy(
             np.array(jax.random.normal(jax.random.PRNGKey(random_seed), (n_cols, k)))).to(device))
@@ -155,16 +166,18 @@ def _numbers_out(text):
 
 @pytest.mark.parametrize("algo,mode", [("GANMF", "user"), ("GANMF", "item"), ("CFGAN", "user"),
                                        ("DisGANMF", "user"), ("CAAE", "user"), ("PureSVD", ""),
-                                       ("TopPop", ""), ("ALS", "")])
+                                       ("TopPop", ""), ("ALS", ""), ("P3Alpha", ""), ("ItemKNN", ""),
+                                       ("SLIMBPR", "")])
 def test_run_best_matches_jax(algo, mode, synth, monkeypatch, capsys):
+    sim = "cosine" if algo == "ItemKNN" else ""  # ItemKNN's artifacts carry its similarity
     rec_name = experiment.DICT_REC_CLASSES[algo].RECOMMENDER_NAME
-    name = f"{rec_name}_{mode}_synth"
+    name = f"{rec_name}_{mode}{sim}_synth"
     (synth / "experiments" / name).mkdir(parents=True)
     (synth / "experiments" / name / "best_params.pkl").write_bytes(pickle.dumps(BEST[algo]))
 
-    want = jax_run_best("synth", algo, train_mode=mode, out_root="jax_results")
+    want = jax_run_best("synth", algo, train_mode=mode, sim=sim, out_root="jax_results")
     _inject_jax_state(algo, monkeypatch)
-    got = run("synth", algo, train_mode=mode, device="cpu")
+    got = run("synth", algo, train_mode=mode, sim=sim, device="cpu")
 
     out, jax_out = synth / "test_results" / name, synth / "jax_results" / name
     assert sorted(os.listdir(out)) == sorted(os.listdir(jax_out)) == [
@@ -183,7 +196,7 @@ def test_run_best_matches_jax(algo, mode, synth, monkeypatch, capsys):
 
     # without --force it refuses, and the results stay as they are
     capsys.readouterr()
-    assert run("synth", algo, train_mode=mode, device="cpu") is None
+    assert run("synth", algo, train_mode=mode, sim=sim, device="cpu") is None
     assert "exists; use --force" in capsys.readouterr().out
     assert (out / "test_results.txt").read_text() == text
 
@@ -192,8 +205,9 @@ def test_run_best_needs_a_card_and_a_ported_model(synth, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run("synth", "GANMF", train_mode="user")
-    with pytest.raises(NotImplementedError, match="SLIMBPR is not ported"):
-        run("synth", "SLIMBPR", device="cpu")
+    # every recommender of ALL_RECOMMENDERS is ported; any other name raises
+    with pytest.raises(NotImplementedError, match="MF_BPR is not ported"):
+        run("synth", "MF_BPR", device="cpu")
     assert not (synth / "test_results").exists()
 
 
