@@ -141,7 +141,38 @@ Phases, in order; any failure exits nonzero:
     and warm masks come from one URM; ROADMAP section 3): this is checked and
     printed, and the scores are the factor product's. Phases 17-21 launch
     neither K1 nor K2 (their counts are set to 0 before each and read after);
-22. print one JSON line with every kernel's launches (by path), error, times
+22. the MF-SGD family (BPR, FunkSVD, AsySVD) at the JAX fit's defaults (K=10,
+    batch 256, adagrad, lr 1e-3, 780 chunks an epoch) on the ML-1M-shaped
+    split, 5 epochs with a validation through K1's fused kernel every epoch,
+    then evaluated and served (the wide pair at the default cutoff); BPR with
+    urm_storage "csr": the same draws as the dense storage, 2 epochs within
+    1e-5 of the dense fit; one BPR and one AsySVD epoch on the card against
+    the CPU from the same state and draws (within 1e-5, against a flipped
+    update's 2e-3); the draws and an epoch under
+    set_sync_debug_mode("error");
+23. IRGAN at the JAX fit's defaults on the LastFM-shaped split (290 chunks
+    an epoch): 2 pretraining and 3 adversarial epochs with a validation
+    through K1 every epoch, evaluated and served; the first 8 chunks of each
+    epoch kind on the card against the CPU from the same Gumbel noise, every
+    table within 1% of the distance it moved, the flipped negative draws
+    counted;
+24. NMF at its defaults (K=100, 200 iterations) on the ML-1M-shaped split,
+    evaluated and served through K1; 5 iterations card against CPU from one
+    init (within 1e-4 of the largest factor); a PredefinedList from its
+    serve_all (lists equal to recommend's, PRECISION / RECALL / MAP / NDCG
+    of its lists within 1e-5 of NMF's evaluation, serve_all raises). EASE-R
+    without topK on the LastFM-shaped split (a 1.24 GB W, ~13 TFLOP), timed
+    and evaluated by the similarity route; with topK 100 at the ML-1M shape,
+    card against CPU (the pruned W within 1e-4 of max|B|, 256 users' top 50
+    equal but at near ties). EASE-R launches neither K1 nor K2;
+25. the studies on phase 16's ML-1M-shaped five-way split: describe, the
+    feature-matching sweep (11 alphas) and its cosine study at GANMF's ML-1M
+    best params, the latent-factor study (K 10-250 for PureSVD, ALS and
+    GANMF) and the profile-length study, GANMF's epochs cut to 2; the
+    profile-length bins of a PureSVD model averaged to the evaluator's
+    MAP@20 (1e-5). Phases 22-25 read K1's and K2's counts per path: K1's
+    fused kernel above 0 and K2 at 0 on each, but EASE-R's, where both are 0;
+26. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own), then the card line,
     then the result line.
 
@@ -265,6 +296,41 @@ SIM_TUNER_SLIM_EPOCHS, SIM_TUNER_EVALS = 10, 2
 # entries (7.451e-9 measured on an H100); an update with a flipped sign
 # moves an entry by about lr (0.054)
 SLIM_EPOCH_ATOL = 1e-5
+
+
+# the MF-SGD family (phase 22) at the JAX fit's defaults (ganmf_tpu/models/mf_sgd.py:173-190:
+# K=10, batch 256, adagrad, lr 1e-3, max(n_users, nnz // 4) samples an epoch), epochs cut from 300
+MF_SGD_PARAMS = dict(num_factors=10, batch_size=256, learning_rate=1e-3, sgd_mode="adagrad")
+MF_SGD_EPOCHS, MF_SGD_CSR_EPOCHS = 5, 2
+# one MF-SGD epoch, card against CPU from the same state and draws: only
+# index_add_'s atomic order of a chunk's duplicate rows differs; an update
+# with a flipped sign moves an entry by about 2 x lr (AdaGrad's first steps
+# are about lr each), 100 times this gate
+MF_EPOCH_ATOL = 1e-5
+# IRGAN (phase 23) at the JAX fit's defaults (ganmf_tpu/models/irgan.py:203-221),
+# epochs cut from 100 + 300; its first chunks of each epoch kind held card
+# against CPU, every table within this share of the distance it moved, or
+# within IRGAN_ULPS ulps of its largest entry where it moved less (a table
+# the kind does not train). At the default G_lr of 1e-4 the G pass moves Gu
+# by 3.5e-8 in 8 chunks, about the ulp floor, so the adversarial chunks are
+# held at IRGAN_HELD_G_LR, where G's tables move hundreds of times further;
+# every table that moved must have moved IRGAN_MOVE_OVER_GATE times its gate
+# or more, so that the gate can see a wrong update
+IRGAN_PRETRAIN_EPOCHS, IRGAN_EPOCHS = 2, 3
+IRGAN_HELD_CHUNKS, IRGAN_HELD_G_LR = 8, 0.05
+IRGAN_MOVE_SHARE, IRGAN_ULPS, IRGAN_MOVE_OVER_GATE = 1e-2, 8, 10
+# NMF (phase 24) at the JAX fit's defaults (ganmf_tpu/models/extras.py:53);
+# NMF_HELD_ITERS updates card against CPU from one init, W and H within
+# NMF_RTOL of their largest entry (float32 products in another order)
+NMF_PARAMS = dict(num_factors=100, n_iter=200)
+NMF_HELD_ITERS, NMF_RTOL = 5, 1e-4
+# EASE-R (phase 24) at the JAX fit's l2_norm; no topK is published, so the
+# pruned fit keeps the reference's similarity_matrix_topk default of 100. The
+# card's pruned W against the CPU's within EASE_W_TOL of max|B| (two Cholesky
+# orders differ by about cond(G) x eps of it)
+EASE_L2, EASE_TOPK, EASE_W_TOL = 1e3, 100, 1e-4
+# the studies (phase 25): GANMF's epochs cut from its best params' 300
+STUDY_GANMF_EPOCHS = 2
 
 
 def fail(msg):
@@ -461,9 +527,29 @@ def phase_kernel(dev, card):
     # IALS's evaluation block at the committed LastFM params (K=130)
     Ua, Va = factors(1884, 17632, IALS_K)
     errs.append(compare_k1("IALS evaluation block", Ua, Va, Md, 50))
+    # the factor models of phases 22-25, with their biases folded in as the
+    # models fold them: BPR (K=10); FunkSVD and AsySVD ([U | bU | 1] and
+    # [V | 1 | bV + g], K=12); IRGAN on the LastFM-shaped split ([Gu | 1] and
+    # [Gv | Gb], K=11); NMF (K=100, nonnegative); K below one 16-wide slice
+    # or between its multiples, as the latent-factor study's K=30 and K=150
+    K = MF_SGD_PARAMS["num_factors"]
+    Ub, Vb = factors(3024, 3706, K)
+    Uf, Vf = factors(3024, 3706, K + 2)
+    Uf[:, K + 1] = 1.0
+    Vf[:, K] = 1.0
+    Ug, Vg = factors(1884, 17632, K + 1)
+    Ug[:, K] = 1.0
+    Un, Vn = (x.abs() for x in factors(3024, 3706, NMF_PARAMS["num_factors"]))
+    errs.append(compare_k1("BPR evaluation block", Ub, Vb, M, 50))
+    errs.append(compare_k1("FunkSVD/AsySVD evaluation block, biases folded", Uf, Vf, M, 50))
+    errs.append(compare_k1("IRGAN evaluation block, bias folded", Ug, Vg, Md, 50))
+    errs.append(compare_k1("NMF evaluation block", Un, Vn, M, 50))
+    for k_study in (30, 150):
+        Uk, Vk = factors(3024, 3706, k_study)
+        errs.append(compare_k1(f"latent-factor study, K={k_study} MAP@5", Uk, Vk, M, 5))
 
     fused = {}
-    for name, (Ub, Vb, Mb, k) in {
+    for name, (*operands, k) in {
         "evaluation block, B=3024 K=250 I=3706 k=50": (U, V, M, 50),
         "serve_all block, B=2048 K=250 I=3706 k=20": (Us, V, Ms, 20),
         "item-mode evaluation, B=3706 K=250 I=6040 k=50": (Ui, Vi, Mi, 50),
@@ -472,8 +558,12 @@ def phase_kernel(dev, card):
         "DisGANMF evaluation, B=1884 K=95 I=17632 k=50": (Ud, Vd, Md, 50),
         "PureSVD evaluation, B=3024 K=41 I=3706 k=50": (Up, Vp, M, 50),
         f"IALS evaluation, B=1884 K={IALS_K} I=17632 k=50": (Ua, Va, Md, 50),
+        f"BPR evaluation, B=3024 K={K} I=3706 k=50": (Ub, Vb, M, 50),
+        f"FunkSVD/AsySVD evaluation, B=3024 K={K + 2} I=3706 k=50": (Uf, Vf, M, 50),
+        f"IRGAN evaluation, B=1884 K={K + 1} I=17632 k=50": (Ug, Vg, Md, 50),
+        f"NMF evaluation, B=3024 K={NMF_PARAMS['num_factors']} I=3706 k=50": (Un, Vn, M, 50),
     }.items():
-        t = time_k1(Ub, Vb, Mb, k)
+        t = time_k1(*operands, k)
         t["splits"] = scorer.LAST_SPLITS  # the plan of the launches just timed
         fused[name] = t
         print(f"  K1 fused at {name}: {t['ms']:.4f} ms over {t['splits']} item splits; plain "
@@ -501,9 +591,13 @@ def phase_kernel(dev, card):
                                 M[:5].contiguous(), 3705))
     wide_errs.append(compare_k1("wide: IALS's default cutoff", Ua[:5].contiguous(), Va,
                                 Md[:5].contiguous(), 17631))
+    for what, (Uw_, Vw_, Mw_) in {"BPR": (Ub, Vb, M), "FunkSVD/AsySVD": (Uf, Vf, M),
+                                  "IRGAN": (Ug, Vg, Md), "NMF": (Un, Vn, M)}.items():
+        wide_errs.append(compare_k1(f"wide: {what}'s default cutoff", Uw_[:5].contiguous(), Vw_,
+                                    Mw_[:5].contiguous(), Vw_.shape[0] - 1))
     UL, VL = factors(64, 17632, NUM_FACTORS)
     wide = {}
-    for name, (Ub, Vb, Mb, k) in {
+    for name, (*operands, k) in {
         "recommend, B=5 K=250 I=3706 k=3705": (Uw, V, Mw, 3705),
         "recommend, B=1 K=250 I=3706 k=3705": (U[:1].contiguous(), V, M[:1].contiguous(), 3705),
         "evaluation above cutoff 64, B=3024 K=250 I=3706 k=100": (U, V, M, 100),
@@ -511,8 +605,10 @@ def phase_kernel(dev, card):
         "DisGANMF recommend, B=5 K=95 I=17632 k=17631": (Ud[:5].contiguous(), Vd, Md[:5].contiguous(), 17631),
         "PureSVD recommend, B=5 K=41 I=3706 k=3705": (Up[:5].contiguous(), Vp, M[:5].contiguous(), 3705),
         f"IALS recommend, B=5 K={IALS_K} I=17632 k=17631": (Ua[:5].contiguous(), Va, Md[:5].contiguous(), 17631),
+        f"BPR recommend, B=5 K={K} I=3706 k=3705": (Ub[:5].contiguous(), Vb, M[:5].contiguous(), 3705),
+        f"IRGAN recommend, B=5 K={K + 1} I=17632 k=17631": (Ug[:5].contiguous(), Vg, Md[:5].contiguous(), 17631),
     }.items():
-        t = wide[name] = time_k1(Ub, Vb, Mb, k)
+        t = wide[name] = time_k1(*operands, k)
         print(f"  K1 wide pair at {name}: {t['ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
               f"library {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})  [{card}]")
@@ -2030,6 +2126,486 @@ def phase_puresvd_itemknn(dev, card, train, test):
           f"users/s by the dense route; every metric within {worst:.3e} of the CPU copy's  [{card}]")
 
 
+def timed_epochs(model_class):
+    """A subclass of ``model_class`` (an IncrementalTrainingEarlyStopping
+    model) whose ``_run_epoch`` logs its synchronized seconds in
+    ``epoch_log``."""
+    import torch
+
+    class Timed(model_class):
+        epoch_log = None
+
+        def _run_epoch(self, num_epoch):
+            if self.epoch_log is None:
+                self.epoch_log = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._run_epoch(num_epoch)
+            torch.cuda.synchronize()
+            self.epoch_log.append(time.perf_counter() - t0)
+
+    return Timed
+
+
+def secs(log):
+    return f"{', '.join(f'{s:.4f}' for s in log)} s"
+
+
+def validated_fit(model, test, dev, **params):
+    """fit() with a validation on the test split every epoch (MAP@5, no
+    stop), which ranks a factor model through K1's fused kernel; returns the
+    fit's wall and the fused launches of its validations."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.ops import scorer
+
+    before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(evaluator_object=EvaluatorHoldout(test, [5], device=dev), validation_every_n=1,
+              validation_metric="MAP", **params)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, scorer.LAUNCHES - scorer.WIDE_LAUNCHES - before
+
+
+def state_gap(name, got, want, atol):
+    """The largest difference between two states (NamedTuples of tensors) and
+    the share of entries that are bitwise equal; fails past ``atol``."""
+    gap, same, total = 0.0, 0, 0
+    for field, a, b in zip(want._fields, got, want):
+        d = float((a.cpu() - b).abs().max())
+        gap = max(gap, d)
+        same += int((a.cpu() == b).sum())
+        total += b.numel()
+        if d > atol:
+            fail(f"{name}: {field} differs from the CPU's by {d:.3e} > {atol}")
+    return gap, same / total
+
+
+def phase_mf_sgd(dev, card, train, test):
+    """BPR, FunkSVD and AsySVD at the JAX fit's defaults on the ML-1M-shaped
+    split, MF_SGD_EPOCHS epochs with a validation through K1 every epoch,
+    then evaluated and served; csr storage against dense; one epoch on the
+    card against the CPU from the same draws; an epoch under the sync
+    debugger."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import MatrixFactorization_AsySVD, MatrixFactorization_BPR, MatrixFactorization_FunkSVD
+    from ganmf_tpu_torch.models import mf_sgd as pm
+
+    cpu = torch.device("cpu")
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    for cls in (MatrixFactorization_BPR, MatrixFactorization_FunkSVD, MatrixFactorization_AsySVD):
+        print(f"[22] {cls.RECOMMENDER_NAME} on {train.shape[0]} x {train.shape[1]}: {MF_SGD_PARAMS}, "
+              f"{MF_SGD_EPOCHS} epochs, a validation (MAP@5) every epoch")
+        model = timed_epochs(cls)(train, device=dev)
+        wall, fused = validated_fit(model, test, dev, epochs=MF_SGD_EPOCHS, **MF_SGD_PARAMS)
+        if fused < MF_SGD_EPOCHS:
+            fail(f"{cls.RECOMMENDER_NAME}: {MF_SGD_EPOCHS} validations launched K1's fused kernel {fused} times")
+        U, V = model.USER_factors, model.ITEM_factors
+        if not (np.isfinite(U).all() and np.isfinite(V).all()) or model.use_bias != (cls is not MatrixFactorization_BPR):
+            fail(f"{cls.RECOMMENDER_NAME}: the factors are not finite, or use_bias is {model.use_bias}")
+        print(f"  {model._n_chunks} chunks of {model._chunk} an epoch; epochs {secs(model.epoch_log)}; fit with "
+              f"validations {wall:.3f} s; best epoch {model.epochs_best}; use_bias {model.use_bias}  [{card}]")
+        serve_checks(cls.RECOMMENDER_NAME, model, ev, train, card)
+
+    # csr storage: the same draws from the same generator state, and a fit
+    # within the epoch gate of the dense one (atomics reorder duplicate rows)
+    tables, ctables = pm.build_tables(train, dev, "dense"), pm.build_tables(train, dev, "csr")
+    a = pm.draw_samples(tables, (64, 256), True, torch.Generator(device=dev).manual_seed(SEED))
+    b = pm.draw_samples(ctables, (64, 256), True, torch.Generator(device=dev).manual_seed(SEED))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail("MF-SGD: the csr storage's draws differ from the dense storage's")
+    fits = []
+    for storage in ("dense", "csr"):
+        model = MatrixFactorization_BPR(train, device=dev)
+        model.fit(epochs=MF_SGD_CSR_EPOCHS, urm_storage=storage, **MF_SGD_PARAMS)
+        fits.append(model._state)
+    gap, same = state_gap("MF-SGD csr against dense", fits[1], on_cpu(fits[0]), MF_EPOCH_ATOL)
+    print(f"[22] BPR with urm_storage='csr': draws bitwise the dense storage's; {MF_SGD_CSR_EPOCHS} epochs within "
+          f"{gap:.3e} of the dense fit (gate {MF_EPOCH_ATOL}), {same:.4f} of the entries bitwise equal")
+
+    # one epoch on the card against the CPU, from the same state and draws
+    lr = MF_SGD_PARAMS["learning_rate"]
+    for cls in (MatrixFactorization_BPR, MatrixFactorization_AsySVD):
+        model = cls(train, device=dev)
+        model.fit(epochs=1, **MF_SGD_PARAMS)
+        state = model._state
+        draws = pm.draw_samples(model._tables, (model._n_chunks, model._chunk), cls is MatrixFactorization_BPR,
+                                torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pm.mf_epoch(state, zip(*draws), **model._hyper)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        want = pm.mf_epoch(on_cpu(state), zip(*(d.cpu() for d in draws)), **model._hyper)
+        gap, same = state_gap(f"{cls.RECOMMENDER_NAME} epoch", got, want, MF_EPOCH_ATOL)
+        moved = float((want.U - state.U.cpu()).abs().max())
+        print(f"[22] one {cls.RECOMMENDER_NAME} epoch on the card ({model._n_chunks} chunks) in {epoch_s:.4f} s: "
+              f"within {gap:.3e} of the CPU's from the same state and draws (gate {MF_EPOCH_ATOL}; lr {lr}; the "
+              f"epoch moved U by up to {moved:.3e}), {same:.4f} of the entries bitwise equal  [{card}]")
+
+        # the draws and the epoch read nothing back to the host
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model._run_epoch(1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    print("[22] the draws and an epoch of BPR and AsySVD ran under set_sync_debug_mode('error')")
+
+
+def on_cpu(state):
+    """A state's tensors on the CPU, as the same NamedTuple."""
+    return type(state)(*(t.cpu() for t in state))
+
+
+def phase_irgan(dev, card, train, test):
+    """IRGAN at the JAX fit's defaults on the LastFM-shaped split
+    (IRGAN_PRETRAIN_EPOCHS pretraining epochs, IRGAN_EPOCHS adversarial ones
+    with a validation through K1 every epoch), evaluated and served; then
+    the first IRGAN_HELD_CHUNKS chunks of each epoch kind on the card against
+    the CPU from the same noise, the adversarial ones at G_lr
+    IRGAN_HELD_G_LR."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import IRGAN_Recommender
+    from ganmf_tpu_torch.models import irgan as pi
+
+    print(f"[23] IRGAN on {train.shape[0]} x {train.shape[1]} at the JAX fit's defaults (K=10, batch 256, DNS_K=5, "
+          f"g_samples=16): {IRGAN_PRETRAIN_EPOCHS} pretraining and {IRGAN_EPOCHS} adversarial epochs")
+    pre_log, pretrain = [], pi.dns_pretrain_epoch
+
+    def timed_pretrain(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pretrain(*args, **kwargs)
+        torch.cuda.synchronize()
+        pre_log.append(time.perf_counter() - t0)
+        return out
+
+    pi.dns_pretrain_epoch = timed_pretrain
+    try:
+        model = timed_epochs(IRGAN_Recommender)(train, device=dev)
+        wall, fused = validated_fit(model, test, dev, epochs=IRGAN_EPOCHS, pre_train_epochs=IRGAN_PRETRAIN_EPOCHS)
+    finally:
+        pi.dns_pretrain_epoch = pretrain
+    if fused < IRGAN_EPOCHS:
+        fail(f"IRGAN: {IRGAN_EPOCHS} validations launched K1's fused kernel {fused} times")
+    for t in model._state:
+        if not bool(torch.isfinite(t).all()):
+            fail("IRGAN: a trained table is not finite")
+    print(f"  {model._n_chunks} chunks of {model._chunk} an epoch; pretraining epochs {secs(pre_log)}, adversarial "
+          f"epochs {secs(model.epoch_log)}; fit with validations {wall:.3f} s; best epoch {model.epochs_best}  [{card}]")
+    serve_checks("IRGAN", model, EvaluatorHoldout(test, CUTOFFS, device=dev), train, card)
+
+    # the first chunks of each epoch kind, card against CPU from the same noise
+    start = IRGAN_Recommender(train, device=dev)
+    start.fit(epochs=0, pre_train_epochs=0)
+    C, n, I = start._chunk, IRGAN_HELD_CHUNKS, train.shape[1]
+    u, i, pad = start._u_arr[: n * C], start._i_arr[: n * C], start._pad
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hp = start._hp
+    kinds = {
+        "pretraining": (lambda st, dv, nz: pi.dns_pretrain_epoch(
+            st, *dv, nz[0], lr=hp["DNS_lr"], reg=hp["gen_reg"], temperature=hp["temperature"], n_items=I, chunk=C),
+            [[pi.gumbel((hp["DNS_K"], C, I), gen) for _ in range(n)]]),
+        "adversarial": (lambda st, dv, nz: pi.adversarial_epoch(
+            st, *dv, [nz[0]], [nz[1]], d_lr=hp["D_lr"], g_lr=IRGAN_HELD_G_LR, d_reg=hp["disc_reg"], g_reg=hp["gen_reg"],
+            temperature=hp["temperature"], n_items=I, chunk=C),
+            [[pi.gumbel((C, I), gen) for _ in range(n)], [pi.gumbel((hp["g_samples"], C, I), gen) for _ in range(n)]]),
+    }
+    state0 = start._state
+    for kind, (run, noise) in kinds.items():
+        js, update = [], pi.pairwise_update
+
+        def recorded(Uf, Vf, b, u_, i_, j_, lr, reg):
+            js.append(j_.clone())
+            return update(Uf, Vf, b, u_, i_, j_, lr, reg)
+
+        pi.pairwise_update = recorded
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run(state0, (u, i, pad), noise)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            n_card = len(js)
+            want = run(on_cpu(state0), (u.cpu(), i.cpu(), pad.cpu()), [[g.cpu() for g in s] for s in noise])
+        finally:
+            pi.pairwise_update = update
+        flips = sum(int((a.cpu() != b).sum()) for a, b in zip(js[:n_card], js[n_card:]))
+        draws = sum(a.numel() for a in js[:n_card])
+        gaps = []
+        for field, a, b, s in zip(want._fields, got, want, state0):
+            moved = float((b - s.cpu()).abs().max())
+            gap = float((a.cpu() - b).abs().max())
+            tol = max(IRGAN_MOVE_SHARE * moved, IRGAN_ULPS * float(np.spacing(np.float32(b.abs().max()))))
+            if gap > tol:
+                fail(f"IRGAN {kind}: {field} differs from the CPU's by {gap:.3e} > {tol:.3e} (it moved {moved:.3e})")
+            if 0 < moved < IRGAN_MOVE_OVER_GATE * tol:
+                fail(f"IRGAN {kind}: {field} moved {moved:.3e}, less than {IRGAN_MOVE_OVER_GATE} times its gate "
+                     f"{tol:.3e}: the gate could not see a wrong update")
+            gaps.append(f"{field} {gap:.3e} (gate {tol:.3e}, moved {moved:.3e})")
+        lr = f"G_lr {IRGAN_HELD_G_LR}" if kind == "adversarial" else f"DNS_lr {hp['DNS_lr']}"
+        print(f"[23] IRGAN's first {n} {kind} chunks ({lr}) on the card in {card_s:.4f} s, against the CPU from the "
+              f"same noise (gate: {IRGAN_MOVE_SHARE} of the distance moved, at least {IRGAN_ULPS} ulps): "
+              f"{'; '.join(gaps)}; flipped negative draws {flips} of {draws}  [{card}]")
+        del noise
+
+
+def list_metrics(lists, test, cutoff):
+    """PRECISION, RECALL, MAP and NDCG at ``cutoff`` of ranked lists against
+    a 0/1 test matrix, in float64, averaged over the users with a test
+    interaction, by the evaluator's definitions (eval/metrics.py)."""
+    test = test.tocsr()
+    out = {"PRECISION": [], "RECALL": [], "MAP": [], "NDCG": []}
+    for u in np.flatnonzero(np.ediff1d(test.indptr) >= 1):
+        pos = set(test.indices[test.indptr[u] : test.indptr[u + 1]].tolist())
+        ranked = list(lists[u])[:cutoff]
+        rel = np.array([item in pos for item in ranked], dtype=np.float64)
+        n = len(ranked)
+        hits = rel.sum()
+        den = min(len(pos), n)
+        disc = 1.0 / np.log(np.arange(n) + 2.0)
+        out["PRECISION"].append(hits / n if n else 0.0)
+        out["RECALL"].append(hits / len(pos))
+        out["MAP"].append(float((rel * np.cumsum(rel) / (np.arange(n) + 1.0)).sum()) / max(den, 1) if n else 0.0)
+        dcg = float((rel * disc).sum())
+        out["NDCG"].append(dcg / float(disc[:den].sum()) if dcg else 0.0)
+    return {m: float(np.mean(v)) for m, v in out.items()}
+
+
+def phase_nmf(dev, card, train, test):
+    """NMF at the JAX fit's defaults on the ML-1M-shaped split, evaluated and
+    served through K1; NMF_HELD_ITERS iterations on the card against the CPU
+    from one init; a PredefinedList from its serve_all, whose lists and
+    metrics must be the model's."""
+    import scipy.sparse as sps
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import NMFRecommender, PredefinedListRecommender
+    from ganmf_tpu_torch.models import extras as px
+
+    print(f"[24] NMF on {train.shape[0]} x {train.shape[1]}: {NMF_PARAMS}")
+    model = NMFRecommender(train, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(**NMF_PARAMS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    U, V = model.USER_factors, model.ITEM_factors
+    if not (np.isfinite(U).all() and np.isfinite(V).all() and (U >= 0).all() and (V >= 0).all()):
+        fail("NMF: the factors are not finite and nonnegative")
+    print(f"  fit ({NMF_PARAMS['n_iter']} multiplicative updates, float32, TF32 off) {fit_s:.4f} s  [{card}]")
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    results = serve_checks("NMF", model, ev, train, card)
+
+    A = model.device_urm().dense
+    W0, H0 = px.nmf_init(A, NMF_PARAMS["num_factors"], torch.Generator(device=dev).manual_seed(SEED))
+    W, H = px.nmf_multiplicative(A, W0, H0, NMF_HELD_ITERS)
+    Wp, Hp = px.nmf_multiplicative(A.cpu(), W0.cpu(), H0.cpu(), NMF_HELD_ITERS)
+    gaps = [float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in ((W, Wp), (H, Hp))]
+    if max(gaps) > NMF_RTOL:
+        fail(f"NMF: {NMF_HELD_ITERS} iterations on the card differ from the CPU's by {max(gaps):.3e} of the "
+             f"largest factor > {NMF_RTOL}")
+    print(f"[24] {NMF_HELD_ITERS} NMF iterations on the card from one init: W and H within {gaps[0]:.3e} and "
+          f"{gaps[1]:.3e} of their largest entry of the CPU's (gate {NMF_RTOL})")
+
+    k = max(CUTOFFS)
+    ids, vals = model.serve_all(cutoff=k)
+    keep = np.isfinite(vals)
+    rec = sps.csr_matrix((ids[keep], np.nonzero(keep)[1], np.r_[0, np.cumsum(keep.sum(1))]), shape=train.shape)
+    lists_model = PredefinedListRecommender(rec, device=dev)
+    users = np.arange(train.shape[0])
+    lists = lists_model.recommend(users, cutoff=k)
+    if lists != model.recommend(users, cutoff=k):
+        fail("PredefinedList: the lists differ from the model's recommend")
+    worst = 0.0
+    for c in CUTOFFS:
+        got = list_metrics(lists, test, c)
+        for metric, value in got.items():
+            worst = max(worst, abs(value - results[c][metric]))
+    if worst > METRIC_TOL:
+        fail(f"PredefinedList: a metric of its lists differs from the model's evaluation by {worst:.3e}")
+    try:
+        lists_model.serve_all(cutoff=5)
+        fail("PredefinedList: serve_all did not raise")
+    except NotImplementedError:
+        pass
+    print(f"[24] PredefinedList from NMF's serve_all (top {k}): lists equal to recommend's for {len(users)} users; "
+          f"PRECISION, RECALL, MAP and NDCG at {CUTOFFS} within {worst:.3e} of NMF's evaluation; serve_all raises")
+
+
+def phase_ease_dense(dev, card, train, test):
+    """EASE-R without topK on the LastFM-shaped split: the dense [I, I] W,
+    timed; the evaluation by the similarity route."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import EASE_R_Recommender
+
+    n = train.shape[1]
+    print(f"[24] EASE-R on {train.shape[0]} x {n}, l2_norm {EASE_L2}, no topK: W {4 * n * n / 1e9:.2f} GB, "
+          f"~{(2 * train.shape[0] * n * n + 7 / 3 * n ** 3) / 1e12:.1f} TFLOP float32")
+    model = EASE_R_Recommender(train, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(l2_norm=EASE_L2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    W = model._device_w
+    if not bool(torch.isfinite(W).all()) or bool(torch.diagonal(W).any()):
+        fail("EASE-R: W is not finite or its diagonal is not zero")
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    if not ev._can_fuse_sim(model):
+        fail("EASE-R: the evaluator would not take the similarity route")
+    t0 = time.perf_counter()
+    results, _ = ev.evaluateRecommender(model)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if not all(np.isfinite(results[c][m]) for c in CUTOFFS for m in ("PRECISION", "RECALL", "MAP", "NDCG")):
+        fail("EASE-R: a ranking metric is not finite")
+    n_eval = len(ev.usersToEvaluate)
+    print(f"  fit (Gram, Cholesky, a solve against the identity) {fit_s:.4f} s; max|B| {float(W.abs().max()):.4e}; "
+          f"eval {n_eval} users in {eval_s:.4f} s = {n_eval / eval_s:.1f} users/s by the similarity route; MAP@5 "
+          f"{results[5]['MAP']:.6f}  [{card}]")
+
+
+def phase_ease_topk(dev, card, train, test):
+    """EASE-R with topK at the ML-1M shape, card against CPU: the pruned W
+    within EASE_W_TOL of max|B|, an entry kept by one only within it of the
+    other's column edge; 256 users' top 50 from each W, ids equal but at
+    near ties."""
+    import torch
+
+    from ganmf_tpu_torch.models import EASE_R_Recommender
+    from ganmf_tpu_torch.ops.topk import topk_lowest_index
+
+    print(f"[24] EASE-R on {train.shape[0]} x {train.shape[1]}, l2_norm {EASE_L2}, topK {EASE_TOPK}")
+    models = []
+    for d in (dev, torch.device("cpu")):
+        m = EASE_R_Recommender(train, device=d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.fit(topK=EASE_TOPK, l2_norm=EASE_L2)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        models.append((m, time.perf_counter() - t0))
+    (card_m, card_s), (cpu_m, cpu_s) = models
+    g, w = card_m._device_w.cpu().numpy(), cpu_m._device_w.numpy()
+    tol = EASE_W_TOL * float(np.abs(w).max())
+    if not np.array_equal((g != 0).sum(0), (w != 0).sum(0)):
+        fail("EASE-R: the pruned W keeps another count of entries in some column than the CPU's")
+    both = (g != 0) & (w != 0)
+    gap = float(np.abs(g[both] - w[both]).max())
+    if gap > tol:
+        fail(f"EASE-R: the pruned W differs from the CPU's by {gap:.3e} > {tol:.3e}")
+    only = 0
+    for a, b in ((g, w), (w, g)):
+        lone = (a != 0) & (b == 0)
+        only += int(lone.sum())
+        edge = np.where(b != 0, b, np.inf).min(0)
+        r, c = np.nonzero(lone)
+        if not np.all(np.abs(a[r, c] - edge[c]) <= tol):
+            fail("EASE-R: the pruned W keeps an entry the CPU's does not, beyond a near tie")
+    users = np.linspace(0, train.shape[0] - 1, SIM_RANK_USERS).astype(np.int64)
+    rows = card_m.device_profile_rows(torch.from_numpy(users).to(dev))
+    seen = rows != 0
+    s = (rows @ card_m._device_w).masked_fill(seen, float("-inf"))
+    ps = (rows.cpu() @ cpu_m._device_w).masked_fill(seen.cpu(), float("-inf"))
+    _, ids = topk_lowest_index(s, max(CUTOFFS))
+    _, pids = topk_lowest_index(ps, max(CUTOFFS))
+    score_tol = 2 * tol * float(rows.sum(1).max())  # W's gap summed over a profile, on both sides
+    diff = ids.cpu() != pids
+    sc = s.cpu()
+    ties = int(diff.sum())
+    if ties and not bool(((sc.gather(1, ids.cpu())[diff] - sc.gather(1, pids)[diff]).abs() <= score_tol).all()):
+        fail("EASE-R: the ranking from the card's W differs from the CPU's beyond a near tie")
+    print(f"  fit {card_s:.4f} s on the card ({cpu_s:.2f} s on the CPU); pruned W within {gap:.3e} of the CPU's "
+          f"(gate {EASE_W_TOL} of max|B| = {tol:.3e}), {only} entries kept by one only; {SIM_RANK_USERS} users' top "
+          f"{max(CUTOFFS)}: {ties} near-tie id slots of {ids.numel()}  [{card}]")
+
+
+def phase_studies(dev, card, split_dir, scratch):
+    """The paper's studies on phase 16's ML-1M-shaped five-way split:
+    describe, the feature-matching sweep and its cosine study at GANMF's
+    ML-1M best params, the latent-factor and qualitative studies, with
+    GANMF's epochs cut to STUDY_GANMF_EPOCHS; per_profile_length_map's bins
+    averaged to the evaluator's MAP@20 on a PureSVD model."""
+    import contextlib
+    import io
+    import json
+    import pickle
+
+    import torch
+
+    from ganmf_tpu_torch.cli import ablation, describe, mf_learned
+    from ganmf_tpu_torch.cli.experiment import load_urms
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import PureSVDRecommender
+
+    os.environ["GANMF_TPU_SPLIT_DIR"] = split_dir
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        describe.main(["1M"])
+    stats = [json.loads(b) for b in out.getvalue().replace("}\n{", "}\x00{").split("\x00")]
+    if [s["name"] for s in stats] != [f"1M/{n}" for n in ("train", "test", "validation", "train_small", "early_stop")]:
+        fail("describe: it did not describe the five splits")
+    print(f"[25] describe 1M: {[(s['name'], s['n_users'], s['n_items'], s['interactions']) for s in stats]}")
+
+    bp = os.path.join(scratch, "study_params")
+    os.makedirs(os.path.join(bp, "GANMF_user_1M"))
+    with open(os.path.join(bp, "GANMF_user_1M", "best_params.pkl"), "wb") as fh:
+        pickle.dump(dict(GANMF_PARAMS), fh)
+    walls = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return res
+
+    fm_dir = os.path.join(scratch, "feature_matching")
+    alphas, maps, ndcgs = run("feature matching", lambda: ablation.feature_matching_coefficient(
+        "1M", "user", base_params=dict(GANMF_PARAMS), out_dir=fm_dir, epochs=STUDY_GANMF_EPOCHS, device=dev))
+    cos = run("feature-matching cosine", lambda: ablation.feature_matching_cos_sim(
+        "1M", "user", base_params=dict(GANMF_PARAMS), out_dir=fm_dir, epochs=STUDY_GANMF_EPOCHS, device=dev))
+    if len(maps) != 11 or not all(np.isfinite(maps + ndcgs)) or len(os.listdir(fm_dir)) < 13:
+        fail("feature matching: the sweep did not write its 11 results")
+    print(f"[25] feature matching (11 alphas, {STUDY_GANMF_EPOCHS} epochs each): MAP@5 "
+          f"{[round(float(m), 5) for m in maps]}; cosine {cos}")
+    series = run("latent factors", lambda: mf_learned.latent_factors_study(
+        "1M", out_dir=os.path.join(scratch, "latent_factors"), epochs=STUDY_GANMF_EPOCHS, bp_dir=bp, device=dev))
+    if sorted(series) != ["ALS", "GANMF", "PureSVD"] or not all(np.isfinite(v).all() for v in series.values()):
+        fail("latent factors: a series is missing or not finite")
+    print(f"[25] latent factors (K {mf_learned.K_GRID}): MAP@5 "
+          f"{({k: [round(float(x), 5) for x in v] for k, v in series.items()})}")
+    qual = run("qualitative", lambda: mf_learned.mf_qualitative_study(
+        "1M", out_dir=os.path.join(scratch, "qualitative_study"), epochs=STUDY_GANMF_EPOCHS, bp_dir=bp, device=dev))
+    print(f"[25] MAP@20 by profile-length decile: {({k: [round(b['MAP'], 4) for b in v] for k, v in qual.items()})}")
+
+    splits = load_urms("1M")
+    svd = PureSVDRecommender(splits.train, device=dev)
+    svd.fit(num_factors=50)
+    bins = mf_learned.per_profile_length_map(svd, splits)
+    n = sum(b["n_users"] for b in bins)
+    got = sum(b["MAP"] * b["n_users"] for b in bins) / n
+    want, _ = EvaluatorHoldout(splits.test, [20], device=dev).evaluateRecommender(svd)
+    if abs(got - want[20]["MAP"]) > METRIC_TOL:
+        fail(f"per_profile_length_map: its bins average to {got:.6f}, the evaluator's MAP@20 is {want[20]['MAP']:.6f}")
+    print(f"[25] per_profile_length_map (PureSVD K=50): bins average to MAP@20 {got:.6f}, the evaluator's "
+          f"{want[20]['MAP']:.6f}; walls {({k: round(v, 2) for k, v in walls.items()})} s  [{card}]")
+
+
 def main():
     import torch
 
@@ -2192,6 +2768,31 @@ def main():
     no_kernel(lambda: phase_sim_tuner(dev, card, split_dir, SCRATCH), "similarity tuner")
     train, test = ml1m_cold_split()
     no_kernel(lambda: phase_puresvd_itemknn(dev, card, train, test), "PureSVD itemKNN")
+
+    # the remaining recommenders and the studies: each path's counts set to 0
+    # just before it and read just after; the factor models rank through K1,
+    # and none draws through K2
+    new_paths = {}
+
+    def through_k1(run, what):
+        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = 0
+        run()
+        wide, merge, k2 = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES, select.LAUNCHES
+        fused = scorer.LAUNCHES - wide
+        if fused == 0 or k2:
+            fail(f"the {what} path launched K1's fused kernel {fused} times and K2 {k2} times")
+        new_paths[what] = (fused, wide, merge, k2)
+        print(f"  launches on the {what} path: K1 fused {fused} (merge pass {merge}), wide pair {wide}, K2 {k2}")
+        elapsed(what)
+
+    train, test = ml1m_split()
+    through_k1(lambda: phase_mf_sgd(dev, card, train, test), "MF-SGD training")
+    ltrain, ltest = lastfm_split()
+    through_k1(lambda: phase_irgan(dev, card, ltrain, ltest), "IRGAN training")
+    through_k1(lambda: phase_nmf(dev, card, train, test), "NMF serving")
+    no_kernel(lambda: phase_ease_dense(dev, card, ltrain, ltest), "EASE-R dense")
+    no_kernel(lambda: phase_ease_topk(dev, card, train, test), "EASE-R topK")
+    through_k1(lambda: phase_studies(dev, card, split_dir, SCRATCH), "studies")
     shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused
@@ -2205,6 +2806,9 @@ def main():
     wide_by_path = {"GANMF serving": wide_launches, "GANMF training": train_wide,
                     "DisGANMF training": dis_wide, "PureSVD serving": svd_wide, "IALS training": ials_wide}
     k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2}
+    for what, (n_fused, n_wide, n_merge, n_k2) in new_paths.items():
+        fused_by_path[what], wide_by_path[what], k2_by_path[what] = n_fused, n_wide, n_k2
+        merge_launches += n_merge
     print(json.dumps({"kernels": [
         {
             "name": "masked_topk_scores (K1, fused kernel and merge pass, k <= 64)",

@@ -254,6 +254,40 @@ class EvaluatorHoldout:
 
     @torch.no_grad()
     def evaluateRecommender(self, recommender_object):
+        cutoffs = self.cutoff_list
+        scalar_acc = torch.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=torch.float32, device=self.device)
+        counter_acc = torch.zeros((len(cutoffs), self.n_items), dtype=torch.float32, device=self.device)
+        for _, stats in self._blocks(recommender_object):
+            scalar_acc += stats.scalars
+            counter_acc += stats.counters
+
+        # one device-to-host transfer
+        packed = torch.cat([scalar_acc.ravel(), counter_acc.ravel()]).cpu().numpy()
+        ns = scalar_acc.numel()
+        return self._finalize(
+            packed[:ns].astype(np.float64).reshape(tuple(scalar_acc.shape)),
+            packed[ns:].astype(np.float64).reshape(tuple(counter_acc.shape)),
+            len(self.usersToEvaluate),
+        )
+
+    @torch.no_grad()
+    def per_user_ap(self, recommender_object, cutoff: int):
+        """(users, AP@cutoff of each) for the evaluated users in ascending
+        id order: the terms whose mean is ``evaluateRecommender``'s MAP, from
+        the same ranking route."""
+        ci = self.cutoff_list.index(cutoff)
+        users, aps = [np.zeros(0, np.int64)], []
+        for chunk, stats in self._blocks(recommender_object):
+            users.append(chunk)
+            aps.append(stats.user_ap[ci])
+        users = np.concatenate(users)
+        ap = torch.cat(aps).cpu().numpy().astype(np.float64) if aps else np.zeros(0)
+        order = np.argsort(users, kind="stable")
+        return users[order], ap[order]
+
+    def _blocks(self, recommender_object):
+        """(users, BatchStats) of each block of the evaluated users, ranked
+        by K1, by the similarity route or from dense scores."""
         if recommender_object.device != self.device:
             raise ValueError(
                 f"model on {recommender_object.device}, evaluator on {self.device}")
@@ -293,9 +327,6 @@ class EvaluatorHoldout:
         use_k1 = recommender_object._ranks_with_k1()
         use_sim = not use_k1 and self._can_fuse_sim(recommender_object)
 
-        scalar_acc = torch.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=torch.float32, device=self.device)
-        counter_acc = torch.zeros((len(cutoffs), self.n_items), dtype=torch.float32, device=self.device)
-
         # blocks are not padded to block_size: the last one is just shorter
         for start in range(0, n_eval, block_size):
             chunk = users[start : start + block_size]
@@ -320,20 +351,12 @@ class EvaluatorHoldout:
                     scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
                     cutoffs=cutoffs, max_cutoff=self.max_cutoff,
                 )
-            scalar_acc += stats.scalars
-            counter_acc += stats.counters
+            yield chunk, stats
 
-        # one device-to-host transfer
-        packed = torch.cat([scalar_acc.ravel(), counter_acc.ravel()]).cpu().numpy()
-        ns = scalar_acc.numel()
-        return self._finalize(
-            packed[:ns].astype(np.float64).reshape(tuple(scalar_acc.shape)),
-            packed[ns:].astype(np.float64).reshape(tuple(counter_acc.shape)),
-            n_eval,
-            recommender_object,
-        )
+        if self.ignore_items_flag and hasattr(recommender_object, "reset_items_to_ignore"):
+            recommender_object.reset_items_to_ignore()
 
-    def _finalize(self, scalar_acc, counter_acc, n_eval, recommender_object):
+    def _finalize(self, scalar_acc, counter_acc, n_eval):
         results_dict: Dict[int, Dict[str, float]] = {}
         n_ignore_items = len(self.ignore_items_ID)
         n_ignore_users = len(self.ignore_users_ID)
@@ -368,8 +391,5 @@ class EvaluatorHoldout:
 
         if n_eval == 0:
             print("WARNING: No users had a sufficient number of relevant items")
-
-        if self.ignore_items_flag and hasattr(recommender_object, "reset_items_to_ignore"):
-            recommender_object.reset_items_to_ignore()
 
         return results_dict, get_result_string(results_dict)

@@ -66,6 +66,17 @@ class BatchStats(NamedTuple):
 
     scalars: torch.Tensor  # [n_cutoffs, len(SCALAR_FIELDS)] summed over users
     counters: torch.Tensor  # [n_cutoffs, n_items] recommendation counts
+    user_ap: torch.Tensor  # [n_cutoffs, B] each user's AP (MAP's term)
+
+
+def average_precision(relm: torch.Tensor, length: torch.Tensor, n_pos: torch.Tensor) -> torch.Tensor:
+    """Each user's average precision, MAP's term: ``relm`` [B, K] is the 0/1
+    relevance of the ranked list, zero past its ``length`` [B]; the sum of
+    precision at each hit is divided by min(n_pos, length), and a user with
+    no list scores 0."""
+    positions = torch.arange(relm.shape[1], device=relm.device).float()
+    p_at_k = relm * relm.cumsum(1) / (positions + 1.0)
+    return torch.where(length > 0, p_at_k.sum(1) / torch.minimum(n_pos, length).clamp(min=1.0), 0.0)
 
 
 def evaluate_batch(
@@ -139,6 +150,7 @@ def _evaluate_core(
 
     per_cutoff_scalars = []
     per_cutoff_counters = []
+    per_cutoff_ap = []
 
     for c in cutoffs:
         m = valid & (slots < c)  # [B, K] effective-list mask
@@ -153,9 +165,7 @@ def _evaluate_core(
         prec_min = torch.where(length > 0, hits / min_den.clamp(min=1.0), 0.0)
         recall = hits / n_pos_f.clamp(min=1.0)
 
-        cum_rel = relm.cumsum(1)
-        p_at_k = relm * cum_rel / (positions + 1.0)
-        ap = torch.where(length > 0, p_at_k.sum(1) / min_den.clamp(min=1.0), 0.0)
+        ap = average_precision(relm, length, n_pos_f)
 
         rr = (relm / (positions + 1.0)).amax(1)
         arhr = (relm / (positions + 1.0)).sum(1)
@@ -196,8 +206,9 @@ def _evaluate_core(
         counter = torch.zeros(I, dtype=torch.float32, device=dev)
         counter.index_add_(0, top_idx.reshape(-1), (mf * uvalid[:, None]).reshape(-1))
         per_cutoff_counters.append(counter)
+        per_cutoff_ap.append(ap)
 
-    return BatchStats(torch.stack(per_cutoff_scalars), torch.stack(per_cutoff_counters))
+    return BatchStats(torch.stack(per_cutoff_scalars), torch.stack(per_cutoff_counters), torch.stack(per_cutoff_ap))
 
 
 def finalize_counter_metrics(counter: np.ndarray, n_users_eval: int, cutoff: int, n_items: int,

@@ -21,6 +21,17 @@ from ganmf_tpu_torch.models.itemknn import (  # noqa: F401
 )
 from ganmf_tpu_torch.models.p3alpha import P3alphaRecommender, RP3betaRecommender  # noqa: F401
 from ganmf_tpu_torch.models.slim_bpr import SLIM_BPR, SLIM_BPR_Cython  # noqa: F401
+from ganmf_tpu_torch.models.mf_sgd import (  # noqa: F401
+    MatrixFactorization_AsySVD,
+    MatrixFactorization_BPR,
+    MatrixFactorization_FunkSVD,
+)
+from ganmf_tpu_torch.models.irgan import IRGAN_Recommender  # noqa: F401
+from ganmf_tpu_torch.models.extras import (  # noqa: F401
+    EASE_R_Recommender,
+    NMFRecommender,
+    PredefinedListRecommender,
+)
 
 #: the adversarial models ported so far, as the JAX package's GAN_MODELS
 GAN_MODELS = (GANMF, DisGANMF, CFGAN, CAAE)

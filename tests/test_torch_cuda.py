@@ -52,6 +52,15 @@ W route within 1e-6 of the dense one; one SLIM-BPR epoch within 2.2 x lr;
 PureSVD's itemKNN estimate, from factors on a grid (exact scores): its W
 bitwise the CPU's, and the model ranked by the dense route with the CPU's
 metrics (the estimate scores no user, as in the JAX package).
+The remaining recommenders: one MF-SGD epoch (BPR and AsySVD, dense and csr
+storage) from the same state and draws within 1e-5 of the CPU's, and the
+draws and an epoch under ``set_sync_debug_mode("error")``; a BPR fit whose
+validations launch K1, with the CPU's metrics; IRGAN's first 4 pretraining
+and adversarial chunks from the same Gumbel noise, every table within 1% of
+the distance it moved or 8 ulps of its largest entry, and each table that
+moved moved 10 times its gate or more; 5 NMF iterations from one init within
+1e-4 of the largest factor; EASE-R's W, dense and pruned, within 1e-4 of
+max|B|; K1 at the shapes these models' evaluations and `recommend` give it.
 """
 
 import numpy as np
@@ -137,6 +146,28 @@ def test_kernel_matches_plain(cuda, B, K, I, k, case):
     vals, ids = masked_topk_scores(U, V, mask, k)
     assert scorer.LAUNCHES == before + 1
     assert scorer.WIDE_LAUNCHES == wide_before + (k > scorer.MAX_K)
+    _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
+
+
+@pytest.mark.parametrize("case", ["random", "grid", "ties", "masked_rows"])
+@pytest.mark.parametrize("B,K,I,k", [
+    (3024, 10, 3706, 50),  # BPR's evaluation block: K below one 16-wide slice
+    (3024, 12, 3706, 50),  # FunkSVD's and AsySVD's, two bias columns folded in
+    (1884, 11, 17632, 50),  # IRGAN's, its bias folded in as a ones column
+    (3024, 100, 3706, 50),  # NMF's
+    (3024, 30, 3706, 5),  # the latent-factor study's MAP@5 at K=30 and K=150
+    (3024, 150, 3706, 5),
+    (5, 10, 3706, 3705),  # recommend's default cutoff, through the wide pair
+    (5, 11, 17632, 17631),
+    (5, 100, 3706, 3705),
+])
+def test_kernel_at_the_factor_models_shapes(cuda, B, K, I, k, case):
+    """K1 at the shapes the MF-SGD, IRGAN and NMF evaluations and the studies
+    give it, against its plain version."""
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
+    before = scorer.LAUNCHES
+    vals, ids = masked_topk_scores(U, V, mask, k)
+    assert scorer.LAUNCHES == before + 1
     _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
 
 
@@ -925,3 +956,121 @@ def test_itemknn_cold_estimate_on_card(cuda):
     before = scorer.LAUNCHES
     _metrics_close(card, plain, test)
     assert scorer.LAUNCHES == before  # the dense route ranks it
+
+
+# -- the MF-SGD family, IRGAN, NMF and EASE-R ----------------------------------
+
+
+def _gap_within(got, want, atol):
+    for field, a, b in zip(want._fields, got, want):
+        assert float((a.cpu() - b).abs().max()) <= atol, field
+
+
+@pytest.mark.parametrize("cls_name", ["MatrixFactorization_BPR", "MatrixFactorization_AsySVD"])
+@pytest.mark.parametrize("storage", ["dense", "csr"])
+def test_mf_sgd_epoch_on_card_matches_cpu_and_does_not_synchronize(cuda, cls_name, storage):
+    """One epoch from the same state and draws within 1e-5 of the CPU's
+    (index_add_ sums duplicate rows by atomics; a flipped update moves an
+    entry by about 2 x lr = 0.1); the draws and an epoch with no host sync."""
+    import ganmf_tpu_torch.models as pmodels
+    from ganmf_tpu_torch.models import mf_sgd as pm
+
+    train, _ = _sim_split()
+    model = getattr(pmodels, cls_name)(train)
+    model.fit(epochs=1, num_factors=16, batch_size=64, learning_rate=0.05, urm_storage=storage)
+    draws = pm.draw_samples(model._tables, (model._n_chunks, model._chunk), cls_name.endswith("BPR"),
+                            torch.Generator(device=cuda).manual_seed(2))
+    got = pm.mf_epoch(model._state, zip(*draws), **model._hyper)
+    want = pm.mf_epoch(type(model._state)(*(t.cpu() for t in model._state)), zip(*(d.cpu() for d in draws)),
+                       **model._hyper)
+    _gap_within(got, want, 1e-5)
+    assert float((want.U - model._state.U.cpu()).abs().max()) > 1e-3  # the epoch moved the factors
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model._run_epoch(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(model._state.U).all())
+
+
+def test_bpr_evaluation_on_card_launches_k1(cuda):
+    from ganmf_tpu_torch.models import MatrixFactorization_BPR
+
+    train, test = _sim_split()
+    model = MatrixFactorization_BPR(train)
+    before = scorer.LAUNCHES
+    model.fit(epochs=2, num_factors=8, learning_rate=0.05, evaluator_object=EvaluatorHoldout(test, [5]),
+              validation_every_n=1, validation_metric="MAP")
+    assert scorer.LAUNCHES >= before + 2  # each validation through K1
+    before = scorer.LAUNCHES
+    copy = MatrixFactorization_BPR(train, device=torch.device("cpu"))
+    copy.USER_factors, copy.ITEM_factors = model.USER_factors, model.ITEM_factors
+    _metrics_close(model, copy, test)
+    assert scorer.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("kind", ["pretraining", "adversarial"])
+def test_irgan_first_chunks_on_card_match_cpu(cuda, kind):
+    """The first 4 chunks from the same Gumbel noise, at learning rates of
+    0.05: every table within 1% of the distance it moved of the CPU's, or 8
+    ulps of its largest entry where it did not move, and every table that
+    moved moved at least 10 times its gate (a Gumbel argmax at a near tie
+    would move a row by a whole update)."""
+    from ganmf_tpu_torch.models import IRGAN_Recommender
+    from ganmf_tpu_torch.models import irgan as pi
+
+    train, _ = _sim_split(binary=True)
+    start = IRGAN_Recommender(train)
+    start.fit(epochs=0, pre_train_epochs=0, num_factors=10, batch_size=64, DNS_lr=0.05, D_lr=0.05, G_lr=0.05)
+    C, I, n, hp = start._chunk, train.shape[1], 4, start._hp
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if kind == "pretraining":
+        noise = [[pi.gumbel((hp["DNS_K"], C, I), gen) for _ in range(n)]]
+
+        def run(st, dv, nz):
+            return pi.dns_pretrain_epoch(st, *dv, nz[0], lr=hp["DNS_lr"], reg=hp["gen_reg"],
+                                         temperature=hp["temperature"], n_items=I, chunk=C)
+    else:
+        noise = [[pi.gumbel((C, I), gen) for _ in range(n)], [pi.gumbel((hp["g_samples"], C, I), gen) for _ in range(n)]]
+
+        def run(st, dv, nz):
+            return pi.adversarial_epoch(st, *dv, [nz[0]], [nz[1]], d_lr=hp["D_lr"], g_lr=hp["G_lr"],
+                                        d_reg=hp["disc_reg"], g_reg=hp["gen_reg"], temperature=hp["temperature"],
+                                        n_items=I, chunk=C)
+    dv = (start._u_arr[: n * C], start._i_arr[: n * C], start._pad)
+    got = run(start._state, dv, noise)
+    want = run(type(start._state)(*(t.cpu() for t in start._state)), tuple(t.cpu() for t in dv),
+               [[g.cpu() for g in s] for s in noise])
+    moved_any = False
+    for a, b, s in zip(got, want, start._state):
+        moved = float((b - s.cpu()).abs().max())
+        moved_any |= moved > 0
+        gate = max(1e-2 * moved, 8 * float(np.spacing(np.float32(b.abs().max()))))
+        assert float((a.cpu() - b).abs().max()) <= gate
+        assert moved == 0 or moved >= 10 * gate  # a table it trains moves far past its gate
+    assert moved_any
+
+
+def test_nmf_and_ease_r_on_card_match_cpu(cuda):
+    """5 NMF iterations from one init within 1e-4 of the largest factor; the
+    EASE-R W, dense and pruned (topK 50), within 1e-4 of max|B|."""
+    from ganmf_tpu_torch.models import EASE_R_Recommender
+    from ganmf_tpu_torch.models import extras as px
+
+    train, _ = _sim_split(binary=True)
+    A = torch.from_numpy(train.toarray()).to(cuda)
+    W0, H0 = px.nmf_init(A, 20, torch.Generator(device=cuda).manual_seed(1))
+    W, H = px.nmf_multiplicative(A, W0, H0, 5)
+    Wp, Hp = px.nmf_multiplicative(A.cpu(), W0.cpu(), H0.cpu(), 5)
+    for a, b in ((W, Wp), (H, Hp)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for topK in (None, 50):
+        card, plain = EASE_R_Recommender(train), EASE_R_Recommender(train, device=torch.device("cpu"))
+        card.fit(topK=topK, l2_norm=100.0)
+        plain.fit(topK=topK, l2_norm=100.0)
+        g, w = card._device_w.cpu().numpy(), plain._device_w.numpy()
+        tol = 1e-4 * np.abs(w).max()
+        both = (g != 0) & (w != 0)
+        assert np.abs(g[both] - w[both]).max() <= tol
+        assert np.array_equal((g != 0).sum(0), (w != 0).sum(0))

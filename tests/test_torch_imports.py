@@ -31,6 +31,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn"))
 assert not leaked, leaked
 print("IMPORTED", len(names))
+print("NAMES", " ".join(names))
 """
 
 
@@ -41,10 +42,32 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
     assert r.returncode == 0, r.stderr[-2000:]
     # every module of the port was imported, the training slice's host
     # copies, the run_best and experiment entry points, the tuner, the
-    # DisGANMF, PureSVD, CAAE, IALS and TopPop models and the similarity
+    # DisGANMF, PureSVD, CAAE, IALS and TopPop models, the similarity
     # family (ops/similarity, ops/simscore, utils/weighting, the ItemKNN,
-    # P3alpha and SLIM-BPR models) among them
-    assert int(r.stdout.split("IMPORTED")[1]) >= 45, r.stdout
+    # P3alpha and SLIM-BPR models), the MF-SGD family, IRGAN, NMF / EASE-R /
+    # PredefinedList, the study CLIs and their host helpers among them
+    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 53, r.stdout
+    names = set(r.stdout.split("NAMES")[1].split())
+    for module in ("models.mf_sgd", "models.irgan", "models.extras", "utils.analysis", "utils.timing",
+                   "eval.significance", "cli.describe", "cli.ablation", "cli.mf_learned"):
+        assert f"ganmf_tpu_torch.{module}" in names, module
+
+
+def test_port_models_cover_the_jax_packages():
+    """Every public name of ganmf_tpu.models has its class in
+    ganmf_tpu_torch.models, under the same name; the CLIs likewise."""
+    import ganmf_tpu.cli
+    import ganmf_tpu.models as jm
+    import ganmf_tpu_torch.cli
+    import ganmf_tpu_torch.models as pm
+
+    public = [n for n in dir(jm) if not n.startswith("_") and isinstance(getattr(jm, n), type)]
+    assert len(public) >= 26
+    missing = [n for n in public if not isinstance(getattr(pm, n, None), type)]
+    assert not missing, missing
+    assert [m.__name__ for m in pm.GAN_MODELS] == [m.__name__ for m in jm.GAN_MODELS]
+    entry_points = [n for n in dir(ganmf_tpu.cli) if n.endswith("_main")]
+    assert entry_points == [n for n in dir(ganmf_tpu_torch.cli) if n.endswith("_main")]
 
 
 _PRECISION = r"""
