@@ -172,13 +172,48 @@ Phases, in order; any failure exits nonzero:
     profile-length bins of a PureSVD model averaged to the evaluator's
     MAP@20 (1e-5). Phases 22-25 read K1's and K2's counts per path: K1's
     fused kernel above 0 and K2 at 0 on each, but EASE-R's, where both are 0;
-26. print one JSON line with every kernel's launches (by path), error, times
-    and bound (K1's two forms as entries of their own), then the card line,
-    then the result line.
+26. the keyed per-row draw of CFGAN's csr storage (csrc/keyed.cu) against its
+    plain version, bitwise, and K2 on keys drawn so, bitwise, at the csr
+    minibatch shapes [128, 17632] and [1024, 17632] (D and G batches in user
+    mode on the LastFM-shaped split), [1024, 1884] (item mode) and
+    [1024, 26744] (ML-20M's width); each timed beside its plain version and
+    its bound (the keyed draw's: its output written once);
+27. CFGAN with urm_storage="csr" at the published LastFM params, both modes:
+    2 epochs with early stopping (K2 and the keyed draw launched once a
+    minibatch for each mask the phase draws: the ZR scheme draws one a G
+    minibatch), epoch walls, the fit's peak device memory beside a dense
+    fit's, the last G minibatch's masks bitwise card against CPU, one csr
+    epoch card against CPU within the Adam bound, and the trained model's
+    metrics (streamed scoring) within 1e-5 of a CPU copy's;
+28. one csr epoch at the same params on a 0/1 matrix of ML-20M's shape
+    (138,493 x 26,744, about 20M entries, drawn on the card from the seed),
+    whose dense storage would not fit the card: the epoch's wall and the
+    peak device memory, which must stay under the card's;
+29. the column-blocked similarity build (cosine, topK 50, shrink 100) of a
+    25,000 x 65,536 0/1 matrix (its float32 A passes _DENSE_A_BYTE_LIMIT and
+    its 17 GB Gram _GRAM_BYTE_LIMIT), by the int8 form and by the scatter
+    form, each timed; the two equal, and 512 target columns bitwise equal
+    to a float64 product of A with those columns, normalized and ranked
+    with ties to the lowest id;
+30. the phase-7 GANMF model (user mode) evaluated with a diversity object
+    (its ItemKNN cosine W) and by EvaluatorNegativeItemSample (100 sampled
+    negatives a user): the dense route, every metric within 1e-5 of a CPU
+    copy's;
+31. one CAAE epoch at the reference's ML-1M best params with
+    d_scatter="dedup", twice (bitwise equal) and against "direct" (every
+    tensor within 1% of the distance it moved), timed. Phases 27-31 read
+    each path's counts: K2 and the keyed draw above 0 on the csr paths with
+    K1 at 0, no kernel on phases 29-30, K2 once a G step on phase 31;
+32. the host engine: its native library built with g++ under build/, and its
+    parser equal to the Python path on a generated ratings file, both timed;
+33. print one JSON line with every kernel's launches (by path), error, times
+    and bound (K1's two forms as entries of their own, and the keyed draw,
+    which replaces no TPU kernel), then the card line, then the result line.
 
 Imports nothing of JAX. It needs the repository checkout: alone it fails.
 """
 
+import gc
 import json
 import os
 import re
@@ -206,6 +241,7 @@ CFGAN_PARAMS = dict(
     d_lr=1e-4, g_lr=0.00018640602403973558, d_reg=1e-4, g_reg=1e-4, d_steps=1, g_steps=1,
 )
 CFGAN_EPOCHS = 3
+CFGAN_DENSE_PEAKS = {}  # phase 9's fits' peak device memory, by mode
 # GANMF's published best params on ML-1M (bench.py:42-46); g_reg stays 0
 GANMF_PARAMS = dict(
     num_factors=NUM_FACTORS, emb_dim=EMB_DIM, batch_size=64, m=10,
@@ -330,7 +366,27 @@ NMF_HELD_ITERS, NMF_RTOL = 5, 1e-4
 # orders differ by about cond(G) x eps of it)
 EASE_L2, EASE_TOPK, EASE_W_TOL = 1e3, 100, 1e-4
 # the studies (phase 25): GANMF's epochs cut from its best params' 300
-STUDY_GANMF_EPOCHS = 2
+STUDY_GANMF_EPOCHS = 1
+# CFGAN's csr storage (phases 26-28): the minibatch shapes of its keyed draws
+# and K2 (its G batch in each mode on the LastFM-shaped split, a G batch at
+# ML-20M's width, and the D batch in user mode, where the ZP and PM schemes
+# draw a PM mask: the published ZR scheme draws none there), the fits' epochs
+# at LastFM's shape, and ML-20M's shape (SCALE20M.json) with ~20M entries
+CSR_SHAPES = ((1024, 17632, "G batch, user mode"), (1024, 1884, "G batch, item mode"),
+              (1024, 26744, "G batch at ML-20M's width"),
+              (128, 17632, "D batch, user mode: the ZP and PM schemes' PM mask, off the published path"))
+CFGAN_CSR_EPOCHS = 2
+ML20M_SHAPE, ML20M_NNZ = (138493, 26744), 20_000_000
+# the column-blocked similarity (phase 29): 65,536 items as the JAX package's
+# 64k build (scripts/simbuild_65k.py); 25,000 rows, so that the dense float32
+# A (6.55 GB) passes _DENSE_A_BYTE_LIMIT as JAX's rule requires before the
+# Gram's 17 GB sends it to the column-blocked build (20,000 rows stay dense)
+COLBLOCK_SHAPE, COLBLOCK_DENSITY = (25000, 65536), 0.005
+# the evaluator extras (phase 30): sampled negatives a user, the usual 100
+EVAL_NEGATIVES = 100
+# CAAE dedup (phase 31): the D steps of the epoch run twice for determinism
+DEDUP_REPEAT_D_STEPS = 2
+HOST_PARSE_LINES = 200_000  # the host engine's parser (phase 32)
 
 
 def fail(msg):
@@ -933,11 +989,17 @@ def phase_cfgan(dev, card, train, test):
         print(f"[9] CFGAN {mode} mode: g_nodes={CFGAN_PARAMS['g_nodes']} d_nodes={CFGAN_PARAMS['d_nodes']} "
               f"d_layers={CFGAN_PARAMS['d_layers']} on {train.shape[0]} x {train.shape[1]}, "
               f"{CFGAN_EPOCHS} epochs")
+        # the fit's peak memory above what was allocated before (phase 27
+        # sets the csr storage's beside it)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
         model = timed(CFGAN)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
         ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
         returned = model.fit(**CFGAN_PARAMS, epochs=CFGAN_EPOCHS, validation_evaluator=ev,
                              freq=1, allow_worse=5)
         torch.cuda.synchronize()
+        CFGAN_DENSE_PEAKS[mode] = torch.cuda.max_memory_allocated(dev) - base
         if len(model.epoch_log) != CFGAN_EPOCHS:
             fail(f"{mode}: {len(model.epoch_log)} epochs ran, not {CFGAN_EPOCHS} (fit returned {returned})")
         for e, (_, n) in enumerate(model.epoch_log, 1):
@@ -2606,6 +2668,482 @@ def phase_studies(dev, card, split_dir, scratch):
           f"{want[20]['MAP']:.6f}; walls {({k: round(v, 2) for k, v in walls.items()})} s  [{card}]")
 
 
+# ---- phases 26-32: CFGAN csr storage, the column-blocked build, the evaluator extras,
+# ---- CAAE dedup and the host engine
+
+
+def keyed_case(R, I, gen, density=0.00279):
+    """A csr minibatch's keys as CFGAN draws them: R distinct row ids of a
+    larger matrix, and an interaction mask at the split's density."""
+    import torch
+
+    rows = torch.randperm(max(R, 4 * R), generator=gen)[:R]
+    inter = torch.rand(R, I, generator=gen) < density
+    return rows, inter
+
+
+def phase_keyed(dev, card):
+    """The keyed per-row draw (the keyed_uniforms kernel) and K2 at the csr
+    storage's minibatch shapes, each against its plain version (bitwise) and
+    timed. Returns (keyed times, K2 times) by shape."""
+    import torch
+
+    from ganmf_tpu_torch.ops import _build, keyed
+    from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
+    from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
+
+    print("[26] the keyed per-row draw and K2 at CFGAN's csr minibatch shapes, against their plain "
+          "versions (bitwise)")
+    g = torch.Generator().manual_seed(SEED + 26)
+    keyed_times, k2_times, worst = {}, {}, 0.0
+    for R, I, what in CSR_SHAPES:
+        rows, inter = (t.to(dev) for t in keyed_case(R, I, g))
+        u = keyed.keyed_uniforms_cuda(SEED, 3, 0, rows, I)
+        want = keyed.keyed_uniforms_reference(SEED, 3, 0, rows, I)
+        torch.cuda.synchronize()
+        worst = max(worst, float((u - want).abs().max()))
+        if not torch.equal(u, want):
+            fail(f"keyed draw [{R}, {I}]: {int((u != want).sum())} values differ from the plain version")
+        if not (float(u.min()) >= 0.0 and float(u.max()) < 1.0):
+            fail(f"keyed draw [{R}, {I}]: a value outside [0, 1)")
+        lib, stream, out = _build.load_library(), _build.stream_handle(dev), torch.empty_like(u)
+        k0, k1 = keyed.key_halves(SEED)
+
+        def launch():
+            _build.check(lib, lib.ganmf_keyed_uniforms(rows.data_ptr(), R, I, k0, k1, 3, 0, out.data_ptr(), stream),
+                         "chip_smoke: keyed draw launch")
+
+        t = {"ms": cuda_ms(lambda: keyed.keyed_uniforms_cuda(SEED, 3, 0, rows, I)), "launch_ms": cuda_ms(launch),
+             "plain_ms": cuda_ms(lambda: keyed.keyed_uniforms_reference(SEED, 3, 0, rows, I), reps=5),
+             "library_ms": None}
+        # the output written once, the row ids read once; ~15 integer
+        # operations a key, far under the card's integer rate at that byte rate
+        t["bound_ms"], t["bound_by"] = bound(0, 4 * R * I + 8 * R)
+        keyed_times[f"[{R}, {I}]"] = t
+        print(f"  keyed draw [{R}, {I}] ({what}): bitwise equal, mean {float(u.mean()):.5f}; "
+              f"{t['ms']:.4f} ms through the wrapper, {t['launch_ms']:.4f} ms the launch alone, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{100 * t['bound_ms'] / t['launch_ms']:.1f}% of it  [{card}]")
+
+        keys = u.masked_fill(inter, float("inf"))
+        k = ((~inter).sum(1).to(torch.float32) * torch.tensor(CFGAN_PARAMS["zr_ratio"], device=dev)).to(torch.int32)
+        got = smallest_k_mask_cuda(keys, k)
+        if not torch.equal(got, smallest_k_mask_reference(keys, k)):
+            fail(f"K2 at the csr shape [{R}, {I}] differs from the plain version")
+        t = k2_times[f"csr [{R}, {I}]"] = time_k2(keys, k)
+        print(f"  K2 [{R}, {I}] on those keys: bitwise equal; {t['ms']:.4f} ms through the wrapper, "
+              f"{t['launch_ms']:.4f} ms the launch alone; plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    return worst, keyed_times, k2_times
+
+
+def expected_csr_draws(p, n_rows):
+    """(K2 launches an epoch, d minibatches, g minibatches) of a csr epoch:
+    one launch a D minibatch for the PM mask and one a G minibatch for each
+    of the ZR and PM masks the scheme draws."""
+    d_n = -(-n_rows // p["d_batch_size"])
+    g_n = -(-n_rows // p["g_batch_size"])
+    pm, zr = p["scheme"] in ("ZP", "PM"), p["scheme"] in ("ZP", "ZR")
+    return p["d_steps"] * d_n * pm + p["g_steps"] * g_n * (pm + zr), d_n, g_n
+
+
+def cfgan_csr_copy(model, mode, train, cpu):
+    """A CPU copy of a csr-trained CFGAN: its parameters and its csr storage."""
+    from ganmf_tpu_torch.data.device import padded_csr_from_sparse
+    from ganmf_tpu_torch.models import CFGAN
+    from ganmf_tpu_torch.models import cfgan as pcf
+
+    plain = CFGAN(train, mode=mode, seed=SEED, is_experiment=True, device=cpu)
+    plain.config = dict(model.config)
+    plain.params = pcf.params_from_jax([t.detach().cpu().numpy() for t in model.params.parameters()],
+                                       CFGAN_PARAMS["g_layers"], cpu)
+    plain._stream_seen = True
+    plain._train_padded = padded_csr_from_sparse(plain._train_matrix(), cpu)
+    return plain
+
+
+def phase_cfgan_csr(dev, card, train, test):
+    """CFGAN with urm_storage="csr" at its published LastFM width on the
+    LastFM-shaped split, both modes: fits with early stopping (K2 and the
+    keyed draw once a minibatch for each mask drawn), peak memory against
+    the dense storage's, one epoch and one minibatch's masks card against
+    CPU, the trained model's metrics against a CPU copy."""
+    import torch
+
+    from ganmf_tpu_torch.data.device import padded_csr_from_sparse
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import CFGAN
+    from ganmf_tpu_torch.models import cfgan as pcf
+    from ganmf_tpu_torch.ops import keyed
+
+    cpu = torch.device("cpu")
+    p = CFGAN_PARAMS
+    for mode in ("user", "item"):
+        mat = train.T.tocsr() if mode == "item" else train
+        n_rows, n_cols = mat.shape
+        per_epoch, d_n, g_n = expected_csr_draws(p, n_rows)
+        print(f"[27] CFGAN csr storage, {mode} mode: {n_rows} x {n_cols}, g_nodes={p['g_nodes']}, "
+              f"{CFGAN_CSR_EPOCHS} epochs with early stopping; {d_n} D and {g_n} G minibatches an epoch")
+        # the fit's peak memory, as phase 9 read the dense storage's; the
+        # previous mode's model is dropped before the base is read
+        model = ev = None
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        model = timed(CFGAN)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
+        ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+        drawn, epochs = keyed.LAUNCHES, CFGAN_CSR_EPOCHS
+        model.fit(**p, epochs=epochs, urm_storage="csr", validation_evaluator=ev, freq=1, allow_worse=5)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        print(f"  peak device memory of the fit (validations included) above what was allocated before: "
+              f"csr {peak / 2**20:.1f} MiB, dense {CFGAN_DENSE_PEAKS[mode] / 2**20:.1f} MiB (phase 9's "
+              f"{CFGAN_EPOCHS}-epoch fit)  [{card}]")
+        k2 = [n for _, n in model.epoch_log]
+        if k2 != [per_epoch] * epochs or keyed.LAUNCHES - drawn != per_epoch * epochs:
+            fail(f"csr {mode}: K2 launches per epoch {k2} and keyed draws {keyed.LAUNCHES - drawn}, "
+                 f"expected {per_epoch} an epoch")
+        print(f"  csr epochs: {[round(t, 4) for t, _ in model.epoch_log]} s; K2 and the keyed draw launched "
+              f"{per_epoch} times an epoch (expected {per_epoch})  [{card}]")
+        for t in model.params.parameters():
+            if not bool(torch.isfinite(t).all()):
+                fail(f"csr {mode}: a parameter is not finite after training")
+        results, _ = ev.evaluateRecommender(model)
+        presults, _ = EvaluatorHoldout(test, CUTOFFS, device=cpu).evaluateRecommender(
+            cfgan_csr_copy(model, mode, train, cpu))
+        worst_m = worst_metric_diff(f"CFGAN csr {mode}", results, presults, METRIC_TOL)
+        print(f"  trained csr model (streamed scoring{', cached penultimate activations' if mode == 'item' else ''}):"
+              f" every metric within {worst_m:.3e} of its CPU copy (MAP@5 {results[5]['MAP']:.6f})")
+
+        # one csr epoch and one minibatch's masks, card against CPU
+        w = torch.from_numpy(padded_weights_for(n_rows, p))
+        kw = dict(d_reg=p["d_reg"], g_reg=p["g_reg"], zr_ratio=p["zr_ratio"], zp_ratio=0.0,
+                  zr_coefficient=p["zr_coefficient"], scheme=p["scheme"], d_hidden_act=p["d_hidden_act"],
+                  g_hidden_act=p["g_hidden_act"], d_n_batches=d_n, d_batch=p["d_batch_size"], g_n_batches=g_n,
+                  g_batch=p["g_batch_size"], d_steps=p["d_steps"], g_steps=p["g_steps"])
+        g_dims = [n_cols] + [p["g_nodes"]] * p["g_layers"] + [n_cols]
+        d_dims = [2 * n_cols] + [p["d_nodes"]] * p["d_layers"] + [1]
+        runs, kept = [], []
+
+        def row_uniforms(stream, rows):
+            return keyed.keyed_uniforms(SEED, 1, stream, rows, n_cols)
+
+        def card_draws(stream, rows):  # the card epoch's draws, kept for the CPU's
+            u = row_uniforms(stream, rows)
+            kept.append((stream, rows.cpu(), u.cpu()))
+            return u
+
+        def replay(stream, rows):
+            want_stream, want_rows, u = kept.pop(0)
+            if stream != want_stream or not torch.equal(rows, want_rows):
+                fail(f"csr {mode}: the CPU epoch drew other rows than the card's")
+            return u
+
+        for d, epoch_draws in ((dev, card_draws), (cpu, replay)):
+            pc = padded_csr_from_sparse(mat, d)
+            # the masks from each device's own draw: the kernel on the card,
+            # its plain version on the CPU
+            masks = pcf.csr_batch_inputs(pc, n_rows, n_cols, (g_n - 1) * p["g_batch_size"], p["g_batch_size"],
+                                         row_uniforms, zr_ratio=p["zr_ratio"], zp_ratio=0.0, scheme=p["scheme"],
+                                         with_zr=True)
+            params = pcf.init_params(g_dims, d_dims, torch.Generator().manual_seed(SEED), d)
+            d_opt = torch.optim.Adam(params.D.parameters(), lr=p["d_lr"], betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+            g_opt = torch.optim.Adam(params.G.parameters(), lr=p["g_lr"], betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+            pcf.cfgan_epoch(params, d_opt, g_opt, pc, epoch_draws, w.to(d), w.to(d), **kw)
+            runs.append(([m.cpu() for m in masks], [t.detach().cpu() for t in params.parameters()]))
+        if kept:
+            fail(f"csr {mode}: the CPU epoch drew {len(kept)} fewer times than the card's")
+        for a, b in zip(runs[0][0], runs[1][0]):
+            if not torch.equal(a, b):
+                fail(f"csr {mode}: the last G minibatch's masks differ between the card and the CPU")
+        n_g = 2 * (p["g_layers"] + 1)
+        card_p, cpu_p = runs[0][1], runs[1][1]
+        worst_g = adam_bound_check(f"csr {mode}", card_p[:n_g], cpu_p[:n_g], [(g_n, p["g_lr"])] * n_g)
+        worst_d = adam_bound_check(f"csr {mode}", card_p[n_g:], cpu_p[n_g:], [(d_n, p["d_lr"])] * (len(card_p) - n_g))
+        print(f"  one csr epoch from the same state and draws, card against CPU: the last G minibatch's masks "
+              f"bitwise equal ({int(runs[0][0][2].sum())} ZR negatives, rows past {n_rows} zero); largest parameter "
+              f"difference G {worst_g:.3e} (bound {2.2 * p['g_lr'] * g_n:.3e}), D {worst_d:.3e} "
+              f"(bound {2.2 * p['d_lr'] * d_n:.3e})")
+
+
+def padded_weights_for(n_rows, p):
+    from ganmf_tpu_torch.models.gan_base import make_batches, padded_weights
+
+    return padded_weights(n_rows, max(make_batches(n_rows, p["d_batch_size"])[1],
+                                      make_batches(n_rows, p["g_batch_size"])[1]))
+
+
+def ml20m_shaped_urm(dev, n_rows=ML20M_SHAPE[0]):
+    """A 0/1 matrix of ML-20M's shape (SCALE20M.json) with about
+    ML20M_NNZ entries, its cells drawn on the card from SEED (duplicates
+    merged), as a host CSR."""
+    import scipy.sparse as sps
+    import torch
+
+    n_cols = ML20M_SHAPE[1]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cells = torch.randint(0, n_rows * n_cols, (int(ML20M_NNZ * n_rows / ML20M_SHAPE[0]),), generator=g, device=dev)
+    cells = torch.unique(cells).cpu().numpy()
+    rows, cols = cells // n_cols, cells % n_cols
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
+    return sps.csr_matrix((np.ones(len(cells), np.float32), cols.astype(np.int32), indptr), shape=(n_rows, n_cols))
+
+
+def phase_cfgan_20m(dev, card):
+    """One CFGAN csr epoch at the published width on a matrix of ML-20M's
+    shape: the dense storage's planes (at least six [U, I] float32 planes,
+    89 GB) pass the card's 80 GB; the csr storage holds O(nnz)."""
+    import torch
+
+    from ganmf_tpu_torch.models import CFGAN
+    from ganmf_tpu_torch.ops import keyed, select
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    t0 = time.perf_counter()
+    train = ml20m_shaped_urm(dev)
+    n_rows, n_cols = train.shape
+    print(f"[28] CFGAN csr storage at ML-20M's shape: {n_rows} x {n_cols}, {train.nnz} entries (made on the "
+          f"card from the seed in {time.perf_counter() - t0:.2f} s); the dense storage's six [U, I] float32 "
+          f"planes would take {6 * 4 * n_rows * n_cols / 1e9:.1f} GB of the card's {total / 1e9:.1f} GB")
+    per_epoch, d_n, g_n = expected_csr_draws(CFGAN_PARAMS, n_rows)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = timed(CFGAN)(train, seed=SEED, is_experiment=True, device=dev)
+    drawn, t0 = keyed.LAUNCHES, time.perf_counter()
+    model.fit(**CFGAN_PARAMS, epochs=1, urm_storage="csr")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    (epoch_s, k2), = model.epoch_log
+    if k2 != per_epoch or keyed.LAUNCHES - drawn != per_epoch:
+        fail(f"ML-20M csr: K2 launched {k2} times and the keyed draw {keyed.LAUNCHES - drawn}, expected {per_epoch}")
+    if peak >= total:
+        fail(f"ML-20M csr: peak device memory {peak / 1e9:.2f} GB is not under the card's {total / 1e9:.2f} GB")
+    for t in model.params.parameters():
+        if not bool(torch.isfinite(t).all()):
+            fail("ML-20M csr: a parameter is not finite after the epoch")
+    scores = model.score_device(torch.arange(8, device=dev))
+    if scores.shape != (8, n_cols) or not bool(torch.isfinite(scores).all()):
+        fail("ML-20M csr: the streamed scores are not finite")
+    print(f"  one epoch ({d_n} D and {g_n} G minibatches; K2 and the keyed draw {per_epoch} times each): "
+          f"{epoch_s:.4f} s, fit {fit_s:.2f} s; peak device memory {peak / 2**30:.2f} GiB, under the card's "
+          f"{total / 2**30:.2f} GiB  [{card}]")
+
+
+def phase_colblock(dev, card):
+    """The column-blocked similarity build of a 0/1 matrix whose [I, I] Gram
+    (17 GB) passes _GRAM_BYTE_LIMIT, by its int8 and its scatter form; 512
+    target columns (256 across the first slab boundary, 256 in the shifted
+    last slab) held bitwise against a float64 product of A with those
+    columns, normalized and ranked with ties to the lowest id."""
+    import scipy.sparse as sps
+    import torch
+
+    from ganmf_tpu_torch.ops import similarity as psim
+
+    n_rows, n_cols = COLBLOCK_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    A = torch.rand((n_rows, n_cols), generator=g, device=dev) < COLBLOCK_DENSITY
+    rows, cols = (t.cpu().numpy() for t in A.nonzero(as_tuple=True))
+    X = sps.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)), shape=(n_rows, n_cols))
+    width, int8 = psim.colblock_plan(-(-n_rows // psim._STREAM_CHUNK) * psim._STREAM_CHUNK, n_cols, True, dev)
+    gram_gb = 4 * n_cols * n_cols / 1e9
+    print(f"[29] column-blocked similarity: {n_rows} x {n_cols} 0/1, {X.nnz} entries; the dense A "
+          f"({4 * n_rows * n_cols / 1e9:.2f} GB float32) passes _DENSE_A_BYTE_LIMIT and the Gram "
+          f"({gram_gb:.1f} GB) _GRAM_BYTE_LIMIT; slabs of {width} columns, int8 form {int8}; cosine at "
+          f"topK={ITEMKNN_TOPK}, shrink={ITEMKNN_SHRINK}")
+    if not (4 * n_rows * n_cols > psim._DENSE_A_BYTE_LIMIT and 4 * n_cols * n_cols > psim._GRAM_BYTE_LIMIT):
+        fail("the column-blocked phase's matrix does not take the column-blocked route")
+    kw = dict(topK=ITEMKNN_TOPK, shrink=ITEMKNN_SHRINK)
+    out, walls = {}, {}
+    for form in ("int8", "scatter"):
+        limit = psim._INT8_A_BYTE_LIMIT
+        if form == "scatter":
+            psim._INT8_A_BYTE_LIMIT = 0
+        calls = []
+        orig = {name: getattr(psim, name) for name in ("_slab_gram_int8", "_slab_gram_scatter")}
+        for name, fn in orig.items():
+            setattr(psim, name, lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[form] = psim.compute_similarity(X, "cosine", device=dev, **kw)
+            torch.cuda.synchronize()
+            walls[form] = time.perf_counter() - t0
+        finally:
+            psim._INT8_A_BYTE_LIMIT = limit
+            for name, fn in orig.items():
+                setattr(psim, name, fn)
+        if set(calls) != {f"_slab_gram_{form}"}:
+            fail(f"column-blocked {form}: the slabs went through {sorted(set(calls))}")
+        print(f"  {form} form: {len(calls)} slabs, {walls[form]:.3f} s (host preprocessing included), "
+              f"{out[form].nnz} entries kept  [{card}]")
+    if (out["int8"] != out["scatter"]).nnz:
+        fail("the column-blocked build's int8 and scatter forms differ")
+
+    ss2 = torch.from_numpy(np.asarray(X.sum(axis=0), np.float32).ravel()).to(dev)
+    got = out["int8"].tocsc()
+    for lo in (width - 128, n_cols - 256):
+        sel = torch.arange(lo, lo + 256, device=dev)
+        G64 = torch.zeros((n_cols, 256), dtype=torch.float64, device=dev)
+        for r in range(0, n_rows, 4096):
+            block = A[r : r + 4096].double()
+            G64 += block.T @ block.index_select(1, sel)
+        W = psim._w_block(G64.float(), ss2, ss2[lo : lo + 256], lo, n_rows, torch.ones(n_rows, device=dev),
+                          "cosine", shrink=float(ITEMKNN_SHRINK), normalize=True, asymmetric_alpha=0.5,
+                          tversky_alpha=1.0, tversky_beta=1.0, normalize_avg_row=False, distance_mode="lin",
+                          use_row_weights=False)
+        vals, ids = (t.cpu().numpy() for t in psim.tiled_topk(W.T, ITEMKNN_TOPK))
+        keep = np.isfinite(vals) & (vals != 0)  # as the build's CSR assembly drops them
+        indptr = np.zeros(257, np.int64)
+        np.cumsum(keep.sum(1), out=indptr[1:])
+        want = sps.csc_matrix((vals[keep], ids[keep], indptr), shape=(n_cols, 256))
+        diff = (got[:, lo : lo + 256] != want).nnz
+        if diff:
+            fail(f"column-blocked: columns {lo}-{lo + 255} differ from the float64 product in {diff} entries")
+    print(f"  512 target columns ({width - 128}-{width + 127} across the first slab boundary, "
+          f"{n_cols - 256}-{n_cols - 1} in the shifted last slab) bitwise equal to the float64 product, "
+          f"normalized and ranked with ties to the lowest id")
+
+
+def phase_eval_extras(dev, card, train, test, model):
+    """Diversity and negative-sample evaluation of the trained GANMF model
+    (phase 7, user mode) on the card: the dense route, K1 not launched;
+    every metric against a CPU copy."""
+    import copy
+
+    import scipy.sparse as sps
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout, EvaluatorNegativeItemSample
+    from ganmf_tpu_torch.models import GANMF
+    from ganmf_tpu_torch.ops import similarity as psim
+
+    cpu = torch.device("cpu")
+    div = psim.compute_similarity(train, "cosine", topK=ITEMKNN_TOPK, shrink=ITEMKNN_SHRINK, device=dev)
+    rng = np.random.RandomState(SEED)
+    keys = rng.rand(*train.shape)
+    keys[(train + test).toarray() != 0] = np.inf  # negatives: neither trained nor tested
+    neg_cols = np.argpartition(keys, EVAL_NEGATIVES, axis=1)[:, :EVAL_NEGATIVES]
+    neg = sps.csr_matrix((np.ones(neg_cols.size, np.float32),
+                          (np.repeat(np.arange(train.shape[0]), EVAL_NEGATIVES), neg_cols.ravel())),
+                         shape=train.shape)
+    plain = GANMF(train, seed=SEED, is_experiment=True, device=cpu)
+    plain.params = copy.deepcopy(model.params).to(cpu)
+    print(f"[30] evaluator extras on the trained GANMF (user mode): the diversity object (ItemKNN cosine "
+          f"W, topK {ITEMKNN_TOPK}) and {EVAL_NEGATIVES} sampled negatives a user")
+    for name, make in (("diversity", lambda d: EvaluatorHoldout(test, CUTOFFS, diversity_object=div, device=d)),
+                       ("negative-sample", lambda d: EvaluatorNegativeItemSample(test, neg, CUTOFFS, device=d))):
+        ev = make(dev)
+        t0 = time.perf_counter()
+        results, _ = ev.evaluateRecommender(model)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        presults, _ = make(cpu).evaluateRecommender(plain)
+        worst = worst_metric_diff(f"{name} evaluation", results, presults, METRIC_TOL)
+        extra = (f"DIVERSITY_SIMILARITY@10 {results[10]['DIVERSITY_SIMILARITY']:.6f}" if name == "diversity"
+                 else f"MAP@5 {results[5]['MAP']:.6f}")
+        print(f"  {name}: {len(ev.usersToEvaluate)} users in {secs:.4f} s; every metric within {worst:.3e} "
+              f"of the CPU copy's; {extra}  [{card}]")
+
+
+def phase_caae_dedup(dev, card, train):
+    """One CAAE epoch with d_scatter="dedup" at the reference's ML-1M best
+    params on the card against "direct" from the same state and draws
+    (within CAAE_MOVE_SHARE of the distance each tensor moved), and an epoch
+    whose D phase is cut to DEDUP_REPEAT_D_STEPS run twice, bitwise equal.
+    Returns the number of epochs run (K2 launches once in each)."""
+    import torch
+
+    from ganmf_tpu_torch.data.device import dense_from_sparse
+    from ganmf_tpu_torch.models import caae as pca
+
+    p = CAAE_PARAMS
+    n_users, n_items = train.shape
+    coo = train.tocoo()
+    n_chunks = int(np.ceil(coo.nnz / p["d_bsize"]))
+    pad = n_chunks * p["d_bsize"] - coo.nnz
+    inter = [torch.from_numpy(np.concatenate([a, np.zeros(pad, a.dtype)]).astype(np.int64)).to(dev)
+             for a in (coo.row, coo.col)]
+    weight = torch.from_numpy(np.concatenate([np.ones(coo.nnz, np.float32), np.zeros(pad, np.float32)])).to(dev)
+    n_samples = max(1, 2 * int(np.median(np.ediff1d(train.indptr))))
+    g_dims = [n_items] + [p["g_units"]] * p["g_layers"] + [n_items]
+    urm = dense_from_sparse(train, dev)
+
+    def epoch(form, d_steps):
+        draws = pca.draw_epoch(torch.Generator().manual_seed(SEED + 3), torch.device("cpu"), len(weight), n_users,
+                               n_items, d_steps * n_chunks * p["d_bsize"], 1, 1, 32, n_samples)
+        draws = pca.CAAEDraws(*(t.to(dev) for t in draws))
+        params = pca.init_params(n_users, n_items, p["num_factors"], g_dims, torch.Generator().manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = pca.caae_epoch(params, urm, *inter, weight, draws, lr=p["lr"], beta=p["beta"], lmbda=0.5,
+                                S=CAAE_S, d_bsize=p["d_bsize"], n_d_chunks=n_chunks, d_steps=d_steps,
+                                g_steps=1, gpr_steps=1, m_batch=32, n_samples=n_samples, d_scatter=form)
+        losses = [float(x) for x in losses]  # waits for the epoch
+        secs = time.perf_counter() - t0
+        if not np.isfinite(losses).all():
+            fail(f"CAAE {form}: a loss is not finite: {losses}")
+        return [t.detach().cpu() for t in params.parameters()], secs
+
+    print(f"[31] CAAE d_scatter=\"dedup\": {2 * p['d_steps'] * n_chunks} D updates of {3 * p['d_bsize']} rows, "
+          f"each sorted once an epoch, run sums by one cumulative sum, unique-index scatters")
+    (dedup, dedup_s), (direct, direct_s) = epoch("dedup", p["d_steps"]), epoch("direct", p["d_steps"])
+    init = pca.init_params(n_users, n_items, p["num_factors"], g_dims, torch.Generator().manual_seed(SEED),
+                           torch.device("cpu"))
+    worst = 0.0
+    for i, (a, b, t0) in enumerate(zip(dedup, direct, init.parameters())):
+        moved = float((b - t0.detach()).abs().max())
+        diff = float((a - b).abs().max())
+        if not (moved > 0 and diff <= CAAE_MOVE_SHARE * moved):
+            fail(f"CAAE dedup: parameter {i} differs from direct by {diff:.3e}, which moved {moved:.3e}")
+        worst = max(worst, diff / moved)
+    (once, once_s), (again, again_s) = (epoch("dedup", DEDUP_REPEAT_D_STEPS) for _ in range(2))
+    for i, (a, b) in enumerate(zip(once, again)):
+        if not torch.equal(a, b):
+            fail(f"CAAE dedup: two card runs differ in parameter {i}")
+    print(f"  dedup against direct: every tensor within {worst:.3e} of the distance it moved (bound "
+          f"{CAAE_MOVE_SHARE}); epoch {dedup_s:.4f} s dedup, {direct_s:.4f} s direct; two dedup epochs at "
+          f"d_steps={DEDUP_REPEAT_D_STEPS} ({2 * DEDUP_REPEAT_D_STEPS * n_chunks} D updates) bitwise equal, "
+          f"{once_s:.4f} / {again_s:.4f} s  [{card}]")
+    return 4
+
+
+def phase_host(scratch):
+    """The host engine: its native library built with g++ under build/, and
+    its parser against the Python path on a generated ratings file."""
+    from ganmf_tpu_torch.data import reader
+    from ganmf_tpu_torch.ops import host
+
+    t0 = time.perf_counter()
+    lib = host.get_lib()
+    if lib is None:
+        fail(f"the host engine's native library did not build: {host.build_error}")
+    print(f"[32] host engine: {host.library_path().name} built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"(version {lib.cf_host_version()})")
+    rng = np.random.RandomState(SEED)
+    n = HOST_PARSE_LINES
+    path = os.path.join(scratch, "ratings.dat")
+    cols = [rng.randint(1, 138494, n), rng.randint(1, 131263, n), rng.randint(1, 11, n) / 2,
+            rng.randint(789652009, 1427784002, n)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(f"{u}::{i}::{r}::{t}" for u, i, r, t in zip(*cols)) + "\n")
+    t0 = time.perf_counter()
+    native = host.parse_interactions_file(path, delimiter="::")
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = reader.parse_interactions_python(path, delimiter="::")
+    python_s = time.perf_counter() - t0
+    for a, b in zip(native, python):
+        if not np.array_equal(a, b):
+            fail("the native parser differs from the Python path")
+    print(f"  parse_interactions_file on {n} lines: equal to the Python path; native {native_s:.3f} s, "
+          f"Python {python_s:.3f} s")
+
+
 def main():
     import torch
 
@@ -2617,7 +3155,7 @@ def main():
     card = card_line()
     print(f"[2] card: {card}")
 
-    from ganmf_tpu_torch.ops import _build, scorer, select
+    from ganmf_tpu_torch.ops import _build, keyed, scorer, select
     from ganmf_tpu_torch.utils.device import cuda_device
 
     dev = cuda_device()
@@ -2633,6 +3171,7 @@ def main():
 
     k1_err, fused, wide_err, wide = phase_kernel(dev, card)
     k2_err, k2_times = phase_select(dev, card)
+    keyed_err, keyed_times, k2_csr_times = phase_keyed(dev, card)
     elapsed("the kernel phases")
 
     train, test = ml1m_split()
@@ -2657,6 +3196,7 @@ def main():
              f"pair {train_wide} times")
     phase_ganmf_train_plain(dev, card, train, test, ganmf_models)
     elapsed("GANMF")
+    ganmf_user = ganmf_models["user"][0]  # phase 30 evaluates it again
     del ganmf_models
 
     train, test = lastfm_split()
@@ -2754,11 +3294,12 @@ def main():
     # the similarity family: each path's counts set to 0 just before it and
     # read just after; no kernel of the repo runs there
     def no_kernel(run, what):
-        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = 0
+        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
         run()
-        if scorer.LAUNCHES or select.LAUNCHES:
-            fail(f"{what} launched K1 {scorer.LAUNCHES} times and K2 {select.LAUNCHES} times")
-        print(f"  K1 and K2 launches on the {what} path: 0")
+        if scorer.LAUNCHES or select.LAUNCHES or keyed.LAUNCHES:
+            fail(f"{what} launched K1 {scorer.LAUNCHES} times, K2 {select.LAUNCHES} times and the keyed "
+                 f"draw {keyed.LAUNCHES} times")
+        print(f"  K1, K2 and keyed-draw launches on the {what} path: 0")
         elapsed(what)
 
     train, test = lastfm_split()
@@ -2775,9 +3316,9 @@ def main():
     new_paths = {}
 
     def through_k1(run, what):
-        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = 0
+        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
         run()
-        wide, merge, k2 = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES, select.LAUNCHES
+        wide, merge, k2 = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES, select.LAUNCHES + keyed.LAUNCHES
         fused = scorer.LAUNCHES - wide
         if fused == 0 or k2:
             fail(f"the {what} path launched K1's fused kernel {fused} times and K2 {k2} times")
@@ -2793,10 +3334,36 @@ def main():
     no_kernel(lambda: phase_ease_dense(dev, card, ltrain, ltest), "EASE-R dense")
     no_kernel(lambda: phase_ease_topk(dev, card, train, test), "EASE-R topK")
     through_k1(lambda: phase_studies(dev, card, split_dir, SCRATCH), "studies")
+
+    # the single-card paths ported last (phases 27-32), each path's counts
+    # set to 0 just before it and read just after: CFGAN's csr storage draws
+    # through the keyed draw and K2 and ranks by the dense route
+    def through_k2(run, what):
+        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+        run()
+        k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+        if k2 == 0 or drawn == 0 or scorer.LAUNCHES:
+            fail(f"the {what} path launched K2 {k2} times, the keyed draw {drawn} times and K1 {scorer.LAUNCHES}")
+        print(f"  launches on the {what} path: K2 {k2}, keyed draw {drawn}, K1 0")
+        elapsed(what)
+        return k2, drawn
+
+    csr_k2, csr_keyed = through_k2(lambda: phase_cfgan_csr(dev, card, ltrain, ltest), "CFGAN csr training")
+    m20_k2, m20_keyed = through_k2(lambda: phase_cfgan_20m(dev, card), "CFGAN csr ML-20M")
+    no_kernel(lambda: phase_colblock(dev, card), "column-blocked similarity")
+    no_kernel(lambda: phase_eval_extras(dev, card, train, test, ganmf_user), "evaluator extras")
+    select.LAUNCHES = keyed.LAUNCHES = 0
+    dedup_epochs = phase_caae_dedup(dev, card, train)
+    dedup_k2 = select.LAUNCHES
+    if dedup_k2 != dedup_epochs or keyed.LAUNCHES:  # one G step an epoch
+        fail(f"the CAAE dedup path launched K2 {dedup_k2} times and the keyed draw {keyed.LAUNCHES} times")
+    elapsed("CAAE dedup")
+    phase_host(SCRATCH)
     shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide
+    k2_times.update(k2_csr_times)  # K2 at the csr storage's minibatch shapes too
     k2_shape, *k2_others = k2_times
     # each path's counts were set to 0 just before it and read just after; a
     # kernel's launches are the sum over the paths it carries
@@ -2805,7 +3372,10 @@ def main():
                      "IALS serving": ials_serve_fused, "IALS training": ials_fused, "tuner": tuner_fused}
     wide_by_path = {"GANMF serving": wide_launches, "GANMF training": train_wide,
                     "DisGANMF training": dis_wide, "PureSVD serving": svd_wide, "IALS training": ials_wide}
-    k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2}
+    k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2, "CFGAN csr training": csr_k2,
+                  "CFGAN csr ML-20M": m20_k2, "CAAE dedup": dedup_k2}
+    keyed_by_path = {"CFGAN csr training": csr_keyed, "CFGAN csr ML-20M": m20_keyed}
+    keyed_shape, *keyed_others = keyed_times
     for what, (n_fused, n_wide, n_merge, n_k2) in new_paths.items():
         fused_by_path[what], wide_by_path[what], k2_by_path[what] = n_fused, n_wide, n_k2
         merge_launches += n_merge
@@ -2847,6 +3417,19 @@ def main():
             "shape": k2_shape,
             **k2_times[k2_shape],
             "other_shapes": [{"shape": name, **k2_times[name]} for name in k2_others],
+        },
+        {
+            "name": "keyed_uniforms (CFGAN csr storage's per-row Philox4x32-10 draw; not a TPU kernel)",
+            "route": "cuda",
+            "source": "ganmf_tpu_torch/csrc/keyed.cu",
+            "replaces": "ganmf_tpu/models/cfgan.py:156 (jax.random.uniform of fold_in(key, row), drawn by "
+                        "XLA: no TPU kernel)",
+            "launches": sum(keyed_by_path.values()),
+            "launches_by_path": keyed_by_path,
+            "max_abs_err": keyed_err,
+            "shape": keyed_shape,
+            **keyed_times[keyed_shape],
+            "other_shapes": [{"shape": name, **keyed_times[name]} for name in keyed_others],
         },
     ]}))
     print(card)

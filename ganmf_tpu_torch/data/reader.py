@@ -56,9 +56,22 @@ def read_interactions(
     """Parse a ratings file into (user, item, rating) arrays.
 
     Mirrors reference DataReader.read_interactions (datasets/DataReader.py:275)
-    including duplicate handling ('first'/'last'). The JAX package's native
-    parser (ganmf_tpu/ops/host.py) is not copied: this is its Python path.
+    including duplicate handling ('first'/'last'). The file is parsed by the
+    native host engine (ops/host.py, as JAX :69-71 does), or by the Python
+    line loop where that library cannot be built; both give the same arrays.
     """
+    from ganmf_tpu_torch.ops.host import parse_interactions_file
+
+    native = parse_interactions_file(path, delimiter=delimiter, header=header, use_cols=use_cols)
+    if native is None:
+        native = parse_interactions_python(path, use_cols, delimiter, header)
+    return _dedup(*native, keep=duplicate)
+
+
+def parse_interactions_python(path: str, use_cols: Dict[str, int] = None, delimiter: str = ",",
+                              header: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(user, item, rating) arrays in file order by a Python line loop: the
+    host engine's fallback."""
     use_cols = use_cols or {"user_id": 0, "item_id": 1, "rating": 2}
     u_col, i_col = use_cols["user_id"], use_cols["item_id"]
     r_col = use_cols.get("rating", None)
@@ -80,11 +93,8 @@ def read_interactions(
             rows.append(int(parts[u_col]))
             cols.append(int(parts[i_col]))
             data.append(float(parts[r_col]) if r_col is not None and r_col < len(parts) else 1.0)
-
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    data = np.asarray(data, dtype=np.float32)
-    return _dedup(rows, cols, data, keep=duplicate)
+    return (np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64),
+            np.asarray(data, dtype=np.float32))
 
 
 def read_item_features(

@@ -1,1 +1,1 @@
-from ganmf_tpu_torch.eval.evaluator import EvaluatorHoldout, get_result_string  # noqa: F401
+from ganmf_tpu_torch.eval.evaluator import EvaluatorHoldout, EvaluatorNegativeItemSample, get_result_string  # noqa: F401

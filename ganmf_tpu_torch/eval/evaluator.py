@@ -23,17 +23,22 @@ JAX evaluator's ``_can_fuse`` and ``_can_fuse_sim`` pick it
   (:209-222,496-535, without the mesh): ``score_device`` gives the masked
   [B, I] block and ``evaluate_batch`` ranks it with a stable top-k.
 
-No route is a fallback: a failure raises.
+No route is a fallback: a failure raises. K1 and the similarity route
+serve plain holdout evaluation only: with a ``diversity_object`` or in
+``EvaluatorNegativeItemSample``, which restricts the candidates, every model
+takes the dense route, as the JAX evaluator decides.
 
 The constructor takes the JAX package's positional order (URM_test,
 cutoff_list, minRatingsPerUser, exclude_seen, diversity_object, ignore_items,
-ignore_users, mesh_plan). ``diversity_object`` and ``mesh_plan`` are not
-ported and raise when given.
+ignore_users, mesh_plan). ``diversity_object`` (an [I, I] item similarity,
+dense or sparse) adds DIVERSITY_SIMILARITY after AVERAGE_POPULARITY: each
+user's intra-list similarity (JAX :58-82, :565-582). Under
+``GANMF_TPU_DEBUG`` a block whose scores hold a NaN raises
+``FloatingPointError`` (JAX :479-503).
 
-Not ported: the mesh plan, the diversity object,
-``EvaluatorNegativeItemSample``, and the two RESOURCE_EXHAUSTED degrades of
-the JAX evaluator. An out-of-memory error raises instead of falling back to
-another path.
+Not ported: the mesh plan (it raises when given) and the two
+RESOURCE_EXHAUSTED degrades of the JAX evaluator. An out-of-memory error
+raises instead of falling back to another path.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ from ganmf_tpu_torch.eval.metrics import (
 )
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
 from ganmf_tpu_torch.ops.simscore import masked_topk_matmul
+from ganmf_tpu_torch.ops.topk import topk_lowest_index
+from ganmf_tpu_torch.utils.debug import debug_enabled
 from ganmf_tpu_torch.utils.device import as_device
 
 
@@ -79,6 +86,36 @@ def _pair_rmse_from_probe(ps, pf, tvals, pvalid):
     sq = torch.where(fin, (ps - tvals) ** 2, 0.0)
     cnt = fin.sum(1).float()
     return torch.where(cnt > 0, torch.sqrt(sq.sum(1) / cnt.clamp(min=1.0)), float("nan"))
+
+
+def _diversity_block(M: torch.Tensor, top_idx: torch.Tensor, top_val: torch.Tensor,
+                     cutoffs: Sequence[int]) -> torch.Tensor:
+    """[n_cutoffs] sums over a block's users of the intra-list diversity (JAX
+    :58-82; the reference's per-user, per-position loop,
+    Base/Evaluation/metrics.py:405-458): over list positions p < L - 1 and
+    every other position j < L, M[item_p, item_j], divided by L (L - 1);
+    0 for lists of one item. -inf scores rank last, so a row's finite prefix
+    is its list. The [B, c, c] block is gathered from M directly."""
+    finite = torch.isfinite(top_val)
+    out = []
+    for c in cutoffs:
+        items = top_idx[:, :c]
+        c = items.shape[1]
+        L = finite[:, :c].sum(1)
+        G = M[items[:, :, None], items[:, None, :]]  # G[b, p, j] = M[items[p], items[j]]
+        p = torch.arange(c, device=M.device)
+        Lb = L[:, None, None]
+        pair = (p[:, None] < Lb - 1) & (p[None, :] < Lb) & (p[:, None] != p[None, :])
+        total = torch.where(pair, G, 0.0).sum((1, 2))
+        per_user = torch.where(L > 1, total / (L * (L - 1)).float().clamp(min=1.0), 0.0)
+        out.append(per_user.sum())
+    return torch.stack(out)
+
+
+def _raise_on_nan_scores(scores: torch.Tensor, start: int) -> None:
+    if bool(torch.isnan(scores).any()):
+        raise FloatingPointError(
+            f"NaN model scores in evaluation block starting at user index {start} (GANMF_TPU_DEBUG=1)")
 
 
 def _pow2_crop(max_needed: int, full: int) -> int:
@@ -117,8 +154,6 @@ class EvaluatorHoldout:
         *,
         device: Optional[torch.device] = None,
     ):
-        if diversity_object is not None:
-            raise NotImplementedError("diversity_object is not ported")
         if mesh_plan is not None:
             raise NotImplementedError("mesh_plan is not ported")
         # the card unless the caller asks for the CPU; raises without a card
@@ -160,6 +195,8 @@ class EvaluatorHoldout:
 
         self._test_pairs = None  # lazy [U, P] padded test (ids, vals, mask)
         self._nov_pop_key = None
+        self.diversity_object = diversity_object
+        self._diversity_dev = None  # the dense [I, I] float32 matrix, made at first use
 
     def _padded_test_arrays(self):
         """Padded per-user test pairs for the RMSE gather."""
@@ -193,6 +230,24 @@ class EvaluatorHoldout:
         """[B, I] device scores with the seen and ignored items at -inf."""
         return model.score_device(uids).masked_fill(
             self._seen_block(model, uids, max_len=max_len), float("-inf"))
+
+    def _restrict_candidates(self, scores: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
+        """The hook where ``EvaluatorNegativeItemSample`` masks every
+        non-candidate item; the holdout evaluator ranks every item."""
+        return scores
+
+    def _plain_holdout(self) -> bool:
+        """True when K1 and the similarity route may rank: no diversity
+        object and no candidate restriction (JAX :231-245, :283-295)."""
+        return (self.diversity_object is None
+                and type(self)._restrict_candidates is EvaluatorHoldout._restrict_candidates)
+
+    def _diversity_matrix(self) -> torch.Tensor:
+        if self._diversity_dev is None:
+            M = self.diversity_object
+            dense = M.toarray() if sps.issparse(M) else np.asarray(M)
+            self._diversity_dev = torch.from_numpy(np.asarray(dense, dtype=np.float32)).to(self.device)
+        return self._diversity_dev
 
     def _fused_block(self, model, uids: torch.Tensor, max_len: int = None, pair_len: int = None):
         """(top values, top ids, per-user RMSE) of one block through K1."""
@@ -257,9 +312,14 @@ class EvaluatorHoldout:
         cutoffs = self.cutoff_list
         scalar_acc = torch.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=torch.float32, device=self.device)
         counter_acc = torch.zeros((len(cutoffs), self.n_items), dtype=torch.float32, device=self.device)
-        for _, stats in self._blocks(recommender_object):
+        # each block's float32 sums added in float64, as the JAX evaluator
+        # adds them into Python floats
+        diversity_acc = torch.zeros(len(cutoffs), dtype=torch.float64, device=self.device)
+        for _, stats, diversity in self._blocks(recommender_object):
             scalar_acc += stats.scalars
             counter_acc += stats.counters
+            if diversity is not None:
+                diversity_acc += diversity
 
         # one device-to-host transfer
         packed = torch.cat([scalar_acc.ravel(), counter_acc.ravel()]).cpu().numpy()
@@ -267,7 +327,7 @@ class EvaluatorHoldout:
         return self._finalize(
             packed[:ns].astype(np.float64).reshape(tuple(scalar_acc.shape)),
             packed[ns:].astype(np.float64).reshape(tuple(counter_acc.shape)),
-            len(self.usersToEvaluate),
+            len(self.usersToEvaluate), diversity_acc.cpu().numpy(),
         )
 
     @torch.no_grad()
@@ -277,7 +337,7 @@ class EvaluatorHoldout:
         the same ranking route."""
         ci = self.cutoff_list.index(cutoff)
         users, aps = [np.zeros(0, np.int64)], []
-        for chunk, stats in self._blocks(recommender_object):
+        for chunk, stats, _ in self._blocks(recommender_object):
             users.append(chunk)
             aps.append(stats.user_ap[ci])
         users = np.concatenate(users)
@@ -286,8 +346,9 @@ class EvaluatorHoldout:
         return users[order], ap[order]
 
     def _blocks(self, recommender_object):
-        """(users, BatchStats) of each block of the evaluated users, ranked
-        by K1, by the similarity route or from dense scores."""
+        """(users, BatchStats, diversity sums or None) of each block of the
+        evaluated users, ranked by K1, by the similarity route or from dense
+        scores."""
         if recommender_object.device != self.device:
             raise ValueError(
                 f"model on {recommender_object.device}, evaluator on {self.device}")
@@ -324,8 +385,10 @@ class EvaluatorHoldout:
             per_block = -(-n_eval // n_blocks)
             block_size = min(block_size, -(-per_block // 8) * 8)
         cutoffs = tuple(self.cutoff_list)
-        use_k1 = recommender_object._ranks_with_k1()
-        use_sim = not use_k1 and self._can_fuse_sim(recommender_object)
+        plain = self._plain_holdout()
+        use_k1 = plain and recommender_object._ranks_with_k1()
+        use_sim = plain and not use_k1 and self._can_fuse_sim(recommender_object)
+        debug = debug_enabled()
 
         # blocks are not padded to block_size: the last one is just shorter
         for start in range(0, n_eval, block_size):
@@ -337,26 +400,35 @@ class EvaluatorHoldout:
             test_rows = padded_rows_dense(self._test_padded, uids, self.n_items, max_len=crop_test)
             n_pos = self._n_pos.index_select(0, uids)
             valid = torch.ones(len(chunk), dtype=torch.bool, device=self.device)
+            diversity = None
             if use_k1 or use_sim:
                 block = self._fused_block if use_k1 else self._fused_sim_block
                 top_vals, top_idx, user_rmse = block(
                     recommender_object, uids, max_len=crop_train, pair_len=crop_test)
+                if debug:
+                    _raise_on_nan_scores(top_vals, start)
                 stats = evaluate_batch_from_topk(
                     top_vals, top_idx, test_rows, n_pos, valid, novelty_terms, pop_norm,
                     user_rmse, cutoffs=cutoffs, max_cutoff=self.max_cutoff,
                 )
             else:
                 scores = self._score_block(recommender_object, uids, max_len=crop_train)
+                scores = self._restrict_candidates(scores, uids)
+                if debug:
+                    _raise_on_nan_scores(scores, start)
                 stats = evaluate_batch(
                     scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
                     cutoffs=cutoffs, max_cutoff=self.max_cutoff,
                 )
-            yield chunk, stats
+                if self.diversity_object is not None:
+                    top_val, top_idx = topk_lowest_index(scores, self.max_cutoff)
+                    diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs)
+            yield chunk, stats, diversity
 
         if self.ignore_items_flag and hasattr(recommender_object, "reset_items_to_ignore"):
             recommender_object.reset_items_to_ignore()
 
-    def _finalize(self, scalar_acc, counter_acc, n_eval):
+    def _finalize(self, scalar_acc, counter_acc, n_eval, diversity_values):
         results_dict: Dict[int, Dict[str, float]] = {}
         n_ignore_items = len(self.ignore_items_ID)
         n_ignore_users = len(self.ignore_users_ID)
@@ -382,6 +454,9 @@ class EvaluatorHoldout:
                     res[metric] = (sums["_COVERED_USERS"] / (self.n_users - n_ignore_users)) if self.n_users else 0.0
                 elif metric in counters:
                     res[metric] = counters[metric]
+                if metric == "AVERAGE_POPULARITY" and self.diversity_object is not None:
+                    # the reference's enum order (JAX :614-619)
+                    res["DIVERSITY_SIMILARITY"] = diversity_values[ci] / n_eval if n_eval else 0.0
 
             precision_, recall_ = res["PRECISION"], res["RECALL"]
             if precision_ + recall_ != 0:
@@ -393,3 +468,19 @@ class EvaluatorHoldout:
             print("WARNING: No users had a sufficient number of relevant items")
 
         return results_dict, get_result_string(results_dict)
+
+
+class EvaluatorNegativeItemSample(EvaluatorHoldout):
+    """Ranks only each user's test items plus a fixed negative sample
+    (reference Evaluator.py:419-620; JAX :644-661). The candidate mask is a
+    dense [U, I] bool on the device; every model takes the dense route."""
+
+    EVALUATOR_NAME = "EvaluatorNegativeItemSample"
+
+    def __init__(self, URM_test, URM_test_negative, cutoff_list, **kwargs):
+        super().__init__(URM_test, cutoff_list, **kwargs)
+        candidates = (self.URM_test + sps.csr_matrix(URM_test_negative)).tocsr()
+        self._candidate_mask = torch.from_numpy(candidates.toarray() != 0).to(self.device)
+
+    def _restrict_candidates(self, scores: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
+        return scores.masked_fill(~self._candidate_mask.index_select(0, uids), float("-inf"))

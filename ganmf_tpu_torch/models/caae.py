@@ -14,10 +14,15 @@ One epoch (``caae_epoch``, JAX :132-396):
   interactions, two updates a chunk (with G's negatives, then G''s). The
   three embedding stores live in one [U + I, K + 1] table (the item bias as
   column K); an update gathers its [3B] rows, takes the gradient of the BPR
-  loss with respect to them and adds ``-lr * g`` back with ``index_add_``.
-  The updates are serial, as the JAX scan is; on the CPU ``index_add_``
-  applies duplicate rows in operand order, as XLA's scatter does, and on CUDA
-  by atomics, whose order varies;
+  loss with respect to them and adds ``-lr * g`` back. The updates are
+  serial, as the JAX scan is. ``d_scatter="direct"`` adds with
+  ``index_add_``: on the CPU duplicate rows in operand order, as XLA's
+  scatter does, and on CUDA by atomics, whose order varies from run to run.
+  ``d_scatter="dedup"`` (JAX :266-315) sorts each update's indices once an
+  epoch, sums every duplicate run with one cumulative sum and two gathers,
+  and scatters over unique indices (a run's first slot takes its row, every
+  other slot a scratch row past the table): no two adds meet, so the D phase
+  is deterministic on the card too;
 - the G phase draws users without replacement, samples the non-interactions
   Nu by Gumbel-top-k with k_u = int(n_nonint * S) (a float32 product), which
   is the exact-k selection K2 (``ops.topk.smallest_k_mask``) over the negated
@@ -35,7 +40,7 @@ weight 0; ``n_samples = max(1, 2 * median profile length)``; no item mode.
 Scoring gathers the requested users' profiles (the reference's
 ``_compute_item_score`` slices by batch position, a bug not kept).
 
-Not ported: ``d_scatter="dedup"`` and ``mesh_plan``; both raise.
+Not ported: ``mesh_plan``; it raises.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from ganmf_tpu_torch.models.cfgan import MLPParams, _l2
 from ganmf_tpu_torch.models.gan_base import AdversarialRecommender
 from ganmf_tpu_torch.models.ganmf import _glorot_uniform
 from ganmf_tpu_torch.ops.topk import smallest_k_mask
+from ganmf_tpu_torch.utils.debug import debug_enabled, raise_on_nan
 
 #: Buckets of the two-level inverse-CDF tables (JAX :179).
 NB = 64
@@ -216,16 +222,48 @@ def _sgd_(params, grads, lr: float) -> None:
             p.sub_(lr * g)
 
 
+def dedup_plan(idx_all: torch.Tensor, n_rows: int):
+    """(perm, scat, end) of each update's index row [n_steps, 3B] (JAX
+    :286-293): ``perm`` sorts the row (stably), ``end[p]`` is the last slot of
+    the duplicate run through sorted slot p, and ``scat[p]`` is the run's
+    table row at its first slot, else the scratch row ``n_rows + p``."""
+    nb3 = idx_all.shape[1]
+    pos = torch.arange(nb3, device=idx_all.device)
+    sort_idx, perm = torch.sort(idx_all, dim=1, stable=True)
+    is_start = torch.ones_like(sort_idx, dtype=torch.bool)
+    is_start[:, 1:] = sort_idx[:, 1:] != sort_idx[:, :-1]
+    # the next run's first slot, after each slot: a reversed running minimum
+    nxt = torch.where(is_start, pos, nb3).roll(-1, dims=1)
+    nxt[:, -1] = nb3
+    nxt = torch.cummin(nxt.flip(1), dim=1).values.flip(1)
+    end = torch.clamp(nxt - 1, max=nb3 - 1)
+    scat = torch.where(is_start, sort_idx, n_rows + pos)
+    return perm, scat, end
+
+
+def _dedup_add_(tab: torch.Tensor, g_rows: torch.Tensor, perm, scat, end, lr: float) -> None:
+    """tab[scat] += -lr x (each duplicate run's summed gradient), over unique
+    indices (JAX :295-301). The running sum goes along the last dimension of
+    the [C, 3B] transpose: CUDA scans an inner dimension in parallel, an outer
+    one with a serial loop per column (the same order of additions)."""
+    c = torch.cumsum(g_rows.index_select(0, perm).t().contiguous(), dim=1)
+    lower = F.pad(c[:, :-1], (1, 0))
+    tab.index_add_(0, scat, (-lr * (c.index_select(1, end) - lower)).t())
+
+
 def caae_epoch(
     params: CAAEParams, urm: torch.Tensor, inter_users: torch.Tensor, inter_items: torch.Tensor,
     inter_weight: torch.Tensor, draws: CAAEDraws,
     *, lr: float, beta: float, lmbda: float, S: float, d_bsize: int, n_d_chunks: int,
     d_steps: int, g_steps: int, gpr_steps: int, m_batch: int, n_samples: int,
+    d_scatter: str = "direct",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One epoch, in place (JAX :132-396, ``d_scatter="direct"``). ``urm`` is
-    the dense [U, I] training URM; ``inter_*`` the [n_d_chunks * d_bsize]
-    interactions (users, items, weight 0 on padding). Returns the mean D, G
-    and G' losses as device scalars, with no read to the host."""
+    """One epoch, in place (JAX :132-396). ``urm`` is the dense [U, I]
+    training URM; ``inter_*`` the [n_d_chunks * d_bsize] interactions (users,
+    items, weight 0 on padding); ``d_scatter`` the D phase's scatter,
+    "direct" or "dedup". Returns the mean D, G and G' losses as device
+    scalars, with no read to the host. Under ``GANMF_TPU_DEBUG`` each step's
+    loss and updated tensors are checked for NaN (one host read a step)."""
     n_users, n_items = urm.shape
     dev = urm.device
     n_nonint = (urm == 0).sum(1)
@@ -250,21 +288,34 @@ def caae_epoch(
     idx_g_all = torch.cat([u_all, n_users + pos_all, n_users + neg_g.reshape(n_steps, B)], dim=1)
     idx_gpr_all = torch.cat([u_all, n_users + pos_all, n_users + neg_gpr.reshape(n_steps, B)], dim=1)
 
+    debug = debug_enabled()
+    dedup = d_scatter == "dedup"
+    n_rows = n_users + n_items
     with torch.no_grad():
         tab = torch.cat([
             F.pad(params.d_user_emb, (0, 1)),
             torch.cat([params.d_item_emb, params.d_item_bias[:, None]], dim=1),
         ])
+        if dedup:
+            plans = (dedup_plan(idx_g_all, n_rows), dedup_plan(idx_gpr_all, n_rows))
+            tab = F.pad(tab, (0, 0, 0, 3 * B))  # the scratch rows of non-first slots
     d_sum = torch.zeros((), dtype=torch.float32, device=dev)
     for step in range(n_steps):
         w = w_all[step]
         # one update with G's negatives, one with G''s (CAAE.py:255-265)
-        for idxs in (idx_g_all[step], idx_gpr_all[step]):
+        for u, idx_all in enumerate((idx_g_all, idx_gpr_all)):
+            idxs = idx_all[step]
             rows = tab.index_select(0, idxs).requires_grad_(True)
             loss = d_local_loss(rows, w, beta)
             (g_rows,) = torch.autograd.grad(loss, rows)
-            tab.index_add_(0, idxs, -lr * g_rows)
+            if dedup:
+                _dedup_add_(tab, g_rows, *(plan[step] for plan in plans[u]), lr)
+            else:
+                tab.index_add_(0, idxs, -lr * g_rows)
+            if debug:
+                raise_on_nan(f"CAAE D step {step}, update {u}", loss=loss, table=tab[:n_rows])
             d_sum += loss.detach()
+    tab = tab[:n_rows]
     with torch.no_grad():
         params.d_user_emb.copy_(tab[:n_users, :K])
         params.d_item_emb.copy_(tab[n_users:, :K])
@@ -301,6 +352,8 @@ def caae_epoch(
         ae_loss = (((recon - profiles) * e_mask) ** 2).sum()
         loss = lmbda * _reinforce(recon, fake_items, reward) + (1.0 - lmbda) * ae_loss + beta * _l2(G)
         _sgd_(g_params, torch.autograd.grad(loss, g_params), lr)
+        if debug:
+            raise_on_nan(f"CAAE G step {step}", loss=loss, **dict(G.named_parameters()))
         g_sum += loss.detach()
 
     # ---- G' phase ----
@@ -316,6 +369,8 @@ def caae_epoch(
             reward = F.logsigmoid(1.0 - reward_logits(uids, fake_items))
         loss = _reinforce(recon, fake_items, reward) + beta * _l2(Gpr)
         _sgd_(gpr_params, torch.autograd.grad(loss, gpr_params), lr)
+        if debug:
+            raise_on_nan(f"CAAE G' step {step}", loss=loss, **dict(Gpr.named_parameters()))
         gpr_sum += loss.detach()
 
     return d_sum / max(1, 2 * n_steps), g_sum / max(1, g_steps), gpr_sum / max(1, gpr_steps)
@@ -387,12 +442,12 @@ class CAAE(AdversarialRecommender):
     ):
         """Train on the training matrix (JAX :403-494). Returns the
         reference's fit() value. ``gpr_layers`` and ``gpr_units`` are taken
-        and ignored, as the reference ignores them. ``d_scatter="dedup"`` and
-        ``mesh_plan`` are not ported and raise."""
+        and ignored, as the reference ignores them. ``d_scatter``: the D
+        phase's scatter, "direct" (``index_add_``) or "dedup" (sorted runs,
+        unique indices; deterministic on the card). ``mesh_plan`` is not
+        ported and raises."""
         if d_scatter not in ("direct", "dedup"):
             raise ValueError(f"d_scatter must be 'direct' or 'dedup', got {d_scatter!r}")
-        if d_scatter == "dedup":
-            raise NotImplementedError("d_scatter='dedup' is not ported")
         if mesh_plan is not None:
             raise NotImplementedError("mesh_plan is not ported")
         self.config = dict(
@@ -422,7 +477,7 @@ class CAAE(AdversarialRecommender):
         start_epoch = self.resume_from_checkpoint()  # also restores the generator
         statics = dict(d_bsize=int(d_bsize), n_d_chunks=n_d_chunks, d_steps=int(d_steps),
                        g_steps=int(g_steps), gpr_steps=int(gpr_steps), m_batch=m_batch_eff,
-                       n_samples=n_samples)
+                       n_samples=n_samples, d_scatter=d_scatter)
 
         def epoch_fn(epoch):
             draws = self._epoch_draws(inter_users.shape[0], int(d_steps) * n_d_chunks * int(d_bsize),

@@ -17,8 +17,16 @@ of the same steps. Parameters keep the JAX layouts and order (weights
 ``saveModel`` zip loads into the port. CFGAN has no factors, so it ranks
 through the dense route of models/base.py, as in the JAX package.
 
-Not ported: ``urm_storage="csr"`` (per-row keyed draws inside the epoch, which
-need a counter-based generator of their own) and ``mesh_plan``.
+Two storages, as in JAX (:144-190, :291-313): "dense" keeps the [U, I] URM
+and the epoch's full mask planes on the device; "csr" keeps the padded-CSR
+planes, O(nnz), densifies each [B, I] minibatch and draws its masks from
+keyed per-row uniforms (ops/keyed.py), through K2 once a minibatch for each
+mask the phase needs (PM in the D phase, ZR and PM in the G phase). A row's
+uniforms depend only on (seed, epoch, stream, row), so the D and G phases
+see the same mask for a row within an epoch, as JAX's ``fold_in`` keys do.
+Scoring in csr storage streams the profiles (:384-442).
+
+Not ported: ``mesh_plan``.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ganmf_tpu_torch.data.device import dense_from_sparse
+from ganmf_tpu_torch.data.device import PaddedCSR, dense_from_sparse, padded_csr_from_sparse, padded_rows_dense
 from ganmf_tpu_torch.models.gan_base import (  # noqa: F401  (ADAM_* re-exported)
     ADAM_BETAS,
     ADAM_EPS,
@@ -41,7 +49,9 @@ from ganmf_tpu_torch.models.gan_base import (  # noqa: F401  (ADAM_* re-exported
     make_batches,
     padded_weights,
 )
+from ganmf_tpu_torch.ops.keyed import keyed_uniforms
 from ganmf_tpu_torch.ops.topk import smallest_k_mask
+from ganmf_tpu_torch.utils.debug import debug_enabled, raise_on_nan
 
 ACTIVATIONS = {
     "linear": lambda x: x,
@@ -132,29 +142,60 @@ def _l2(p: nn.Module):
     return sum((t**2).sum() / 2.0 for t in p.parameters())
 
 
+def negative_mask(block: torch.Tensor, u: torch.Tensor, ratio: float) -> torch.Tensor:
+    """Per-row exact-k without-replacement negatives of ``block`` [R, I]:
+    k_u = int(n_zeros * ratio) of each row's non-interactions, those with the
+    smallest keys ``u`` [R, I] (interactions keyed +inf), as ``block``'s
+    dtype. The product is taken in float32 and truncated, as JAX does with
+    its float32 ratio; float64 gives another k_u for some pairs (12827 *
+    0.4515475140394092 is 5792 in float32, 5791 in float64)."""
+    interacted = block != 0
+    n_zeros = (~interacted).sum(1).to(torch.float32)
+    keys = torch.where(interacted, float("inf"), u)
+    k_u = (n_zeros * torch.tensor(ratio, dtype=torch.float32, device=block.device)).to(torch.int32)
+    return smallest_k_mask(keys, k_u).to(block.dtype)
+
+
 def sample_negative_masks(urm: torch.Tensor, zr_ratio: float, zp_ratio: float, scheme: str, *,
                           uniforms: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]):
-    """Per-row exact-k without-replacement negative samples (JAX :90-113).
+    """The (ZR, PM) negative masks of a dense block (JAX :90-113).
 
     ``uniforms`` is the (ZR, PM) pair of [R, I] float32 draws in [0, 1); the
-    one a scheme does not use may be None. For each row,
-    k_u = int(n_zeros * ratio) of its non-interactions are selected: those
-    with the smallest keys, interactions keyed +inf. The product is taken in
-    float32 and truncated, as JAX does with its float32 ratio; float64 gives
-    another k_u for some pairs (12827 * 0.4515475140394092 is 5792 in
-    float32, 5791 in float64)."""
-    interacted = urm != 0
-    n_zeros = (~interacted).sum(1).to(torch.float32)
-
-    def draw(u, ratio):
-        keys = torch.where(interacted, float("inf"), u)
-        k_u = (n_zeros * torch.tensor(ratio, dtype=torch.float32, device=urm.device)).to(torch.int32)
-        return smallest_k_mask(keys, k_u).to(urm.dtype)
-
+    one a scheme does not use may be None, and its mask is zeros."""
     u_zr, u_pm = uniforms
-    zr = draw(u_zr, zr_ratio) if scheme in ("ZP", "ZR") else torch.zeros_like(urm)
-    pm = draw(u_pm, zp_ratio) if scheme in ("ZP", "PM") else torch.zeros_like(urm)
+    zr = negative_mask(urm, u_zr, zr_ratio) if scheme in ("ZP", "ZR") else torch.zeros_like(urm)
+    pm = negative_mask(urm, u_pm, zp_ratio) if scheme in ("ZP", "PM") else torch.zeros_like(urm)
     return zr, pm
+
+
+#: Rows a chunk of csr storage's streamed scoring densifies (JAX :394).
+STREAM_CHUNK = 2048
+
+#: The keyed streams of the csr storage's two masks.
+ZR_STREAM, PM_STREAM = 0, 1
+
+
+def csr_batch_inputs(urm: PaddedCSR, n_rows: int, n_cols: int, lo: int, size: int, row_uniforms,
+                     *, zr_ratio: float, zp_ratio: float, scheme: str, with_zr: bool):
+    """(cond, train mask, ZR mask or None) of the minibatch of rows
+    [lo, lo + size) from padded-CSR storage (JAX :156-180): the rows densified
+    (rows past ``n_rows`` are zeros, as JAX's out-of-range gather gives), and
+    each mask drawn from ``row_uniforms(stream, rows)``. The ZR mask is drawn
+    only when ``with_zr`` (the G phase)."""
+    rows = torch.arange(lo, lo + size, device=urm.idx.device)
+    n = max(0, min(size, n_rows - lo))
+    cond = padded_rows_dense(urm, rows[:n], n_cols)
+    if n < size:
+        cond = F.pad(cond, (0, 0, 0, size - n))
+    zr = None
+    if with_zr:
+        zr = (negative_mask(cond, row_uniforms(ZR_STREAM, rows), zr_ratio) if scheme in ("ZP", "ZR")
+              else torch.zeros_like(cond))
+    if scheme in ("ZP", "PM"):
+        tmask = torch.clamp(cond + negative_mask(cond, row_uniforms(PM_STREAM, rows), zp_ratio), 0.0, 1.0)
+    else:
+        tmask = cond
+    return cond, tmask, zr
 
 
 def d_loss(D: MLPParams, G: MLPParams, cond, tmask, w, d_reg: float, d_hidden_act: str,
@@ -180,38 +221,62 @@ def g_loss(G: MLPParams, D: MLPParams, cond, tmask, zmask, w, g_reg: float,
 
 def cfgan_epoch(
     params: CFGANParams, d_opt: torch.optim.Optimizer, g_opt: torch.optim.Optimizer,
-    urm: torch.Tensor, uniforms, d_weights: torch.Tensor, g_weights: torch.Tensor,
+    urm: Union[torch.Tensor, PaddedCSR], uniforms, d_weights: torch.Tensor, g_weights: torch.Tensor,
     *, d_reg: float, g_reg: float, zr_ratio: float, zp_ratio: float, zr_coefficient: float,
     scheme: str, d_hidden_act: str, g_hidden_act: str,
     d_n_batches: int, d_batch: int, g_n_batches: int, g_batch: int, d_steps: int, g_steps: int,
     compute_dtype: str = "f32",
 ) -> None:
-    """One epoch, in place (JAX :124-230, dense storage): the masks, then
+    """One epoch, in place (JAX :124-230): the masks, then
     ``d_steps * d_n_batches`` D minibatches, then ``g_steps * g_n_batches`` G
     minibatches, each in natural row order. ``d_opt`` and ``g_opt`` are Adam
     over D's and G's parameters with the learning rates; L2 is in the loss.
     ``compute_dtype="bf16"`` runs activations and matmuls in bfloat16 against
-    the f32 parameters (``urm`` is then bf16 too); losses and L2 stay f32."""
+    the f32 parameters (the URM's values are then bf16 too); losses and L2
+    stay f32.
+
+    Dense storage: ``urm`` is the [padded, I] URM and ``uniforms`` the (ZR,
+    PM) pair of [padded, I] planes (None for a mask the scheme does not use);
+    the masks are drawn over the whole matrix once. csr storage: ``urm`` is
+    the training matrix's PaddedCSR and ``uniforms`` a callable
+    ``row_uniforms(stream, rows) -> [B, I]``; each minibatch draws its own
+    masks (``csr_batch_inputs``). Under ``GANMF_TPU_DEBUG`` every step's loss
+    and updated parameters are checked for NaN."""
     cd = torch.bfloat16 if compute_dtype == "bf16" else None
     G, D = params.G, params.D
     d_params, g_params = list(D.parameters()), list(G.parameters())
+    debug = debug_enabled()
 
-    zr_full, pm_full = sample_negative_masks(urm, zr_ratio, zp_ratio, scheme, uniforms=uniforms)
-    # train mask: profile with PM-sampled negatives flipped to 1 (CFGAN.py:242-249)
-    train_full = torch.clamp(urm + pm_full, 0.0, 1.0) if scheme in ("ZP", "PM") else urm
+    if isinstance(urm, PaddedCSR):
+        n_rows, n_cols = urm.idx.shape[0], G.bs[-1].shape[0]
+
+        def batch_inputs(lo, size, with_zr):
+            return csr_batch_inputs(urm, n_rows, n_cols, lo, size, uniforms, zr_ratio=zr_ratio,
+                                    zp_ratio=zp_ratio, scheme=scheme, with_zr=with_zr)
+    else:
+        zr_full, pm_full = sample_negative_masks(urm, zr_ratio, zp_ratio, scheme, uniforms=uniforms)
+        # train mask: profile with PM-sampled negatives flipped to 1 (CFGAN.py:242-249)
+        train_full = torch.clamp(urm + pm_full, 0.0, 1.0) if scheme in ("ZP", "PM") else urm
+
+        def batch_inputs(lo, size, with_zr):
+            return urm[lo : lo + size], train_full[lo : lo + size], zr_full[lo : lo + size]
 
     for step in range(d_steps * d_n_batches):
         b = (step % d_n_batches) * d_batch
-        cond, tmask, w = urm[b : b + d_batch], train_full[b : b + d_batch], d_weights[b : b + d_batch]
-        loss = d_loss(D, G, cond, tmask, w, d_reg, d_hidden_act, g_hidden_act, cd)
+        cond, tmask, _ = batch_inputs(b, d_batch, False)
+        loss = d_loss(D, G, cond, tmask, d_weights[b : b + d_batch], d_reg, d_hidden_act, g_hidden_act, cd)
         apply_grads(d_opt, d_params, torch.autograd.grad(loss, d_params))
+        if debug:
+            raise_on_nan(f"CFGAN D step {step}", loss=loss, **dict(D.named_parameters()))
 
     for step in range(g_steps * g_n_batches):
         b = (step % g_n_batches) * g_batch
-        cond, tmask, w = urm[b : b + g_batch], train_full[b : b + g_batch], g_weights[b : b + g_batch]
-        zmask = zr_full[b : b + g_batch]
-        loss = g_loss(G, D, cond, tmask, zmask, w, g_reg, zr_coefficient, d_hidden_act, g_hidden_act, cd)
+        cond, tmask, zmask = batch_inputs(b, g_batch, True)
+        loss = g_loss(G, D, cond, tmask, zmask, g_weights[b : b + g_batch], g_reg, zr_coefficient,
+                      d_hidden_act, g_hidden_act, cd)
         apply_grads(g_opt, g_params, torch.autograd.grad(loss, g_params))
+        if debug:
+            raise_on_nan(f"CFGAN G step {step}", loss=loss, **dict(G.named_parameters()))
 
     d_opt.zero_grad(set_to_none=True)
     g_opt.zero_grad(set_to_none=True)
@@ -226,9 +291,13 @@ class CFGAN(AdversarialRecommender):
 
     @params.setter
     def params(self, value: Optional[CFGANParams]) -> None:
-        # new parameters drop the cached generator output
+        # new parameters drop the cached generator output and activations
         self._params = value
+        self._drop_score_caches()
+
+    def _drop_score_caches(self) -> None:
         self._score_cache = None
+        self._penult_cache = None
 
     def fit(
         self,
@@ -262,14 +331,18 @@ class CFGAN(AdversarialRecommender):
         urm_storage: str = "dense",
         compute_dtype: str = "f32",
     ):
-        """Train on the training matrix (JAX :236-360). The URM and the
-        per-epoch masks stay dense on the model's device; the masks' uniform
-        keys come from a generator on that device seeded with ``seed``.
-        ``urm_storage="csr"`` and ``mesh_plan`` are not ported and raise."""
-        if urm_storage != "dense":
-            raise NotImplementedError(f"urm_storage={urm_storage!r} is not ported; use 'dense'")
+        """Train on the training matrix (JAX :236-360). ``urm_storage``:
+        "dense" keeps the URM and the per-epoch masks dense on the model's
+        device, their uniform keys from a generator on that device seeded
+        with ``seed``; "csr" keeps the padded-CSR planes, O(nnz), and draws
+        each minibatch's masks from keyed uniforms (``keyed_uniforms`` of the
+        epoch counted from 1). Masked configurations are distributionally
+        (not bitwise) equal between the storages; unmasked ones match.
+        ``mesh_plan`` is not ported and raises."""
         if mesh_plan is not None:
             raise NotImplementedError("mesh_plan is not ported")
+        if urm_storage not in ("dense", "csr"):
+            raise ValueError(f"urm_storage must be 'dense' or 'csr', got {urm_storage!r}")
         if compute_dtype not in ("f32", "bf16"):
             raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {compute_dtype!r}")
         # ratios are fractions in [0, 1]; the root search space's {10..90}
@@ -292,10 +365,17 @@ class CFGAN(AdversarialRecommender):
         d_n_batches, d_padded = make_batches(n_rows, int(d_batch_size))
         g_n_batches, g_padded = make_batches(n_rows, int(g_batch_size))
         padded = max(d_padded, g_padded)
-        urm = torch.zeros((padded, n_cols), dtype=torch.float32, device=self.device)
-        urm[:n_rows] = dense_from_sparse(train_csr, self.device)
-        if compute_dtype == "bf16":
-            urm = urm.to(torch.bfloat16)  # the masks and the condition follow
+        self._stream_seen = urm_storage == "csr"
+        if self._stream_seen:
+            urm = padded_csr_from_sparse(train_csr, self.device)
+            if compute_dtype == "bf16":
+                urm = urm._replace(val=urm.val.to(torch.bfloat16))
+        else:
+            urm = torch.zeros((padded, n_cols), dtype=torch.float32, device=self.device)
+            urm[:n_rows] = dense_from_sparse(train_csr, self.device)
+            if compute_dtype == "bf16":
+                urm = urm.to(torch.bfloat16)  # the masks and the condition follow
+        self._train_padded = urm if self._stream_seen else None
         weights = torch.from_numpy(padded_weights(n_rows, padded)).to(self.device)
 
         g_dims = [n_cols] + [int(g_nodes)] * int(g_layers) + [n_cols]
@@ -304,12 +384,21 @@ class CFGAN(AdversarialRecommender):
         self._d_opt = torch.optim.Adam(self.params.D.parameters(), lr=d_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
         self._g_opt = torch.optim.Adam(self.params.G.parameters(), lr=g_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
         self._epoch_gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        start_epoch = self.resume_from_checkpoint()  # also restores the generator
+        # the keyed draws' epoch counter (csr storage); checkpoints carry it,
+        # so that a resumed fit redraws the masks the cut one would have
+        self._mask_epoch = 0
+        start_epoch = self.resume_from_checkpoint()  # also restores the generator and the counter
+
+        def epoch_uniforms():
+            if not self._stream_seen:
+                return self._epoch_uniforms(padded, n_cols, scheme)
+            self._mask_epoch += 1
+            epoch = self._mask_epoch
+            return lambda stream, rows: keyed_uniforms(self.seed, epoch, stream, rows, n_cols)
 
         def epoch_fn(epoch):
             cfgan_epoch(
-                self.params, self._d_opt, self._g_opt, urm,
-                self._epoch_uniforms(padded, n_cols, scheme), weights, weights,
+                self.params, self._d_opt, self._g_opt, urm, epoch_uniforms(), weights, weights,
                 d_reg=d_reg, g_reg=g_reg, zr_ratio=zr_ratio, zp_ratio=zp_ratio,
                 zr_coefficient=zr_coefficient, scheme=scheme,
                 d_hidden_act=d_hidden_act, g_hidden_act=g_hidden_act,
@@ -317,12 +406,14 @@ class CFGAN(AdversarialRecommender):
                 g_n_batches=g_n_batches, g_batch=int(g_batch_size),
                 d_steps=int(d_steps), g_steps=int(g_steps), compute_dtype=compute_dtype,
             )
-            self._score_cache = None
+            self._drop_score_caches()
 
-        return self._run_training_loop(
+        result = self._run_training_loop(
             epochs, validation_evaluator, validation_set, sample_every,
             allow_worse, freq, list(metrics), after, epoch_fn=epoch_fn, start_epoch=start_epoch,
         )
+        self._invalidate_device_cache()
+        return result
 
     def _epoch_uniforms(self, n_rows: int, n_cols: int, scheme: str):
         """The epoch's (ZR, PM) uniform keys, [n_rows, n_cols] each, drawn on
@@ -341,6 +432,7 @@ class CFGAN(AdversarialRecommender):
             "d_state": self._d_opt.state_dict(),
             "g_state": self._g_opt.state_dict(),
             "epoch_gen": self._epoch_gen.get_state(),
+            "mask_epoch": torch.tensor(self._mask_epoch, dtype=torch.int64),
         }
 
     def _restore_checkpoint_state(self, state):
@@ -348,24 +440,74 @@ class CFGAN(AdversarialRecommender):
         self._d_opt.load_state_dict(state["d_state"])
         self._g_opt.load_state_dict(state["g_state"])
         self._epoch_gen.set_state(state["epoch_gen"])
+        self._mask_epoch = int(state["mask_epoch"])
+        self._drop_score_caches()
 
     # -- scoring (reference CFGAN.py:342-368) ----------------------------------
+    def _g_act(self) -> str:
+        if self.params is None or not self.config:
+            raise RuntimeError("CFGAN has no parameters: fit it or load them first")
+        return self.config["g_hidden_act"]
+
     @torch.no_grad()
     def _full_generator_output(self) -> torch.Tensor:
         """G applied to every training-orientation profile, cached until the
         parameters change."""
         if self._score_cache is None:
-            if self.params is None or not self.config:
-                raise RuntimeError("CFGAN has no parameters: fit it or load them first")
-            self._score_cache = _mlp(self.params.G, self._train_dense(), self.config["g_hidden_act"])
+            act = self._g_act()
+            self._score_cache = _mlp(self.params.G, self._train_dense(), act)
         return self._score_cache
 
+    def _stream_chunks(self, pc: PaddedCSR):
+        """The training rows densified in chunks of ``STREAM_CHUNK`` (float32)."""
+        n_rows, n_cols = pc.idx.shape[0], self.params.G.bs[-1].shape[0]
+        for lo in range(0, n_rows, STREAM_CHUNK):
+            rows = torch.arange(lo, min(lo + STREAM_CHUNK, n_rows), device=pc.idx.device)
+            yield padded_rows_dense(pc, rows, n_cols).float()
+
+    @torch.no_grad()
+    def _stream_penult(self, pc: PaddedCSR) -> Optional[torch.Tensor]:
+        """[R, H] activations of G's penultimate layer over every training row,
+        built in chunks and cached until the parameters change (JAX
+        :384-403); None when G has no hidden layer."""
+        G = self.params.G
+        if len(G.ws) < 2:
+            return None
+        if self._penult_cache is None:
+            act = ACTIVATIONS[self._g_act()]
+            hidden = list(zip(G.ws, G.bs))[:-1]
+
+            def penult(h):
+                for w, b in hidden:  # every layer here is hidden: activated after each
+                    h = act(h @ w + b)
+                return h
+
+            self._penult_cache = torch.cat([penult(cond) for cond in self._stream_chunks(pc)])
+        return self._penult_cache
+
+    @torch.no_grad()
     def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
-        """[B, I] scores for external users, in both modes."""
-        out = self._full_generator_output()
-        if self.mode == "item":
-            return out.T.index_select(0, user_ids)
-        return out.index_select(0, user_ids)
+        """[B, I] scores for external users, in both modes. In csr storage the
+        profiles stream (JAX :412-438): user mode runs G on the users' rows;
+        item mode serves columns of G's output over every item row, as
+        ``penult @ W_last[:, uid] + b_last[uid]`` from the cached penultimate
+        activations, so no [I, U] output is formed."""
+        pc = getattr(self, "_train_padded", None)
+        if not (self._stream_seen and pc is not None):
+            out = self._full_generator_output()
+            if self.mode == "item":
+                return out.T.index_select(0, user_ids)
+            return out.index_select(0, user_ids)
+        G = self.params.G
+        if self.mode != "item":
+            cond = padded_rows_dense(pc, user_ids, G.bs[-1].shape[0]).float()
+            return _mlp(G, cond, self._g_act())
+        penult = self._stream_penult(pc)
+        if penult is None:  # no hidden layer: G's output over the rows, a chunk at a time
+            return torch.cat([_mlp(G, cond, self._g_act()).index_select(1, user_ids)
+                              for cond in self._stream_chunks(pc)]).T
+        w_last, b_last = G.ws[-1], G.bs[-1]
+        return (penult @ w_last.index_select(1, user_ids) + b_last.index_select(0, user_ids)[None, :]).T
 
     # -- persistence ----------------------------------------------------------
     def loadModel(self, folder_path, file_name=None):

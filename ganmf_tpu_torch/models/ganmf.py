@@ -47,6 +47,7 @@ from ganmf_tpu_torch.models.gan_base import (
     padded_weights,
     shuffled_padded_perm,
 )
+from ganmf_tpu_torch.utils.debug import debug_enabled, raise_on_nan
 
 #: GANMFParams' tensors, in the JAX NamedTuple's field order
 FIELDS = ("user_emb", "item_emb", "enc_w", "enc_b", "dec_w", "dec_b")
@@ -226,9 +227,13 @@ def mf_generator_epoch(
     ``d_opt``, then ``g_steps * n_batches`` G minibatches step the item
     embeddings with ``item_opt`` and the user embeddings with ``tf1_adam_``
     at ``g_lr``. ``d_loss_fn(uids, real, w)`` and ``g_loss_fn`` give one
-    minibatch's losses. Returns the mean losses as device scalars."""
+    minibatch's losses. Returns the mean losses as device scalars. Under
+    ``GANMF_TPU_DEBUG`` each step's loss and updated tensors are checked for
+    NaN (one host read a step); otherwise the epoch never reads the device."""
     n_cols = params.item_emb.shape[0]
     d_params, g_params = params.d_params(), params.g_params()
+    debug = debug_enabled()
+    names = {id(p): n for n, p in params.named_parameters()}
 
     def batch(step):
         lo = (step % n_batches) * batch_size
@@ -241,6 +246,8 @@ def mf_generator_epoch(
     for step in range(d_steps * n_batches):
         loss = d_loss_fn(*batch(step))
         apply_grads(d_opt, d_params, torch.autograd.grad(loss, d_params))
+        if debug:
+            raise_on_nan(f"D step {step}", loss=loss, **{names[id(p)]: p for p in d_params})
         d_sum += loss.detach()
 
     g_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
@@ -255,6 +262,8 @@ def mf_generator_epoch(
             row_mask.scatter_reduce_(0, uids, w, reduce="amax")
         tf1_adam_(user_emb, g_user, user_state, g_lr, row_mask)
         apply_grads(item_opt, [item_emb], [g_item])
+        if debug:
+            raise_on_nan(f"G step {step}", loss=loss, user_emb=user_emb, item_emb=item_emb)
         g_sum += loss.detach()
 
     d_opt.zero_grad(set_to_none=True)

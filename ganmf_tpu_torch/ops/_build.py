@@ -121,6 +121,9 @@ def load_library(flags=()) -> ctypes.CDLL:
         lib.ganmf_smallest_k_mask.restype = i32
         lib.ganmf_smallest_k_mask_blocks_per_sm.argtypes = [i32]
         lib.ganmf_smallest_k_mask_blocks_per_sm.restype = i32
+        u32 = ctypes.c_uint
+        lib.ganmf_keyed_uniforms.argtypes = [ptr, i32, i32, u32, u32, u32, u32, ptr, ptr]
+        lib.ganmf_keyed_uniforms.restype = i32
         lib.ganmf_cuda_error_string.argtypes = [i32]
         lib.ganmf_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[flags] = lib

@@ -27,7 +27,6 @@ from functools import lru_cache
 import torch
 
 from ganmf_tpu_torch.ops._build import check, load_library, on_device, stream_handle
-from ganmf_tpu_torch.ops.topk import topk_lowest_index
 
 #: Kernel launches since the last reset; incremented only where the wrapper
 #: launches K1 (either form), so a run can show that its main path went
@@ -172,10 +171,13 @@ def _scratch(device: torch.device, stream: int, nbytes: int) -> torch.Tensor:
 
 def masked_topk_scores_reference(user_factors, item_factors, seen_mask, k: int):
     """The plain version: full f32 matmul, masked entries to -inf, then a
-    top-k with ties to the lowest item id."""
+    top-k with ties to the lowest item id. Scores are compared as floats, as
+    the TPU kernel and this one compare them (+0.0 and -0.0 tie), not by
+    ``lax.top_k``'s total order."""
     scores = torch.matmul(user_factors, item_factors.T)
     scores = scores.masked_fill(seen_mask, float("-inf"))
-    return topk_lowest_index(scores, k)
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k].contiguous(), idx[..., :k].contiguous()
 
 
 @lru_cache(maxsize=None)

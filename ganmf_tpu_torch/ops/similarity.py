@@ -13,26 +13,40 @@ data every partial sum of the Gram is an integer below 2^24, so the float32
 product is exact in any summation order: the JAX package's one-pass bf16
 Gram (``bf16_ok``), its float32 one and the port's are bitwise equal.
 
-Routes, chosen by JAX's rules and byte limits (6 GB defaults, so that one
-input takes one route in both packages):
+Routes, chosen by JAX's rules and byte limits (:600-650), so that one input
+takes one route in both packages:
 
 - dense: A [n_rows, n_cols] on the device when its float32 bytes are within
   ``_DENSE_A_BYTE_LIMIT``;
 - past that, streamed: the Gram is accumulated over ``_STREAM_CHUNK``-row
-  chunks of the padded-CSR planes (``_gram_streamed``). For binary data it is
-  the dense route's G.
+  chunks of the padded-CSR planes (``_slab_gram_scatter`` over every
+  column). For binary data it is the dense route's G;
+- past that, when the float32 [I, I] Gram would pass ``_GRAM_BYTE_LIMIT``,
+  column-blocked (:294-388): target columns are built and ranked in slabs of
+  ``width`` columns, a [n_cols, width] Gram slab at a time, so the [I, I]
+  Gram never exists. The slab is accumulated over the padded-CSR row chunks
+  (the scatter form), or, for binary data whose dense int8 matrix fits
+  ``_INT8_A_BYTE_LIMIT``, read from A kept resident as int8: one int8 x int8
+  -> int32 product a slab (``torch._int_mm``, a library GEMM, where JAX
+  leaves the product to XLA), exact for 0/1 counts. The slab width beside
+  A8 is capped by the device's own memory (the card's total, or the host's
+  for CPU tensors), not by a TPU's. ``export="device"`` raises there, as in
+  JAX.
+
+The 6 GiB and 9 GiB limits are the JAX package's defaults, set on a TPU; an
+H100 measurement of where each route wins is still to make.
 
 Not ported: JAX's resident-bf16 Gram (:214-236), which gives the streamed
 route's G and was slower than it on an H100 at the one shape measured
-(PERF.md); the column-blocked build for a Gram past ``_GRAM_BYTE_LIMIT`` and
-its int8 form (:294-388), and the build sharded over a mesh (:391-470).
-Where the JAX package would take the last three this raises
+(PERF.md), and the build sharded over a mesh (:391-470), which raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import os
 
 import numpy as np
 import scipy.sparse as sps
@@ -48,9 +62,13 @@ SIMILARITIES = ("cosine", "adjusted", "asymmetric", "pearson", "jaccard", "tanim
 # on the device; the Gram accumulates over padded-CSR row chunks instead.
 _DENSE_A_BYTE_LIMIT = 6 << 30
 
-# Above this Gram size (bytes of the float32 [I, I] matrix) the JAX package
-# builds target columns in blocks; that build is not ported.
+# Above this Gram size (bytes of the float32 [I, I] matrix) the streamed
+# build ranks target columns in slabs: the full Gram never exists.
 _GRAM_BYTE_LIMIT = 6 << 30
+
+# Bytes of a binary interaction matrix kept resident as dense int8 during a
+# column-blocked build.
+_INT8_A_BYTE_LIMIT = 9 << 30
 
 # Rows a streamed Gram chunk holds.
 _STREAM_CHUNK = 2048
@@ -162,21 +180,6 @@ def _dense_gram(A: torch.Tensor, row_weights: torch.Tensor, gram_rw: bool) -> to
     return A.T @ A
 
 
-def _gram_streamed(idx, val, w_pad, n_cols: int, chunk: int, gram_rw: bool) -> torch.Tensor:
-    """G = A^T diag(w) A accumulated over padded-CSR row chunks (JAX
-    :176-211): each chunk is scattered into a [chunk, n_cols] block (pad slots
-    carry the sentinel column n_cols and the value 0) and ``chunk^T @ chunk``
-    is added to the float32 Gram. The dense [n_rows, n_cols] matrix never
-    exists. The row count must be a multiple of ``chunk``."""
-    G = torch.zeros((n_cols, n_cols), dtype=torch.float32, device=val.device)
-    for lo in range(0, idx.shape[0], chunk):
-        D = torch.zeros((chunk, n_cols + 1), dtype=torch.float32, device=val.device)
-        D = D.scatter_add_(1, idx[lo : lo + chunk], val[lo : lo + chunk])[:, :n_cols]
-        left = w_pad[lo : lo + chunk, None] * D if gram_rw else D
-        G.addmm_(left.T, D)
-    return G
-
-
 def _similarity_topk_from_gram(G, ss2, row_weights, n_rows: int, *, mode: str, topk: int, **w_kwargs):
     """Normalize G into W and keep each column's top ``topk`` rows (JAX
     :129-174, :243-268): ([n_cols, topk] values, [n_cols, topk] row ids)."""
@@ -187,28 +190,127 @@ def _similarity_topk_from_gram(G, ss2, row_weights, n_rows: int, *, mode: str, t
     return tiled_topk(W.T, topk)
 
 
-def build_gram(X: sps.csr_matrix, row_weights: torch.Tensor, gram_rw: bool, device: torch.device):
-    """(G, ss2, route) of the preprocessed data X by the route
-    ``compute_similarity`` takes: "dense" or "streamed". ss2 is each column's
-    sum of squares."""
+def _padded_planes(X: sps.csr_matrix, row_weights: torch.Tensor, device: torch.device):
+    """The padded-CSR planes of X with rows padded to a multiple of
+    ``_STREAM_CHUNK`` (pad rows hold the sentinel column and the value 0),
+    the row weights padded with 0, and each column's sum of squares."""
     n_rows, n_cols = X.shape
-    if 4 * n_rows * n_cols <= _DENSE_A_BYTE_LIMIT:
-        A = dense_from_sparse(X, device)
-        return _dense_gram(A, row_weights, gram_rw), torch.sum(A * A, dim=0), "dense"
-    if 4 * n_cols * n_cols > _GRAM_BYTE_LIMIT:
-        raise NotImplementedError(
-            f"a {n_cols} x {n_cols} Gram passes _GRAM_BYTE_LIMIT: the column-blocked similarity "
-            "build (and its int8 form) is not ported")
-    chunk = _STREAM_CHUNK
     pc = padded_csr_from_sparse(X, device)
-    pad_rows = (-n_rows) % chunk
+    pad_rows = (-n_rows) % _STREAM_CHUNK
     idx_a, val_a, w_pad = pc.idx, pc.val, row_weights
     if pad_rows:
         idx_a = torch.cat([idx_a, torch.full((pad_rows, idx_a.shape[1]), n_cols, dtype=idx_a.dtype, device=device)])
         val_a = torch.cat([val_a, torch.zeros((pad_rows, val_a.shape[1]), dtype=val_a.dtype, device=device)])
         w_pad = torch.cat([row_weights, torch.zeros(pad_rows, dtype=row_weights.dtype, device=device)])
     ss2 = torch.from_numpy(np.asarray(X.multiply(X).sum(axis=0), dtype=np.float32).ravel()).to(device)
-    return _gram_streamed(idx_a, val_a, w_pad, n_cols, chunk, gram_rw), ss2, "streamed"
+    return idx_a, val_a, w_pad, ss2
+
+
+def build_gram(X: sps.csr_matrix, row_weights: torch.Tensor, gram_rw: bool, device: torch.device):
+    """(G, ss2, route) of the preprocessed data X by the dense or the
+    streamed route (below ``_GRAM_BYTE_LIMIT``). ss2 is each column's sum of
+    squares."""
+    n_rows, n_cols = X.shape
+    if 4 * n_rows * n_cols <= _DENSE_A_BYTE_LIMIT:
+        A = dense_from_sparse(X, device)
+        return _dense_gram(A, row_weights, gram_rw), torch.sum(A * A, dim=0), "dense"
+    idx_a, val_a, w_pad, ss2 = _padded_planes(X, row_weights, device)
+    return _slab_gram_scatter(idx_a, val_a, w_pad, n_cols, 0, n_cols, _STREAM_CHUNK, gram_rw), ss2, "streamed"
+
+
+def device_memory_bytes(device: torch.device) -> int:
+    """The device's memory: the card's total, or the host's for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def colblock_plan(n_rows_pad: int, n_cols: int, binary: bool, device: torch.device):
+    """(slab width, int8 form?) of the column-blocked build (JAX
+    :611-631): slabs of half the Gram budget, at least 512 columns; the int8
+    form for binary data whose dense int8 matrix fits
+    ``_INT8_A_BYTE_LIMIT``, its slab capped to what fits beside A8 on the
+    device (about 24 bytes a slab element for the Gram, the int32 product
+    and the ranking's buffers, and 1 GiB of headroom)."""
+    width = int(min(n_cols, max(512, _GRAM_BYTE_LIMIT // 2 // (4 * n_cols) // 256 * 256)))
+    use_int8 = binary and n_rows_pad * n_cols <= _INT8_A_BYTE_LIMIT
+    if use_int8:
+        free = device_memory_bytes(device) - n_rows_pad * n_cols - (1 << 30)
+        w_int8 = free // (24 * n_cols) // 256 * 256
+        if w_int8 >= 512:
+            width = int(min(width, w_int8))
+        else:
+            use_int8 = False  # no useful slab fits beside A8
+    return width, use_int8
+
+
+def _dense_int8_t_from_padded(idx, val, n_cols: int, chunk: int) -> torch.Tensor:
+    """The binary matrix as dense int8, transposed: [n_cols, R], built
+    ``chunk`` rows at a time (JAX's ``_dense_int8_from_padded``, :338-352,
+    kept column-major so that each slab is a row range of it)."""
+    R = idx.shape[0]
+    out = torch.empty((n_cols, R), dtype=torch.int8, device=idx.device)
+    for lo in range(0, R, chunk):
+        block = torch.zeros((chunk, n_cols + 1), dtype=torch.float32, device=idx.device)
+        block.scatter_add_(1, idx[lo : lo + chunk], val[lo : lo + chunk])
+        out[:, lo : lo + chunk] = block[:, :n_cols].T.to(torch.int8)
+    return out
+
+
+def _slab_gram_int8(A8t: torch.Tensor, off: int, width: int) -> torch.Tensor:
+    """[n_cols, width] float32 Gram slab A^T A[:, off:off + width] from the
+    resident int8 A^T: one int8 x int8 -> int32 product (``torch._int_mm``;
+    on the card cuBLASLt, whose int8 product wants A row-major and B
+    column-major, as these views are), exact for 0/1 counts below 2^24
+    (JAX :355-388)."""
+    return torch._int_mm(A8t, A8t[off : off + width].T).to(torch.float32)
+
+
+def _slab_gram_scatter(idx, val, w_pad, n_cols: int, off: int, width: int, chunk: int,
+                       gram_rw: bool) -> torch.Tensor:
+    """[n_cols, width] float32 Gram slab G = A^T diag(w) A[:, off:off + width]
+    accumulated over padded-CSR row chunks (JAX :176-211, :294-335): each
+    chunk is scattered into a [chunk, n_cols] block (pad slots carry the
+    sentinel column n_cols and the value 0) and left^T @ T is added, T the
+    block's target columns and left = w * D with row weights. The dense
+    [n_rows, n_cols] matrix never exists. Float32 products with TF32 off,
+    exact on 0/1 data. The row count must be a multiple of ``chunk``."""
+    G = torch.zeros((n_cols, width), dtype=torch.float32, device=val.device)
+    for lo in range(0, idx.shape[0], chunk):
+        D = torch.zeros((chunk, n_cols + 1), dtype=torch.float32, device=val.device)
+        D = D.scatter_add_(1, idx[lo : lo + chunk], val[lo : lo + chunk])[:, :n_cols]
+        left = w_pad[lo : lo + chunk, None] * D if gram_rw else D
+        G.addmm_(left.T, D[:, off : off + width])
+    return G
+
+
+def similarity_topk_colblock(X: sps.csr_matrix, row_weights: torch.Tensor, gram_rw: bool, binary: bool,
+                             n_rows: int, device: torch.device, *, mode: str, topk: int, **w_kwargs):
+    """([n_cols, topk] values, [n_cols, topk] ids) of every column, built and
+    ranked in slabs of target columns (JAX :600-640). The last slab is
+    shifted left to end at the last column; its overlap with the one before
+    is dropped. ``binary``: 0/1 data without row weights (JAX's ``bf16_ok``)."""
+    n_cols = X.shape[1]
+    idx_a, val_a, w_pad, ss2 = _padded_planes(X, row_weights, device)
+    width, use_int8 = colblock_plan(idx_a.shape[0], n_cols, binary and not gram_rw, device)
+    A8t = _dense_int8_t_from_padded(idx_a, val_a, n_cols, _STREAM_CHUNK) if use_int8 else None
+    vals = torch.empty((n_cols, topk), dtype=torch.float32, device=device)
+    ids = torch.empty((n_cols, topk), dtype=torch.int64, device=device)
+    done = 0
+    while done < n_cols:
+        off = min(done, n_cols - width)
+        if use_int8:
+            G = _slab_gram_int8(A8t, off, width)
+        else:
+            G = _slab_gram_scatter(idx_a, val_a, w_pad, n_cols, off, width, _STREAM_CHUNK, gram_rw)
+        W = _w_block(G, ss2, ss2[off : off + width], off, n_rows, row_weights, mode, **w_kwargs)
+        del G
+        v, i = tiled_topk(W.T, topk)  # [width, topk] for this slab's columns
+        del W
+        skip = done - off
+        vals[done : off + width], ids[done : off + width] = v[skip:], i[skip:]
+        done = off + width
+    return vals, ids
 
 
 def csc_from_col_topk(vals, idx, n: int) -> sps.csc_matrix:
@@ -293,13 +395,23 @@ def compute_similarity(
     use_row_weights = row_weights is not None
     # row weights fold into the Gram except for euclidean, whose reference
     # semantics weight the distances (_w_block)
-    G, ss2, _ = build_gram(X, rw, use_row_weights and mode != "euclidean", device)
-    vals, idx = _similarity_topk_from_gram(
-        G, ss2, rw, n_rows, mode=mode, topk=topK, shrink=float(shrink), normalize=bool(normalize),
+    gram_rw = use_row_weights and mode != "euclidean"
+    w_kwargs = dict(
+        mode=mode, topk=topK, shrink=float(shrink), normalize=bool(normalize),
         asymmetric_alpha=float(asymmetric_alpha), tversky_alpha=float(tversky_alpha),
         tversky_beta=float(tversky_beta), normalize_avg_row=bool(normalize_avg_row),
         distance_mode=similarity_from_distance_mode, use_row_weights=use_row_weights,
     )
+    if 4 * n_rows * n_cols > _DENSE_A_BYTE_LIMIT and 4 * n_cols * n_cols > _GRAM_BYTE_LIMIT:
+        if export == "device":
+            raise ValueError("export='device' materializes [I, I] on one device; the column-blocked "
+                             "build exists because that does not fit")
+        # binary data (JAX's bf16_ok, :550-554) may take the int8 form
+        binary = row_weights is None and bool(X.nnz == 0 or np.all(X.data == 1.0))
+        vals, idx = similarity_topk_colblock(X, rw, gram_rw, binary, n_rows, device, **w_kwargs)
+        return csc_from_col_topk(vals, idx, n_cols).tocsr()
+    G, ss2, _ = build_gram(X, rw, gram_rw, device)
+    vals, idx = _similarity_topk_from_gram(G, ss2, rw, n_rows, **w_kwargs)
     del G
     if export == "device":
         return scatter_col_topk_dense(vals, idx)

@@ -21,11 +21,28 @@ import torch
 from ganmf_tpu_torch.ops.select import check_select_args, smallest_k_mask_cuda
 
 
+_SIGNED_BITS = {torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF), torch.float32: (torch.int32, 0x7FFFFFFF),
+                torch.bfloat16: (torch.int16, 0x7FFF), torch.float16: (torch.int16, 0x7FFF)}
+
+
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """A signed-integer image of floating ``x`` that orders as XLA's sorts
+    and ``lax.top_k`` order floats: the IEEE total order, where -0.0 lies
+    below +0.0 (a float comparison ties them)."""
+    itype, low = _SIGNED_BITS[x.dtype]
+    bits = x.view(itype)
+    return torch.where(bits < 0, bits ^ low, bits)
+
+
 def topk_lowest_index(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries along the last axis, ties to
-    the lowest index; indices are int64."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k].contiguous(), idx[..., :k].contiguous()
+    """(values, indices) of the k largest entries along the last axis, in
+    ``lax.top_k``'s order: floats by the total order (+0.0 above -0.0),
+    ties to the lowest index; indices are int64."""
+    if x.dtype not in _SIGNED_BITS:
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[..., :k].contiguous(), idx[..., :k].contiguous()
+    idx = torch.sort(total_order_key(x), dim=-1, descending=True, stable=True).indices[..., :k].contiguous()
+    return torch.gather(x, -1, idx), idx
 
 
 #: Keys that one pass of ``tiled_topk`` ranks at most: its values, int64 ids

@@ -367,8 +367,7 @@ def test_draws_and_what_is_not_ported(urm_pair):
     assert d.gpr_users.shape == (2, 8) and d.gpr_sample.shape == (2, 40)
     m = CAAE(train, device=CPU)
     assert m.mode == "user" and CAAE(train, mode="item", device=CPU).mode == "user"
-    with pytest.raises(NotImplementedError):
-        m.fit(epochs=1, d_scatter="dedup")
+    # d_scatter="dedup" is ported (tests/test_torch_caae_dedup.py)
     with pytest.raises(ValueError):
         m.fit(epochs=1, d_scatter="sorted")
     with pytest.raises(NotImplementedError):

@@ -440,8 +440,8 @@ def test_checkpointer_keeps_loss_histories(tmp_path):
 def test_fit_rejects_what_is_not_ported(urm_pair):
     train, _ = urm_pair
     m = CFGAN(train, device=CPU)
-    with pytest.raises(NotImplementedError):
-        m.fit(urm_storage="csr", epochs=1)
+    with pytest.raises(ValueError):  # csr storage is ported (tests/test_torch_cfgan_csr.py)
+        m.fit(urm_storage="coo", epochs=1)
     with pytest.raises(NotImplementedError):
         m.fit(mesh_plan=object(), epochs=1)
     with pytest.raises(RuntimeError):

@@ -61,6 +61,13 @@ the distance it moved or 8 ulps of its largest entry, and each table that
 moved moved 10 times its gate or more; 5 NMF iterations from one init within
 1e-4 of the largest factor; EASE-R's W, dense and pruned, within 1e-4 of
 max|B|; K1 at the shapes these models' evaluations and `recommend` give it.
+The keyed per-row draw of CFGAN's csr storage bitwise its
+plain version (and not synchronizing); one CFGAN csr epoch in both modes,
+card against CPU (the keyed masks bitwise, parameters within the Adam bound,
+K2 and the keyed draw launched once a minibatch for each mask drawn); the
+column-blocked similarity build of 0/1 data in both forms bitwise the CPU's;
+CAAE's dedup D phase, two card runs bitwise equal and within 1% of the
+distance moved of the direct form.
 """
 
 import numpy as np
@@ -1074,3 +1081,104 @@ def test_nmf_and_ease_r_on_card_match_cpu(cuda):
         both = (g != 0) & (w != 0)
         assert np.abs(g[both] - w[both]).max() <= tol
         assert np.array_equal((g != 0).sum(0), (w != 0).sum(0))
+
+
+@pytest.mark.parametrize("B,I,dtype", [(128, 17632, torch.int64), (1024, 1884, torch.int64), (7, 1001, torch.int32),
+                                       (3, 2, torch.int64)])
+def test_keyed_uniforms_on_card_are_the_plain_version(cuda, B, I, dtype):
+    from ganmf_tpu_torch.ops import keyed
+
+    rows = torch.from_numpy(np.random.RandomState(B).permutation(5 * B)[:B]).to(dtype).to(cuda)
+    before = keyed.LAUNCHES
+    got = keyed.keyed_uniforms((3 << 32) | 1234, 7, 1, rows, I)
+    assert keyed.LAUNCHES == before + 1
+    want = keyed.keyed_uniforms_reference((3 << 32) | 1234, 7, 1, rows, I)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), keyed.keyed_uniforms((3 << 32) | 1234, 7, 1, rows.cpu(), I))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keyed.keyed_uniforms(5, 1, 0, rows, I)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("mode", ["user", "item"])
+def test_cfgan_csr_epoch_on_card_matches_cpu(cuda, mode):
+    """One csr epoch, card against CPU from the same init: the keyed masks of
+    every minibatch bitwise (the kernel's draw, K2's selection), parameters
+    within the Adam bound; K2 and the keyed kernel launched once a minibatch
+    for each mask drawn."""
+    from ganmf_tpu_torch.ops import keyed
+
+    rng = np.random.RandomState(0)
+    train = sps.csr_matrix((rng.rand(300, 700) < 0.02).astype(np.float32))
+    mat = train.T.tocsr() if mode == "item" else train
+    n_rows, n_cols = mat.shape
+    d_batch, g_batch, lr = 64, 128, 1e-3
+    d_n, d_pad = make_batches(n_rows, d_batch)
+    g_n, g_pad = make_batches(n_rows, g_batch)
+    w = padded_weights(n_rows, max(d_pad, g_pad))
+    kw = dict(d_reg=1e-4, g_reg=1e-4, zr_ratio=0.45, zp_ratio=0.2, zr_coefficient=0.05, scheme="ZP",
+              d_hidden_act="linear", g_hidden_act="tanh", d_n_batches=d_n, d_batch=d_batch,
+              g_n_batches=g_n, g_batch=g_batch, d_steps=1, g_steps=1)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        def row_uniforms(stream, rows):
+            return keyed.keyed_uniforms(11, 1, stream, rows, n_cols)
+
+        pc = padded_csr_from_sparse(mat, dev)
+        masks = pcf.csr_batch_inputs(pc, n_rows, n_cols, g_batch * (g_n - 1), g_batch, row_uniforms,
+                                     zr_ratio=0.45, zp_ratio=0.2, scheme="ZP", with_zr=True)
+        p = pcf.init_params([n_cols, 128, n_cols], [2 * n_cols, 4, 4, 1], torch.Generator().manual_seed(1), dev)
+        d_opt = torch.optim.Adam(p.D.parameters(), lr=lr, betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+        g_opt = torch.optim.Adam(p.G.parameters(), lr=lr, betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+        t_w = torch.from_numpy(w).to(dev)
+        k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+        pcf.cfgan_epoch(p, d_opt, g_opt, pc, row_uniforms, t_w, t_w, **kw)
+        if dev.type == "cuda":
+            assert select.LAUNCHES - k2 == keyed.LAUNCHES - drawn == d_n + 2 * g_n
+        runs.append(([m.cpu() for m in masks], [t.detach().cpu() for t in p.parameters()]))
+    (card_masks, card_p), (cpu_masks, cpu_p) = runs
+    for a, b in zip(card_masks, cpu_masks):
+        assert torch.equal(a, b)
+    for a, b in zip(card_p, cpu_p):
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 2.2 * lr * max(d_n, g_n)
+        assert float((diff <= 0.01 * lr).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "scatter"])
+def test_colblock_similarity_on_card_is_the_cpus(cuda, int8, monkeypatch):
+    """The column-blocked build of 0/1 data on the card: bitwise the CPU's
+    (exact integer Gram slabs; the int8 form through torch._int_mm)."""
+    from ganmf_tpu_torch.ops import similarity as psim
+
+    rng = np.random.RandomState(2)
+    X = sps.csr_matrix((rng.rand(300, 1280) < 0.03).astype(np.float32))
+    monkeypatch.setattr(psim, "_DENSE_A_BYTE_LIMIT", 1)
+    monkeypatch.setattr(psim, "_GRAM_BYTE_LIMIT", 4 * 1280 * 1280 - 1)
+    if not int8:
+        monkeypatch.setattr(psim, "_INT8_A_BYTE_LIMIT", 0)
+    assert psim.colblock_plan(2048, 1280, True, cuda) == (512, int8)
+    for similarity in ("cosine", "jaccard"):
+        got = psim.compute_similarity(X, similarity, topK=50, shrink=5.0, device=cuda)
+        want = psim.compute_similarity(X, similarity, topK=50, shrink=5.0, device=torch.device("cpu"))
+        assert got.nnz > 0 and (got != want).nnz == 0
+
+
+def test_caae_dedup_epoch_on_card_is_deterministic(cuda):
+    """d_scatter="dedup" on the card: two runs bitwise equal (no two adds
+    meet), within 1% of the distance moved of the "direct" form."""
+    from ganmf_tpu_torch.models import caae as pca
+
+    runs = []
+    for form in ("dedup", "dedup", "direct"):
+        params, urm, users, items, w, draws, kw = _caae_epoch_args(cuda)
+        pca.caae_epoch(params, urm, users, items, w, draws, d_scatter=form, **kw)
+        runs.append([t.detach().cpu() for t in params.parameters()])
+    init = _caae_epoch_args(torch.device("cpu"))[0]
+    for i, (a, b, direct, t0) in enumerate(zip(*runs, init.parameters())):
+        assert torch.equal(a, b), i
+        moved = float((direct - t0.detach()).abs().max())
+        assert moved > 0 and float((a - direct).abs().max()) <= 1e-2 * moved, i

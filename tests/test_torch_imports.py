@@ -45,12 +45,36 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
     # DisGANMF, PureSVD, CAAE, IALS and TopPop models, the similarity
     # family (ops/similarity, ops/simscore, utils/weighting, the ItemKNN,
     # P3alpha and SLIM-BPR models), the MF-SGD family, IRGAN, NMF / EASE-R /
-    # PredefinedList, the study CLIs and their host helpers among them
-    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 53, r.stdout
+    # PredefinedList, the study CLIs and their host helpers, the keyed draw,
+    # the host engine and the debug and profiling utilities among them
+    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 57, r.stdout
     names = set(r.stdout.split("NAMES")[1].split())
     for module in ("models.mf_sgd", "models.irgan", "models.extras", "utils.analysis", "utils.timing",
-                   "eval.significance", "cli.describe", "cli.ablation", "cli.mf_learned"):
+                   "eval.significance", "cli.describe", "cli.ablation", "cli.mf_learned",
+                   "ops.keyed", "ops.host", "utils.debug", "utils.profiling"):
         assert f"ganmf_tpu_torch.{module}" in names, module
+
+
+def test_chip_smoke_imports_neither_jax_nor_ganmf_tpu():
+    """chip_smoke.py runs where JAX is not installed: no import statement of
+    it, at the top or inside a function, names jax or ganmf_tpu, and
+    importing it under the refusing finder works."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "ganmf_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "ganmf_tpu", "sklearn"}, roots
+    check = _CHECK.split("import ganmf_tpu_torch")[0] + "import chip_smoke\nprint('IMPORTED', 1)\n"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", check], capture_output=True, text=True,
+                       cwd=str(REPO), env=env, timeout=300)
+    assert r.returncode == 0 and "IMPORTED" in r.stdout, r.stderr[-2000:]
 
 
 def test_port_models_cover_the_jax_packages():

@@ -121,8 +121,8 @@ def test_evaluator_takes_the_jax_positional_order(split):
 
 def test_evaluator_rejects_what_is_not_ported(split):
     _, test = split
-    with pytest.raises(NotImplementedError, match="diversity_object"):
-        EvaluatorHoldout(test, CUTOFFS, 1, True, object(), device=CPU)
+    # diversity_object is ported (tests/test_torch_eval_extras.py): it takes the fifth place
+    assert EvaluatorHoldout(test, CUTOFFS, 1, True, np.eye(test.shape[1]), device=CPU).diversity_object is not None
     with pytest.raises(NotImplementedError, match="mesh_plan"):
         EvaluatorHoldout(test, CUTOFFS, mesh_plan=object(), device=CPU)
     with pytest.raises(TypeError):

@@ -246,8 +246,10 @@ def test_unported_routes_and_bad_arguments_raise(monkeypatch):
         psim.compute_similarity(X, mesh_plan=object(), device=CPU)
     monkeypatch.setattr(psim, "_DENSE_A_BYTE_LIMIT", 1)
     monkeypatch.setattr(psim, "_GRAM_BYTE_LIMIT", 1)
-    with pytest.raises(NotImplementedError, match="column-blocked"):
-        psim.compute_similarity(X, device=CPU)
+    # the column-blocked build is ported (tests/test_torch_similarity_colblock.py);
+    # it refuses the dense export, as JAX's does
+    with pytest.raises(ValueError, match="column-blocked"):
+        psim.compute_similarity(X, export="device", device=CPU)
     with pytest.raises(ValueError, match="similarity must be one of"):
         psim.compute_similarity(X, "manhattan", device=CPU)
     with pytest.raises(ValueError, match="export"):
