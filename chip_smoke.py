@@ -206,7 +206,22 @@ Phases, in order; any failure exits nonzero:
     K1 at 0, no kernel on phases 29-30, K2 once a G step on phase 31;
 32. the host engine: its native library built with g++ under build/, and its
     parser equal to the Python path on a generated ratings file, both timed;
-33. print one JSON line with every kernel's launches (by path), error, times
+33. GANMF on a mesh (ganmf_tpu_torch.parallel) of one rank over NCCL on the
+    card: at its ML-1M best params on the ML-1M-shaped split, in user and
+    then item mode, one epoch and the evaluation with the mesh plan, held
+    against the one-card path from the same state and permutation
+    (parameters within phase 8's Adam bound, losses within rtol 1e-4, every
+    metric within 1e-5), K1 launched by the mesh evaluation; then K1 on an
+    item shard at phase 34's shape ([1512, 250] x [1853, 250], k=50, its ids
+    offset by 1853) against its plain version, timed beside its bound;
+34. the same fit and evaluation (user mode) on a (data 2, model 2) mesh of
+    4 ranks that share the card over gloo, started as subprocesses of this
+    script (``--mesh-rank``), each within its time limit: each rank ranks
+    its 1853-item shard through K1; the gathered parameters, losses and
+    metrics held against phase 33's one-card path. gloo stages its
+    collectives through the host, so the seconds printed are no multi-card
+    measurement;
+35. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own, and the keyed draw,
     which replaces no TPU kernel), then the card line, then the result line.
 
@@ -387,6 +402,13 @@ EVAL_NEGATIVES = 100
 # CAAE dedup (phase 31): the D steps of the epoch run twice for determinism
 DEDUP_REPEAT_D_STEPS = 2
 HOST_PARSE_LINES = 200_000  # the host engine's parser (phase 32)
+# the mesh phases (33-34): GANMF's fits on a mesh at its ML-1M best params,
+# one epoch each; phase 34's mesh of 4 ranks that share the one card over
+# gloo, each rank with its own time limit
+MESH_EPOCHS = 1
+MESH_GLOO = dict(n_data=2, n_model=2)
+MESH_RANK_TIMEOUT = 300
+MESH_SHARD_ROWS = 1512  # a data rank's part of the 3024-row evaluation block
 
 
 def fail(msg):
@@ -3144,6 +3166,203 @@ def phase_host(scratch):
           f"Python {python_s:.3f} s")
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_fit(train, test, mode, dev, plan):
+    """GANMF at its ML-1M best params for MESH_EPOCHS epochs with ``plan``
+    (None: one card, no mesh), then evaluated by an evaluator on the same
+    plan: (model, results, losses, fit seconds, evaluation seconds, K1
+    launches in the evaluation, evaluator)."""
+    import torch
+
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import GANMF
+    from ganmf_tpu_torch.ops import scorer
+
+    model = GANMF(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(**GANMF_PARAMS, epochs=MESH_EPOCHS, mesh_plan=plan)
+    losses = [(float(d), float(g)) for d, g in zip(model.train_d_loss, model.train_g_loss)]  # waits
+    fit_s = time.perf_counter() - t0
+    ev = EvaluatorHoldout(test, CUTOFFS, mesh_plan=plan, device=dev)
+    before = scorer.LAUNCHES
+    t0 = time.perf_counter()
+    results, _ = ev.evaluateRecommender(model)  # reads its sums to the host
+    return model, results, losses, fit_s, time.perf_counter() - t0, scorer.LAUNCHES - before, ev
+
+
+def hold_mesh(name, params, losses, results, ref):
+    """A mesh fit's full parameters, losses and metrics against the one-card
+    fit ``ref`` from the same state and permutations: the Adam bound of
+    phase 8, the losses within LOSS_RTOL, every metric within METRIC_TOL.
+    Returns (largest parameter difference, largest metric difference)."""
+    import torch
+
+    ref_params, ref_losses, ref_results, n_rows = ref
+    p = GANMF_PARAMS
+    steps = -(-n_rows // p["batch_size"]) * MESH_EPOCHS
+    worst = adam_bound_check(name, [torch.as_tensor(t).cpu() for t in params], ref_params,
+                             [(steps, p["g_lr"])] * 2 + [(steps, p["d_lr"])] * 4)
+    if not np.allclose(losses, ref_losses, rtol=LOSS_RTOL, atol=0):
+        fail(f"{name}: the mean losses {losses} differ from the one-card fit's {ref_losses}")
+    return worst, worst_metric_diff(name, results, ref_results, METRIC_TOL)
+
+
+def phase_mesh_nccl(dev, card, train, test):
+    """Phase 33: a world of one rank over NCCL on the card, GANMF's fit and
+    evaluation with the mesh plan against the one-card path, both modes; then
+    K1 on an item shard at phase 34's shape. Returns (the one-card user-mode
+    reference, K1 launches on the mesh path, the shard's K1 error, its
+    times)."""
+    import torch
+    import torch.distributed as dist
+
+    from ganmf_tpu_torch.ops import scorer
+    from ganmf_tpu_torch.ops.scorer import masked_topk_scores
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    comm.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0, local_rank=dev.index, device=dev)
+    refs, launches = {}, 0
+    try:
+        plan = make_mesh(device=dev)
+        print(f"[33] GANMF on a mesh of one rank over {dist.get_backend()}: {GANMF_PARAMS}, {MESH_EPOCHS} "
+              f"epoch(s) and the evaluation, each mode against the one-card path from the same state")
+        if dist.get_backend() != "nccl" or plan.device != dev:
+            fail(f"the one-rank mesh runs on {dist.get_backend()} on {plan.device}, not NCCL on {dev}")
+        for mode in ("user", "item"):
+            single, s_res, s_losses, s_fit, s_eval, _, _ = mesh_fit(train, test, mode, dev, None)
+            ref = ([t.detach().cpu() for t in single.params.parameters()], s_losses, s_res,
+                   single._train_matrix().shape[0])
+            scorer.LAUNCHES = 0
+            t0 = time.perf_counter()
+            model, res, losses, fit_s, eval_s, k1, _ = mesh_fit(train, test, mode, dev, plan)
+            wall = time.perf_counter() - t0
+            launches += scorer.LAUNCHES
+            if k1 == 0:
+                fail(f"the one-rank mesh evaluation, {mode} mode, launched K1 {k1} times")
+            full = [t.detach() for t in model._full_params().parameters()]
+            worst, worst_m = hold_mesh(f"one-rank mesh {mode}", full, losses, res, ref)
+            print(f"  {mode} mode: {fit_s / MESH_EPOCHS:.4f} s/epoch on the mesh ({s_fit / MESH_EPOCHS:.4f} "
+                  f"one card); evaluation {eval_s:.4f} s ({s_eval:.4f}), K1 launches {k1}; losses {losses}; "
+                  f"largest parameter difference {worst:.3e}, metrics within {worst_m:.3e}; phase wall "
+                  f"{wall:.2f} s  [{card}]")
+            if mode == "user":
+                refs = ref, single
+        ref, single = refs
+        # K1 on the second item shard of phase 34's mesh: a data rank's rows
+        U = single.params.user_emb.detach()[:MESH_SHARD_ROWS].contiguous()
+        V = single.params.item_emb.detach()
+        I_m = V.shape[0] // MESH_GLOO["n_model"]
+        Vm = V[I_m:].contiguous()
+        uids = torch.arange(MESH_SHARD_ROWS, device=dev)
+        M = single.device_seen_rows(uids)[:, I_m:].contiguous()
+        shard_err = compare_k1(f"mesh item shard (phase 34's shape, offset {I_m})", U, Vm, M, 50)
+        _, ids = masked_topk_scores(U, Vm, M, 50)
+        _, ids_at = masked_topk_scores(U, Vm, M, 50, id_offset=I_m)
+        if not torch.equal(ids_at, ids + I_m):
+            fail("K1 with id_offset did not return the shard's ids plus the offset")
+        shard_t = time_k1(U, Vm, M, 50)
+        print(f"  K1 on the item shard [{MESH_SHARD_ROWS}, {NUM_FACTORS}] x [{I_m}, {NUM_FACTORS}], k=50: "
+              f"{shard_t['ms']:.4f} ms (plain {shard_t['plain_ms']:.4f}, library {shard_t['library_ms']:.4f}, "
+              f"bound {shard_t['bound_ms']:.4f} by {shard_t['bound_by']}); global ids = shard ids + {I_m}  [{card}]")
+    finally:
+        comm.shutdown()
+    return ref, launches, shard_err, shard_t
+
+
+def mesh_worker(rank, world, port, out_dir):
+    """A rank of phase 34: joins the gloo group on the one card, fits and
+    evaluates GANMF on MESH_GLOO and writes its results (rank 0 also the
+    gathered parameters) to out_dir."""
+    import torch
+
+    from ganmf_tpu_torch.ops import _build, scorer
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    comm.initialize(f"tcp://127.0.0.1:{port}", world, rank, local_rank=0, backend="gloo")
+    try:
+        plan = make_mesh(**MESH_GLOO)
+        _build.load_library()  # built by the parent
+        train, test = ml1m_split()
+        scorer.LAUNCHES = 0
+        model, res, losses, fit_s, eval_s, k1, ev = mesh_fit(train, test, "user", plan.device, plan)
+        launches = scorer.LAUNCHES
+        full = [t.detach().cpu().numpy() for t in model._full_params().parameters()]
+        out = dict(losses=np.asarray(losses), fit_s=fit_s, eval_s=eval_s, k1=k1, launches=launches,
+                   split=np.asarray(ev._item_split() or (0, 0)), keys=np.asarray(list(res[CUTOFFS[0]])),
+                   values=np.asarray([list(res[c].values()) for c in CUTOFFS]),
+                   local_rows=model.params.user_emb.shape[0])
+        if rank == 0:
+            out.update({f"p{i}": t for i, t in enumerate(full)})
+    finally:
+        comm.shutdown()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    return 0
+
+
+def phase_mesh_gloo(dev, card, ref):
+    """Phase 34: four ranks that share the one card over gloo, mesh
+    MESH_GLOO, GANMF's fit and evaluation against the one-card path. gloo
+    stages every collective through the host: the wall is no multi-card
+    figure. Returns (K1 launches summed over the ranks, seconds per epoch)."""
+    world = MESH_GLOO["n_data"] * MESH_GLOO["n_model"]
+    out_dir = os.path.abspath(os.path.join(SCRATCH, "mesh"))
+    os.makedirs(out_dir, exist_ok=True)
+    print(f"[34] GANMF on a mesh {MESH_GLOO} of {world} ranks sharing the card over gloo, {MESH_EPOCHS} epoch(s) "
+          f"and the evaluation, against the one-card path (gloo stages its collectives through the host: "
+          f"this is no multi-card measurement)")
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r), str(world),
+                               str(port), out_dir], stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+    try:
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode != 0:
+            fail(f"rank {r} of the gloo mesh exited {proc.returncode}:\n{text[-3000:]}")
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(world)]
+    keys = [str(k) for k in ranks[0]["keys"]]
+    results = {c: dict(zip(keys, ranks[0]["values"][ci])) for ci, c in enumerate(CUTOFFS)}
+    worst, worst_m = hold_mesh("gloo mesh", [ranks[0][f"p{i}"] for i in range(6)],
+                               [tuple(x) for x in ranks[0]["losses"]], results, ref)
+    for r, out in enumerate(ranks):
+        i0, i1 = (int(x) for x in out["split"])
+        if int(out["k1"]) == 0 or i1 - i0 != ref[0][1].shape[0] // MESH_GLOO["n_model"]:
+            fail(f"rank {r} of the gloo mesh launched K1 {int(out['k1'])} times on items [{i0}, {i1})")
+        if not np.array_equal(out["values"], ranks[0]["values"]):
+            fail(f"rank {r} of the gloo mesh finalized other metrics than rank 0")
+        print(f"  rank {r}: {float(out['fit_s']) / MESH_EPOCHS:.4f} s/epoch, evaluation "
+              f"{float(out['eval_s']):.4f} s, K1 launches {int(out['k1'])} on items [{i0}, {i1}), "
+              f"{int(out['local_rows'])} user rows held  [{card}, gloo]")
+    secs = max(float(out["fit_s"]) for out in ranks) / MESH_EPOCHS
+    print(f"  losses {ranks[0]['losses'].tolist()}; largest parameter difference {worst:.3e}, metrics within "
+          f"{worst_m:.3e} of the one-card path; phase wall {wall:.2f} s (the ranks' start-up included)")
+    return sum(int(out["launches"]) for out in ranks), secs
+
+
 def main():
     import torch
 
@@ -3359,6 +3578,18 @@ def main():
         fail(f"the CAAE dedup path launched K2 {dedup_k2} times and the keyed draw {keyed.LAUNCHES} times")
     elapsed("CAAE dedup")
     phase_host(SCRATCH)
+
+    # the mesh path (phases 33-34), its K1 counts set to 0 just before each
+    # mesh run and read just after; the one-card runs it is held against are
+    # not counted
+    train, test = ml1m_split()
+    mesh_ref, mesh_nccl_k1, shard_err, shard_t = phase_mesh_nccl(dev, card, train, test)
+    k1_err = max(k1_err, shard_err)
+    shard_items = train.shape[1] // MESH_GLOO["n_model"]
+    fused[f"mesh item shard: B={MESH_SHARD_ROWS} K={NUM_FACTORS} I={shard_items} k=50"] = shard_t
+    elapsed("the one-rank NCCL mesh")
+    mesh_gloo_k1, _ = phase_mesh_gloo(dev, card, mesh_ref)
+    elapsed("the gloo mesh")
     shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused
@@ -3369,7 +3600,9 @@ def main():
     # kernel's launches are the sum over the paths it carries
     fused_by_path = {"GANMF serving": k1_launches, "GANMF training": train_fused,
                      "DisGANMF training": dis_fused, "PureSVD serving": svd_fused,
-                     "IALS serving": ials_serve_fused, "IALS training": ials_fused, "tuner": tuner_fused}
+                     "IALS serving": ials_serve_fused, "IALS training": ials_fused, "tuner": tuner_fused,
+                     "GANMF mesh, one rank over NCCL": mesh_nccl_k1,
+                     "GANMF mesh, 4 gloo ranks on the card": mesh_gloo_k1}
     wide_by_path = {"GANMF serving": wide_launches, "GANMF training": train_wide,
                     "DisGANMF training": dis_wide, "PureSVD serving": svd_wide, "IALS training": ials_wide}
     k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2, "CFGAN csr training": csr_k2,
@@ -3439,4 +3672,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 34, started by main()
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -36,9 +36,22 @@ user's intra-list similarity (JAX :58-82, :565-582). Under
 ``GANMF_TPU_DEBUG`` a block whose scores hold a NaN raises
 ``FloatingPointError`` (JAX :479-503).
 
-Not ported: the mesh plan (it raises when given) and the two
-RESOURCE_EXHAUSTED degrades of the JAX evaluator. An out-of-memory error
-raises instead of falling back to another path.
+``mesh_plan`` (a ganmf_tpu_torch.parallel ``MeshPlan``) evaluates as the
+JAX evaluator does under a mesh (:422-425, :506-527), as one SPMD program
+whose every rank calls ``evaluateRecommender``: the block size is rounded up
+to a multiple of ``n_user_shards`` and each data rank takes its part of each
+block (padded with user 0 at valid False, as JAX pads). Where the items
+divide over the model axis and the largest cutoff fits one shard, each
+model rank ranks its item shard (K1 on a factor model's factors, a stable
+top-k of its columns of the dense scores otherwise) and ``merge_shard_topk``
+merges the candidates; otherwise each model rank ranks every item. A factor
+model's tables are fetched once per evaluation (``_factors_device``, which
+gathers a mesh-trained model's shards), the test rows stay whole on each
+data rank, and the metric sums are reduced over the user axes once, after
+the last block. The similarity route is not taken under a plan (JAX :293).
+
+Not ported: the two RESOURCE_EXHAUSTED degrades of the JAX evaluator. An
+out-of-memory error raises instead of falling back to another path.
 """
 
 from __future__ import annotations
@@ -61,7 +74,7 @@ from ganmf_tpu_torch.eval.metrics import (
 )
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
 from ganmf_tpu_torch.ops.simscore import masked_topk_matmul
-from ganmf_tpu_torch.ops.topk import topk_lowest_index
+from ganmf_tpu_torch.ops.topk import merge_shard_topk, sharded_topk, topk_lowest_index
 from ganmf_tpu_torch.utils.debug import debug_enabled
 from ganmf_tpu_torch.utils.device import as_device
 
@@ -89,13 +102,13 @@ def _pair_rmse_from_probe(ps, pf, tvals, pvalid):
 
 
 def _diversity_block(M: torch.Tensor, top_idx: torch.Tensor, top_val: torch.Tensor,
-                     cutoffs: Sequence[int]) -> torch.Tensor:
+                     cutoffs: Sequence[int], valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[n_cutoffs] sums over a block's users of the intra-list diversity (JAX
     :58-82; the reference's per-user, per-position loop,
     Base/Evaluation/metrics.py:405-458): over list positions p < L - 1 and
     every other position j < L, M[item_p, item_j], divided by L (L - 1);
-    0 for lists of one item. -inf scores rank last, so a row's finite prefix
-    is its list. The [B, c, c] block is gathered from M directly."""
+    0 for lists of one item and rows not ``valid``. -inf scores rank last, so
+    a row's finite prefix is its list. The [B, c, c] block is gathered from M directly."""
     finite = torch.isfinite(top_val)
     out = []
     for c in cutoffs:
@@ -107,7 +120,8 @@ def _diversity_block(M: torch.Tensor, top_idx: torch.Tensor, top_val: torch.Tens
         Lb = L[:, None, None]
         pair = (p[:, None] < Lb - 1) & (p[None, :] < Lb) & (p[:, None] != p[None, :])
         total = torch.where(pair, G, 0.0).sum((1, 2))
-        per_user = torch.where(L > 1, total / (L * (L - 1)).float().clamp(min=1.0), 0.0)
+        keep = L > 1 if valid is None else (L > 1) & valid
+        per_user = torch.where(keep, total / (L * (L - 1)).float().clamp(min=1.0), 0.0)
         out.append(per_user.sum())
     return torch.stack(out)
 
@@ -154,10 +168,15 @@ class EvaluatorHoldout:
         *,
         device: Optional[torch.device] = None,
     ):
+        self._plan = mesh_plan
+        # the card unless the caller asks for the CPU (a plan's device by
+        # default); raises without a card
         if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
-        # the card unless the caller asks for the CPU; raises without a card
-        self.device = as_device(device)
+            self.device = as_device(device if device is not None else mesh_plan.device)
+            if self.device != mesh_plan.device:
+                raise ValueError(f"evaluator on {self.device}, its mesh plan on {mesh_plan.device}")
+        else:
+            self.device = as_device(device)
         if isinstance(URM_test, list):
             raise ValueError("List of URM_test not supported")
 
@@ -249,12 +268,34 @@ class EvaluatorHoldout:
             self._diversity_dev = torch.from_numpy(np.asarray(dense, dtype=np.float32)).to(self.device)
         return self._diversity_dev
 
-    def _fused_block(self, model, uids: torch.Tensor, max_len: int = None, pair_len: int = None):
-        """(top values, top ids, per-user RMSE) of one block through K1."""
-        U, V, cold = model._factors_device()
+    def _item_split(self) -> Optional[tuple]:
+        """[i0, i1) of this model rank's item shard when the blocks rank by
+        item shards (JAX :509-513): a plan with more than one model rank that
+        divides the items, and the largest cutoff within one shard."""
+        plan = self._plan
+        if plan is None or plan.n_model == 1 or self.n_items % plan.n_model:
+            return None
+        width = self.n_items // plan.n_model
+        if self.max_cutoff > width:
+            return None
+        i0 = plan.coords["model"] * width
+        return i0, i0 + width
+
+    def _fused_block(self, model, factors, uids: torch.Tensor, max_len: int = None, pair_len: int = None):
+        """(top values, top ids, per-user RMSE) of one block through K1, from
+        the model's ``factors`` (U, V, cold); with an item split, K1 ranks
+        this rank's item shard and the shards' candidates are merged."""
+        U, V, cold = factors
         U_b = U.index_select(0, uids)
         seen = self._seen_block(model, uids, max_len=max_len)
-        vals, idx = masked_topk_scores(U_b, V, seen, k=self.max_cutoff)
+        split = self._item_split()
+        if split is None:
+            vals, idx = masked_topk_scores(U_b, V, seen, k=self.max_cutoff)
+        else:
+            i0, i1 = split
+            vals, idx = masked_topk_scores(U_b, V[i0:i1], seen[:, i0:i1].contiguous(), k=self.max_cutoff,
+                                           id_offset=i0)
+            vals, idx = merge_shard_topk(vals, idx, self.max_cutoff, self._plan)
         cold_b = cold.index_select(0, uids)
         vals = vals.masked_fill(cold_b[:, None], float("-inf"))
 
@@ -315,11 +356,18 @@ class EvaluatorHoldout:
         # each block's float32 sums added in float64, as the JAX evaluator
         # adds them into Python floats
         diversity_acc = torch.zeros(len(cutoffs), dtype=torch.float64, device=self.device)
-        for _, stats, diversity in self._blocks(recommender_object):
+        for _, _, stats, diversity in self._blocks(recommender_object):
             scalar_acc += stats.scalars
             counter_acc += stats.counters
             if diversity is not None:
                 diversity_acc += diversity
+        if self._plan is not None:
+            # the data ranks' sums, reduced once after the last block
+            from ganmf_tpu_torch.parallel import comm
+
+            axes = self._plan.user_axes
+            scalar_acc, counter_acc = (comm.psum(t, self._plan, axes) for t in (scalar_acc, counter_acc))
+            diversity_acc = comm.psum(diversity_acc, self._plan, axes)
 
         # one device-to-host transfer
         packed = torch.cat([scalar_acc.ravel(), counter_acc.ravel()]).cpu().numpy()
@@ -334,21 +382,30 @@ class EvaluatorHoldout:
     def per_user_ap(self, recommender_object, cutoff: int):
         """(users, AP@cutoff of each) for the evaluated users in ascending
         id order: the terms whose mean is ``evaluateRecommender``'s MAP, from
-        the same ranking route."""
+        the same ranking route. Under a plan every rank gets every user's."""
         ci = self.cutoff_list.index(cutoff)
-        users, aps = [np.zeros(0, np.int64)], []
-        for chunk, stats, _ in self._blocks(recommender_object):
-            users.append(chunk)
+        users, valid, aps = [torch.zeros(0, dtype=torch.int64, device=self.device)], [], []
+        for chunk, ok, stats, _ in self._blocks(recommender_object):
+            users.append(torch.from_numpy(chunk).to(self.device))
+            valid.append(ok)
             aps.append(stats.user_ap[ci])
-        users = np.concatenate(users)
-        ap = torch.cat(aps).cpu().numpy().astype(np.float64) if aps else np.zeros(0)
+        users = torch.cat(users)
+        valid = torch.cat(valid) if valid else torch.zeros(0, dtype=torch.bool, device=self.device)
+        ap = torch.cat(aps) if aps else torch.zeros(0, device=self.device)
+        if self._plan is not None:
+            from ganmf_tpu_torch.parallel import comm
+
+            axes = self._plan.user_axes
+            users, valid, ap = (comm.all_gather(t, self._plan, axes) for t in (users, valid, ap))
+        users, ap = users[valid].cpu().numpy(), ap[valid].cpu().numpy().astype(np.float64)
         order = np.argsort(users, kind="stable")
         return users[order], ap[order]
 
     def _blocks(self, recommender_object):
-        """(users, BatchStats, diversity sums or None) of each block of the
-        evaluated users, ranked by K1, by the similarity route or from dense
-        scores."""
+        """(users, valid, BatchStats, diversity sums or None) of each block
+        of the evaluated users (under a plan, this data rank's part of it,
+        padded with user 0 at valid False), ranked by K1, by the similarity
+        route or from dense scores."""
         if recommender_object.device != self.device:
             raise ValueError(
                 f"model on {recommender_object.device}, evaluator on {self.device}")
@@ -384,27 +441,45 @@ class EvaluatorHoldout:
             n_blocks = -(-n_eval // block_size)
             per_block = -(-n_eval // n_blocks)
             block_size = min(block_size, -(-per_block // 8) * 8)
+        plan = self._plan
+        if plan is not None:
+            # each data rank scores an equal part of every block
+            block_size = -(-block_size // plan.n_user_shards) * plan.n_user_shards
+            part = block_size // plan.n_user_shards
+            lo = plan.axis_index(plan.user_axes) * part
         cutoffs = tuple(self.cutoff_list)
         plain = self._plain_holdout()
         use_k1 = plain and recommender_object._ranks_with_k1()
-        use_sim = plain and not use_k1 and self._can_fuse_sim(recommender_object)
+        use_sim = plain and not use_k1 and plan is None and self._can_fuse_sim(recommender_object)
+        # a factor model's tables, fetched once for the whole evaluation
+        factors = recommender_object._factors_device() if use_k1 else None
+        split = self._item_split()
         debug = debug_enabled()
 
-        # blocks are not padded to block_size: the last one is just shorter
+        # blocks are not padded to block_size but under a plan: the last one
+        # is just shorter
         for start in range(0, n_eval, block_size):
             chunk = users[start : start + block_size]
             crop_train = _pow2_crop(train_lens[chunk].max(), train_lens.max())
             crop_test = _pow2_crop(test_lens[chunk].max(), test_lens.max())
+            ok = np.ones(len(chunk), bool)
+            if plan is not None:
+                mine = chunk[lo : lo + part]
+                chunk = np.concatenate([mine, np.zeros(part - len(mine), np.int64)])
+                ok = np.arange(part) < len(mine)
 
             uids = torch.from_numpy(chunk).to(self.device)
             test_rows = padded_rows_dense(self._test_padded, uids, self.n_items, max_len=crop_test)
             n_pos = self._n_pos.index_select(0, uids)
-            valid = torch.ones(len(chunk), dtype=torch.bool, device=self.device)
+            valid = torch.from_numpy(ok).to(self.device)
             diversity = None
             if use_k1 or use_sim:
-                block = self._fused_block if use_k1 else self._fused_sim_block
-                top_vals, top_idx, user_rmse = block(
-                    recommender_object, uids, max_len=crop_train, pair_len=crop_test)
+                if use_k1:
+                    top_vals, top_idx, user_rmse = self._fused_block(
+                        recommender_object, factors, uids, max_len=crop_train, pair_len=crop_test)
+                else:
+                    top_vals, top_idx, user_rmse = self._fused_sim_block(
+                        recommender_object, uids, max_len=crop_train, pair_len=crop_test)
                 if debug:
                     _raise_on_nan_scores(top_vals, start)
                 stats = evaluate_batch_from_topk(
@@ -416,14 +491,18 @@ class EvaluatorHoldout:
                 scores = self._restrict_candidates(scores, uids)
                 if debug:
                     _raise_on_nan_scores(scores, start)
+                if split is not None:
+                    topk = sharded_topk(scores[:, split[0] : split[1]], self.max_cutoff, plan)
+                else:
+                    topk = topk_lowest_index(scores, self.max_cutoff)
                 stats = evaluate_batch(
                     scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
-                    cutoffs=cutoffs, max_cutoff=self.max_cutoff,
+                    cutoffs=cutoffs, max_cutoff=self.max_cutoff, topk=topk,
                 )
                 if self.diversity_object is not None:
-                    top_val, top_idx = topk_lowest_index(scores, self.max_cutoff)
-                    diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs)
-            yield chunk, stats, diversity
+                    top_val, top_idx = topk
+                    diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs, valid)
+            yield chunk, valid, stats, diversity
 
         if self.ignore_items_flag and hasattr(recommender_object, "reset_items_to_ignore"):
             recommender_object.reset_items_to_ignore()

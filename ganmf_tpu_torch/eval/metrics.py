@@ -88,11 +88,13 @@ def evaluate_batch(
     pop_normalized: torch.Tensor,  # [I]
     cutoffs: Sequence[int],
     max_cutoff: int,
+    topk=None,
 ) -> BatchStats:
     """Metrics from a dense score block (the dense route): the top-k with ties
     to the lowest item id, and the per-user RMSE over the test items from the
-    scores themselves (reference Evaluator.py:298-299)."""
-    top_vals, top_idx = topk_lowest_index(scores, max_cutoff)
+    scores themselves (reference Evaluator.py:298-299). ``topk`` is a ranking
+    made already (e.g. ``sharded_topk``'s merge over item shards)."""
+    top_vals, top_idx = topk if topk is not None else topk_lowest_index(scores, max_cutoff)
     test_mask = (test_ratings != 0).float()
     finite_scores = torch.isfinite(scores)
     fin = test_mask * finite_scores.float()

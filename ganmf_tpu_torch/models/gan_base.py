@@ -57,6 +57,31 @@ class AdversarialRecommender(Recommender):
         # optional observability and durability hooks (ganmf_tpu_torch.utils)
         self.metrics_logger = None  # utils.logging.MetricsLogger
         self.checkpointer = None  # utils.checkpoint.TrainCheckpointer
+        # the parallel.MeshPlan the parameters are sharded on, set by a fit
+        # on a mesh (GANMF's); None: the parameters are whole
+        self.mesh_plan = None
+
+    def _lead(self) -> bool:
+        """True on the rank that logs, prints and writes files: every rank
+        without a mesh, rank 0 on one."""
+        return self.mesh_plan is None or self.mesh_plan.rank == 0
+
+    def _agree(self, value: float, what: str) -> None:
+        """On a mesh, raise unless every rank holds the same ``value`` (ranks
+        that went different ways would deadlock in their next collective)."""
+        if self.mesh_plan is None:
+            return
+        from ganmf_tpu_torch.parallel import comm
+
+        plan = self.mesh_plan
+        both = comm.pmax(torch.tensor([value, -value], dtype=torch.float64, device=plan.device),
+                         plan, plan.axis_names).tolist()
+        if both[0] != -both[1]:
+            raise RuntimeError(f"the mesh's ranks disagree on {what}: from {-both[1]} to {both[0]}")
+
+    def _full_params(self) -> torch.nn.Module:
+        """The whole parameters (subclasses whose fits shard them gather)."""
+        return self.params
 
     # -- training-orientation helpers ---------------------------------------
     def _train_matrix(self):
@@ -118,6 +143,7 @@ class AdversarialRecommender(Recommender):
         if self.checkpointer is None:
             return 1
         latest = self.checkpointer.latest_epoch()
+        self._agree(-1 if latest is None else latest, "the latest checkpoint")
         if latest is None:
             return 1
         self._restore_checkpoint_state(self.checkpointer.restore(latest, self._checkpoint_state()))
@@ -142,30 +168,37 @@ class AdversarialRecommender(Recommender):
                 freq=freq, metrics=metrics, after=after,
             )
 
+        # on a mesh every rank runs this loop; only rank 0 logs, prints and
+        # writes, and every rank must reach the same early-stopping decision
+        lead = self._lead()
         epoch = start_epoch
         while not self._stop_training and epoch < epochs + 1:
             epoch_fn(epoch)
 
-            if self.metrics_logger is not None:
+            if self.metrics_logger is not None and lead:
                 self.metrics_logger.log_epoch(epoch)
-            if self.checkpointer is not None:
-                self.checkpointer.maybe_save(epoch, self._checkpoint_state(), aux=self._checkpoint_aux())
+            if self.checkpointer is not None and self.checkpointer.due(epoch):
+                # on a mesh, gathering the state is a collective of every rank
+                state, aux = self._checkpoint_state(), self._checkpoint_aux()
+                if lead:
+                    self.checkpointer.save(epoch, state, aux=aux)
 
             if validation_set is not None and sample_every is not None and epoch % sample_every == 0:
                 results, results_string = validation_evaluator.evaluateRecommender(self)
-                if self.metrics_logger is not None:
+                if self.metrics_logger is not None and lead:
                     self.metrics_logger.log_eval(epoch, results)
-                if self.verbose:
+                if self.verbose and lead:
                     print(f"Epoch {epoch}:\n{results_string}")
 
             if early_stop is not None:
                 early_stop(epoch)
-                if self._stop_training and self.verbose:
+                self._agree(float(self._stop_training), f"stopping at epoch {epoch}")
+                if self._stop_training and self.verbose and lead:
                     print("Training stopped, epoch:", epoch)
 
             epoch += 1
 
-        if not self.is_experiment:
+        if not self.is_experiment and lead:
             self._save_loss_plots()
 
         return epoch - 1 if self._stop_training else epoch
@@ -186,7 +219,7 @@ class AdversarialRecommender(Recommender):
     def _save_dict(self):
         flat = {}
         if self.params is not None:
-            leaves = [p.detach().cpu().numpy() for p in self.params.parameters()]
+            leaves = [p.detach().cpu().numpy() for p in self._full_params().parameters()]
             flat["_n_leaves"] = np.asarray([len(leaves)])
             for i, leaf in enumerate(leaves):
                 flat[f"param_{i}"] = leaf
@@ -194,6 +227,14 @@ class AdversarialRecommender(Recommender):
             flat["config"] = {k: v for k, v in self.config.items() if _json_safe(v)}
         flat["mode"] = self.mode
         return flat
+
+    def saveModel(self, folder_path, file_name=None):
+        """As the base's; on a mesh every rank calls it (the parameters are
+        gathered) and rank 0 writes."""
+        if self._lead():
+            super().saveModel(folder_path, file_name)
+        else:
+            self._save_dict()
 
 
 def _json_safe(v):

@@ -24,7 +24,14 @@ The epoch loop (``mf_generator_epoch``) and the model base
 (``MFGeneratorRecommender``: storage, optimizers, shuffle stream, crash
 resume, scoring) are shared with DisGANMF, which has another discriminator.
 
-Not ported: ``mesh_plan``.
+``fit(mesh_plan=...)`` trains on a mesh of ranks (ganmf_tpu_torch.parallel):
+each rank keeps its shards of the URM and of the parameters, placed as
+ganmf_tpu/parallel/distributed.py places them, and runs
+``parallel.distributed.sharded_ganmf_epoch``, which computes what
+``ganmf_epoch`` computes. Every rank calls ``fit`` (and then the evaluator,
+``recommend`` and the rest) as one SPMD program; on a mesh-trained model
+``_factors_device``, ``score_device`` and the introspection methods gather
+the shards, a collective.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ganmf_tpu_torch.data.device import PaddedCSR, padded_csr_from_sparse, padded_rows_dense
+from ganmf_tpu_torch.data.device import PaddedCSR, dense_from_sparse, padded_csr_from_sparse, padded_rows_dense
 from ganmf_tpu_torch.models.gan_base import (
     ADAM_BETAS,
     ADAM_EPS,
@@ -303,19 +310,26 @@ class MFGeneratorRecommender(AdversarialRecommender):
     optimizers, shuffle stream and crash-resume state, and its scores, the
     factor product, ranked through K1."""
 
-    def _training_urm(self, urm_storage: str, compute_dtype: str):
+    def _training_urm(self, urm_storage: str, compute_dtype: str, layout=None):
         """(URM in training orientation, (rows, cols)): dense on the device,
         or its padded-CSR planes for ``urm_storage="csr"``, in bfloat16 for
-        ``compute_dtype="bf16"``."""
+        ``compute_dtype="bf16"``. With a mesh ``layout``
+        (``parallel.distributed.ShardLayout``) only this rank's shard goes to
+        the device: its rows and item columns of the dense URM, or its rows'
+        padded-CSR planes."""
         if compute_dtype not in ("f32", "bf16"):
             raise ValueError(f"compute_dtype must be 'f32' or 'bf16', got {compute_dtype!r}")
         train_csr = self._train_matrix()
+        rows = train_csr if layout is None else train_csr[layout.r0 : layout.r1]
         if urm_storage == "csr":
-            urm = padded_csr_from_sparse(train_csr, self.device)
+            urm = padded_csr_from_sparse(rows, self.device)
             if compute_dtype == "bf16":
                 urm = urm._replace(val=urm.val.to(torch.bfloat16))
         elif urm_storage == "dense":
-            urm = self._train_dense()
+            if layout is None:
+                urm = self._train_dense()
+            else:
+                urm = dense_from_sparse(rows[:, layout.i0 : layout.i1], self.device)
             if compute_dtype == "bf16":
                 urm = urm.to(torch.bfloat16)
         else:
@@ -353,14 +367,25 @@ class MFGeneratorRecommender(AdversarialRecommender):
 
     # -- crash resume (full training state) -----------------------------------
     def _checkpoint_state(self):
-        return {
+        """The training state; on a mesh its full tensors, gathered from the
+        shards (a collective), so that a checkpoint resumes on any plan."""
+        state = {
             "params": self.params.state_dict(),
             "d_state": self._d_opt.state_dict(),
             "item_state": self._item_opt.state_dict(),
             "user_state": dict(self._user_adam),
         }
+        if self.mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import gather_ganmf_state
+
+            state = gather_ganmf_state(state, self.params, self.mesh_plan)
+        return state
 
     def _restore_checkpoint_state(self, state):
+        if self.mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import shard_ganmf_state
+
+            state = shard_ganmf_state(state, self.mesh_plan)
         self.params.load_state_dict(state["params"])
         self._d_opt.load_state_dict(state["d_state"])
         self._item_opt.load_state_dict(state["item_state"])
@@ -368,9 +393,18 @@ class MFGeneratorRecommender(AdversarialRecommender):
             self._user_adam[name].copy_(value)
 
     def _require_params(self) -> nn.Module:
+        """The full parameters: on a mesh-trained model gathered from the
+        shards, a collective that every rank calls."""
         if self.params is None:
             raise RuntimeError(f"{self.RECOMMENDER_NAME} has no parameters: fit it or load them first")
-        return self.params
+        return self._full_params()
+
+    def _full_params(self) -> nn.Module:
+        if self.mesh_plan is None:
+            return self.params
+        from ganmf_tpu_torch.parallel.distributed import gather_ganmf_params
+
+        return gather_ganmf_params(self.params, self.mesh_plan)
 
     def _factors_device(self):
         """(U, V, cold) with scores = U @ V^T for external users. In item mode
@@ -440,10 +474,20 @@ class GANMF(MFGeneratorRecommender):
         "csr" keeps only its padded-CSR planes (O(nnz)) and densifies each
         [B, cols] minibatch on the device. ``compute_dtype="bf16"`` runs the
         matmuls and activations in bfloat16 against float32 parameters.
-        ``mesh_plan`` is not ported and raises."""
+
+        ``mesh_plan`` (``parallel.make_mesh``'s plan, on the model's device)
+        trains on a mesh: every rank calls ``fit``, holds its shards of the
+        URM and the parameters (JAX :293-303) and runs the sharded epoch;
+        the full initial weights are made the same on every rank and each
+        keeps its slice. Only rank 0 logs, prints and writes checkpoints."""
+        layout = None
         if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
-        urm, (n_rows, n_cols) = self._training_urm(urm_storage, compute_dtype)
+            from ganmf_tpu_torch.parallel.distributed import ShardLayout
+
+            if mesh_plan.device != self.device:
+                raise ValueError(f"model on {self.device}, its mesh plan on {mesh_plan.device}")
+            layout = ShardLayout(mesh_plan, *self._train_matrix().shape)
+        urm, (n_rows, n_cols) = self._training_urm(urm_storage, compute_dtype, layout)
         self.config = dict(
             num_factors=num_factors, emb_dim=emb_dim, epochs=epochs, batch_size=batch_size,
             d_lr=d_lr, g_lr=g_lr, d_steps=d_steps, g_steps=g_steps, d_reg=d_reg, g_reg=g_reg,
@@ -451,14 +495,23 @@ class GANMF(MFGeneratorRecommender):
         )
         self.num_factors = int(num_factors)
         self.emb_dim = int(emb_dim)
-        self.params = init_params(n_rows, n_cols, self.num_factors, self.emb_dim,
-                                  torch.Generator().manual_seed(self.seed), self.device)
+        generator = torch.Generator().manual_seed(self.seed)
+        self.mesh_plan = mesh_plan
+        if mesh_plan is None:
+            self.params = init_params(n_rows, n_cols, self.num_factors, self.emb_dim, generator, self.device)
+            epoch, lead = ganmf_epoch, ()
+        else:
+            from ganmf_tpu_torch.parallel.distributed import shard_ganmf_params, sharded_ganmf_epoch
+
+            full = init_params(n_rows, n_cols, self.num_factors, self.emb_dim, generator, torch.device("cpu"))
+            self.params = shard_ganmf_params(full, mesh_plan)
+            epoch, lead = sharded_ganmf_epoch, (layout,)
         # resume (in _fit_generator) restores the loss histories
         self.train_d_loss, self.train_g_loss = [], []
 
         def run_epoch(perm, weights, n_batches):
-            dl, gl = ganmf_epoch(
-                self.params, self._d_opt, self._item_opt, self._user_adam, urm, perm, weights,
+            dl, gl = epoch(
+                *lead, self.params, self._d_opt, self._item_opt, self._user_adam, urm, perm, weights,
                 g_lr=float(g_lr), m=float(m), recon_coefficient=float(recon_coefficient),
                 d_reg=float(d_reg), g_reg=float(g_reg), n_batches=n_batches,
                 batch_size=int(batch_size), d_steps=int(d_steps), g_steps=int(g_steps),
@@ -484,4 +537,5 @@ class GANMF(MFGeneratorRecommender):
         data = super().loadModel(folder_path, file_name)
         if "param_0" in data:
             self.params = params_from_jax(data, self.device)
+            self.mesh_plan = None  # the full parameters
         return data

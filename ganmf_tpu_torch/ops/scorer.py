@@ -218,14 +218,26 @@ def _check(user_factors, item_factors, seen_mask, k: int):
         raise ValueError(f"k must lie in [1, {I}], got {k}")
 
 
-def masked_topk_scores(user_factors, item_factors, seen_mask, k: int):
+def masked_topk_scores(user_factors, item_factors, seen_mask, k: int, id_offset: int = 0):
     """Top-k of ``U @ V^T`` with ``seen_mask`` entries excluded.
 
     user_factors [B, K] f32, item_factors [I, K] f32, seen_mask [B, I] bool
     (True = exclude), 1 <= k <= I. Returns (vals [B, k] f32, ids [B, k]
     int64), best first, ties to the lowest item id. A row with fewer than k
     unmasked items has -inf in its tail; the ids there are real items but
-    unspecified."""
+    unspecified.
+
+    ``id_offset`` ranks one item shard: item_factors and seen_mask are the
+    items [id_offset, id_offset + I) of a larger catalog (a mesh rank's
+    slice), and the ids returned are global, the offset added after the
+    launch."""
+    vals, ids = _masked_topk(user_factors, item_factors, seen_mask, k)
+    if id_offset:
+        ids += id_offset
+    return vals, ids
+
+
+def _masked_topk(user_factors, item_factors, seen_mask, k: int):
     global LAUNCHES, WIDE_LAUNCHES, MERGE_LAUNCHES, LAST_SPLITS
     _check(user_factors, item_factors, seen_mask, k)
     device = user_factors.device

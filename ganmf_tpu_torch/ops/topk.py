@@ -45,6 +45,40 @@ def topk_lowest_index(x: torch.Tensor, k: int):
     return torch.gather(x, -1, idx), idx
 
 
+def merge_shard_topk(vals: torch.Tensor, ids: torch.Tensor, k: int, plan):
+    """Each row's k best of the model ranks' candidates: this rank's
+    (vals [B, k'], global ids [B, k']) gathered over the model axis, in shard
+    order, and ranked again by ``topk_lowest_index``. Candidates ordered by
+    shard and then by rank put equal values in global id order, so ties go
+    to the lowest id, as ``lax.top_k`` over the whole row gives them
+    (ganmf_tpu/ops/topk.py:121-127). Every model rank gets the same lists;
+    a collective over the model axis."""
+    from ganmf_tpu_torch.parallel import comm
+
+    v_all = comm.all_gather(vals, plan, "model", tiled_axis=1)
+    i_all = comm.all_gather(ids, plan, "model", tiled_axis=1)
+    top, pos = topk_lowest_index(v_all, k)
+    return top, torch.gather(i_all, 1, pos)
+
+
+def sharded_topk(scores: torch.Tensor, k: int, plan, batch_axes=None):
+    """Exact top-k of item-sharded scores with a candidate all-gather merge
+    (ganmf_tpu/ops/topk.py:107-136). ``scores`` is this rank's [b, I / n_model]
+    block, items [m * I / n_model, (m + 1) * I / n_model) for model
+    coordinate m, and its rows this rank's rows of the block (the user axes
+    a JAX layout names in ``batch_axes``: None or ``plan.user_axes``, the
+    rows split over them or whole). Returns (values [b, k], global ids
+    [b, k]), the same on every model rank; exact whenever k <= I / n_model."""
+    if batch_axes not in (None, plan.user_axes):
+        raise ValueError(f"batch_axes is None or {plan.user_axes!r}, not {batch_axes!r}")
+    if k > scores.shape[1]:
+        raise ValueError(f"k = {k} exceeds the shard's {scores.shape[1]} items")
+    v, i = topk_lowest_index(scores, k)
+    from ganmf_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    return merge_shard_topk(v, i + plan.axis_index(MODEL_AXIS) * scores.shape[1], k, plan)
+
+
 #: Keys that one pass of ``tiled_topk`` ranks at most: its values, int64 ids
 #: and the sort's scratch take about 16 bytes a key (1 GiB here).
 TOPK_PASS_KEYS = 1 << 26

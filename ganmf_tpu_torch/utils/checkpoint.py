@@ -36,8 +36,12 @@ class TrainCheckpointer:
             if f.startswith("ckpt_") and f.endswith(".pt")
         )
 
+    def due(self, epoch: int) -> bool:
+        """True for the epochs whose state is saved."""
+        return epoch % self.every == 0
+
     def maybe_save(self, epoch: int, state: Any, aux: Optional[dict] = None) -> bool:
-        if epoch % self.every != 0:
+        if not self.due(epoch):
             return False
         self.save(epoch, state, aux=aux)
         return True

@@ -68,6 +68,11 @@ K2 and the keyed draw launched once a minibatch for each mask drawn); the
 column-blocked similarity build of 0/1 data in both forms bitwise the CPU's;
 CAAE's dedup D phase, two card runs bitwise equal and within 1% of the
 distance moved of the direct form.
+The mesh path: K1 on each item shard of a (data 2, model 2) evaluation
+block with its id offset, against the plain version, and the shards' merged
+lists against K1 over every item; in a world of one rank over NCCL,
+``sharded_topk`` bitwise ``topk_lowest_index`` and the sharded GANMF epoch
+bitwise the one-card epoch, without a host synchronization.
 """
 
 import numpy as np
@@ -1182,3 +1187,108 @@ def test_caae_dedup_epoch_on_card_is_deterministic(cuda):
         assert torch.equal(a, b), i
         moved = float((direct - t0.detach()).abs().max())
         assert moved > 0 and float((a - direct).abs().max()) <= 1e-2 * moved, i
+
+
+# -- the mesh path: K1 on an item shard, the shards' merge -----------------------------
+
+@pytest.mark.parametrize("case", ["random", "grid", "ties", "masked_rows"])
+def test_k1_on_an_item_shard_with_its_offset(cuda, case):
+    """K1 on each item shard of a (data 2, model 2) mesh's evaluation block
+    (a data rank's 1512 rows, K=250, 1853 of ML-1M's 3706 items): the shard's
+    plain version with its ids offset; the shards' candidates, ranked again
+    by ``topk_lowest_index`` in shard order, are K1's list over all items."""
+    from ganmf_tpu_torch.ops.topk import topk_lowest_index
+
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, 1512, 3706, 250))
+    parts = []
+    for i0, i1 in ((0, 1853), (1853, 3706)):
+        Vm, Mm = V[i0:i1].contiguous(), mask[:, i0:i1].contiguous()
+        before = scorer.LAUNCHES
+        vals, ids = masked_topk_scores(U, Vm, Mm, 50, id_offset=i0)
+        assert scorer.LAUNCHES == before + 1
+        assert int(ids.min()) >= i0 and int(ids.max()) < i1
+        _assert_k1_matches(U, Vm, Mm, 50, vals, ids - i0, case in EXACT)
+        parts.append((vals, ids))
+    merged, pos = topk_lowest_index(torch.cat([v for v, _ in parts], 1), 50)
+    merged_ids = torch.gather(torch.cat([i for _, i in parts], 1), 1, pos)
+    _assert_k1_matches(U, V, mask, 50, merged, merged_ids, case in EXACT)
+
+
+@pytest.fixture(scope="module")
+def world_of_one():
+    """A mesh plan over a world of one rank on NCCL: every collective a
+    real NCCL call on the card."""
+    import socket
+
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    comm.initialize(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, local_rank=torch.cuda.current_device())
+    try:
+        yield make_mesh()
+    finally:
+        comm.shutdown()
+
+
+def test_sharded_topk_in_a_world_of_one_over_nccl(cuda, world_of_one):
+    """``sharded_topk``'s merge on CUDA tensors through real NCCL calls, in a
+    world of one rank: bitwise ``topk_lowest_index`` of the whole rows, with
+    ties, signed zeros and a row that is -inf throughout."""
+    import torch.distributed as dist
+
+    from ganmf_tpu_torch.ops.topk import sharded_topk, topk_lowest_index
+
+    plan = world_of_one
+    assert dist.get_backend() == "nccl" and plan.device == cuda and plan.group("model") is not None
+    rng = np.random.RandomState(0)
+    scores = rng.randn(8, 3706).astype(np.float32)
+    scores[1] = np.round(scores[1])
+    scores[2, ::2], scores[2, 1::2] = 0.0, -0.0
+    scores[3] = -np.inf
+    x = torch.from_numpy(scores).to(cuda)
+    vals, ids = sharded_topk(x, 50, plan)
+    want_vals, want_ids = topk_lowest_index(x, 50)
+    assert torch.equal(ids, want_ids) and torch.equal(vals, want_vals)
+    assert torch.equal(torch.signbit(vals), torch.signbit(want_vals))
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["dense_adam", "lazy_adam"])
+@pytest.mark.parametrize("storage", ["dense", "csr"])
+def test_sharded_epoch_in_a_world_of_one_is_the_epoch_and_does_not_synchronize(cuda, world_of_one, storage,
+                                                                              lazy):
+    """The sharded GANMF epoch on a world of one over NCCL: bitwise the
+    one-card epoch from the same state (the same products; the collectives
+    copy), and, run again, only enqueues (sync debug mode "error")."""
+    from ganmf_tpu_torch.parallel.distributed import ShardLayout, shard_ganmf_params, sharded_ganmf_epoch
+
+    plan = world_of_one
+    runs = []
+    for sharded in (False, True):
+        p, d_opt, item_opt, state, urm, perm, w, n = _ganmf_epoch_inputs(cuda, "user", storage)
+        kw = dict(n_batches=n, lazy_user_adam=lazy, **_GANMF_KW)
+        if sharded:
+            lay = ShardLayout(plan, p.user_emb.shape[0], p.item_emb.shape[0])
+            p = shard_ganmf_params(p, plan)
+            d_opt = torch.optim.Adam(p.d_params(), lr=1e-3, betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+            item_opt = torch.optim.Adam([p.item_emb], lr=2e-3, betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+            state = pgm.user_adam_state(p.user_emb)
+            run = lambda: sharded_ganmf_epoch(lay, p, d_opt, item_opt, state, urm, perm, w, **kw)  # noqa: E731
+        else:
+            run = lambda: pgm.ganmf_epoch(p, d_opt, item_opt, state, urm, perm, w, **kw)  # noqa: E731
+        losses = run()
+        runs.append(([t.detach().clone() for t in p.parameters()], [float(x) for x in losses]))
+    (want, want_losses), (got, got_losses) = runs
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got_losses == want_losses
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = run()  # the sharded epoch, its optimizers' state made
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(np.isfinite(float(x)) for x in losses)

@@ -190,5 +190,7 @@ def test_init_params_and_snapshot(urm_pair):
     assert pm.recommend(np.arange(5), cutoff=5) == before
     codes = pm.autoencoder_codes()
     assert codes.shape == (50, 8) and np.isfinite(codes).all()
-    with pytest.raises(NotImplementedError):
-        pm.fit(mesh_plan=object())  # training is ported; the mesh plan is not
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="mesh plan"):  # a mesh plan on another device
+        pm.fit(mesh_plan=make_mesh(device="meta"))

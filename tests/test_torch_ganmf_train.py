@@ -360,8 +360,10 @@ def test_loss_plot_is_skipped_without_matplotlib(urm_pair, tmp_path, monkeypatch
 
 def test_fit_rejects_what_is_not_ported(urm_pair):
     m = GANMF(urm_pair[0], device=CPU)
-    with pytest.raises(NotImplementedError):
-        m.fit(mesh_plan=object(), epochs=1)
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="mesh plan"):  # a plan on another device than the model's
+        m.fit(mesh_plan=make_mesh(device="meta"), epochs=1)
     with pytest.raises(ValueError):
         m.fit(urm_storage="coo", epochs=1)
     with pytest.raises(ValueError):

@@ -123,7 +123,9 @@ def test_evaluator_rejects_what_is_not_ported(split):
     _, test = split
     # diversity_object is ported (tests/test_torch_eval_extras.py): it takes the fifth place
     assert EvaluatorHoldout(test, CUTOFFS, 1, True, np.eye(test.shape[1]), device=CPU).diversity_object is not None
-    with pytest.raises(NotImplementedError, match="mesh_plan"):
-        EvaluatorHoldout(test, CUTOFFS, mesh_plan=object(), device=CPU)
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="mesh plan"):  # the eighth place; a plan on another device
+        EvaluatorHoldout(test, CUTOFFS, 1, True, None, None, None, make_mesh(device="meta"), device=CPU)
     with pytest.raises(TypeError):
         EvaluatorHoldout(test, CUTOFFS, 1, True, None, None, None, None, CPU)  # device is keyword-only
