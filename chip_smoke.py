@@ -221,7 +221,28 @@ Phases, in order; any failure exits nonzero:
     metrics held against phase 33's one-card path. gloo stages its
     collectives through the host, so the seconds printed are no multi-card
     measurement;
-35. print one JSON line with every kernel's launches (by path), error, times
+35. DisGANMF (the tuned LastFM params: K=95, d_nodes=996; I=17,632, so on a
+    2-way model axis D's [17633, 996] first kernel is replicated), CFGAN (its
+    published LastFM params, dense and then csr storage) and CAAE (the
+    reference's ML-1M best params, d_scatter="dedup") on a mesh of one rank
+    over NCCL on the card: one epoch and the evaluation each with the mesh
+    plan, held against the one-card path from the same state (Adam
+    parameters within phase 8's bound, CAAE's tensors within 1% of the
+    distance they moved, every metric within 1e-5), CFGAN's K2 masks
+    (dense and csr) bitwise the one-card path's; K2 launched by the CFGAN and
+    CAAE fits, the keyed draw by the csr fit and K1 by DisGANMF's evaluation;
+    then K2 at a data rank's shapes on phase 36's mesh, bitwise its plain
+    version, timed;
+36. the same fits and evaluations on a (data 2, model 2) mesh of 4 ranks
+    that share the card over gloo (``--gan-mesh-rank``): the gathered
+    parameters held against phase 35's one-card fit with the same bounds,
+    the mesh evaluation's metrics within 1e-5 of a one-card evaluation of
+    the same parameters (their gap to phase 35's fit is printed: a ranking
+    metric moves with rounding-level parameter differences at near ties),
+    the launches of each kernel above 0 where phase 35 needs them; gloo
+    stages its collectives through the host, so the seconds printed are no
+    multi-card measurement;
+37. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own, and the keyed draw,
     which replaces no TPU kernel), then the card line, then the result line.
 
@@ -409,6 +430,7 @@ MESH_EPOCHS = 1
 MESH_GLOO = dict(n_data=2, n_model=2)
 MESH_RANK_TIMEOUT = 300
 MESH_SHARD_ROWS = 1512  # a data rank's part of the 3024-row evaluation block
+GAN_MESH_RANK_TIMEOUT = 600  # phase 36's ranks: four fits and evaluations each
 
 
 def fail(msg):
@@ -3363,6 +3385,314 @@ def phase_mesh_gloo(dev, card, ref):
     return sum(int(out["launches"]) for out in ranks), secs
 
 
+# -- phases 35-36: DisGANMF, CFGAN (dense and csr) and CAAE on a mesh ------------
+
+#: name: (split, model, fit keywords); one epoch each (MESH_EPOCHS)
+GAN_MESH_FITS = {
+    "DisGANMF": ("lastfm", "DisGANMF", dict(DISGANMF_PARAMS)),
+    "CFGAN dense": ("lastfm", "CFGAN", dict(CFGAN_PARAMS)),
+    "CFGAN csr": ("lastfm", "CFGAN", dict(CFGAN_PARAMS, urm_storage="csr")),
+    "CAAE dedup": ("ml1m", "CAAE", dict(CAAE_PARAMS, d_scatter="dedup")),
+}
+#: K2 at a data rank's shapes on phase 36's mesh: CFGAN dense's rows of the
+#: padded LastFM URM (2048 / 2) and CAAE's Nu chunk (32 users / 2)
+MESH_K2_SHAPES = ((1024, 17632, "uniform", CFGAN_PARAMS["zr_ratio"], 0.00279), (16, 3706, "gumbel", CAAE_S, 0.0446))
+
+
+def gan_split(which):
+    return lastfm_split() if which == "lastfm" else ml1m_split()
+
+
+def gan_mesh_fit(name, train, test, dev, plan):
+    """One of GAN_MESH_FITS for MESH_EPOCHS epochs with ``plan`` (None: one
+    card), then evaluated on the same plan: (model, results, fit seconds,
+    evaluation seconds, K1 launches in the evaluation, the masks K2 drew in
+    the fit)."""
+    import torch
+
+    from ganmf_tpu_torch import models
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import cfgan as pcf
+    from ganmf_tpu_torch.ops import scorer
+
+    _, kind, params = GAN_MESH_FITS[name]
+    model = getattr(models, kind)(train, seed=SEED, is_experiment=True, device=dev)
+    masks, draw = [], pcf.smallest_k_mask
+    pcf.smallest_k_mask = lambda keys, k: masks.append(draw(keys, k)) or masks[-1]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(**params, epochs=MESH_EPOCHS, mesh_plan=plan)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        pcf.smallest_k_mask = draw
+    ev = EvaluatorHoldout(test, CUTOFFS, mesh_plan=plan, device=dev)
+    before = scorer.LAUNCHES
+    t0 = time.perf_counter()
+    results, _ = ev.evaluateRecommender(model)  # reads its sums to the host
+    return model, results, fit_s, time.perf_counter() - t0, scorer.LAUNCHES - before, masks
+
+
+def gan_steps_lrs(name, n_rows, n_params):
+    """(Adam steps in MESH_EPOCHS epochs, lr) of each parameter of an Adam
+    model of GAN_MESH_FITS, in ``parameters()`` order."""
+    _, kind, p = GAN_MESH_FITS[name]
+    if kind == "DisGANMF":
+        steps = -(-n_rows // p["batch_size"]) * MESH_EPOCHS
+        return [(steps, p["g_lr"])] * 2 + [(steps, p["d_lr"])] * (n_params - 2)
+    d_n, g_n = -(-n_rows // p["d_batch_size"]), -(-n_rows // p["g_batch_size"])
+    n_g = 2 * (p["g_layers"] + 1)
+    return [(g_n * MESH_EPOCHS, p["g_lr"])] * n_g + [(d_n * MESH_EPOCHS, p["d_lr"])] * (n_params - n_g)
+
+
+def hold_gan_params(name, params, ref):
+    """A mesh fit's full parameters against the one-card fit ``ref`` =
+    (parameters, results, initial parameters, training rows) from the same
+    state and draws: the Adam bound of phase 8 (CAAE, plain SGD: every tensor
+    within CAAE_MOVE_SHARE of the distance it moved). Returns the largest
+    parameter difference (CAAE: share)."""
+    import torch
+
+    ref_params, _, init, n_rows = ref
+    params = [torch.as_tensor(t).cpu() for t in params]
+    if GAN_MESH_FITS[name][1] == "CAAE":
+        worst = 0.0
+        for i, (a, b, t0) in enumerate(zip(params, ref_params, init)):
+            moved, diff = float((b - t0).abs().max()), float((a - b).abs().max())
+            if not (moved > 0 and diff <= CAAE_MOVE_SHARE * moved):
+                fail(f"{name}: parameter {i} differs by {diff:.3e} from the one-card fit's, which moved {moved:.3e}")
+            worst = max(worst, diff / moved)
+    else:
+        worst = adam_bound_check(name, params, ref_params, gan_steps_lrs(name, n_rows, len(params)))
+    return worst
+
+
+def metric_gaps(results, ref_results):
+    """(largest difference between two evaluations, the metric and cutoff
+    where it lies)."""
+    return max((abs(results[c][m] - ref_results[c][m]), f"{m}@{c}") for c in CUTOFFS for m in results[c])
+
+
+def phase_gan_mesh_nccl(dev, card):
+    """Phase 35: a world of one rank over NCCL on the card; DisGANMF, CFGAN
+    (dense, csr) and CAAE (dedup) fit one epoch and evaluate with the plan,
+    each against the one-card path from the same state, with each path's K1,
+    K2 and keyed-draw counts set to 0 just before its mesh run and read just
+    after; then K2 at phase 36's per-rank shapes. Returns (the one-card
+    references, the launches by fit, K2's error and times)."""
+    import torch
+    import torch.distributed as dist
+
+    from ganmf_tpu_torch.ops import keyed, scorer, select
+    from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
+    from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    comm.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0, local_rank=dev.index, device=dev)
+    refs, launches = {}, {}
+    try:
+        plan = make_mesh(device=dev)
+        if dist.get_backend() != "nccl" or plan.device != dev:
+            fail(f"the one-rank mesh runs on {dist.get_backend()} on {plan.device}, not NCCL on {dev}")
+        print(f"[35] DisGANMF, CFGAN (dense, csr) and CAAE on a mesh of one rank over {dist.get_backend()}: "
+              f"{MESH_EPOCHS} epoch(s) and the evaluation each, against the one-card path from the same state")
+        for name, (which, kind, params) in GAN_MESH_FITS.items():
+            train, test = gan_split(which)
+            single, s_res, s_fit, s_eval, _, s_masks = gan_mesh_fit(name, train, test, dev, None)
+            init = [t.detach() for t in _gan_init(single)]
+            ref = ([t.detach().cpu() for t in single.params.parameters()], s_res, init,
+                   single._train_matrix().shape[0])
+            del single
+            scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+            t0 = time.perf_counter()
+            model, res, fit_s, eval_s, k1, masks = gan_mesh_fit(name, train, test, dev, plan)
+            wall = time.perf_counter() - t0
+            launches[name] = (scorer.LAUNCHES, select.LAUNCHES, keyed.LAUNCHES)
+            want_k2 = kind != "DisGANMF"
+            if (k1 == 0) == (kind == "DisGANMF") or (select.LAUNCHES == 0) == want_k2 or (
+                    (keyed.LAUNCHES == 0) == ("csr" in name)):
+                fail(f"the one-rank mesh's {name} path launched K1 {k1} times in its evaluation, K2 "
+                     f"{select.LAUNCHES} times and the keyed draw {keyed.LAUNCHES} times")
+            if kind == "CFGAN":
+                if len(masks) != len(s_masks) or not all(torch.equal(a, b) for a, b in zip(masks, s_masks)):
+                    fail(f"{name}: the mesh's {len(masks)} masks are not bitwise the one-card path's {len(s_masks)}")
+            full = [t.detach() for t in model._full_params().parameters()]
+            worst = hold_gan_params(name, full, ref)
+            worst_m = worst_metric_diff(name, res, s_res, METRIC_TOL)
+            refs[name] = ref
+            what = "share of the distance moved" if kind == "CAAE" else "parameter difference"
+            mask_note = f"{len(masks)} K2 masks bitwise the one-card path's; " if kind == "CFGAN" else ""
+            print(f"  {name}: {fit_s / MESH_EPOCHS:.4f} s/epoch on the mesh ({s_fit / MESH_EPOCHS:.4f} one card); "
+                  f"evaluation {eval_s:.4f} s ({s_eval:.4f}); launches K1 {k1} (evaluation), K2 {select.LAUNCHES}, "
+                  f"keyed draw {keyed.LAUNCHES}; {mask_note}largest {what} {worst:.3e}, metrics within "
+                  f"{worst_m:.3e}; phase wall {wall:.2f} s  [{card}]")
+            del model
+    finally:
+        comm.shutdown()
+    g = torch.Generator().manual_seed(SEED + 35)
+    worst, times = 0.0, {}
+    for R, I, kind, ratio, density in MESH_K2_SHAPES:
+        keys, k = (t.to(dev) for t in select_case(kind, R, I, g, ratio=ratio, density=density))
+        if not torch.equal(smallest_k_mask_cuda(keys, k), smallest_k_mask_reference(keys, k)):
+            worst = 1.0
+            fail(f"K2 at phase 36's per-rank shape [{R}, {I}] differs from its plain version")
+        t = times[f"mesh rank [{R}, {I}]"] = time_k2(keys, k)
+        print(f"  K2 at phase 36's per-rank shape [{R}, {I}] ({kind} keys): bitwise its plain version; "
+              f"{t['ms']:.4f} ms (launch {t['launch_ms']:.4f}, plain {t['plain_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f} by {t['bound_by']})  [{card}]")
+    return refs, launches, worst, times
+
+
+def _gan_init(model):
+    """The initial parameters of a fit of ``model``'s class from SEED, on
+    the CPU (every fit draws them on the host from a seeded generator)."""
+    import torch
+
+    from ganmf_tpu_torch.models import caae as pca
+    from ganmf_tpu_torch.models import cfgan as pcf
+    from ganmf_tpu_torch.models import disganmf as pdg
+
+    cpu, gen = torch.device("cpu"), torch.Generator().manual_seed(SEED)
+    kind = type(model).__name__
+    cfg = model.config
+    n_rows, n_cols = model._train_matrix().shape
+    if kind == "DisGANMF":
+        return list(pdg.init_params(n_rows, n_cols, cfg["num_factors"], cfg["d_layers"], cfg["d_nodes"], gen,
+                                    cpu).parameters())
+    if kind == "CFGAN":
+        g_dims = [n_cols] + [cfg["g_nodes"]] * cfg["g_layers"] + [n_cols]
+        d_dims = [2 * n_cols] + [cfg["d_nodes"]] * cfg["d_layers"] + [1]
+        return list(pcf.init_params(g_dims, d_dims, gen, cpu).parameters())
+    g_dims = [n_cols] + [cfg["g_units"]] * cfg["g_layers"] + [n_cols]
+    return list(pca.init_params(n_rows, n_cols, cfg["num_factors"], g_dims, gen, cpu).parameters())
+
+
+def gan_one_card_copy(name, params, dev):
+    """A one-card model of GAN_MESH_FITS[name] holding the full ``params``
+    (numpy arrays in ``parameters()`` order)."""
+    from ganmf_tpu_torch import models
+    from ganmf_tpu_torch.models import caae as pca
+    from ganmf_tpu_torch.models import cfgan as pcf
+    from ganmf_tpu_torch.models import disganmf as pdg
+
+    which, kind, p = GAN_MESH_FITS[name]
+    model = getattr(models, kind)(gan_split(which)[0], seed=SEED, is_experiment=True, device=dev)
+    model.config = dict(p)
+    if kind == "DisGANMF":
+        model.params = pdg.params_from_jax(params, dev)
+    elif kind == "CFGAN":
+        model.params = pcf.params_from_jax(params, p["g_layers"], dev)
+    else:
+        model.params = pca.params_from_jax(params, dev)
+    return model
+
+
+def gan_mesh_worker(rank, world, port, out_dir):
+    """A rank of phase 36: joins the gloo group on the one card, fits and
+    evaluates each of GAN_MESH_FITS on MESH_GLOO and writes its results (rank
+    0 also the gathered parameters) to out_dir, one file a fit."""
+    import torch
+
+    from ganmf_tpu_torch.ops import _build, keyed, scorer, select
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    comm.initialize(f"tcp://127.0.0.1:{port}", world, rank, local_rank=0, backend="gloo")
+    try:
+        plan = make_mesh(**MESH_GLOO)
+        _build.load_library()  # built by the parent
+        for i, (name, (which, _, _)) in enumerate(GAN_MESH_FITS.items()):
+            train, test = gan_split(which)
+            scorer.LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+            model, res, fit_s, eval_s, k1, masks = gan_mesh_fit(name, train, test, plan.device, plan)
+            out = dict(fit_s=fit_s, eval_s=eval_s, k1=k1, k2=select.LAUNCHES, keyed=keyed.LAUNCHES,
+                       keys=np.asarray(list(res[CUTOFFS[0]])), values=np.asarray([list(res[c].values()) for c in CUTOFFS]),
+                       local_bytes=sum(t.numel() * t.element_size() for t in model.params.parameters()))
+            full = [t.detach().cpu().numpy() for t in model._full_params().parameters()]
+            if rank == 0:
+                out.update({f"p{j}": t for j, t in enumerate(full)})
+            np.savez(os.path.join(out_dir, f"gan{i}_rank{rank}.npz"), **out)
+            del model, masks
+            torch.cuda.empty_cache()
+    finally:
+        comm.shutdown()
+    return 0
+
+
+def phase_gan_mesh_gloo(dev, card, refs):
+    """Phase 36: four ranks that share the one card over gloo, mesh
+    MESH_GLOO, the fits and evaluations of phase 35 against its one-card
+    references. gloo stages every collective through the host: the walls are
+    no multi-card figure. Returns the launches by fit, summed over the ranks."""
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+
+    world = MESH_GLOO["n_data"] * MESH_GLOO["n_model"]
+    out_dir = os.path.abspath(os.path.join(SCRATCH, "gan_mesh"))
+    os.makedirs(out_dir, exist_ok=True)
+    print(f"[36] DisGANMF, CFGAN (dense, csr) and CAAE on a mesh {MESH_GLOO} of {world} ranks sharing the card "
+          f"over gloo, {MESH_EPOCHS} epoch(s) and the evaluation each, against phase 35's one-card path (gloo "
+          f"stages its collectives through the host: this is no multi-card measurement)")
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gan-mesh-rank", str(r), str(world),
+                               str(port), out_dir], stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    deadline = time.perf_counter() + GAN_MESH_RANK_TIMEOUT
+    try:
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode != 0:
+            fail(f"rank {r} of the gloo mesh exited {proc.returncode}:\n{text[-3000:]}")
+    launches = {}
+    for i, (name, (_, kind, _)) in enumerate(GAN_MESH_FITS.items()):
+        ranks = [dict(np.load(os.path.join(out_dir, f"gan{i}_rank{r}.npz"))) for r in range(world)]
+        keys = [str(k) for k in ranks[0]["keys"]]
+        results = {c: dict(zip(keys, ranks[0]["values"][ci])) for ci, c in enumerate(CUTOFFS)}
+        n_params = sum(1 for k in ranks[0] if k.startswith("p"))
+        full = [ranks[0][f"p{j}"] for j in range(n_params)]
+        worst = hold_gan_params(name, full, refs[name])
+        # the mesh evaluator against the one-card evaluator on the same
+        # parameters; the gap to phase 35's fit, whose parameters differ by
+        # the rounding the bound above admits, is printed
+        single = gan_one_card_copy(name, full, dev)
+        which = GAN_MESH_FITS[name][0]
+        one, _ = EvaluatorHoldout(gan_split(which)[1], CUTOFFS, device=dev).evaluateRecommender(single)
+        worst_m = worst_metric_diff(name, results, one, METRIC_TOL)
+        gap, where = metric_gaps(results, refs[name][1])
+        del single
+        for r, out in enumerate(ranks):
+            if not np.array_equal(out["values"], ranks[0]["values"]):
+                fail(f"rank {r} of the gloo mesh finalized other metrics than rank 0 for {name}")
+        k1, k2, drawn = (sum(int(out[key]) for out in ranks) for key in ("k1", "k2", "keyed"))
+        if (k1 == 0) == (kind == "DisGANMF") or (k2 == 0) == (kind != "DisGANMF") or (drawn == 0) == ("csr" in name):
+            fail(f"the gloo mesh's {name} path launched K1 {k1} times, K2 {k2} times and the keyed draw {drawn} times")
+        launches[name] = (k1, k2, drawn)
+        secs = max(float(out["fit_s"]) for out in ranks) / MESH_EPOCHS
+        held = max(int(out["local_bytes"]) for out in ranks)
+        what = "share of the distance moved" if kind == "CAAE" else "parameter difference"
+        print(f"  {name}: {secs:.4f} s/epoch (the slowest rank), evaluation "
+              f"{max(float(out['eval_s']) for out in ranks):.4f} s; launches over the ranks K1 {k1}, K2 {k2}, "
+              f"keyed draw {drawn}; parameter bytes held by a rank {held} of {sum(t.nbytes for t in refs[name][0])}; "
+              f"largest {what} {worst:.3e} against phase 35's one-card fit; metrics within {worst_m:.3e} of a "
+              f"one-card evaluation of the same parameters, {gap:.3e} of phase 35's fit ({where})  [{card}, gloo]")
+    print(f"  phase wall {wall:.2f} s (the ranks' start-up included)")
+    return launches
+
+
 def main():
     import torch
 
@@ -3590,11 +3920,19 @@ def main():
     elapsed("the one-rank NCCL mesh")
     mesh_gloo_k1, _ = phase_mesh_gloo(dev, card, mesh_ref)
     elapsed("the gloo mesh")
+    # DisGANMF, CFGAN and CAAE on a mesh (phases 35-36), each fit's counts set
+    # to 0 just before its mesh run and read just after
+    gan_refs, gan_nccl, k2_mesh_err, k2_mesh_times = phase_gan_mesh_nccl(dev, card)
+    k2_err = max(k2_err, k2_mesh_err)
+    elapsed("the one-rank NCCL mesh of DisGANMF, CFGAN and CAAE")
+    gan_gloo = phase_gan_mesh_gloo(dev, card, gan_refs)
+    elapsed("the gloo mesh of DisGANMF, CFGAN and CAAE")
     shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide
     k2_times.update(k2_csr_times)  # K2 at the csr storage's minibatch shapes too
+    k2_times.update(k2_mesh_times)  # and at a data rank's shapes on phase 36's mesh
     k2_shape, *k2_others = k2_times
     # each path's counts were set to 0 just before it and read just after; a
     # kernel's launches are the sum over the paths it carries
@@ -3608,6 +3946,14 @@ def main():
     k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2, "CFGAN csr training": csr_k2,
                   "CFGAN csr ML-20M": m20_k2, "CAAE dedup": dedup_k2}
     keyed_by_path = {"CFGAN csr training": csr_keyed, "CFGAN csr ML-20M": m20_keyed}
+    for where, counts in (("one rank over NCCL", gan_nccl), ("4 gloo ranks on the card", gan_gloo)):
+        for name, (n_k1, n_k2, n_keyed) in counts.items():
+            if n_k1:
+                fused_by_path[f"{name} mesh, {where}"] = n_k1
+            if n_k2:
+                k2_by_path[f"{name} mesh, {where}"] = n_k2
+            if n_keyed:
+                keyed_by_path[f"{name} mesh, {where}"] = n_keyed
     keyed_shape, *keyed_others = keyed_times
     for what, (n_fused, n_wide, n_merge, n_k2) in new_paths.items():
         fused_by_path[what], wide_by_path[what], k2_by_path[what] = n_fused, n_wide, n_k2
@@ -3674,4 +4020,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 34, started by main()
         sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--gan-mesh-rank"]:  # a rank of phase 36, started by main()
+        sys.exit(gan_mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

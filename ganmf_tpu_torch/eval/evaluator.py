@@ -126,6 +126,19 @@ def _diversity_block(M: torch.Tensor, top_idx: torch.Tensor, top_val: torch.Tens
     return torch.stack(out)
 
 
+def _shard_rmse(scores: torch.Tensor, test_rows: torch.Tensor, plan) -> torch.Tensor:
+    """Each row's RMSE over its test items with finite scores (metrics.py
+    ``evaluate_batch``'s), from this rank's item columns of both: the squared
+    errors and counts summed over the model axis."""
+    from ganmf_tpu_torch.parallel import comm
+
+    finite = torch.isfinite(scores)
+    fin = (test_rows != 0).float() * finite.float()
+    sq_err = torch.where(finite, (scores - test_rows) ** 2, 0.0) * fin
+    sums = comm.psum(torch.stack([sq_err.sum(1), fin.sum(1)]), plan, "model")
+    return torch.where(sums[1] > 0, torch.sqrt(sums[0] / sums[1].clamp(min=1.0)), float("nan"))
+
+
 def _raise_on_nan_scores(scores: torch.Tensor, start: int) -> None:
     if bool(torch.isnan(scores).any()):
         raise FloatingPointError(
@@ -454,6 +467,13 @@ class EvaluatorHoldout:
         # a factor model's tables, fetched once for the whole evaluation
         factors = recommender_object._factors_device() if use_k1 else None
         split = self._item_split()
+        # a mesh-trained model that scores this rank's item columns itself
+        # (CFGAN, CAAE) hands them over where the blocks rank by item shards
+        own_cols = None
+        if (split is not None and not use_k1
+                and type(self)._restrict_candidates is EvaluatorHoldout._restrict_candidates
+                and getattr(recommender_object, "mesh_plan", None) is not None):
+            own_cols = getattr(recommender_object, "score_device_columns", None)
         debug = debug_enabled()
 
         # blocks are not padded to block_size but under a plan: the last one
@@ -486,6 +506,18 @@ class EvaluatorHoldout:
                     top_vals, top_idx, test_rows, n_pos, valid, novelty_terms, pop_norm,
                     user_rmse, cutoffs=cutoffs, max_cutoff=self.max_cutoff,
                 )
+            elif own_cols is not None:
+                # a mesh-trained model hands over this rank's item columns
+                i0, i1 = split
+                seen = self._seen_block(recommender_object, uids, max_len=crop_train)[:, i0:i1]
+                scores = own_cols(uids, i0, i1).masked_fill(seen, float("-inf"))
+                if debug:
+                    _raise_on_nan_scores(scores, start)
+                topk = sharded_topk(scores, self.max_cutoff, plan)
+                stats = evaluate_batch_from_topk(
+                    *topk, test_rows, n_pos, valid, novelty_terms, pop_norm,
+                    _shard_rmse(scores, test_rows[:, i0:i1], plan), cutoffs=cutoffs, max_cutoff=self.max_cutoff,
+                )
             else:
                 scores = self._score_block(recommender_object, uids, max_len=crop_train)
                 scores = self._restrict_candidates(scores, uids)
@@ -499,9 +531,9 @@ class EvaluatorHoldout:
                     scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
                     cutoffs=cutoffs, max_cutoff=self.max_cutoff, topk=topk,
                 )
-                if self.diversity_object is not None:
-                    top_val, top_idx = topk
-                    diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs, valid)
+            if self.diversity_object is not None and not (use_k1 or use_sim):
+                top_val, top_idx = topk
+                diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs, valid)
             yield chunk, valid, stats, diversity
 
         if self.ignore_items_flag and hasattr(recommender_object, "reset_items_to_ignore"):

@@ -40,7 +40,15 @@ weight 0; ``n_samples = max(1, 2 * median profile length)``; no item mode.
 Scoring gathers the requested users' profiles (the reference's
 ``_compute_item_score`` slices by batch position, a bug not kept).
 
-Not ported: ``mesh_plan``; it raises.
+``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :468-472): each rank
+holds its block of the URM at ``plan.urm`` and its shards of the parameters
+(``parallel.distributed.shard_caae_params``) and runs
+``parallel.adversarial.sharded_caae_epoch``, whose D phase runs on the whole
+stores on every rank and whose Nu masks go through K2 on whole rows. On a
+mesh-trained model the scores are G's sharded reconstruction of every
+profile, this rank's columns kept until the parameters change;
+``score_device`` all-gathers the requested rows' columns and
+``score_device_columns`` hands the mesh evaluator this rank's own.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ganmf_tpu_torch.data.device import dense_from_sparse
 from ganmf_tpu_torch.models.cfgan import MLPParams, _l2
 from ganmf_tpu_torch.models.gan_base import AdversarialRecommender
 from ganmf_tpu_torch.models.ganmf import _glorot_uniform
@@ -251,6 +260,50 @@ def _dedup_add_(tab: torch.Tensor, g_rows: torch.Tensor, perm, scat, end, lr: fl
     tab.index_add_(0, scat, (-lr * (c.index_select(1, end) - lower)).t())
 
 
+def d_phase(user_emb: torch.Tensor, item_emb: torch.Tensor, item_bias: torch.Tensor, users: torch.Tensor,
+            pos_items: torch.Tensor, weights: torch.Tensor, g_tables, gpr_tables, draws: CAAEDraws,
+            *, lr: float, beta: float, d_bsize: int, n_d_chunks: int, d_steps: int, d_scatter: str):
+    """The D phase on D's whole stores (JAX :218-321): every negative drawn up
+    front from the epoch's tables, then ``2 * d_steps * n_d_chunks`` serial
+    updates of the fused [U + I, K + 1] table. Returns (the table after the
+    phase, the sum of its losses as a device scalar, d_steps * n_d_chunks)."""
+    n_users, n_items, B = user_emb.shape[0], item_emb.shape[0], d_bsize
+    dev = user_emb.device
+    n_steps = d_steps * n_d_chunks
+    u_all = users[: n_d_chunks * B].reshape(n_d_chunks, B).repeat(d_steps, 1)
+    pos_all = pos_items[: n_d_chunks * B].reshape(n_d_chunks, B).repeat(d_steps, 1)
+    w_all = weights[: n_d_chunks * B].reshape(n_d_chunks, B).repeat(d_steps, 1)
+    neg_g, neg_gpr = d_phase_negatives(g_tables, gpr_tables, u_all.reshape(-1), draws.d_uniforms, n_items)
+    idx_g_all = torch.cat([u_all, n_users + pos_all, n_users + neg_g.reshape(n_steps, B)], dim=1)
+    idx_gpr_all = torch.cat([u_all, n_users + pos_all, n_users + neg_gpr.reshape(n_steps, B)], dim=1)
+
+    debug = debug_enabled()
+    dedup = d_scatter == "dedup"
+    n_rows = n_users + n_items
+    with torch.no_grad():
+        tab = torch.cat([F.pad(user_emb, (0, 1)), torch.cat([item_emb, item_bias[:, None]], dim=1)])
+        if dedup:
+            plans = (dedup_plan(idx_g_all, n_rows), dedup_plan(idx_gpr_all, n_rows))
+            tab = F.pad(tab, (0, 0, 0, 3 * B))  # the scratch rows of non-first slots
+    d_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    for step in range(n_steps):
+        w = w_all[step]
+        # one update with G's negatives, one with G''s (CAAE.py:255-265)
+        for u, idx_all in enumerate((idx_g_all, idx_gpr_all)):
+            idxs = idx_all[step]
+            rows = tab.index_select(0, idxs).requires_grad_(True)
+            loss = d_local_loss(rows, w, beta)
+            (g_rows,) = torch.autograd.grad(loss, rows)
+            if dedup:
+                _dedup_add_(tab, g_rows, *(plan[step] for plan in plans[u]), lr)
+            else:
+                tab.index_add_(0, idxs, -lr * g_rows)
+            if debug:
+                raise_on_nan(f"CAAE D step {step}, update {u}", loss=loss, table=tab[:n_rows])
+            d_sum += loss.detach()
+    return tab[:n_rows], d_sum, n_steps
+
+
 def caae_epoch(
     params: CAAEParams, urm: torch.Tensor, inter_users: torch.Tensor, inter_items: torch.Tensor,
     inter_weight: torch.Tensor, draws: CAAEDraws,
@@ -278,44 +331,10 @@ def caae_epoch(
         g_tables = bucketed_cdf_tables(torch.softmax(_autoencode(G, urm), dim=1))
         gpr_tables = bucketed_cdf_tables(gpr_prob_full)
 
-    # ---- D phase: every negative up front, then the serialized updates ----
-    K, B = params.d_user_emb.shape[1], d_bsize
-    n_steps = d_steps * n_d_chunks
-    u_all = users[: n_d_chunks * B].reshape(n_d_chunks, B).repeat(d_steps, 1)
-    pos_all = pos_items[: n_d_chunks * B].reshape(n_d_chunks, B).repeat(d_steps, 1)
-    w_all = weights[: n_d_chunks * B].reshape(n_d_chunks, B).repeat(d_steps, 1)
-    neg_g, neg_gpr = d_phase_negatives(g_tables, gpr_tables, u_all.reshape(-1), draws.d_uniforms, n_items)
-    idx_g_all = torch.cat([u_all, n_users + pos_all, n_users + neg_g.reshape(n_steps, B)], dim=1)
-    idx_gpr_all = torch.cat([u_all, n_users + pos_all, n_users + neg_gpr.reshape(n_steps, B)], dim=1)
-
-    debug = debug_enabled()
-    dedup = d_scatter == "dedup"
-    n_rows = n_users + n_items
-    with torch.no_grad():
-        tab = torch.cat([
-            F.pad(params.d_user_emb, (0, 1)),
-            torch.cat([params.d_item_emb, params.d_item_bias[:, None]], dim=1),
-        ])
-        if dedup:
-            plans = (dedup_plan(idx_g_all, n_rows), dedup_plan(idx_gpr_all, n_rows))
-            tab = F.pad(tab, (0, 0, 0, 3 * B))  # the scratch rows of non-first slots
-    d_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    for step in range(n_steps):
-        w = w_all[step]
-        # one update with G's negatives, one with G''s (CAAE.py:255-265)
-        for u, idx_all in enumerate((idx_g_all, idx_gpr_all)):
-            idxs = idx_all[step]
-            rows = tab.index_select(0, idxs).requires_grad_(True)
-            loss = d_local_loss(rows, w, beta)
-            (g_rows,) = torch.autograd.grad(loss, rows)
-            if dedup:
-                _dedup_add_(tab, g_rows, *(plan[step] for plan in plans[u]), lr)
-            else:
-                tab.index_add_(0, idxs, -lr * g_rows)
-            if debug:
-                raise_on_nan(f"CAAE D step {step}, update {u}", loss=loss, table=tab[:n_rows])
-            d_sum += loss.detach()
-    tab = tab[:n_rows]
+    tab, d_sum, n_steps = d_phase(params.d_user_emb, params.d_item_emb, params.d_item_bias, users, pos_items,
+                                  weights, g_tables, gpr_tables, draws, lr=lr, beta=beta, d_bsize=d_bsize,
+                                  n_d_chunks=n_d_chunks, d_steps=d_steps, d_scatter=d_scatter)
+    K, debug = params.d_user_emb.shape[1], debug_enabled()
     with torch.no_grad():
         params.d_user_emb.copy_(tab[:n_users, :K])
         params.d_item_emb.copy_(tab[n_users:, :K])
@@ -412,6 +431,7 @@ class CAAE(AdversarialRecommender):
         # new parameters drop the cached scores
         self._params = value
         self._score_cache = None
+        self._mesh_cache = None
 
     def fit(
         self,
@@ -444,19 +464,20 @@ class CAAE(AdversarialRecommender):
         reference's fit() value. ``gpr_layers`` and ``gpr_units`` are taken
         and ignored, as the reference ignores them. ``d_scatter``: the D
         phase's scatter, "direct" (``index_add_``) or "dedup" (sorted runs,
-        unique indices; deterministic on the card). ``mesh_plan`` is not
-        ported and raises."""
+        unique indices; deterministic on the card). ``mesh_plan``
+        (``parallel.make_mesh``'s plan, on the model's device) trains on a
+        mesh: every rank calls ``fit``, makes the same draws and keeps its
+        shards; only rank 0 logs, prints and writes checkpoints."""
         if d_scatter not in ("direct", "dedup"):
             raise ValueError(f"d_scatter must be 'direct' or 'dedup', got {d_scatter!r}")
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
+        if mesh_plan is not None and mesh_plan.device != self.device:
+            raise ValueError(f"model on {self.device}, its mesh plan on {mesh_plan.device}")
         self.config = dict(
             epochs=epochs, d_steps=d_steps, g_steps=g_steps, gpr_steps=gpr_steps,
             g_layers=g_layers, g_units=g_units, gpr_layers=gpr_layers, gpr_units=gpr_units,
             num_factors=num_factors, d_bsize=d_bsize, m_batch=m_batch,
             lmbda=lmbda, beta=beta, lr=lr, S=S,
         )
-        urm = self.device_urm().dense
         coo = self.URM_train.tocoo()
         n_d_chunks = max(1, int(np.ceil(coo.nnz / int(d_bsize))))
         pad = n_d_chunks * int(d_bsize) - coo.nnz
@@ -471,21 +492,35 @@ class CAAE(AdversarialRecommender):
 
         # the reference builds G' with g_layers/g_units too (CAAE.py:136-137)
         g_dims = [self.n_items] + [int(g_units)] * int(g_layers) + [self.n_items]
-        self.params = init_params(self.n_users, self.n_items, int(num_factors), g_dims,
-                                  torch.Generator().manual_seed(self.seed), self.device)
+        generator = torch.Generator().manual_seed(self.seed)
+        self.mesh_plan = mesh_plan
+        if mesh_plan is None:
+            urm = self.device_urm().dense
+            self.params = init_params(self.n_users, self.n_items, int(num_factors), g_dims, generator, self.device)
+            epoch, lead, tail = caae_epoch, (), (urm,)
+        else:
+            from ganmf_tpu_torch.parallel.adversarial import sharded_caae_epoch
+            from ganmf_tpu_torch.parallel.distributed import ShardLayout, shard_caae_params
+
+            lay = ShardLayout(mesh_plan, self.n_users, self.n_items)
+            urm = dense_from_sparse(self.URM_train[lay.r0 : lay.r1, lay.i0 : lay.i1], self.device)
+            n_nonint = torch.from_numpy(self.n_items - np.ediff1d(self.URM_train.indptr)).to(self.device)
+            full = init_params(self.n_users, self.n_items, int(num_factors), g_dims, generator, torch.device("cpu"))
+            self.params = shard_caae_params(full, mesh_plan)
+            epoch, lead, tail = sharded_caae_epoch, (lay,), (urm, n_nonint)
         self._epoch_gen = torch.Generator(device=self.device).manual_seed(self.seed)
         start_epoch = self.resume_from_checkpoint()  # also restores the generator
         statics = dict(d_bsize=int(d_bsize), n_d_chunks=n_d_chunks, d_steps=int(d_steps),
                        g_steps=int(g_steps), gpr_steps=int(gpr_steps), m_batch=m_batch_eff,
                        n_samples=n_samples, d_scatter=d_scatter)
 
-        def epoch_fn(epoch):
+        def epoch_fn(_):
             draws = self._epoch_draws(inter_users.shape[0], int(d_steps) * n_d_chunks * int(d_bsize),
                                       int(g_steps), int(gpr_steps), m_batch_eff, n_samples)
             # the epoch's losses are dropped, as the JAX fit keeps none
-            caae_epoch(self.params, urm, inter_users, inter_items, inter_weight, draws,
-                       lr=float(lr), beta=float(beta), lmbda=float(lmbda), S=float(S), **statics)
-            self._score_cache = None
+            epoch(*lead, self.params, *tail, inter_users, inter_items, inter_weight, draws,
+                  lr=float(lr), beta=float(beta), lmbda=float(lmbda), S=float(S), **statics)
+            self._score_cache = self._mesh_cache = None
 
         result = self._run_training_loop(
             epochs, validation_evaluator, validation_set, sample_every,
@@ -502,18 +537,61 @@ class CAAE(AdversarialRecommender):
 
     # -- crash resume (full training state; plain SGD keeps no optimizer state) --
     def _checkpoint_state(self):
-        return {"params": self.params.state_dict(), "epoch_gen": self._epoch_gen.get_state()}
+        """The training state; on a mesh its full tensors, gathered from the
+        shards (a collective), so that a checkpoint resumes on any plan."""
+        state = {"params": self.params.state_dict(), "epoch_gen": self._epoch_gen.get_state()}
+        if self.mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import gather_module_state
+
+            state = gather_module_state(state, self.params, self.mesh_plan)
+        return state
 
     def _restore_checkpoint_state(self, state):
+        if self.mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import shard_module_state
+
+            state = shard_module_state(state, self.params, self.mesh_plan)
         self.params.load_state_dict(state["params"])
         self._epoch_gen.set_state(state["epoch_gen"])
         self._score_cache = None
 
     # -- scoring (reference CAAE.py:380-395, with the requested users) ---------
     @torch.no_grad()
+    def _mesh_output(self):
+        """(layout, [U, I_m]): on a mesh-trained model, G's sharded
+        reconstruction of every profile in this rank's columns, kept until
+        the parameters change."""
+        if self._mesh_cache is None:
+            from ganmf_tpu_torch.parallel.adversarial import mlp_shard
+            from ganmf_tpu_torch.parallel.distributed import ShardLayout, _padded_shard_rows
+
+            lay = ShardLayout(self.mesh_plan, self.n_users, self.n_items)
+            rows = _padded_shard_rows(self._padded_urm(), torch.arange(self.n_users, device=self.device),
+                                      lay.i0, lay.i1).contiguous()
+            self._mesh_cache = (lay, mlp_shard(lay, self.params.G, rows, "sigmoid", act_last=True))
+        return self._mesh_cache
+
+    @torch.no_grad()
+    def score_device_columns(self, user_ids: torch.Tensor, i0: int, i1: int) -> torch.Tensor:
+        """[B, i1 - i0] scores of items [i0, i1): on a mesh-trained model,
+        this rank's own columns with no gather."""
+        if self.mesh_plan is not None:
+            lay, out = self._mesh_output()
+            if (lay.i0, lay.i1) == (i0, i1):
+                return out.index_select(0, user_ids)
+        return self.score_device(user_ids)[:, i0:i1]
+
+    @torch.no_grad()
     def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
         """[B, I] scores: G's reconstruction of the users' profiles, computed
-        for every user once and cached until the parameters change."""
+        for every user once and cached until the parameters change. On a
+        mesh-trained model this rank's columns are all-gathered, a collective
+        every rank calls."""
+        if self.params is not None and self.mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.adversarial import rows_full
+
+            lay, out = self._mesh_output()
+            return rows_full(lay, out.index_select(0, user_ids))
         if self._score_cache is None:
             if self.params is None:
                 raise RuntimeError("CAAE has no parameters: fit it or load them first")
@@ -527,4 +605,5 @@ class CAAE(AdversarialRecommender):
         data = super().loadModel(folder_path, file_name)
         if "param_0" in data:
             self.params = params_from_jax(data, self.device)
+            self.mesh_plan = None  # the full parameters
         return data

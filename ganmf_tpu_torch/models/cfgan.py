@@ -26,7 +26,16 @@ uniforms depend only on (seed, epoch, stream, row), so the D and G phases
 see the same mask for a row within an epoch, as JAX's ``fold_in`` keys do.
 Scoring in csr storage streams the profiles (:384-442).
 
-Not ported: ``mesh_plan``.
+``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :324-332), in either
+storage and compute dtype: each rank holds its shards of the URM (dense at
+``plan.urm``, or its rows of the padded-CSR planes) and of the parameters
+(``parallel.distributed.shard_cfgan_params``) and runs
+``parallel.adversarial.sharded_cfgan_epoch``, which draws each mask through
+K2 on whole rows. On a mesh-trained model ``score_device`` runs the sharded
+forward over every training row (this rank's columns of G's output, kept
+until the parameters change) and all-gathers the requested rows' columns;
+``score_device_columns`` hands the mesh evaluator this rank's columns as
+they are. G is never gathered whole but for saving and the checkpoints.
 """
 
 from __future__ import annotations
@@ -298,6 +307,7 @@ class CFGAN(AdversarialRecommender):
     def _drop_score_caches(self) -> None:
         self._score_cache = None
         self._penult_cache = None
+        self._mesh_cache = None
 
     def fit(
         self,
@@ -338,9 +348,12 @@ class CFGAN(AdversarialRecommender):
         each minibatch's masks from keyed uniforms (``keyed_uniforms`` of the
         epoch counted from 1). Masked configurations are distributionally
         (not bitwise) equal between the storages; unmasked ones match.
-        ``mesh_plan`` is not ported and raises."""
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
+        ``mesh_plan`` (``parallel.make_mesh``'s plan, on the model's device)
+        trains on a mesh: every rank calls ``fit`` with the same arguments,
+        makes the same draws and keeps its shards; only rank 0 logs, prints
+        and writes checkpoints."""
+        if mesh_plan is not None and mesh_plan.device != self.device:
+            raise ValueError(f"model on {self.device}, its mesh plan on {mesh_plan.device}")
         if urm_storage not in ("dense", "csr"):
             raise ValueError(f"urm_storage must be 'dense' or 'csr', got {urm_storage!r}")
         if compute_dtype not in ("f32", "bf16"):
@@ -366,21 +379,45 @@ class CFGAN(AdversarialRecommender):
         g_n_batches, g_padded = make_batches(n_rows, int(g_batch_size))
         padded = max(d_padded, g_padded)
         self._stream_seen = urm_storage == "csr"
+        layout = None
+        if mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import ShardLayout
+
+            # csr storage shards the matrix's rows, dense storage the padded URM's
+            layout = ShardLayout(mesh_plan, n_rows if self._stream_seen else padded, n_cols)
         if self._stream_seen:
-            urm = padded_csr_from_sparse(train_csr, self.device)
+            if layout is None:
+                urm = padded_csr_from_sparse(train_csr, self.device)
+            else:
+                from ganmf_tpu_torch.parallel.distributed import shard_padded_csr
+
+                urm = shard_padded_csr(padded_csr_from_sparse(train_csr, torch.device("cpu")), mesh_plan)
             if compute_dtype == "bf16":
                 urm = urm._replace(val=urm.val.to(torch.bfloat16))
         else:
-            urm = torch.zeros((padded, n_cols), dtype=torch.float32, device=self.device)
-            urm[:n_rows] = dense_from_sparse(train_csr, self.device)
+            lo, hi = (0, padded) if layout is None else (layout.r0, layout.r1)
+            c0, c1 = (0, n_cols) if layout is None else (layout.i0, layout.i1)
+            urm = torch.zeros((hi - lo, c1 - c0), dtype=torch.float32, device=self.device)
+            if lo < n_rows:
+                urm[: min(hi, n_rows) - lo] = dense_from_sparse(train_csr[lo:hi, c0:c1], self.device)
             if compute_dtype == "bf16":
                 urm = urm.to(torch.bfloat16)  # the masks and the condition follow
-        self._train_padded = urm if self._stream_seen else None
+        self._train_padded = urm if self._stream_seen and layout is None else None
         weights = torch.from_numpy(padded_weights(n_rows, padded)).to(self.device)
 
         g_dims = [n_cols] + [int(g_nodes)] * int(g_layers) + [n_cols]
         d_dims = [2 * n_cols] + [int(d_nodes)] * int(d_layers) + [1]
-        self.params = init_params(g_dims, d_dims, torch.Generator().manual_seed(self.seed), self.device)
+        generator = torch.Generator().manual_seed(self.seed)
+        self.mesh_plan = mesh_plan
+        if mesh_plan is None:
+            self.params = init_params(g_dims, d_dims, generator, self.device)
+            epoch, lead, extra = cfgan_epoch, (), {}
+        else:
+            from ganmf_tpu_torch.parallel.adversarial import sharded_cfgan_epoch
+            from ganmf_tpu_torch.parallel.distributed import shard_cfgan_params
+
+            self.params = shard_cfgan_params(init_params(g_dims, d_dims, generator, torch.device("cpu")), mesh_plan)
+            epoch, lead, extra = sharded_cfgan_epoch, (layout,), dict(n_rows=n_rows)
         self._d_opt = torch.optim.Adam(self.params.D.parameters(), lr=d_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
         self._g_opt = torch.optim.Adam(self.params.G.parameters(), lr=g_lr, betas=ADAM_BETAS, eps=ADAM_EPS)
         self._epoch_gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -396,15 +433,15 @@ class CFGAN(AdversarialRecommender):
             epoch = self._mask_epoch
             return lambda stream, rows: keyed_uniforms(self.seed, epoch, stream, rows, n_cols)
 
-        def epoch_fn(epoch):
-            cfgan_epoch(
-                self.params, self._d_opt, self._g_opt, urm, epoch_uniforms(), weights, weights,
+        def epoch_fn(_):
+            epoch(
+                *lead, self.params, self._d_opt, self._g_opt, urm, epoch_uniforms(), weights, weights,
                 d_reg=d_reg, g_reg=g_reg, zr_ratio=zr_ratio, zp_ratio=zp_ratio,
                 zr_coefficient=zr_coefficient, scheme=scheme,
                 d_hidden_act=d_hidden_act, g_hidden_act=g_hidden_act,
                 d_n_batches=d_n_batches, d_batch=int(d_batch_size),
                 g_n_batches=g_n_batches, g_batch=int(g_batch_size),
-                d_steps=int(d_steps), g_steps=int(g_steps), compute_dtype=compute_dtype,
+                d_steps=int(d_steps), g_steps=int(g_steps), compute_dtype=compute_dtype, **extra,
             )
             self._drop_score_caches()
 
@@ -426,16 +463,31 @@ class CFGAN(AdversarialRecommender):
         return u_zr, u_pm
 
     # -- crash resume (full training state) -----------------------------------
+    def _mesh_optimizers(self):
+        """(optimizer state, index of its first parameter): G's, then D's."""
+        return (("g_state", 0), ("d_state", len(list(self.params.G.parameters()))))
+
     def _checkpoint_state(self):
-        return {
+        """The training state; on a mesh its full tensors, gathered from the
+        shards (a collective), so that a checkpoint resumes on any plan."""
+        state = {
             "params": self.params.state_dict(),
             "d_state": self._d_opt.state_dict(),
             "g_state": self._g_opt.state_dict(),
             "epoch_gen": self._epoch_gen.get_state(),
             "mask_epoch": torch.tensor(self._mask_epoch, dtype=torch.int64),
         }
+        if self.mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import gather_module_state
+
+            state = gather_module_state(state, self.params, self.mesh_plan, self._mesh_optimizers())
+        return state
 
     def _restore_checkpoint_state(self, state):
+        if self.mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import shard_module_state
+
+            state = shard_module_state(state, self.params, self.mesh_plan, self._mesh_optimizers())
         self.params.load_state_dict(state["params"])
         self._d_opt.load_state_dict(state["d_state"])
         self._g_opt.load_state_dict(state["g_state"])
@@ -486,12 +538,59 @@ class CFGAN(AdversarialRecommender):
         return self._penult_cache
 
     @torch.no_grad()
+    def _mesh_output(self):
+        """[layout, [R, C_m], None]: on a mesh-trained model, G's output over
+        every training row in this rank's columns, by the sharded forward
+        (chunks of ``STREAM_CHUNK`` rows), kept until the parameters change;
+        the last slot takes the whole output in item mode."""
+        if self._mesh_cache is None:
+            from ganmf_tpu_torch.parallel.adversarial import mlp_shard
+            from ganmf_tpu_torch.parallel.distributed import ShardLayout, _padded_shard_rows
+
+            mat = self._train_matrix()
+            lay = ShardLayout(self.mesh_plan, *mat.shape)
+            pc = padded_csr_from_sparse(mat, self.device)
+            act = self._g_act()
+            out = torch.cat([
+                mlp_shard(lay, self.params.G, _padded_shard_rows(
+                    pc, torch.arange(lo, min(lo + STREAM_CHUNK, mat.shape[0]), device=self.device),
+                    lay.i0, lay.i1).contiguous(), act)
+                for lo in range(0, mat.shape[0], STREAM_CHUNK)])
+            self._mesh_cache = [lay, out, None]
+        return self._mesh_cache
+
+    @torch.no_grad()
+    def _mesh_scores(self, user_ids: torch.Tensor) -> torch.Tensor:
+        from ganmf_tpu_torch.parallel.adversarial import rows_full
+
+        cache = self._mesh_output()
+        lay, out = cache[0], cache[1]
+        if self.mode != "item":
+            return rows_full(lay, out.index_select(0, user_ids))
+        if cache[2] is None:  # item mode: the whole [items, users] output
+            cache[2] = rows_full(lay, out)
+        return cache[2].T.index_select(0, user_ids)
+
+    @torch.no_grad()
+    def score_device_columns(self, user_ids: torch.Tensor, i0: int, i1: int) -> torch.Tensor:
+        """[B, i1 - i0] scores of items [i0, i1): on a mesh-trained model in
+        user mode, this rank's own columns of G's output with no gather."""
+        if self.mesh_plan is not None and self.mode != "item":
+            lay, out = self._mesh_output()[:2]
+            if (lay.i0, lay.i1) == (i0, i1):
+                return out.index_select(0, user_ids)
+        return self.score_device(user_ids)[:, i0:i1]
+
+    @torch.no_grad()
     def score_device(self, user_ids: torch.Tensor) -> torch.Tensor:
         """[B, I] scores for external users, in both modes. In csr storage the
         profiles stream (JAX :412-438): user mode runs G on the users' rows;
         item mode serves columns of G's output over every item row, as
         ``penult @ W_last[:, uid] + b_last[uid]`` from the cached penultimate
-        activations, so no [I, U] output is formed."""
+        activations, so no [I, U] output is formed. On a mesh-trained model:
+        ``_mesh_scores``, a collective every rank calls."""
+        if self.mesh_plan is not None:
+            return self._mesh_scores(user_ids)
         pc = getattr(self, "_train_padded", None)
         if not (self._stream_seen and pc is not None):
             out = self._full_generator_output()
@@ -516,4 +615,5 @@ class CFGAN(AdversarialRecommender):
         data = super().loadModel(folder_path, file_name)
         if "param_0" in data:
             self.params = params_from_jax(data, int(data["config"]["g_layers"]), self.device)
+            self.mesh_plan = None  # the full parameters
         return data

@@ -18,7 +18,12 @@ histories, as the JAX fit does not.
 Scores are the generator's factor product, so DisGANMF ranks through K1 with
 every user warm, as GANMF does.
 
-Not ported: ``mesh_plan``.
+``fit(mesh_plan=...)`` trains on a mesh of ranks, each holding its shards as
+``parallel.distributed.shard_disganmf_params`` places them, through
+``parallel.adversarial.sharded_disganmf_epoch``; as for GANMF, every rank
+calls ``fit`` and what follows, and ``_factors_device``, ``score_device`` and
+the introspection methods gather the shards (the mesh evaluator then ranks
+each item shard through K1).
 """
 
 from __future__ import annotations
@@ -223,27 +228,44 @@ class DisGANMF(MFGeneratorRecommender):
         """Train on the training matrix (JAX :227-328), with GANMF's
         ``urm_storage`` and ``compute_dtype``. ``lazy_user_adam=None`` means
         TF1's lazy Adam in user mode and its dense form in item mode
-        (:260-261). Returns the reference's fit() value. ``mesh_plan`` is not
-        ported and raises."""
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
+        (:260-261). Returns the reference's fit() value. ``mesh_plan``
+        trains on a mesh, as ``GANMF.fit`` does (JAX :287-294)."""
         if d_hidden_act not in ACTIVATIONS:
             raise ValueError(f"d_hidden_act must be one of {sorted(ACTIVATIONS)}, got {d_hidden_act!r}")
         if lazy_user_adam is None:
             lazy_user_adam = self.mode == "user"
-        urm, (n_rows, n_cols) = self._training_urm(urm_storage, compute_dtype)
+        layout = None
+        if mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.distributed import ShardLayout
+
+            if mesh_plan.device != self.device:
+                raise ValueError(f"model on {self.device}, its mesh plan on {mesh_plan.device}")
+            layout = ShardLayout(mesh_plan, *self._train_matrix().shape)
+        urm, (n_rows, n_cols) = self._training_urm(urm_storage, compute_dtype, layout)
         self.config = dict(
             num_factors=num_factors, d_layers=d_layers, d_nodes=d_nodes, d_hidden_act=d_hidden_act,
             epochs=epochs, batch_size=batch_size, d_lr=d_lr, g_lr=g_lr, d_steps=d_steps,
             g_steps=g_steps, d_reg=d_reg, g_reg=g_reg, recon_coefficient=recon_coefficient,
         )
-        self.params = init_params(n_rows, n_cols, int(num_factors), int(d_layers), int(d_nodes),
-                                  torch.Generator().manual_seed(self.seed), self.device)
+        generator = torch.Generator().manual_seed(self.seed)
+        self.mesh_plan = mesh_plan
+        if mesh_plan is None:
+            self.params = init_params(n_rows, n_cols, int(num_factors), int(d_layers), int(d_nodes), generator,
+                                      self.device)
+            epoch, lead = disganmf_epoch, ()
+        else:
+            from ganmf_tpu_torch.parallel.adversarial import sharded_disganmf_epoch
+            from ganmf_tpu_torch.parallel.distributed import shard_disganmf_params
+
+            full = init_params(n_rows, n_cols, int(num_factors), int(d_layers), int(d_nodes), generator,
+                               torch.device("cpu"))
+            self.params = shard_disganmf_params(full, mesh_plan)
+            epoch, lead = sharded_disganmf_epoch, (layout,)
 
         def run_epoch(perm, weights, n_batches):
             # the epoch's losses are dropped, as the JAX fit drops them (:314)
-            disganmf_epoch(
-                self.params, self._d_opt, self._item_opt, self._user_adam, urm, perm, weights,
+            epoch(
+                *lead, self.params, self._d_opt, self._item_opt, self._user_adam, urm, perm, weights,
                 g_lr=float(g_lr), recon_coefficient=float(recon_coefficient), d_reg=float(d_reg),
                 g_reg=float(g_reg), n_batches=n_batches, batch_size=int(batch_size),
                 d_steps=int(d_steps), g_steps=int(g_steps), d_hidden_act=d_hidden_act,
@@ -261,4 +283,5 @@ class DisGANMF(MFGeneratorRecommender):
         data = super().loadModel(folder_path, file_name)
         if "param_0" in data:
             self.params = params_from_jax(data, self.device)
+            self.mesh_plan = None  # the full parameters
         return data

@@ -58,7 +58,7 @@ class AdversarialRecommender(Recommender):
         self.metrics_logger = None  # utils.logging.MetricsLogger
         self.checkpointer = None  # utils.checkpoint.TrainCheckpointer
         # the parallel.MeshPlan the parameters are sharded on, set by a fit
-        # on a mesh (GANMF's); None: the parameters are whole
+        # on a mesh; None: the parameters are whole
         self.mesh_plan = None
 
     def _lead(self) -> bool:
@@ -80,8 +80,14 @@ class AdversarialRecommender(Recommender):
             raise RuntimeError(f"the mesh's ranks disagree on {what}: from {-both[1]} to {both[0]}")
 
     def _full_params(self) -> torch.nn.Module:
-        """The whole parameters (subclasses whose fits shard them gather)."""
-        return self.params
+        """The whole parameters: on a mesh-trained model gathered from the
+        shards (``parallel.distributed.gather_module``), a collective that
+        every rank calls."""
+        if self.mesh_plan is None:
+            return self.params
+        from ganmf_tpu_torch.parallel.distributed import gather_module
+
+        return gather_module(self.params, self.mesh_plan)
 
     # -- training-orientation helpers ---------------------------------------
     def _train_matrix(self):

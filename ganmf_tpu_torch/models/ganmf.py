@@ -305,6 +305,12 @@ def ganmf_epoch(
         lazy_user_adam=lazy_user_adam)
 
 
+#: the training state's optimizers (key, index of their first parameter) and
+#: TF1 Adam's moments (key, parameter index); ``parameters()`` is user_emb,
+#: item_emb, then D's tensors
+_MESH_STATE = ((("d_state", 2), ("item_state", 1)), (("user_state", 0),))
+
+
 class MFGeneratorRecommender(AdversarialRecommender):
     """What GANMF and DisGANMF share: the MF generator's URM storage,
     optimizers, shuffle stream and crash-resume state, and its scores, the
@@ -376,16 +382,16 @@ class MFGeneratorRecommender(AdversarialRecommender):
             "user_state": dict(self._user_adam),
         }
         if self.mesh_plan is not None:
-            from ganmf_tpu_torch.parallel.distributed import gather_ganmf_state
+            from ganmf_tpu_torch.parallel.distributed import gather_module_state
 
-            state = gather_ganmf_state(state, self.params, self.mesh_plan)
+            state = gather_module_state(state, self.params, self.mesh_plan, *_MESH_STATE)
         return state
 
     def _restore_checkpoint_state(self, state):
         if self.mesh_plan is not None:
-            from ganmf_tpu_torch.parallel.distributed import shard_ganmf_state
+            from ganmf_tpu_torch.parallel.distributed import shard_module_state
 
-            state = shard_ganmf_state(state, self.mesh_plan)
+            state = shard_module_state(state, self.params, self.mesh_plan, *_MESH_STATE)
         self.params.load_state_dict(state["params"])
         self._d_opt.load_state_dict(state["d_state"])
         self._item_opt.load_state_dict(state["item_state"])
@@ -398,13 +404,6 @@ class MFGeneratorRecommender(AdversarialRecommender):
         if self.params is None:
             raise RuntimeError(f"{self.RECOMMENDER_NAME} has no parameters: fit it or load them first")
         return self._full_params()
-
-    def _full_params(self) -> nn.Module:
-        if self.mesh_plan is None:
-            return self.params
-        from ganmf_tpu_torch.parallel.distributed import gather_ganmf_params
-
-        return gather_ganmf_params(self.params, self.mesh_plan)
 
     def _factors_device(self):
         """(U, V, cold) with scores = U @ V^T for external users. In item mode

@@ -211,11 +211,11 @@ class IRGAN_Recommender(MatrixFactorizationRecommender, IncrementalTrainingEarly
         gen_reg: float = 1e-4,
         g_samples: int = 16,
         random_seed: int = 1234,
-        mesh_plan=None,
         **earlystopping_kwargs,
     ):
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
+        # as in the JAX fit, which has no mesh_plan parameter, any other
+        # keyword (mesh_plan too) goes to the early-stopping loop, which
+        # raises TypeError for it; a fit with epochs=0 never reads them
         # the permutation and the uniform init come from the host RandomState,
         # in the JAX fit's order: the starting tables are JAX's bitwise
         rng = np.random.RandomState(random_seed)

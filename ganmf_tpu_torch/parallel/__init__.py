@@ -1,11 +1,14 @@
 """Multi-rank runtime of the port: the counterpart of ganmf_tpu.parallel on
-``torch.distributed`` (comm, mesh, distributed). The other models'
-``shard_*_params`` (DisGANMF, CFGAN, CAAE) are not ported yet."""
+``torch.distributed`` (comm, mesh, distributed), with the sharded epochs of
+GANMF (distributed) and of DisGANMF, CFGAN and CAAE (adversarial)."""
 
 from ganmf_tpu_torch.parallel.mesh import MeshPlan, make_mesh  # noqa: F401
 from ganmf_tpu_torch.parallel.distributed import (  # noqa: F401
     init_distributed,
     make_distributed_ganmf_step,
+    shard_caae_params,
+    shard_cfgan_params,
+    shard_disganmf_params,
     shard_ganmf_params,
     shard_padded_csr,
 )

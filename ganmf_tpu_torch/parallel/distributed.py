@@ -1,6 +1,8 @@
-"""Multi-rank GANMF training: the sharded parameters, step and epoch.
+"""Multi-rank training: the sharded parameters of GANMF, DisGANMF, CFGAN and
+CAAE, GANMF's step and epoch, and the epoch loop GANMF and DisGANMF share
+(the other models' epochs are in ``parallel.adversarial``).
 
-Port of ganmf_tpu/parallel/distributed.py. The placement is the JAX file's:
+Port of ganmf_tpu/parallel/distributed.py. GANMF's placement is the JAX file's:
 
   * URM             [U, I] -> (data, model)
   * user embeddings [U, K] -> (data, -)      \\  generator
@@ -40,103 +42,191 @@ the host: the losses stay device scalars.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import copy
+from typing import Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from ganmf_tpu_torch.data.device import PaddedCSR
 from ganmf_tpu_torch.models.gan_base import ADAM_BETAS, ADAM_EPS, apply_grads
-from ganmf_tpu_torch.models.ganmf import FIELDS, GANMFParams, _l2, init_params, tf1_adam_
+from ganmf_tpu_torch.models.ganmf import GANMFParams, _l2, init_params, tf1_adam_
 from ganmf_tpu_torch.parallel import comm
 from ganmf_tpu_torch.parallel.mesh import MODEL_AXIS, MeshPlan, _names
 from ganmf_tpu_torch.utils.debug import debug_enabled, raise_on_nan
 
 
-def ganmf_specs(plan: MeshPlan) -> Dict[str, tuple]:
-    """Each GANMF tensor's placement, by field name."""
-    return dict(user_emb=plan.user_rows, item_emb=plan.item_rows, enc_w=plan.item_rows,
-                enc_b=plan.replicated, dec_w=plan.item_cols, dec_b=plan.named(MODEL_AXIS))
-
-
-class ShardedGANMFParams(GANMFParams):
-    """This rank's shards of the six GANMF tensors, with the global (rows,
-    cols) of the training state."""
-
-    def __init__(self, n_rows: int, n_cols: int, tensors):
-        super().__init__(*tensors)
-        self.n_rows, self.n_cols = n_rows, n_cols
-
-    def global_shape(self, name: str) -> Tuple[int, ...]:
-        E, K = self.enc_b.shape[0], self.user_emb.shape[1]
-        return dict(user_emb=(self.n_rows, K), item_emb=(self.n_cols, K), enc_w=(self.n_cols, E),
-                    enc_b=(E,), dec_w=(E, self.n_cols), dec_b=(self.n_cols,))[name]
-
-
-def shard_ganmf_params(params: GANMFParams, plan: MeshPlan) -> ShardedGANMFParams:
+def shard_ganmf_params(params: GANMFParams, plan: MeshPlan) -> GANMFParams:
     """This rank's shards of full GANMF parameters (made the same on every
-    rank), on the plan's device."""
-    specs = ganmf_specs(plan)
-    n_rows, n_cols = params.user_emb.shape[0], params.item_emb.shape[0]
-    with torch.no_grad():
-        return ShardedGANMFParams(n_rows, n_cols, [
-            plan.put(getattr(params, name).detach(), specs[name]) for name in FIELDS])
-
-
-def gather_ganmf_params(params: ShardedGANMFParams, plan: MeshPlan) -> GANMFParams:
-    """The full parameters on every rank (a collective)."""
-    return GANMFParams(*gather_tensors(params, plan, [p.detach() for p in params.parameters()], FIELDS))
-
-
-def gather_tensors(params: ShardedGANMFParams, plan: MeshPlan, tensors, names):
-    """Full tensors from shards laid out as the GANMF fields ``names`` (a
-    collective)."""
-    specs = ganmf_specs(plan)
-    with torch.no_grad():
-        return [plan.gather(t.contiguous(), specs[n], params.global_shape(n))
-                for t, n in zip(tensors, names)]
-
-
-def shard_tensors(plan: MeshPlan, tensors, names):
-    """This rank's shards of full tensors laid out as the GANMF fields ``names``."""
-    specs = ganmf_specs(plan)
-    return [plan.put(t, specs[n]) for t, n in zip(tensors, names)]
-
-
-def _map_ganmf_state(state, fn):
-    """The GANMF training state (``MFGeneratorRecommender._checkpoint_state``'s
-    layout) with ``fn(tensor, field name)`` applied to each parameter, Adam
-    moment and TF1 moment; step counts and settings as they are."""
-    def opt(sd, names):
-        return {"param_groups": sd["param_groups"], "state": {
-            i: {k: fn(v, names[int(i)]) if k in ("exp_avg", "exp_avg_sq") else v for k, v in st.items()}
-            for i, st in sd["state"].items()}}
-
-    return {
-        "params": {k: fn(v, k) for k, v in state["params"].items()},
-        "d_state": opt(state["d_state"], D_NAMES),
-        "item_state": opt(state["item_state"], ("item_emb",)),
-        "user_state": {k: fn(v, "user_emb") if k in ("m", "v") else v for k, v in state["user_state"].items()},
-    }
-
-
-def gather_ganmf_state(state, params: ShardedGANMFParams, plan: MeshPlan):
-    """A sharded training state with every tensor full (a collective): the
-    state a one-card fit holds, as JAX's checkpoint holds ``np.asarray`` of
-    its sharded arrays (ganmf_tpu/utils/checkpoint.py:55-63)."""
-    return _map_ganmf_state(state, lambda t, n: gather_tensors(params, plan, [t], [n])[0])
-
-
-def shard_ganmf_state(state, plan: MeshPlan):
-    """This rank's shards of a full training state (from any plan's
-    checkpoint, or a one-card fit's)."""
-    return _map_ganmf_state(state, lambda t, n: shard_tensors(plan, [t], [n])[0])
+    rank), on the plan's device, in JAX's placement (the table at the top)."""
+    specs = [plan.user_rows, plan.item_rows, plan.item_rows, plan.replicated, plan.item_cols,
+             plan.named(MODEL_AXIS)]
+    return _shard_module(params, specs, plan, params.item_emb.shape[0])
 
 
 def shard_padded_csr(pc: PaddedCSR, plan: MeshPlan) -> PaddedCSR:
     """This rank's rows of padded-CSR storage: both [R, L] planes shard over
     the user axes (every column kept), so a rank holds O(nnz / n_user_shards)."""
     return PaddedCSR(idx=plan.put(pc.idx, plan.user_rows), val=plan.put(pc.val, plan.user_rows))
+
+
+# -- the other adversarial trainers' placements -----------------------------------
+#
+# JAX's rules (ganmf_tpu/parallel/distributed.py:68-126), one placement for
+# each tensor in ``parameters()`` order. Two of them split a kernel by its
+# rows, which in JAX's layout do not line up with the item shards: CFGAN D's
+# [2I, d] first kernel split in n_model pieces gives the first rank the
+# ``cond`` rows of every item, and DisGANMF D's [I + 1, d] is offset by the id
+# row. The port holds them so:
+#
+#   * CFGAN D's first kernel, where the items divide over the model axis, in
+#     the aligned form ``PAIRED``: this rank's cond rows [i0, i1) then its
+#     data rows [I + i0, I + i1), as many rows as JAX's share, so that the
+#     row-parallel product takes this rank's item columns of both inputs and
+#     needs no input gather. Where the items do not divide, JAX's rows as
+#     ``put`` places them (a row slice of the whole input, or replicated);
+#   * DisGANMF D's first kernel by JAX's rule as it is: where the items
+#     divide over a model axis of 2 or more, I + 1 does not, and the kernel
+#     is replicated (LastFM's 17,633 rows); the rank then all-gathers the
+#     [b, I_m] profile over model. Where I + 1 divides, the items do not and
+#     the rank holds JAX's row slice of the whole input.
+#
+# ``gather_*`` and the checkpoints give JAX's full layouts.
+
+#: CFGAN D's first kernel in the aligned form (see above)
+PAIRED = "paired"
+
+
+def _put(plan: MeshPlan, t: torch.Tensor, spec, n_cols: int) -> torch.Tensor:
+    if spec == PAIRED:
+        (i0, i1), = plan.bounds((n_cols,), plan.item_rows)
+        return torch.cat([t[i0:i1], t[n_cols + i0 : n_cols + i1]]).contiguous().to(plan.device)
+    return plan.put(t, spec)
+
+
+def _gather(plan: MeshPlan, t: torch.Tensor, spec, shape, n_cols: int) -> torch.Tensor:
+    if spec == PAIRED:
+        n = plan.n_model if n_cols % plan.n_model == 0 else 1
+        parts = comm.all_gather(t.contiguous(), plan, MODEL_AXIS if n > 1 else ())  # c0 d0 c1 d1 ...
+        return parts.reshape(n, 2, n_cols // n, *t.shape[1:]).transpose(0, 1).reshape(shape)
+    return plan.gather(t.contiguous(), spec, shape)
+
+
+def _mlp_specs(plan: MeshPlan, n_layers: int, in_items: bool, out_items: bool):
+    """The placements of an MLP's weights then biases (JAX ``_shard_mlp``)."""
+    ws = []
+    for i in range(n_layers):
+        if i == 0 and in_items and not (i == n_layers - 1 and out_items):
+            ws.append(plan.item_rows)
+        elif i == n_layers - 1 and out_items:
+            ws.append(plan.item_cols)
+        else:
+            ws.append(plan.replicated)
+    bs = [plan.named(MODEL_AXIS) if (i == n_layers - 1 and out_items) else plan.replicated
+          for i in range(n_layers)]
+    return ws + bs
+
+
+def _shard_module(full: nn.Module, specs, plan: MeshPlan, n_cols: int) -> nn.Module:
+    """A copy of ``full`` whose every parameter is this rank's shard of it, on
+    the plan's device; it keeps its placements, global shapes and item count
+    in ``mesh_layout`` for the gathers."""
+    out = copy.deepcopy(full).cpu()
+    shapes = []
+    with torch.no_grad():
+        for p, spec in zip(out.parameters(), specs):
+            shapes.append(tuple(p.shape))
+            p.data = _put(plan, p.data, spec, n_cols)
+    out.mesh_layout = (tuple(specs), tuple(shapes), n_cols)
+    return out
+
+
+def _shard_mlp(p, plan: MeshPlan, in_items: bool, out_items: bool, n_cols: int):
+    """This rank's shards of an MLP whose first kernel takes an item-wide
+    input (``in_items``) and/or whose last layer gives an item-wide output
+    (``out_items``); hidden layers replicated (JAX ``_shard_mlp``)."""
+    return _shard_module(p, _mlp_specs(plan, len(p.ws), in_items, out_items), plan, n_cols)
+
+
+def shard_disganmf_params(params, plan: MeshPlan):
+    """DisGANMFParams placement: user embeddings over the user axes, item
+    embeddings and D's [I + 1, d] first kernel over model (the kernel under
+    the degrade rule), the hidden kernels, the biases and the output layer
+    replicated."""
+    n_layers = len(params.d_ws)
+    specs = ([plan.user_rows, plan.item_rows, plan.item_rows] + [plan.replicated] * (n_layers - 1)
+             + [plan.replicated] * n_layers + [plan.replicated] * 2)
+    return _shard_module(params, specs, plan, params.item_emb.shape[0])
+
+
+def shard_cfgan_params(params, plan: MeshPlan):
+    """CFGANParams placement: G maps items to items (its first kernel
+    row-sharded, its last kernel and bias column-sharded over model); D's
+    [2I, d] first kernel row-sharded (``PAIRED`` where the items divide),
+    every other layer replicated."""
+    n_cols = params.G.bs[-1].shape[0]
+    d_specs = _mlp_specs(plan, len(params.D.ws), True, False)
+    if n_cols % plan.n_model == 0:
+        d_specs[0] = PAIRED
+    return _shard_module(params, _mlp_specs(plan, len(params.G.ws), True, True) + d_specs, plan, n_cols)
+
+
+def shard_caae_params(params, plan: MeshPlan):
+    """CAAEParams placement: D's user factors over the user axes, its item
+    factors and item bias over model, G and G' sharded at their input and
+    output layers."""
+    n_layers = len(params.G.ws)
+    mlp = _mlp_specs(plan, n_layers, True, True)
+    specs = [plan.user_rows, plan.item_rows, plan.named(MODEL_AXIS)] + mlp + mlp
+    return _shard_module(params, specs, plan, params.d_item_emb.shape[0])
+
+
+def gather_module(sharded: nn.Module, plan: MeshPlan) -> nn.Module:
+    """The full parameters of a ``_shard_module`` copy, in JAX's layouts, on
+    every rank (a collective)."""
+    specs, shapes, n_cols = sharded.mesh_layout
+    out = copy.deepcopy(sharded)
+    del out.mesh_layout
+    with torch.no_grad():
+        for p, spec, shape in zip(out.parameters(), specs, shapes):
+            p.data = _gather(plan, p.data, spec, shape, n_cols)
+    return out
+
+
+def map_module_state(state, sharded: nn.Module, fn, optimizers=(), moments=()):
+    """A training state with ``fn(tensor, spec, shape, n_cols)`` applied to
+    the parameters' state dict (``state["params"]``), to the Adam moments of
+    each ``(key, index of its first parameter)`` in ``optimizers`` (the
+    optimizer over the parameters from that index on), and to the "m" and
+    "v" of each ``(key, parameter index)`` in ``moments`` (TF1 Adam's state);
+    the rest as it is."""
+    specs, shapes, n_cols = sharded.mesh_layout
+    out = dict(state)
+    out["params"] = {k: fn(v, s, sh, n_cols) for (k, v), s, sh in zip(state["params"].items(), specs, shapes)}
+    for key, first in optimizers:
+        sd = state[key]
+        out[key] = {"param_groups": sd["param_groups"], "state": {
+            i: {k: fn(v, specs[first + int(i)], shapes[first + int(i)], n_cols)
+                if k in ("exp_avg", "exp_avg_sq") else v for k, v in st.items()}
+            for i, st in sd["state"].items()}}
+    for key, j in moments:
+        out[key] = {k: fn(v, specs[j], shapes[j], n_cols) if k in ("m", "v") else v for k, v in state[key].items()}
+    return out
+
+
+def gather_module_state(state, sharded: nn.Module, plan: MeshPlan, optimizers=(), moments=()):
+    """A sharded training state with every tensor full (a collective): the
+    state a one-card fit holds."""
+    with torch.no_grad():
+        return map_module_state(state, sharded, lambda t, s, sh, n: _gather(plan, t, s, sh, n), optimizers,
+                                moments)
+
+
+def shard_module_state(state, sharded: nn.Module, plan: MeshPlan, optimizers=(), moments=()):
+    """This rank's shards of a full training state (any plan's checkpoint,
+    or a one-card fit's)."""
+    return map_module_state(state, sharded, lambda t, s, sh, n: _put(plan, t, s, n), optimizers, moments)
 
 
 def init_distributed(seed: int, n_users: int, n_items: int, num_factors: int, emb_dim: int,
@@ -270,17 +360,27 @@ def _sq_sum(a, b, w):
     return ((a.float() - b.float()) ** 2 * w[:, None]).sum()
 
 
-def _l2_sums(lay: ShardLayout, tensors, names) -> torch.Tensor:
-    """The L2 term, sum(t^2) / 2 over each global tensor, from the shards:
-    item-split tensors summed over model, user rows over the user axes
-    (once per row), replicated tensors counted once."""
+def param_kinds(module, user_names=("user_emb",)):
+    """Each parameter's kind for ``l2_value``: "user" for the named user
+    tables, "item" for a tensor split over model (its shard smaller than its
+    global shape), else "rep"."""
+    shapes = module.mesh_layout[1]
+    names = [n for n, _ in module.named_parameters()]
+    return [("user" if n in user_names else "item" if tuple(p.shape) != sh else "rep")
+            for n, p, sh in zip(names, module.parameters(), shapes)]
+
+
+def l2_value(lay: ShardLayout, tensors, kinds) -> torch.Tensor:
+    """The L2 term, sum(t^2) / 2 over each global tensor, from the shards (no
+    gradient): per ``kinds``, user rows summed over the user axes (once per
+    row), item-split tensors over model, replicated tensors counted once."""
     total = 0.0
-    for t, name in zip(tensors, names):
+    for t, kind in zip(tensors, kinds):
         s = (t.detach().float() ** 2).sum() / 2.0
-        if name == "user_emb":
+        if kind == "user":
             s = comm.psum(s if lay.rows_primary else torch.zeros_like(s), lay.plan, lay.user_axes)
-        elif name != "enc_b":
-            s = comm.psum(s, lay.plan, lay.item_axes)
+        elif kind == "item":
+            s = comm.psum(s, lay.plan, MODEL_AXIS)
         total = total + s
     return total
 
@@ -330,9 +430,6 @@ def _user_sum(lay: ShardLayout, grads):
     return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
-D_NAMES, G_NAMES = ("enc_w", "enc_b", "dec_w", "dec_b"), ("user_emb", "item_emb")
-
-
 def d_grads(lay: ShardLayout, p: GANMFParams, uids, real, w, m, d_reg, dtype=None):
     """(D's loss with L2, the gradients of this rank's D shards). The L2
     term's gradient enters on the first user rank only, so that the sum over
@@ -342,7 +439,7 @@ def d_grads(lay: ShardLayout, p: GANMFParams, uids, real, w, m, d_reg, dtype=Non
     graph = loss + d_reg * _l2(d_params) if d_reg and lay.user_lead else loss
     grads = _user_sum(lay, torch.autograd.grad(graph, d_params))
     if d_reg:
-        loss = loss.detach() + d_reg * _l2_sums(lay, d_params, D_NAMES)
+        loss = loss.detach() + d_reg * l2_value(lay, d_params, param_kinds(p)[2:])
     return loss.detach(), grads
 
 
@@ -358,29 +455,32 @@ def g_grads(lay: ShardLayout, p: GANMFParams, uids, real, w, recon_coefficient, 
     g_user, g_item = torch.autograd.grad(graph, p.g_params())
     g_item, = _user_sum(lay, [g_item])
     if g_reg:
-        loss = loss.detach() + g_reg * _l2_sums(lay, p.g_params(), G_NAMES)
+        loss = loss.detach() + g_reg * l2_value(lay, p.g_params(), param_kinds(p)[:2])
     return loss.detach(), g_user, g_item
 
 
 # -- the epoch and the step --------------------------------------------------------
 
-def sharded_ganmf_epoch(
-    lay: ShardLayout, params: GANMFParams, d_opt: torch.optim.Optimizer, item_opt: torch.optim.Optimizer,
-    user_state, urm, perm: torch.Tensor, weights: torch.Tensor,
-    *, g_lr: float, m: float, recon_coefficient: float, d_reg: float, g_reg: float,
-    n_batches: int, batch_size: int, d_steps: int, g_steps: int,
-    lazy_user_adam: bool = False, compute_dtype: str = "f32",
+def sharded_generator_epoch(
+    lay: ShardLayout, params, d_opt: torch.optim.Optimizer, item_opt: torch.optim.Optimizer,
+    user_state, urm, perm: torch.Tensor, weights: torch.Tensor, d_step, g_step,
+    *, g_lr: float, n_batches: int, batch_size: int, d_steps: int, g_steps: int, lazy_user_adam: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``ganmf_epoch`` (models/ganmf.py) on this rank's shards, in place:
+    """``mf_generator_epoch`` (models/ganmf.py) on this rank's shards, in
+    place: GANMF's and DisGANMF's, which differ only in their losses.
+    ``d_step(uids, real, w)`` gives (D's loss with L2, the gradients of this
+    rank's D shards), ``g_step(...)`` (G's loss with L2, the user rows'
+    gradients, the item shard's summed over the user axes); the loop runs
     ``d_steps * n_batches`` D minibatches, then ``g_steps * n_batches`` G
-    minibatches, over the epoch's permutation ``perm`` and ``weights`` (the
+    minibatches over the epoch's permutation ``perm`` and ``weights`` (the
     whole batch, the same on every rank). ``urm`` is this rank's URM shard,
     dense [rows_l, I_m] or its rows' padded-CSR planes; the optimizers and
     ``user_state`` hold this rank's shards. Returns the global mean losses
     as device scalars, the same on every rank."""
-    cd = torch.bfloat16 if compute_dtype == "bf16" else None
     debug = debug_enabled()
     user_emb, item_emb = params.g_params()
+    d_params = params.d_params()
+    names = {id(p): n for n, p in params.named_parameters()}
 
     def batch(step):
         lo = (step % n_batches) * batch_size
@@ -389,16 +489,16 @@ def sharded_ganmf_epoch(
 
     d_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
     for step in range(d_steps * n_batches):
-        loss, grads = d_grads(lay, params, *batch(step), m, d_reg, cd)
-        apply_grads(d_opt, params.d_params(), grads)
+        loss, grads = d_step(*batch(step))
+        apply_grads(d_opt, d_params, grads)
         if debug:
-            raise_on_nan(f"D step {step}", loss=loss, **dict(zip(D_NAMES, params.d_params())))
+            raise_on_nan(f"D step {step}", loss=loss, **{names[id(p)]: p for p in d_params})
         d_sum += loss
 
     g_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
     for step in range(g_steps * n_batches):
         uids, real, w = batch(step)
-        loss, g_user, g_item = g_grads(lay, params, uids, real, w, recon_coefficient, g_reg, cd)
+        loss, g_user, g_item = g_step(uids, real, w)
         row_mask = None
         if lazy_user_adam:
             full = torch.zeros(lay.n_rows, dtype=torch.float32, device=w.device)
@@ -415,6 +515,24 @@ def sharded_ganmf_epoch(
     return d_sum / (n_batches * d_steps), g_sum / (n_batches * g_steps)
 
 
+def sharded_ganmf_epoch(
+    lay: ShardLayout, params: GANMFParams, d_opt: torch.optim.Optimizer, item_opt: torch.optim.Optimizer,
+    user_state, urm, perm: torch.Tensor, weights: torch.Tensor,
+    *, g_lr: float, m: float, recon_coefficient: float, d_reg: float, g_reg: float,
+    n_batches: int, batch_size: int, d_steps: int, g_steps: int,
+    lazy_user_adam: bool = False, compute_dtype: str = "f32",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ganmf_epoch`` (models/ganmf.py) on this rank's shards, in place,
+    through ``sharded_generator_epoch``."""
+    cd = torch.bfloat16 if compute_dtype == "bf16" else None
+    return sharded_generator_epoch(
+        lay, params, d_opt, item_opt, user_state, urm, perm, weights,
+        lambda uids, real, w: d_grads(lay, params, uids, real, w, m, d_reg, cd),
+        lambda uids, real, w: g_grads(lay, params, uids, real, w, recon_coefficient, g_reg, cd),
+        g_lr=g_lr, n_batches=n_batches, batch_size=batch_size, d_steps=d_steps, g_steps=g_steps,
+        lazy_user_adam=lazy_user_adam)
+
+
 def make_distributed_ganmf_step(plan: MeshPlan, m: float, recon_coefficient: float,
                                 d_reg: float, g_reg: float):
     """Returns step(params, d_opt, g_opt, urm, uids, w, d_lr, g_lr) ->
@@ -424,8 +542,9 @@ def make_distributed_ganmf_step(plan: MeshPlan, m: float, recon_coefficient: flo
     are ``shard_ganmf_params``'s and ``urm`` this rank's
     ``plan.put(urm, plan.urm)``."""
 
-    def step(params: ShardedGANMFParams, d_opt, g_opt, urm, uids, w, d_lr, g_lr):
-        lay = ShardLayout(plan, params.n_rows, params.n_cols)
+    def step(params: GANMFParams, d_opt, g_opt, urm, uids, w, d_lr, g_lr):
+        _, shapes, n_cols = params.mesh_layout
+        lay = ShardLayout(plan, shapes[0][0], n_cols)
         real = lay.batch_rows(urm, uids)
         dloss, grads = d_grads(lay, params, uids, real, w, m, d_reg)
         for group in d_opt.param_groups:

@@ -46,6 +46,7 @@ from ganmf_tpu_torch.models import caae as pca
 from ganmf_tpu_torch.models.caae import CAAE
 from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
 from ganmf_tpu_torch.utils.checkpoint import TrainCheckpointer
+from test_torch_parallel import one_rank_gloo
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -370,5 +371,12 @@ def test_draws_and_what_is_not_ported(urm_pair):
     # d_scatter="dedup" is ported (tests/test_torch_caae_dedup.py)
     with pytest.raises(ValueError):
         m.fit(epochs=1, d_scatter="sorted")
-    with pytest.raises(NotImplementedError):
-        m.fit(epochs=1, mesh_plan=object())
+    # mesh_plan is ported: on a one-rank gloo plan the fit ends where the fit
+    # without a plan ends
+    with one_rank_gloo() as plan:
+        m.fit(epochs=1, mesh_plan=plan, **{k: KW[k] for k in ("g_units", "num_factors", "d_bsize", "m_batch")})
+        got = [t.detach().numpy() for t in m._full_params().parameters()]
+    single = CAAE(train, device=CPU)
+    single.fit(epochs=1, **{k: KW[k] for k in ("g_units", "num_factors", "d_bsize", "m_batch")})
+    for g, w_ in zip(got, single.params.parameters()):
+        np.testing.assert_array_equal(g, w_.detach().numpy())

@@ -38,6 +38,7 @@ from ganmf_tpu_torch.models import CFGAN
 from ganmf_tpu_torch.models import cfgan as pcf
 from ganmf_tpu_torch.utils.checkpoint import TrainCheckpointer
 from ganmf_tpu_torch.utils.dataio import DataIO
+from test_torch_parallel import one_rank_gloo
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -438,11 +439,22 @@ def test_checkpointer_keeps_loss_histories(tmp_path):
 
 
 def test_fit_rejects_what_is_not_ported(urm_pair):
+    """mesh_plan is ported: on a one-rank gloo plan the fit (ZP masks through
+    K2's plain version) ends where the fit without a plan ends; an unknown
+    storage still raises, and so does scoring an unfitted model."""
     train, _ = urm_pair
     m = CFGAN(train, device=CPU)
     with pytest.raises(ValueError):  # csr storage is ported (tests/test_torch_cfgan_csr.py)
         m.fit(urm_storage="coo", epochs=1)
-    with pytest.raises(NotImplementedError):
-        m.fit(mesh_plan=object(), epochs=1)
     with pytest.raises(RuntimeError):
-        m.score_device(torch.arange(3))
+        CFGAN(train, device=CPU).score_device(torch.arange(3))
+    kw = dict(KW, epochs=1, allow_worse=None, freq=None)
+    with one_rank_gloo() as plan:
+        m.fit(mesh_plan=plan, **kw)
+        got = [t.detach().numpy() for t in m._full_params().parameters()]
+        scores = m.score_device(torch.arange(5)).numpy()
+    single = CFGAN(train, device=CPU)
+    single.fit(**kw)
+    for g, w_ in zip(got, single.params.parameters()):
+        np.testing.assert_array_equal(g, w_.detach().numpy())
+    np.testing.assert_allclose(scores, single.score_device(torch.arange(5)).numpy(), rtol=1e-6, atol=1e-7)

@@ -42,6 +42,7 @@ from ganmf_tpu_torch.models import DisGANMF
 from ganmf_tpu_torch.models import disganmf as pdg
 from ganmf_tpu_torch.models import ganmf as pgm
 from ganmf_tpu_torch.utils.checkpoint import TrainCheckpointer
+from test_torch_parallel import one_rank_gloo
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -307,9 +308,18 @@ def test_crash_resume_and_save_load(urm_pair, tmp_path):
 
 
 def test_fit_rejects_what_is_not_ported(urm_pair):
+    """mesh_plan is ported: on a one-rank gloo plan the fit runs the sharded
+    epoch and ends where the fit without a plan ends; the other options
+    still reject what they do not take."""
     m = DisGANMF(urm_pair[0], device=CPU)
-    with pytest.raises(NotImplementedError):
-        m.fit(mesh_plan=object(), epochs=1)
+    with one_rank_gloo() as plan:
+        m.fit(mesh_plan=plan, epochs=1)
+        got = [t.detach().numpy() for t in m._full_params().parameters()]
+    assert m.mesh_plan is plan and m.params.user_emb.shape == got[0].shape
+    single = DisGANMF(urm_pair[0], device=CPU)
+    single.fit(epochs=1)
+    for g, w_ in zip(got, single.params.parameters()):
+        np.testing.assert_array_equal(g, w_.detach().numpy())
     for bad in (dict(urm_storage="coo"), dict(compute_dtype="fp16"), dict(d_hidden_act="gelu")):
         with pytest.raises(ValueError):
             m.fit(epochs=1, **bad)

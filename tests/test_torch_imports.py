@@ -47,13 +47,14 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
     # P3alpha and SLIM-BPR models), the MF-SGD family, IRGAN, NMF / EASE-R /
     # PredefinedList, the study CLIs and their host helpers, the keyed draw,
     # the host engine, the debug and profiling utilities and the mesh
-    # layer (parallel.comm, parallel.mesh, parallel.distributed) among them
-    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 57, r.stdout
+    # layer (parallel.comm, parallel.mesh, parallel.distributed,
+    # parallel.adversarial) among them
+    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 58, r.stdout
     names = set(r.stdout.split("NAMES")[1].split())
     for module in ("models.mf_sgd", "models.irgan", "models.extras", "utils.analysis", "utils.timing",
                    "eval.significance", "cli.describe", "cli.ablation", "cli.mf_learned",
                    "ops.keyed", "ops.host", "utils.debug", "utils.profiling",
-                   "parallel.comm", "parallel.mesh", "parallel.distributed"):
+                   "parallel.comm", "parallel.mesh", "parallel.distributed", "parallel.adversarial"):
         assert f"ganmf_tpu_torch.{module}" in names, module
 
 

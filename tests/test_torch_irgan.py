@@ -221,8 +221,21 @@ def test_crash_resume_save_and_load(tmp_path):
     np.testing.assert_array_equal(loaded.ITEM_factors, full.ITEM_factors)
     users = np.arange(12)
     assert loaded.recommend(users, cutoff=10) == full.recommend(users, cutoff=10)
-    with pytest.raises(NotImplementedError, match="mesh_plan"):
-        IRGAN_Recommender(train, device=CPU).fit(epochs=1, mesh_plan=object())
+
+
+def test_mesh_plan_takes_the_jax_route():
+    """Neither fit has a mesh_plan parameter: the keyword goes on to the
+    early-stopping loop, which raises TypeError after the pretraining, and a
+    fit with epochs=0 never reads it."""
+    train, _ = _split()
+    params = dict(num_factors=4, batch_size=64, pre_train_epochs=1, random_seed=3)
+    for model in (JaxIRGAN(train), IRGAN_Recommender(train, device=CPU)):
+        with pytest.raises(TypeError, match="mesh_plan"):
+            model.fit(epochs=1, mesh_plan=object(), **params)
+    jm, pm = JaxIRGAN(train), IRGAN_Recommender(train, device=CPU)
+    jm.fit(epochs=0, mesh_plan=object(), **params)
+    pm.fit(epochs=0, mesh_plan=object(), **params)
+    assert jm.epochs_best == pm.epochs_best == 0
 
 
 def test_own_noise_is_gumbel():

@@ -22,6 +22,7 @@ Checks and tolerances (those of JAX's own mesh tests, tests/test_parallel.py):
   atol 1e-6 (tests/test_parallel.py:139-166).
 """
 
+import contextlib
 import os
 import socket
 import subprocess
@@ -45,6 +46,20 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_gloo():
+    """A world of one gloo rank in this process, and its (1, 1) plan on the
+    CPU: every axis has its process group, so the collectives are real calls
+    over groups of one."""
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    comm.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0, device="cpu")
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        comm.shutdown()
 
 
 def spawn(case: str, inputs: dict, workdir: Path, script: Path = Path(__file__), world: int = WORLD):
@@ -190,7 +205,7 @@ def _case_step(inputs, workdir):
 
     from ganmf_tpu_torch.models.ganmf import params_from_jax
     from ganmf_tpu_torch.parallel import make_distributed_ganmf_step, make_mesh, shard_ganmf_params
-    from ganmf_tpu_torch.parallel.distributed import gather_ganmf_params
+    from ganmf_tpu_torch.parallel.distributed import gather_module
     from ganmf_tpu_torch.models.gan_base import ADAM_BETAS, ADAM_EPS
 
     from ganmf_tpu_torch.data.device import padded_csr_from_sparse
@@ -213,7 +228,7 @@ def _case_step(inputs, workdir):
             local = plan.put(urm, plan.urm)
         params, _, _, dloss, gloss = step(params, d_opt, g_opt, local, torch.from_numpy(inputs["uids"]),
                                           torch.from_numpy(inputs["w"]), 1e-3, 1e-3)
-        full = gather_ganmf_params(params, plan)
+        full = gather_module(params, plan)
         out[f"{name}/losses"] = torch.stack([dloss, gloss])
         for i, t in enumerate(full.parameters()):
             out[f"{name}/p{i}"] = t.detach()
