@@ -157,11 +157,13 @@ def negative_mask(block: torch.Tensor, u: torch.Tensor, ratio: float) -> torch.T
     smallest keys ``u`` [R, I] (interactions keyed +inf), as ``block``'s
     dtype. The product is taken in float32 and truncated, as JAX does with
     its float32 ratio; float64 gives another k_u for some pairs (12827 *
-    0.4515475140394092 is 5792 in float32, 5791 in float64)."""
+    0.4515475140394092 is 5792 in float32, 5791 in float64). A Python scalar
+    times a float32 tensor is rounded to float32 and multiplied in float32,
+    with no copy to the device (models/caae.py ``nu_sizes``)."""
     interacted = block != 0
     n_zeros = (~interacted).sum(1).to(torch.float32)
     keys = torch.where(interacted, float("inf"), u)
-    k_u = (n_zeros * torch.tensor(ratio, dtype=torch.float32, device=block.device)).to(torch.int32)
+    k_u = (n_zeros * float(ratio)).to(torch.int32)
     return smallest_k_mask(keys, k_u).to(block.dtype)
 
 

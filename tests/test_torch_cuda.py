@@ -72,7 +72,9 @@ The mesh path: K1 on each item shard of a (data 2, model 2) evaluation
 block with its id offset, against the plain version, and the shards' merged
 lists against K1 over every item; in a world of one rank over NCCL,
 ``sharded_topk`` bitwise ``topk_lowest_index`` and the sharded GANMF epoch
-bitwise the one-card epoch, without a host synchronization.
+bitwise the one-card epoch, without a host synchronization; so too the
+sharded epochs of DisGANMF, CFGAN (dense and csr, K2 and the keyed draw on
+the mesh path) and CAAE (dedup, K2 on the mesh path).
 """
 
 import numpy as np
@@ -1292,3 +1294,92 @@ def test_sharded_epoch_in_a_world_of_one_is_the_epoch_and_does_not_synchronize(c
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(np.isfinite(float(x)) for x in losses)
+
+
+def _gan_epoch_pair(kind, dev, plan):
+    """(the one-card epoch, the sharded epoch on ``plan``, the parameters of
+    each) of DisGANMF, CFGAN (dense or csr) or CAAE (dedup), each from its
+    own copy of the same initial state and draws."""
+    from ganmf_tpu_torch.models import caae as pca
+    from ganmf_tpu_torch.models import disganmf as pdg
+    from ganmf_tpu_torch.ops import keyed
+    from ganmf_tpu_torch.parallel import adversarial as padv
+    from ganmf_tpu_torch.parallel import distributed as pdist
+
+    def adam(params, lr):
+        return torch.optim.Adam(params, lr=lr, betas=pgm.ADAM_BETAS, eps=pgm.ADAM_EPS)
+
+    if kind == "disganmf":
+        p, d_opt, item_opt, state, urm, perm, w, n = _disganmf_epoch_inputs(dev, "user")
+        kw = dict(n_batches=n, lazy_user_adam=True, **_DIS_KW)
+        s = pdist.shard_disganmf_params(_disganmf_epoch_inputs(dev, "user")[0], plan)
+        lay = pdist.ShardLayout(plan, *urm.shape)
+        s_opts = adam(s.d_params(), 1e-3), adam([s.item_emb], 2e-3), pgm.user_adam_state(s.user_emb)
+        return (lambda: pdg.disganmf_epoch(p, d_opt, item_opt, state, urm, perm, w, **kw),
+                lambda: padv.sharded_disganmf_epoch(lay, s, *s_opts, plan.put(urm, plan.urm), perm, w, **kw), p, s)
+    if kind == "caae_dedup":
+        p, urm, users, items, w, draws, kw = _caae_epoch_args(dev)
+        s = pdist.shard_caae_params(_caae_epoch_args(dev)[0], plan)
+        lay = pdist.ShardLayout(plan, *urm.shape)
+        n_nonint = (urm == 0).sum(1)
+        return (lambda: pca.caae_epoch(p, urm, users, items, w, draws, d_scatter="dedup", **kw),
+                lambda: padv.sharded_caae_epoch(lay, s, plan.put(urm, plan.urm), n_nonint, users, items, w, draws,
+                                                d_scatter="dedup", **kw), p, s)
+    rng = np.random.RandomState(0)
+    mat = sps.csr_matrix((rng.rand(300, 700) < 0.02).astype(np.float32))
+    n_rows, n_cols = mat.shape
+    d_n, d_pad = make_batches(n_rows, 64)
+    g_n, g_pad = make_batches(n_rows, 128)
+    padded = max(d_pad, g_pad)
+    w = torch.from_numpy(padded_weights(n_rows, padded)).to(dev)
+    kw = dict(d_reg=1e-4, g_reg=1e-4, zr_ratio=0.45, zp_ratio=0.2, zr_coefficient=0.05, scheme="ZP",
+              d_hidden_act="linear", g_hidden_act="tanh", d_n_batches=d_n, d_batch=64, g_n_batches=g_n,
+              g_batch=128, d_steps=1, g_steps=1)
+    if kind == "cfgan_csr":
+        urm = padded_csr_from_sparse(mat, dev)
+        local, lay = pdist.shard_padded_csr(urm, plan), pdist.ShardLayout(plan, n_rows, n_cols)
+
+        def uniforms(stream, rows):
+            return keyed.keyed_uniforms(11, 1, stream, rows, n_cols)
+    else:
+        urm = torch.zeros((padded, n_cols), device=dev)
+        urm[:n_rows] = torch.from_numpy(mat.toarray()).to(dev)
+        local, lay = plan.put(urm, plan.urm), pdist.ShardLayout(plan, padded, n_cols)
+        uniforms = tuple(torch.rand((padded, n_cols), generator=torch.Generator().manual_seed(s)).to(dev)
+                         for s in (2, 3))
+
+    def init():
+        return pcf.init_params([n_cols, 128, n_cols], [2 * n_cols, 4, 4, 1], torch.Generator().manual_seed(1), dev)
+
+    p, s = init(), pdist.shard_cfgan_params(init(), plan)
+    opts = adam(p.D.parameters(), 1e-3), adam(p.G.parameters(), 1e-3)
+    s_opts = adam(s.D.parameters(), 1e-3), adam(s.G.parameters(), 1e-3)
+    return (lambda: pcf.cfgan_epoch(p, *opts, urm, uniforms, w, w, **kw),
+            lambda: padv.sharded_cfgan_epoch(lay, s, *s_opts, local, uniforms, w, w, n_rows=n_rows, **kw), p, s)
+
+
+@pytest.mark.parametrize("kind", ["disganmf", "cfgan_dense", "cfgan_csr", "caae_dedup"])
+def test_gan_sharded_epochs_in_a_world_of_one_are_the_epochs_and_do_not_synchronize(cuda, world_of_one, kind):
+    """DisGANMF's, CFGAN's (dense and csr storage) and CAAE's (dedup) sharded
+    epochs on a world of one over NCCL: bitwise the one-card epochs from the
+    same state and draws (the same products; the collectives copy), with K2
+    launched on the mesh path by CFGAN and CAAE (and the keyed draw by csr),
+    and, run again, only enqueuing (sync debug mode "error")."""
+    from ganmf_tpu_torch.ops import keyed
+
+    one_card, sharded, p, s = _gan_epoch_pair(kind, cuda, world_of_one)
+    one_card()
+    k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+    sharded()
+    assert (select.LAUNCHES > k2) == (kind != "disganmf")
+    assert (keyed.LAUNCHES > drawn) == (kind == "cfgan_csr")
+    for a, b in zip(s.parameters(), p.parameters()):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sharded()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in s.parameters())
