@@ -242,7 +242,29 @@ Phases, in order; any failure exits nonzero:
     the launches of each kernel above 0 where phase 35 needs them; gloo
     stages its collectives through the host, so the seconds printed are no
     multi-card measurement;
-37. print one JSON line with every kernel's launches (by path), error, times
+37. a world of one rank over NCCL on the card (comm.initialize with
+    world_size 1, make_mesh()): IALS at the committed LastFM params (K=130)
+    on the LastFM-shaped split, dense and then csr with the flat route
+    forced, MF-SGD BPR at the JAX fit's defaults on the ML-1M-shaped split
+    and SLIM-BPR at phase 19's params, one epoch each with the plan, held
+    against the one-card fit from the same state and draws (IALS dense
+    within rtol 2e-4 / atol 2e-6, flat csr bitwise, MF-SGD within 1e-5,
+    SLIM-BPR's W within 1e-5); IALS's and MF-SGD's evaluations on the plan
+    launch K1 and their metrics are within 1e-5 of the one-card evaluation;
+    then ``ops.distchol.ease_r_topk_sharded`` on the plan at ML-1M's 3706
+    items (l2_norm 1e3, topK 100) against the one-card EASE-R W (rtol 1e-4
+    plus 1e-5 of max|B|), both timed;
+38. the same fits on a (data 2, model 2) mesh of 4 ranks that share the card
+    over gloo (``--baseline-mesh-rank``), held against phase 37's one-card
+    fits (IALS dense: each row within 1e-4 of its norm, the Gram being
+    summed over two item shards; the others with phase 37's bounds), K1
+    above 0 on the IALS and MF-SGD evaluations, then EASE-R through
+    ``fit(mesh_plan)`` (the distributed Cholesky over model 2) against phase
+    37's one-card W and ItemKNN cosine on the LastFM-shaped split through the
+    sharded similarity build against a one-card build (the same entries,
+    values within 1e-6 of the largest); gloo stages its collectives through
+    the host, so the seconds printed are no multi-card measurement;
+39. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own, and the keyed draw,
     which replaces no TPU kernel), then the card line, then the result line.
 
@@ -3693,6 +3715,365 @@ def phase_gan_mesh_gloo(dev, card, refs):
     return launches
 
 
+# -- phases 37-38: IALS, MF-SGD and SLIM-BPR on a mesh, the distributed-Cholesky
+# EASE-R and the sharded similarity build ------------------------------------------
+
+#: one epoch each (MESH_EPOCHS): IALS at the committed LastFM params on the
+#: LastFM-shaped split (dense, then csr with the flat route forced), MF-SGD BPR
+#: at the JAX fit's defaults on the ML-1M-shaped split (phase 22), SLIM-BPR at
+#: phase 19's params
+BASELINE_MESH_FITS = ("IALS dense", "IALS flat csr", "MF-SGD BPR", "SLIM-BPR")
+BASELINE_MESH_RANK_TIMEOUT = 600  # phase 38's ranks: four fits, three evaluations, EASE-R, ItemKNN
+EASE_MESH_RTOL, EASE_MESH_ATOL_SHARE = 1e-4, 1e-5  # tests/test_torch_extras.py's bound on a pruned W
+
+
+def baseline_split(name):
+    return ml1m_split() if name.startswith("MF-SGD") else lastfm_split()
+
+
+def baseline_mesh_fit(name, train, test, dev, plan):
+    """One of BASELINE_MESH_FITS with ``plan`` (None: one card, no mesh),
+    then, but for SLIM-BPR, evaluated by an evaluator on the same plan:
+    (model, the full result tensors on the card, fit seconds, evaluation
+    seconds, K1's launches in the evaluation, its results or None)."""
+    import torch
+
+    from ganmf_tpu_torch import models
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import ials
+    from ganmf_tpu_torch.ops import scorer
+
+    if name.startswith("IALS"):
+        model = models.IALSRecommender(train, device=dev)
+        params = dict(ials_best_params(), urm_storage="csr" if "csr" in name else "dense")
+    elif name.startswith("MF-SGD"):
+        model = models.MatrixFactorization_BPR(train, device=dev)
+        params = dict(MF_SGD_PARAMS)
+    else:
+        model = models.SLIM_BPR(train, device=dev)
+        params = similarity_best_params("SLIM_BPR_Recommender__LastFM")
+    params["epochs"] = MESH_EPOCHS
+    limit = ials._PAD_PLANE_BYTE_LIMIT
+    if "flat" in name:
+        ials._PAD_PLANE_BYTE_LIMIT = 1  # the flat route forced for both orientations
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(**params, mesh_plan=plan)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ials._PAD_PLANE_BYTE_LIMIT = limit
+    if "flat" in name and (model._store_users[0], model._store_items[0]) != ("flat", "flat"):
+        fail(f"{name}: the storage is {model._store_users[0]} / {model._store_items[0]}, not flat")
+    if name == "SLIM-BPR":
+        return model, [model._full_w(model._state.W)], fit_s, 0.0, 0, None
+    ev = EvaluatorHoldout(test, CUTOFFS, mesh_plan=plan, device=dev)
+    before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+    t0 = time.perf_counter()
+    results, _ = ev.evaluateRecommender(model)  # reads its sums to the host
+    eval_s = time.perf_counter() - t0
+    k1 = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - before
+    factors = [model._on_device(model._USER_factors_store), model._on_device(model._ITEM_factors_store)]
+    return model, factors, fit_s, eval_s, k1, results
+
+
+def hold_baseline(name, got, want, summed):
+    """A mesh fit's full tensors against the one-card fit's from the same
+    state and draws, with the port's one-card bounds: IALS dense within
+    IALS_RTOL / IALS_ATOL, or, where the Gram is ``summed`` over item shards
+    (another float32 order, whose CG exits may differ), each row within
+    IALS_ROW_GAP of its norm; flat-CSR IALS bitwise; MF-SGD within
+    MF_EPOCH_ATOL and SLIM-BPR's W within SLIM_EPOCH_ATOL (index_add_'s
+    atomics). Returns the largest difference (IALS summed: the row gap)."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = torch.as_tensor(a).to(b.device), b
+        if name == "IALS flat csr":
+            if not torch.equal(a, b):
+                fail(f"{name}: the mesh fit is not bitwise the one-card flat fit "
+                     f"(largest difference {float((a - b).abs().max()):.3e})")
+        elif name == "IALS dense" and summed:
+            gap = float(((a - b).abs().amax(1) / torch.linalg.norm(b, dim=1).clamp_min(1e-30)).max())
+            if gap > IALS_ROW_GAP:
+                fail(f"{name}: a factor row differs from the one-card fit's by {gap:.3e} of its norm > {IALS_ROW_GAP}")
+            worst = max(worst, gap)
+            continue
+        elif name == "IALS dense":
+            if not torch.allclose(a, b, rtol=IALS_RTOL, atol=IALS_ATOL):
+                fail(f"{name}: the mesh fit differs from the one-card fit beyond rtol {IALS_RTOL} / atol {IALS_ATOL}")
+        else:
+            gate = MF_EPOCH_ATOL if name.startswith("MF-SGD") else SLIM_EPOCH_ATOL
+            gap = float((a - b).abs().max())
+            if gap > gate:
+                fail(f"{name}: the mesh fit differs from the one-card fit by {gap:.3e} > {gate}")
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def hold_pruned_w(name, g, w):
+    """A pruned EASE-R W against another: the same count of entries in every
+    column, the entries both keep within EASE_MESH_RTOL plus
+    EASE_MESH_ATOL_SHARE of max|w|, an entry kept by one only within that of
+    the other's column edge (tests/test_torch_extras.py's bound). Returns
+    (largest difference, entries kept by one only)."""
+    atol = EASE_MESH_ATOL_SHARE * float(np.abs(w).max())
+    if not np.array_equal((g != 0).sum(0), (w != 0).sum(0)):
+        fail(f"{name}: the pruned W keeps another count of entries in some column than the one-card W")
+    both = (g != 0) & (w != 0)
+    if not np.all(np.abs(g[both] - w[both]) <= atol + EASE_MESH_RTOL * np.abs(w[both])):
+        fail(f"{name}: the pruned W differs from the one-card W beyond rtol {EASE_MESH_RTOL} + atol {atol:.3e}")
+    only = 0
+    for a, b in ((g, w), (w, g)):
+        lone = (a != 0) & (b == 0)
+        only += int(lone.sum())
+        edge = np.where(b != 0, b, np.inf).min(0)
+        r, c = np.nonzero(lone)
+        if not np.all(np.abs(a[r, c] - edge[c]) <= atol + EASE_MESH_RTOL * np.abs(edge[c])):
+            fail(f"{name}: the pruned W keeps an entry the one-card W does not, beyond a near tie")
+    return float(np.abs(g[both] - w[both]).max()), only
+
+
+def phase_baseline_mesh_nccl(dev, card):
+    """Phase 37: a world of one rank over NCCL on the card; IALS (dense, then
+    flat csr), MF-SGD BPR and SLIM-BPR fit one epoch with the plan, each
+    against the one-card fit from the same state and draws, IALS's and
+    MF-SGD's evaluations on the plan through K1 against the one-card
+    evaluation, each path's counts set to 0 just before its mesh run and
+    read just after; then ``ease_r_topk_sharded`` on the plan at ML-1M's
+    3706 items against the one-card EASE-R, both timed. Returns (the one-card
+    references, K1's launches by fit)."""
+    import torch
+    import torch.distributed as dist
+
+    from ganmf_tpu_torch.data.device import dense_from_sparse
+    from ganmf_tpu_torch.models.extras import ease_r_weights_topk
+    from ganmf_tpu_torch.ops import keyed, scorer, select
+    from ganmf_tpu_torch.ops.distchol import ease_r_topk_sharded
+    from ganmf_tpu_torch.ops.topk import scatter_col_topk_dense
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    comm.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0, local_rank=dev.index, device=dev)
+    refs, launches = {}, {}
+    try:
+        plan = make_mesh(device=dev)
+        if dist.get_backend() != "nccl" or plan.device != dev:
+            fail(f"the one-rank mesh runs on {dist.get_backend()} on {plan.device}, not NCCL on {dev}")
+        print(f"[37] IALS (dense, flat csr), MF-SGD BPR and SLIM-BPR on a mesh of one rank over "
+              f"{dist.get_backend()}: {MESH_EPOCHS} epoch(s) each and IALS's and MF-SGD's evaluations, against the "
+              f"one-card path from the same state and draws")
+        for name in BASELINE_MESH_FITS:
+            train, test = baseline_split(name)
+            single, want, s_fit, s_eval, _, s_res = baseline_mesh_fit(name, train, test, dev, None)
+            refs[name] = ([t.cpu() for t in want], s_res)
+            del single
+            scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+            t0 = time.perf_counter()
+            model, got, fit_s, eval_s, k1, res = baseline_mesh_fit(name, train, test, dev, plan)
+            wall = time.perf_counter() - t0
+            if select.LAUNCHES or keyed.LAUNCHES or (k1 == 0) != (name == "SLIM-BPR"):
+                fail(f"the one-rank mesh's {name} path launched K1 {k1} times in its evaluation, K2 "
+                     f"{select.LAUNCHES} times and the keyed draw {keyed.LAUNCHES} times")
+            launches[name] = k1
+            worst = hold_baseline(name, got, want, summed=False)
+            metrics = ""
+            if res is not None:
+                metrics = (f"; evaluation {eval_s:.4f} s ({s_eval:.4f}), K1 launches {k1}, metrics within "
+                           f"{worst_metric_diff(name, res, s_res, METRIC_TOL):.3e}")
+            print(f"  {name}: {fit_s / MESH_EPOCHS:.4f} s/epoch on the mesh ({s_fit / MESH_EPOCHS:.4f} one card)"
+                  f"{metrics}; largest difference {worst:.3e}; phase wall {wall:.2f} s  [{card}]")
+            del model, got, want
+            torch.cuda.empty_cache()
+        # the distributed Cholesky on this plan at ML-1M's items
+        train, _ = ml1m_split()
+        A = dense_from_sparse(train, dev)
+        times = {}
+        for what, run in (("one card", lambda: ease_r_weights_topk(A, EASE_L2, EASE_TOPK)),
+                          ("ease_r_topk_sharded", lambda: ease_r_topk_sharded(A, EASE_L2, EASE_TOPK, plan))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vals, idx = run()
+            torch.cuda.synchronize()
+            times[what] = (time.perf_counter() - t0, scatter_col_topk_dense(vals, idx).cpu().numpy())
+        gap, only = hold_pruned_w("ease_r_topk_sharded", times["ease_r_topk_sharded"][1], times["one card"][1])
+        refs["EASE-R"] = times["one card"][1]
+        print(f"  ease_r_topk_sharded on the one-rank plan, {train.shape[0]} x {train.shape[1]}, l2_norm {EASE_L2}, "
+              f"topK {EASE_TOPK}, panels of 256 ({-(-train.shape[1] // 256)} panels): "
+              f"{times['ease_r_topk_sharded'][0]:.4f} s (the one-card fit {times['one card'][0]:.4f} s); W within "
+              f"{gap:.3e} of the one-card W, {only} entries kept by one only  [{card}]")
+    finally:
+        comm.shutdown()
+    return refs, launches
+
+
+def baseline_mesh_worker(rank, world, port, out_dir):
+    """A rank of phase 38: joins the gloo group on the one card, fits (and
+    evaluates) each of BASELINE_MESH_FITS on MESH_GLOO, then EASE-R and
+    ItemKNN cosine through their sharded builds, and writes its results (rank
+    0 also the full tensors, SLIM-BPR's W as its gap to the one-card W
+    that main wrote) to out_dir, one file a fit."""
+    import torch
+
+    from ganmf_tpu_torch import models
+    from ganmf_tpu_torch.ops import _build, scorer
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    comm.initialize(f"tcp://127.0.0.1:{port}", world, rank, local_rank=0, backend="gloo")
+    try:
+        plan = make_mesh(**MESH_GLOO)
+        _build.load_library()  # built by the parent
+        for i, name in enumerate(BASELINE_MESH_FITS):
+            train, test = baseline_split(name)
+            scorer.LAUNCHES = scorer.WIDE_LAUNCHES = 0
+            model, got, fit_s, eval_s, k1, res = baseline_mesh_fit(name, train, test, plan.device, plan)
+            out = dict(fit_s=fit_s, eval_s=eval_s, k1=k1)
+            if res is not None:
+                out.update(keys=np.asarray(list(res[CUTOFFS[0]])),
+                           values=np.asarray([list(res[c].values()) for c in CUTOFFS]))
+            if name.startswith("IALS"):
+                out["rows"] = np.asarray([model._rows_u.rows, model._rows_i.rows])
+            if rank == 0 and name == "SLIM-BPR":
+                ref = np.load(os.path.join(out_dir, "slim_ref.npy"), mmap_mode="r")
+                W, gap = got[0], 0.0
+                for lo in range(0, W.shape[0], 2048):
+                    block = torch.from_numpy(np.ascontiguousarray(ref[lo : lo + 2048])).to(W.device)
+                    gap = max(gap, float((W[lo : lo + 2048] - block).abs().max()))
+                out.update(gap=gap, moved=int((W != 0).sum()))
+            elif rank == 0:
+                out.update({f"t{j}": t.cpu().numpy() for j, t in enumerate(got)})
+            np.savez(os.path.join(out_dir, f"base{i}_rank{rank}.npz"), **out)
+            del model, got
+            torch.cuda.empty_cache()
+        train, _ = ml1m_split()
+        ease = models.EASE_R_Recommender(train, device=plan.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ease.fit(topK=EASE_TOPK, l2_norm=EASE_L2, mesh_plan=plan)
+        ease_s = time.perf_counter() - t0
+        train, _ = lastfm_split()
+        knn = models.ItemKNNCFRecommender(train, device=plan.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        knn.fit(topK=ITEMKNN_TOPK, shrink=ITEMKNN_SHRINK, similarity="cosine", mesh_plan=plan)
+        knn_s = time.perf_counter() - t0
+        out = dict(ease_s=ease_s, knn_s=knn_s, knn_host=knn._device_w is None)
+        if rank == 0:
+            W = knn.W_sparse
+            out.update(ease=ease.W_sparse.toarray(), knn_data=W.data, knn_indices=W.indices, knn_indptr=W.indptr)
+        np.savez(os.path.join(out_dir, f"linalg_rank{rank}.npz"), **out)
+    finally:
+        comm.shutdown()
+    return 0
+
+
+def phase_baseline_mesh_gloo(dev, card, refs):
+    """Phase 38: four ranks that share the one card over gloo, mesh
+    MESH_GLOO, phase 37's fits and evaluations against its one-card
+    references, then EASE-R's fit through the distributed Cholesky (model 2)
+    against phase 37's one-card W and ItemKNN cosine through the sharded
+    similarity build against a one-card build. gloo stages every collective
+    through the host: the walls are no multi-card figure. Returns K1's
+    launches by fit, summed over the ranks."""
+    import scipy.sparse as sps
+
+    from ganmf_tpu_torch import models
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.ops.similarity import compute_similarity
+
+    world = MESH_GLOO["n_data"] * MESH_GLOO["n_model"]
+    out_dir = os.path.abspath(os.path.join(SCRATCH, "baseline_mesh"))
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "slim_ref.npy"), refs["SLIM-BPR"][0][0].numpy())
+    print(f"[38] IALS (dense, flat csr), MF-SGD BPR, SLIM-BPR, EASE-R and ItemKNN cosine on a mesh {MESH_GLOO} of "
+          f"{world} ranks sharing the card over gloo, {MESH_EPOCHS} epoch(s) each, against phase 37's one-card path "
+          f"(gloo stages its collectives through the host: this is no multi-card measurement)")
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--baseline-mesh-rank", str(r), str(world),
+                               str(port), out_dir], stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    deadline = time.perf_counter() + BASELINE_MESH_RANK_TIMEOUT
+    try:
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode != 0:
+            fail(f"rank {r} of the gloo mesh exited {proc.returncode}:\n{text[-3000:]}")
+    launches = {}
+    for i, name in enumerate(BASELINE_MESH_FITS):
+        ranks = [dict(np.load(os.path.join(out_dir, f"base{i}_rank{r}.npz"))) for r in range(world)]
+        want, ref_results = refs[name]
+        if name == "SLIM-BPR":
+            worst = float(ranks[0]["gap"])
+            if not (worst <= SLIM_EPOCH_ATOL and int(ranks[0]["moved"]) > 0):
+                fail(f"{name}: the gloo mesh's W differs from the one-card W by {worst:.3e} > {SLIM_EPOCH_ATOL}")
+        else:
+            worst = hold_baseline(name, [ranks[0][f"t{j}"] for j in range(len(want))], want, summed=True)
+        metrics = ""
+        if "values" in ranks[0]:
+            keys = [str(k) for k in ranks[0]["keys"]]
+            results = {c: dict(zip(keys, ranks[0]["values"][ci])) for ci, c in enumerate(CUTOFFS)}
+            gap, where = metric_gaps(results, ref_results)
+            for r, out in enumerate(ranks):
+                if not np.array_equal(out["values"], ranks[0]["values"]):
+                    fail(f"rank {r} of the gloo mesh finalized other metrics than rank 0 for {name}")
+            # the mesh evaluator against the one-card evaluator on the same
+            # factors; the gap to phase 37's fit, whose factors differ by the
+            # rounding the bounds above admit, is printed
+            train, test = baseline_split(name)
+            single = (models.MatrixFactorization_BPR if name.startswith("MF-SGD") else models.IALSRecommender)(
+                train, device=dev)
+            single.USER_factors, single.ITEM_factors = ranks[0]["t0"], ranks[0]["t1"]
+            one, _ = EvaluatorHoldout(test, CUTOFFS, device=dev).evaluateRecommender(single)
+            same = worst_metric_diff(name, results, one, METRIC_TOL)
+            metrics = (f"; evaluation {max(float(o['eval_s']) for o in ranks):.4f} s, metrics within {same:.3e} of "
+                       f"a one-card evaluation of the same factors, {gap:.3e} of phase 37's fit ({where})")
+        k1 = sum(int(out["k1"]) for out in ranks)
+        if (k1 == 0) != (name == "SLIM-BPR"):
+            fail(f"the gloo mesh's {name} path launched K1 {k1} times in its evaluations")
+        launches[name] = k1
+        rows = f"; rows held (users, items) {[out['rows'].tolist() for out in ranks]}" if "rows" in ranks[0] else ""
+        print(f"  {name}: {max(float(o['fit_s']) for o in ranks) / MESH_EPOCHS:.4f} s/epoch (the slowest rank)"
+              f"{metrics}; K1 launches over the ranks {k1}; largest difference {worst:.3e} against phase 37's "
+              f"one-card fit{rows}  [{card}, gloo]")
+    ranks = [dict(np.load(os.path.join(out_dir, f"linalg_rank{r}.npz"))) for r in range(world)]
+    gap, only = hold_pruned_w("EASE-R on the gloo mesh", ranks[0]["ease"], refs["EASE-R"])
+    n_items, S = ml1m_split()[0].shape[1], MESH_GLOO["n_model"]
+    w = max(8, min(256, -(-n_items // S)))
+    print(f"  EASE-R fit(mesh_plan) through the distributed Cholesky (model {S}, {-(-n_items // (S * w)) * S * w} "
+          f"padded items, panels of {w}): "
+          f"{max(float(o['ease_s']) for o in ranks):.4f} s (the slowest rank); W within {gap:.3e} of phase 37's "
+          f"one-card W, {only} entries kept by one only  [{card}, gloo]")
+    train, _ = lastfm_split()
+    want = compute_similarity(train, "cosine", topK=ITEMKNN_TOPK, shrink=ITEMKNN_SHRINK, device=dev)
+    got = sps.csr_matrix((ranks[0]["knn_data"], ranks[0]["knn_indices"], ranks[0]["knn_indptr"]), shape=want.shape)
+    if not all(bool(o["knn_host"]) for o in ranks) or ((got != 0) != (want != 0)).nnz:
+        fail("ItemKNN on the gloo mesh: the sharded build's W keeps other entries than the one-card build's")
+    knn_gap = float(abs(got - want).max())
+    if knn_gap > SIM_RTOL * float(abs(want).max()):
+        fail(f"ItemKNN on the gloo mesh: W differs from the one-card build's by {knn_gap:.3e}")
+    print(f"  ItemKNN cosine fit(mesh_plan) through the sharded similarity build ({-(-want.shape[1] // S)} target "
+          f"columns a model rank): {max(float(o['knn_s']) for o in ranks):.4f} s (the slowest rank); W's "
+          f"{want.nnz} entries as the one-card build's, within {knn_gap:.3e}  [{card}, gloo]")
+    print(f"  phase wall {wall:.2f} s (the ranks' start-up included)")
+    return launches
+
+
 def main():
     import torch
 
@@ -3927,6 +4308,13 @@ def main():
     elapsed("the one-rank NCCL mesh of DisGANMF, CFGAN and CAAE")
     gan_gloo = phase_gan_mesh_gloo(dev, card, gan_refs)
     elapsed("the gloo mesh of DisGANMF, CFGAN and CAAE")
+    # IALS, MF-SGD, SLIM-BPR, EASE-R and ItemKNN on a mesh (phases 37-38),
+    # each fit's counts set to 0 just before its mesh run and read just after
+    base_refs, base_nccl = phase_baseline_mesh_nccl(dev, card)
+    elapsed("the one-rank NCCL mesh of IALS, MF-SGD, SLIM-BPR and EASE-R")
+    base_gloo = phase_baseline_mesh_gloo(dev, card, base_refs)
+    del base_refs
+    elapsed("the gloo mesh of IALS, MF-SGD, SLIM-BPR, EASE-R and ItemKNN")
     shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused
@@ -3954,6 +4342,10 @@ def main():
                 k2_by_path[f"{name} mesh, {where}"] = n_k2
             if n_keyed:
                 keyed_by_path[f"{name} mesh, {where}"] = n_keyed
+    for where, counts in (("one rank over NCCL", base_nccl), ("4 gloo ranks on the card", base_gloo)):
+        for name, n_k1 in counts.items():
+            if n_k1:
+                fused_by_path[f"{name} mesh, {where}"] = n_k1
     keyed_shape, *keyed_others = keyed_times
     for what, (n_fused, n_wide, n_merge, n_k2) in new_paths.items():
         fused_by_path[what], wide_by_path[what], k2_by_path[what] = n_fused, n_wide, n_k2
@@ -4022,4 +4414,6 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     if sys.argv[1:2] == ["--gan-mesh-rank"]:  # a rank of phase 36, started by main()
         sys.exit(gan_mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--baseline-mesh-rank"]:  # a rank of phase 38, started by main()
+        sys.exit(baseline_mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

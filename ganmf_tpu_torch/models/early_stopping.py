@@ -144,8 +144,13 @@ class IncrementalTrainingEarlyStopping:
         while epochs_current < epochs_max and not convergence:
             self._run_epoch(epochs_current)
 
-            if can_checkpoint:
-                checkpointer.maybe_save(epochs_current + 1, self._checkpoint_state())
+            if can_checkpoint and checkpointer.due(epochs_current + 1):
+                # on a mesh every rank gathers the state (a collective) and
+                # rank 0 writes it
+                state = self._checkpoint_state()
+                plan = getattr(self, "mesh_plan", None)
+                if plan is None or plan.rank == 0:
+                    checkpointer.save(epochs_current + 1, state)
 
             if evaluator_object is None:
                 self.epochs_best = epochs_current

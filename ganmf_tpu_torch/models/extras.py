@@ -13,7 +13,12 @@ Port of ganmf_tpu/models/extras.py:
   keys, so negative weights survive) through ``tiled_topk``; the pruned W
   stays on the device when its dense float32 bytes are within
   ``_DENSE_W_BYTE_LIMIT``, and is otherwise assembled as a host CSC, as in
-  JAX. Without ``topK`` the dense W stays on the device.
+  JAX. Without ``topK`` the dense W stays on the device. With ``topK`` and
+  a ``mesh_plan`` whose model axis has more than one rank (JAX :115), the
+  build is column-sharded over that axis (``ops.distchol``: the distributed
+  Cholesky, each rank ranking its own columns) and W is assembled as a host
+  CSC from the gathered candidates; any other plan takes the one-device
+  route.
 - PredefinedListRecommender (:141-165): serves fixed lists; it has no
   scores, so the base ``score_device`` (and with it ``serve_all`` and the
   evaluator) raises ``NotImplementedError``, as JAX's
@@ -104,12 +109,16 @@ class EASE_R_Recommender(ItemSimilarityRecommender):
     RECOMMENDER_NAME = "EASE_R_Recommender"
 
     def fit(self, topK: Optional[int] = None, l2_norm: float = 1e3, mesh_plan=None):
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
         A = self.device_urm().dense
         n = A.shape[1]
         if topK is None:
             self._adopt_device_w(ease_r_weights(A, l2_norm))
+            return
+        if mesh_plan is not None and mesh_plan.n_model > 1:
+            from ganmf_tpu_torch.ops.distchol import ease_r_topk_sharded
+
+            vals, idx = ease_r_topk_sharded(A, l2_norm, min(int(topK), n), mesh_plan)
+            self.W_sparse = check_matrix(csc_from_col_topk(vals, idx, n), "csr")
             return
         vals, idx = ease_r_weights_topk(A, l2_norm, min(int(topK), n))
         if 4 * n * n <= self._DENSE_W_BYTE_LIMIT:

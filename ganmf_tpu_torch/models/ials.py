@@ -23,7 +23,23 @@ Storage (``urm_storage``): "dense" holds the [U, I] confidence matrices on
 the device; "csr" builds each chunk's confidence block from the padded-CSR
 planes, or from flat CSR where the padded planes of an orientation would
 pass ``_PAD_PLANE_BYTE_LIMIT`` (the JAX rule: 8 bytes a padded slot, set by
-GANMF_TPU_PAD_PLANE_GB). ``mesh_plan`` is not ported and raises.
+GANMF_TPU_PAD_PLANE_GB).
+
+``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :336-396): U's rows
+over the user axes, V's over the model axis, each orientation in contiguous
+ranges of whole chunks (``parallel.baselines.RowShard.chunked``: rows padded
+to a multiple of chunk * n_shards, as JAX's flat-CSR mesh storage pads
+them), so that a rank solves chunks of the one-process fit. Dense storage
+keeps this rank's [users, items] block of the confidence matrices: a chunk's
+Gram and right-hand side are summed over the other orientation's shards
+(a psum over model in the user step, over the user axes in the item step),
+and the CG runs on the summed systems, replicated within that group, its
+exit test agreed over the group (a pmax of the host-read bool). Csr storage
+(padded or flat) keeps this rank's rows: each row shard runs the half-step
+on its rows against the full fixed factors (an all_gather), with no
+reduction, which gives the one-process fit's values bitwise. ``cg_log``
+keeps this rank's chunks; the factor stores and checkpoints hold the full
+factors (gathered, a collective every rank calls).
 """
 
 from __future__ import annotations
@@ -33,7 +49,7 @@ import os
 import numpy as np
 import torch
 
-from ganmf_tpu_torch.data.device import padded_csr_from_sparse
+from ganmf_tpu_torch.data.device import dense_from_sparse, padded_csr_from_sparse
 from ganmf_tpu_torch.models.base import MatrixFactorizationRecommender
 from ganmf_tpu_torch.models.early_stopping import IncrementalTrainingEarlyStopping
 
@@ -42,6 +58,14 @@ from ganmf_tpu_torch.models.early_stopping import IncrementalTrainingEarlyStoppi
 # CSR: padding is O(rows * max_row_nnz) and explodes on head-heavy
 # orientations.
 _PAD_PLANE_BYTE_LIMIT = int(float(os.environ.get("GANMF_TPU_PAD_PLANE_GB", "2")) * (1 << 30))
+
+
+def chunk_rows(num_factors: int, n_cols: int) -> int:
+    """Rows a half-step solves at once: the dominant per-chunk block, the
+    larger of the [C, K^2] Gram slab and the [C, n_cols] confidence block,
+    stays under ~512 MB (JAX :312-320); the two orientations see different
+    n_cols."""
+    return max(8, min(4096, int(512e6 / (4 * max(num_factors * num_factors, n_cols)))))
 
 
 def confidence(r: torch.Tensor, scaling: str, alpha: float, epsilon: float):
@@ -56,11 +80,12 @@ def confidence(r: torch.Tensor, scaling: str, alpha: float, epsilon: float):
     return conf - obs, conf
 
 
-def batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int, rtol: float = 1e-5):
+def batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int, rtol: float = 1e-5, agree=None):
     """Solve the batch of SPD K x K systems A x = b by conjugate gradients
     (JAX :235-274). Every system iterates until all of them satisfy
-    ||r|| <= rtol * ||b||, or ``iters`` iterations ran. Returns (x,
-    iterations, host reads of the exit test)."""
+    ||r|| <= rtol * ||b||, or ``iters`` iterations ran. ``agree`` maps the
+    device bool "go on" to the one the ranks solving the same systems share.
+    Returns (x, iterations, host reads of the exit test)."""
     x = torch.zeros_like(b)
     r = b
     p = r
@@ -69,7 +94,8 @@ def batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int, rtol: float = 1e-5)
     it = reads = 0
     while it < iters:
         reads += 1
-        if not bool(torch.any(rs > tol2)):
+        go = torch.any(rs > tol2)
+        if not bool(go if agree is None else agree(go)):
             break
         Ap = torch.bmm(A, p.unsqueeze(2)).squeeze(2)
         alpha = rs / torch.clamp(torch.sum(p * Ap, dim=1), min=1e-30)
@@ -82,21 +108,32 @@ def batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int, rtol: float = 1e-5)
     return x, it, reads
 
 
-def als_half_step(block, n_rows: int, Y: torch.Tensor, reg: float, chunk: int, log=None) -> torch.Tensor:
+def als_half_step(block, n_rows: int, Y: torch.Tensor, reg: float, chunk: int, log=None,
+                  reduce=None, agree=None) -> torch.Tensor:
     """Solve (YtY + Yt diag(w_u) Y + reg I) x_u = Yt c_u for every row u
     (JAX :25-60), ``chunk`` rows at a time. ``block(lo, hi)`` gives the rows'
     (w, c) [hi - lo, n_cols]; Y [n_cols, K] holds the fixed factors. Appends
-    each chunk's (iterations, host reads) to ``log``. Returns [n_rows, K]."""
+    each chunk's (iterations, host reads) to ``log``. Returns [n_rows, K].
+
+    On a mesh's dense storage the columns are this rank's shard of the
+    contraction axis: ``reduce`` sums YtY and each chunk's [Gram | rhs]
+    over the shards, and ``agree`` is the CG's shared exit test."""
     n_cols, K = Y.shape
-    YtY = Y.T @ Y + reg * torch.eye(K, dtype=Y.dtype, device=Y.device)
+    YtY = Y.T @ Y
+    if reduce is not None:
+        YtY = reduce(YtY)
+    YtY = YtY + reg * torch.eye(K, dtype=Y.dtype, device=Y.device)
     # A_u = Y^T diag(w_u) Y for a chunk is one matmul against the
     # outer-product table Z[i] = y_i y_i^T
     Z = (Y[:, :, None] * Y[:, None, :]).reshape(n_cols, K * K)
-    xs = []
+    xs = [Y.new_zeros((0, K))]
     for lo in range(0, n_rows, chunk):
         w, conf = block(lo, min(lo + chunk, n_rows))
-        A = (w @ Z).reshape(-1, K, K).add_(YtY)
-        x, it, reads = batched_cg(A, conf @ Y, iters=K + 16)
+        WZ, b = w @ Z, conf @ Y
+        if reduce is not None:
+            WZ, b = (t.contiguous() for t in reduce(torch.cat([WZ, b], dim=1)).split([K * K, K], dim=1))
+        A = WZ.reshape(-1, K, K).add_(YtY)
+        x, it, reads = batched_cg(A, b, iters=K + 16, agree=agree)
         xs.append(x)
         if log is not None:
             log.append((it, reads))
@@ -162,8 +199,8 @@ class IALSRecommender(MatrixFactorizationRecommender, IncrementalTrainingEarlySt
             raise ValueError(f"confidence_scaling must be one of {self.AVAILABLE_CONFIDENCE_SCALING}")
         if urm_storage not in ("dense", "csr"):
             raise ValueError(f"urm_storage must be 'dense' or 'csr', got {urm_storage!r}")
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
+        if mesh_plan is not None and mesh_plan.device != self.device:
+            raise ValueError(f"model on {self.device}, its mesh plan on {mesh_plan.device}")
 
         self.num_factors = num_factors
         self.alpha = alpha
@@ -177,43 +214,73 @@ class IALSRecommender(MatrixFactorizationRecommender, IncrementalTrainingEarlySt
         self.USER_factors = (num_factors ** -0.5 * rng.random_sample((self.n_users, num_factors))).astype(np.float32)
         self.ITEM_factors = (num_factors ** -0.5 * rng.random_sample((self.n_items, num_factors))).astype(np.float32)
 
-        # chunk sized so the dominant per-chunk block, the larger of the
-        # [C, K^2] Gram slab and the [C, n_cols] confidence block, stays
-        # under ~512 MB; the two orientations see different n_cols
-        def _chunk_for(n_cols):
-            return max(8, min(4096, int(512e6 / (4 * max(num_factors * num_factors, n_cols)))))
-
-        self._chunk_u = _chunk_for(self.n_items)
-        self._chunk_i = _chunk_for(self.n_users)
+        self._chunk_u = chunk_rows(num_factors, self.n_items)
+        self._chunk_i = chunk_rows(num_factors, self.n_users)
 
         args = (confidence_scaling, alpha, epsilon)
+        self.mesh_plan = plan = mesh_plan
+        # this rank's users and items (every row without a mesh)
+        if plan is None:
+            self._rows_u = self._rows_i = None
+            (u0, u1), (i0, i1) = (0, self.n_users), (0, self.n_items)
+        else:
+            from ganmf_tpu_torch.parallel import comm
+            from ganmf_tpu_torch.parallel.baselines import RowShard
+            from ganmf_tpu_torch.parallel.mesh import MODEL_AXIS
+
+            self._rows_u = RowShard.chunked(plan, self.n_users, self._chunk_u, plan.user_axes)
+            self._rows_i = RowShard.chunked(plan, self.n_items, self._chunk_i, MODEL_AXIS)
+            (u0, u1), (i0, i1) = (self._rows_u.lo, self._rows_u.hi), (self._rows_i.lo, self._rows_i.hi)
+        # per orientation: (form, block, reduce, agree); reduce None: the
+        # block's columns are whole and the half-step takes the full fixed
+        # factors
         if urm_storage == "csr":
             # O(nnz) storage per orientation, each chunk's confidence block
             # built on the fly; an orientation whose padded planes would pass
-            # the limit takes flat CSR (exactly O(nnz))
-            def _storage_for(csr, n_cols):
+            # the limit takes flat CSR (exactly O(nnz)); on a mesh, this
+            # rank's rows of either
+            def _storage_for(csr, n_cols, lo, hi):
                 lens = np.ediff1d(csr.indptr)
                 L = max(int(lens.max()) if csr.shape[0] else 0, 1)
+                mine = csr[lo:hi]
                 if 8 * csr.shape[0] * L > _PAD_PLANE_BYTE_LIMIT:
-                    return "flat", _flat_blocks(_flat_csr_device(csr, self.device), n_cols, *args)
-                return "padded", _padded_blocks(padded_csr_from_sparse(csr, self.device), n_cols, *args)
+                    return "flat", _flat_blocks(_flat_csr_device(mine, self.device), n_cols, *args), None, None
+                return ("padded", _padded_blocks(padded_csr_from_sparse(mine, self.device), n_cols, *args),
+                        None, None)
 
-            self._store_users = _storage_for(self.URM_train, self.n_items)
-            self._store_items = _storage_for(self.URM_train.T.tocsr(), self.n_users)
+            self._store_users = _storage_for(self.URM_train, self.n_items, u0, u1)
+            self._store_items = _storage_for(self.URM_train.T.tocsr(), self.n_users, i0, i1)
         else:
-            W, P = confidence(self.device_urm().dense, *args)
-            self._store_users = "dense", lambda lo, hi: (W[lo:hi], P[lo:hi])
+            if plan is None:
+                W, P = confidence(self.device_urm().dense, *args)
+                sums = (None, None), (None, None)
+            else:
+                # this rank's [users, items] block; the products are summed
+                # over the other orientation's shards
+                W, P = confidence(dense_from_sparse(self.URM_train[u0:u1][:, i0:i1], self.device), *args)
+
+                def over(axes):
+                    if plan.group(axes) is None or plan.axis_size(axes) == 1:
+                        return None, None
+                    return (lambda x: comm.psum(x, plan, axes),
+                            lambda go: comm.pmax(go.to(torch.int32), plan, axes) > 0)
+
+                sums = over(MODEL_AXIS), over(plan.user_axes)
+            self._store_users = ("dense", lambda lo, hi: (W[lo:hi], P[lo:hi]), *sums[0])
             # the item step's rows are W's columns, copied a chunk at a time
             # into the csr blocks' layout, so that both storages run the
             # same products
-            self._store_items = "dense", lambda lo, hi: (W.T[lo:hi].contiguous(), P.T[lo:hi].contiguous())
-        self._warm_users = torch.from_numpy(np.ediff1d(self.URM_train.indptr) > 0).to(self.device)
-        self._warm_items = torch.from_numpy(np.ediff1d(self.URM_train.tocsc().indptr) > 0).to(self.device)
+            self._store_items = ("dense", lambda lo, hi: (W.T[lo:hi].contiguous(), P.T[lo:hi].contiguous()),
+                                 *sums[1])
+        warm_u = np.ediff1d(self.URM_train.indptr)[u0:u1] > 0
+        warm_i = np.ediff1d(self.URM_train.tocsc().indptr)[i0:i1] > 0
+        self._warm_users = torch.from_numpy(warm_u).to(self.device)
+        self._warm_items = torch.from_numpy(warm_i).to(self.device)
 
-        self._U_dev = self._on_device(self.USER_factors)
-        self._V_dev = self._on_device(self.ITEM_factors)
+        self._U_dev = self._on_device(self.USER_factors[u0:u1])
+        self._V_dev = self._on_device(self.ITEM_factors[i0:i1])
         #: per epoch, each chunk's (CG iterations, host reads): the user
-        #: step's chunks, then the item step's
+        #: step's chunks, then the item step's (on a mesh, this rank's)
         self.cg_log = []
 
         self._update_best_model()
@@ -222,30 +289,47 @@ class IALSRecommender(MatrixFactorizationRecommender, IncrementalTrainingEarlySt
         self.USER_factors = self.USER_factors_best
         self.ITEM_factors = self.ITEM_factors_best
 
+    def _full(self, x, rows):
+        """The full factor table from this rank's rows (a collective on a
+        mesh)."""
+        return x if rows is None else rows.gather(x)
+
+    def _half_step(self, store, rows, n_rows, Y, Y_rows, chunk, log):
+        _, block, reduce, agree = store
+        if reduce is None:
+            Y = self._full(Y, Y_rows)  # the csr blocks span every column
+        n_local = n_rows if rows is None else rows.rows
+        return als_half_step(block, n_local, Y, self.reg, chunk, log, reduce, agree)
+
     # -- epoch ------------------------------------------------------------------
     def _run_epoch(self, num_epoch):
         log = []
-        new_U = als_half_step(self._store_users[1], self.n_users, self._V_dev, self.reg, self._chunk_u, log)
+        new_U = self._half_step(self._store_users, self._rows_u, self.n_users, self._V_dev, self._rows_i,
+                                self._chunk_u, log)
         self._U_dev = torch.where(self._warm_users[:, None], new_U, self._U_dev)
-        new_V = als_half_step(self._store_items[1], self.n_items, self._U_dev, self.reg, self._chunk_i, log)
+        new_V = self._half_step(self._store_items, self._rows_i, self.n_items, self._U_dev, self._rows_u,
+                                self._chunk_i, log)
         self._V_dev = torch.where(self._warm_items[:, None], new_V, self._V_dev)
         self.cg_log.append(log)
 
     # -- crash resume (device factors; the epoch itself is deterministic) ------
+    # on a mesh the full factors, gathered, so that a checkpoint resumes on
+    # any plan
     def _checkpoint_state(self):
-        return {"U": self._U_dev, "V": self._V_dev}
+        return {"U": self._full(self._U_dev, self._rows_u), "V": self._full(self._V_dev, self._rows_i)}
 
     def _restore_checkpoint_state(self, state):
-        self._U_dev = state["U"].to(self.device)
-        self._V_dev = state["V"].to(self.device)
+        U, V = state["U"].to(self.device), state["V"].to(self.device)
+        self._U_dev = U if self._rows_u is None else self._rows_u.slice(U).contiguous()
+        self._V_dev = V if self._rows_i is None else self._rows_i.slice(V).contiguous()
 
     # the factor stores take the device tensors: no copy per validation (JAX
     # :446-453 copies them to the host); an epoch makes new tensors, so a
-    # stored one never changes
+    # stored one never changes. On a mesh they take the gathered factors
     def _prepare_model_for_validation(self):
-        self.USER_factors = self._U_dev
-        self.ITEM_factors = self._V_dev
+        self.USER_factors = self._full(self._U_dev, self._rows_u)
+        self.ITEM_factors = self._full(self._V_dev, self._rows_i)
 
     def _update_best_model(self):
-        self.USER_factors_best = self._U_dev
-        self.ITEM_factors_best = self._V_dev
+        self.USER_factors_best = self._full(self._U_dev, self._rows_u)
+        self.ITEM_factors_best = self._full(self._V_dev, self._rows_i)

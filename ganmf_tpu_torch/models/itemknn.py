@@ -9,7 +9,9 @@ ItemKNNSimilarityHybrid with alpha * W1 + (1 - alpha) * W2.
 
 A built W whose float32 bytes are within ``_DENSE_W_BYTE_LIMIT`` stays on the
 device only (``export="device"``): the host CSR is made when something reads
-``W_sparse``.
+``W_sparse``. A ``mesh_plan`` among the similarity arguments goes to
+``compute_similarity``, whose sharded build exports a host CSR, as in JAX
+(:46-61).
 """
 
 from __future__ import annotations
@@ -47,10 +49,12 @@ def _weighted(mat, feature_weighting: str):
 
 def _fit_w(model, data, n: int, topK, shrink, similarity, normalize, similarity_args):
     """The column similarity of ``data`` ([rows, n]) as the model's W: dense
-    on the device when it fits, host CSR otherwise."""
+    on the device when it fits, host CSR otherwise, and host CSR with a
+    ``mesh_plan`` in ``similarity_args`` (the sharded build's export, JAX
+    :46-61)."""
     kw = dict(similarity=similarity, topK=topK, shrink=shrink, normalize=normalize, device=model.device,
               **similarity_args)
-    if 4 * n * n <= model._DENSE_W_BYTE_LIMIT:
+    if similarity_args.get("mesh_plan") is None and 4 * n * n <= model._DENSE_W_BYTE_LIMIT:
         model._adopt_device_w(compute_similarity(data, export="device", **kw))
     else:
         model.W_sparse = check_matrix(compute_similarity(data, **kw), "csr")

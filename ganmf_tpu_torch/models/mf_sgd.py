@@ -24,6 +24,17 @@ u's padded row. Both give the same draws from the same generator state.
 
 On a CUDA device ``index_add_`` sums a chunk's duplicate rows by atomics, in
 no fixed order: two runs on the card need not be bitwise equal.
+
+``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :240-255): U, bU and
+cacheU over the user rows, V, bV and cacheV over the item rows, the dense URM
+over (data, model), the padded planes over the user rows, bG replicated
+(``parallel.baselines``). Every rank draws the same samples as the
+one-process fit from its own generator, seeded alike, reading the drawn
+ids, ratings and seen tests from the ranks that hold them; each chunk
+gathers its rows from their owners, every rank computes the update alike and
+the owners apply it (``parallel.baselines.sharded_mf_epoch``). The factor
+stores and checkpoints hold the full tables (gathered, a collective every
+rank calls).
 """
 
 from __future__ import annotations
@@ -84,18 +95,22 @@ def build_tables(urm: sps.csr_matrix, device: torch.device, storage: str = "dens
     )
 
 
+def seen_in_profiles(profile: torch.Tensor, rows: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """[n, c] whether cand[s] is in row rows[s] of the padded ``profile``: a
+    membership test against the row, in slices of MEMBERSHIP_ELEMENTS."""
+    L = profile.shape[1]
+    step = max(1, MEMBERSHIP_ELEMENTS // (cand.shape[1] * L))
+    return torch.cat([(profile[rows[lo : lo + step]][:, None, :] == cand[lo : lo + step, :, None]).any(-1)
+                      for lo in range(0, len(rows), step)])
+
+
 def _first_unseen(tables: MFTables, u: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """Per sample, the first of its candidates that u has not seen, or the
     first candidate when all are seen (JAX's argmax over an all-zero row)."""
     if tables.urm is not None:
         seen = tables.urm[u[:, None], cand] != 0
     else:
-        # membership against u's padded row, in slices of MEMBERSHIP_ELEMENTS
-        L = tables.profile.shape[1]
-        step = max(1, MEMBERSHIP_ELEMENTS // (cand.shape[1] * L))
-        seen = torch.cat([
-            (tables.profile[u[lo : lo + step]][:, None, :] == cand[lo : lo + step, :, None]).any(-1)
-            for lo in range(0, len(u), step)])
+        seen = seen_in_profiles(tables.profile, u, cand)
     first = torch.argmax((~seen).to(torch.int32), dim=1)  # the first maximum: 0 if all are seen
     return torch.gather(cand, 1, first[:, None])[:, 0]
 
@@ -209,8 +224,8 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
     ):
         if urm_storage not in ("dense", "csr"):
             raise ValueError(f"urm_storage must be 'dense' or 'csr', got {urm_storage!r}")
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
+        if mesh_plan is not None and mesh_plan.device != self.device:
+            raise ValueError(f"model on {self.device}, its mesh plan on {mesh_plan.device}")
         # BPR forces use_bias off, as the reference wrappers do
         # (MatrixFactorization_Cython.py:39 fit default, :184 BPR override)
         self._use_bias = False if self.ALGORITHM == "bpr" else bool(use_bias)
@@ -220,8 +235,25 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
         self.num_factors = K
 
         urm = self.URM_train
-        # urm_storage="csr" trains from the padded planes alone
-        self._tables = build_tables(urm, self.device, urm_storage)
+        self.mesh_plan = plan = mesh_plan
+        self._lay = None
+        if plan is None:
+            # urm_storage="csr" trains from the padded planes alone
+            self._tables = build_tables(urm, self.device, urm_storage)
+        else:
+            from ganmf_tpu_torch.parallel.baselines import Shards
+
+            # this rank's padded rows and URM block; the warm users and the
+            # profile lengths, which the draws index, whole
+            self._lay = lay = Shards.of(plan, self.n_users, self.n_items)
+            mine = build_tables(urm[lay.users.lo : lay.users.hi], self.device, "csr")
+            lens = np.ediff1d(urm.indptr)
+            block = urm[lay.urm_users.lo : lay.urm_users.hi][:, lay.urm_items.lo : lay.urm_items.hi]
+            self._tables = mine._replace(
+                urm=None if urm_storage == "csr" else dense_from_sparse(block, self.device),
+                warm=torch.from_numpy(np.where(lens > 0)[0].astype(np.int64)).to(self.device),
+                profile_len=torch.from_numpy(np.maximum(lens, 1).astype(np.int64)).to(self.device),
+                n_items=self.n_items)
 
         def table(shape):
             return torch.from_numpy(rng.normal(0, init_std, shape).astype(np.float32)).to(self.device)
@@ -231,6 +263,10 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
             U=table((self.n_users, K)), V=table((self.n_items, K)),
             bU=z(self.n_users), bV=z(self.n_items), bG=z(1), cacheU=z(self.n_users), cacheV=z(self.n_items),
         )
+        if plan is not None:
+            from ganmf_tpu_torch.parallel.baselines import shard_mf_state
+
+            self._state = shard_mf_state(self._state, self._lay)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(random_seed)
         self._chunk = int(batch_size)
@@ -251,21 +287,49 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
         best = self._bias_best
         self._export_biases(None if best is None else (best[0].cpu().numpy(), best[1].cpu().numpy(), best[2]))
 
-    def _run_epoch(self, num_epoch):
+    def _draw(self, shape):
+        """(u, i, r_ui, j) of ``draw_samples``; on a mesh from this rank's
+        shards (collectives every rank calls)."""
         with_neg = self.ALGORITHM == "bpr"
-        if self._presample:
-            draws = zip(*draw_samples(self._tables, (self._n_chunks, self._chunk), with_neg, self._generator))
-        else:
-            draws = (draw_samples(self._tables, (self._chunk,), with_neg, self._generator)
-                     for _ in range(self._n_chunks))
-        self._state = mf_epoch(self._state, draws, **self._hyper)
+        if self._lay is None:
+            return draw_samples(self._tables, shape, with_neg, self._generator)
+        from ganmf_tpu_torch.parallel.baselines import sharded_draws
 
-    # -- crash resume (the state and the generator's state) -------------------
+        draws = sharded_draws(self._lay, self._tables, int(np.prod(shape)), with_neg=with_neg, want_rating=True,
+                              generator=self._generator)
+        return tuple(x.view(*shape) for x in draws)
+
+    def _run_epoch(self, num_epoch):
+        if self._presample:
+            draws = zip(*self._draw((self._n_chunks, self._chunk)))
+        else:
+            draws = (self._draw((self._chunk,)) for _ in range(self._n_chunks))
+        if self._lay is None:
+            self._state = mf_epoch(self._state, draws, **self._hyper)
+        else:
+            from ganmf_tpu_torch.parallel.baselines import sharded_mf_epoch
+
+            self._state = sharded_mf_epoch(self._lay, self._state, draws, **self._hyper)
+
+    def _full_state(self) -> MFState:
+        """The full state; on a mesh gathered from the shards (a collective)."""
+        if self._lay is None:
+            return self._state
+        from ganmf_tpu_torch.parallel.baselines import gather_mf_state
+
+        return gather_mf_state(self._state, self._lay)
+
+    # -- crash resume (the state and the generator's state); on a mesh the
+    # full state, so that a checkpoint resumes on any plan ---------------------
     def _checkpoint_state(self):
-        return {"state": self._state._asdict(), "generator": self._generator.get_state()}
+        return {"state": self._full_state()._asdict(), "generator": self._generator.get_state()}
 
     def _restore_checkpoint_state(self, state):
         self._state = MFState(**{k: v.to(self.device) for k, v in state["state"].items()})
+        if self._lay is not None:
+            from ganmf_tpu_torch.parallel.baselines import shard_mf_state
+
+            self._state = shard_mf_state(self._state, self._lay)
         self._generator.set_state(state["generator"])
 
     def _export_biases(self, triple):
@@ -280,22 +344,25 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
             self.use_bias = False
         self._device_factors = None
 
-    def _bias_triple(self):
-        """(bU, bV, bG) of the state: the bias tables stay on the device, the
-        global bias is read to the host (one sync, as JAX's ``float``)."""
-        return self._state.bU, self._state.bV, float(self._state.bG[0])
+    @staticmethod
+    def _bias_triple(state):
+        """(bU, bV, bG) of a full state: the bias tables stay on the device,
+        the global bias is read to the host (one sync, as JAX's ``float``)."""
+        return state.bU, state.bV, float(state.bG[0])
 
     # the factor stores take the device tensors: an epoch makes new tensors,
     # so a stored one never changes
     def _prepare_model_for_validation(self):
-        self.USER_factors = self._state.U
-        self.ITEM_factors = self._state.V
-        self._export_biases(self._bias_triple() if self._use_bias else None)
+        full = self._full_state()
+        self.USER_factors = full.U
+        self.ITEM_factors = full.V
+        self._export_biases(self._bias_triple(full) if self._use_bias else None)
 
     def _update_best_model(self):
-        self.USER_factors_best = self._state.U
-        self.ITEM_factors_best = self._state.V
-        self._bias_best = self._bias_triple() if self._use_bias else None
+        full = self._full_state()
+        self.USER_factors_best = full.U
+        self.ITEM_factors_best = full.V
+        self._bias_best = self._bias_triple(full) if self._use_bias else None
 
 
 class MatrixFactorization_BPR(_MFSGDBase):

@@ -17,6 +17,17 @@ epoch can be run from the JAX package's draws.
 
 On a CUDA device ``index_add_`` sums a chunk's duplicate rows by atomics, in
 no fixed order: two runs on the card need not be bitwise equal.
+
+``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :249-262): W, cache,
+m1 and m2 row-sharded over the model axis, the URM over (data, model), the
+padded profiles over the user rows (``parallel.baselines``). Every rank draws
+the same triples as the one-process fit, reading the drawn ids and seen
+tests from the ranks that hold them; each chunk gathers the whole seen rows
+and W's rows (and the symmetric form's columns) from their owners in one
+collective, every rank computes the update alike, and the owners apply it
+and their caches' updates (``parallel.baselines.sharded_bpr_epoch``). The
+prune and the ``W_sparse`` export run on the gathered W, the same on every
+rank; checkpoints hold the full state.
 """
 
 from __future__ import annotations
@@ -83,20 +94,34 @@ def init_state(n_items: int, beta_1: float, beta_2: float, device: torch.device)
     )
 
 
-def build_tables(urm_mask: sps.csr_matrix, device: torch.device) -> BPRTables:
-    """The sampling tables of a 0/1 CSR matrix of positives (JAX
-    :218-234)."""
-    n_users, n_items = urm_mask.shape
+def _profiles(urm_mask: sps.csr_matrix) -> np.ndarray:
+    """[U, L] each row's item ids, padded with 0."""
+    n_users = urm_mask.shape[0]
     lens = np.ediff1d(urm_mask.indptr)
-    warm = np.where((lens > 0) & (lens < n_items))[0]
     lmax = max(int(lens.max()) if len(lens) else 1, 1)
     profile = np.zeros((n_users, lmax), dtype=np.int64)
     profile[np.repeat(np.arange(n_users), lens),
             np.arange(urm_mask.nnz) - np.repeat(urm_mask.indptr[:-1], lens)] = urm_mask.indices
+    return profile
+
+
+def build_tables(urm_mask: sps.csr_matrix, device: torch.device, lay=None) -> BPRTables:
+    """The sampling tables of a 0/1 CSR matrix of positives (JAX
+    :218-234); with a mesh layout ``lay`` (``parallel.baselines.Shards``)
+    this rank's URM block and profile rows, the warm users and the profile
+    lengths whole."""
+    n_users, n_items = urm_mask.shape
+    lens = np.ediff1d(urm_mask.indptr)
+    warm = np.where((lens > 0) & (lens < n_items))[0]
+    if lay is None:
+        urm, rows = urm_mask, urm_mask
+    else:
+        rows = urm_mask[lay.users.lo : lay.users.hi]
+        urm = urm_mask[lay.urm_users.lo : lay.urm_users.hi][:, lay.urm_items.lo : lay.urm_items.hi]
     return BPRTables(
-        urm=dense_from_sparse(urm_mask, device),
+        urm=dense_from_sparse(urm, device),
         warm=torch.from_numpy(warm.astype(np.int64)).to(device),
-        profile=torch.from_numpy(profile).to(device),
+        profile=torch.from_numpy(_profiles(rows)).to(device),
         profile_len=torch.from_numpy(np.maximum(lens, 1).astype(np.int64)).to(device),
     )
 
@@ -223,8 +248,8 @@ class SLIM_BPR(ItemSimilarityRecommender, IncrementalTrainingEarlyStopping):
         presample: bool = False,  # accepted as in JAX; every epoch's draws are made at once
         **earlystopping_kwargs,
     ):
-        if mesh_plan is not None:
-            raise NotImplementedError("mesh_plan is not ported")
+        if mesh_plan is not None and mesh_plan.device != self.device:
+            raise ValueError(f"model on {self.device}, its mesh plan on {mesh_plan.device}")
         self.symmetric = symmetric
         self.topK = topK
         self.sgd_mode = sgd_mode
@@ -240,40 +265,81 @@ class SLIM_BPR(ItemSimilarityRecommender, IncrementalTrainingEarlyStopping):
         if positive_threshold is not None:
             urm_mask.data = (urm_mask.data >= positive_threshold).astype(np.float32)
             urm_mask.eliminate_zeros()
-        self._tables = build_tables(urm_mask, self.device)
-        self._state = init_state(self.n_items, beta_1, beta_2, self.device)
+        self.mesh_plan = mesh_plan
+        self._lay = None
+        if mesh_plan is not None:
+            from ganmf_tpu_torch.parallel.baselines import Shards
+
+            self._lay = Shards.of(mesh_plan, self.n_users, self.n_items)
+        self._tables = build_tables(urm_mask, self.device, self._lay)
+        if self._lay is None:
+            self._state = init_state(self.n_items, beta_1, beta_2, self.device)
+        else:
+            from ganmf_tpu_torch.parallel.baselines import shard_bpr_state
+
+            # the zero state's shards, made on the host
+            self._state = shard_bpr_state(init_state(self.n_items, beta_1, beta_2, torch.device("cpu")),
+                                          self._lay)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(random_seed)
         # one reference epoch = n_users samples (+1 partial batch, pyx:201)
         self._n_chunks = max(1, int(np.ceil(self.n_users / self._chunk)))
 
         self._train_with_early_stopping(epochs, algorithm_name=self.RECOMMENDER_NAME, **earlystopping_kwargs)
-        S2, cv, cix = prune_topk_device(self._S_best, int(self.topK), bool(self.symmetric))
+        S2, cv, cix = prune_topk_device(self._full_w(self._S_best), int(self.topK), bool(self.symmetric))
         self.W_sparse = check_matrix(csc_from_col_topk(cv, cix, self.n_items), "csr")
         self._device_w = S2  # the same pruned matrix, already on the device for scoring
 
     # -- epoch hooks ---------------------------------------------------------
-    def _run_epoch(self, num_epoch):
-        u, i, j = draw_triples(self._tables, self._n_chunks * self._chunk, self._generator)
-        triples = tuple(t.view(self._n_chunks, self._chunk) for t in (u, i, j))
-        self._state = bpr_epoch(
-            self._state, self._tables.urm, triples,
-            learning_rate=self.learning_rate, li_reg=self.lambda_i, lj_reg=self.lambda_j, gamma=self.gamma,
-            beta_1=self.beta_1, beta_2=self.beta_2, sgd_mode=self.sgd_mode, symmetric=self.symmetric,
-        )
+    def _triples(self, n: int):
+        """(u, i, j) of ``draw_triples``; on a mesh from this rank's shards
+        (collectives every rank calls)."""
+        if self._lay is None:
+            return draw_triples(self._tables, n, self._generator)
+        from ganmf_tpu_torch.parallel.baselines import sharded_draws
 
-    # -- crash resume (optimizer state and the generator's state) ---------------
+        u, i, _, j = sharded_draws(self._lay, self._tables, n, with_neg=True, want_rating=False,
+                                   generator=self._generator)
+        return u, i, j
+
+    def _run_epoch(self, num_epoch):
+        hyper = dict(learning_rate=self.learning_rate, li_reg=self.lambda_i, lj_reg=self.lambda_j,
+                     gamma=self.gamma, beta_1=self.beta_1, beta_2=self.beta_2, sgd_mode=self.sgd_mode,
+                     symmetric=self.symmetric)
+        triples = tuple(t.view(self._n_chunks, self._chunk) for t in self._triples(self._n_chunks * self._chunk))
+        if self._lay is None:
+            self._state = bpr_epoch(self._state, self._tables.urm, triples, **hyper)
+        else:
+            from ganmf_tpu_torch.parallel.baselines import sharded_bpr_epoch
+
+            self._state = sharded_bpr_epoch(self._lay, self._state, self._tables.urm, triples, **hyper)
+
+    def _full_w(self, W: torch.Tensor) -> torch.Tensor:
+        """The full W from this rank's rows (a collective on a mesh)."""
+        return W if self._lay is None else self._lay.items.gather(W)
+
+    # -- crash resume (optimizer state and the generator's state); on a mesh
+    # the full state, so that a checkpoint resumes on any plan -----------------
     def _checkpoint_state(self):
-        return {"state": self._state._asdict(), "generator": self._generator.get_state()}
+        state = self._state
+        if self._lay is not None:
+            from ganmf_tpu_torch.parallel.baselines import gather_bpr_state
+
+            state = gather_bpr_state(state, self._lay)
+        return {"state": state._asdict(), "generator": self._generator.get_state()}
 
     def _restore_checkpoint_state(self, state):
         self._state = OptState(**{k: v.to(self.device) for k, v in state["state"].items()})
+        if self._lay is not None:
+            from ganmf_tpu_torch.parallel.baselines import shard_bpr_state
+
+            self._state = shard_bpr_state(self._state, self._lay)
         self._generator.set_state(state["generator"])
 
     def _prepare_model_for_validation(self):
         # validation scores from the pruned W on the device: no [I, I]
         # transfer to the host per validation
-        S2, _, _ = prune_topk_device(self._state.W, int(self.topK), bool(self.symmetric))
+        S2, _, _ = prune_topk_device(self._full_w(self._state.W), int(self.topK), bool(self.symmetric))
         self._adopt_device_w(S2)
 
     def _update_best_model(self):

@@ -36,10 +36,17 @@ takes one route in both packages:
 The 6 GiB and 9 GiB limits are the JAX package's defaults, set on a TPU; an
 H100 measurement of where each route wins is still to make.
 
+With a ``mesh_plan`` whose model axis has more than one rank, the dense
+route is sharded over that axis (:391-470): each model rank builds the Gram
+block of its own target columns against every candidate, normalizes it,
+masks the padded candidates to -inf (so that negative similarities still
+rank above them) and ranks its columns; the ranks' candidates are gathered
+over ``model``. No streamed or column-blocked route is taken under such a
+plan, and ``export="device"`` raises there, as in JAX (:577-580, :686-691).
+
 Not ported: JAX's resident-bf16 Gram (:214-236), which gives the streamed
 route's G and was slower than it on an H100 at the one shape measured
-(PERF.md), and the build sharded over a mesh (:391-470), which raises
-``NotImplementedError``.
+(PERF.md).
 """
 
 from __future__ import annotations
@@ -313,6 +320,41 @@ def similarity_topk_colblock(X: sps.csr_matrix, row_weights: torch.Tensor, gram_
     return vals, ids
 
 
+def similarity_topk_sharded(A: torch.Tensor, row_weights: torch.Tensor, gram_rw: bool, n_rows: int, plan,
+                            *, mode: str, topk: int, **w_kwargs):
+    """([n_cols, topk] values, [n_cols, topk] ids) of every column, the
+    columns split over the plan's model axis (JAX :391-470): this rank's
+    target columns [off, off + width) of the zero-padded A (n_cols padded to
+    a multiple of n_model) against every candidate, its [n_cols_pad, width]
+    Gram block normalized by ``_w_block``, the padded candidates at -inf,
+    each column's top ``topk`` (0 where fewer are finite), then gathered
+    over ``model``. A: the whole dense [n_rows, n_cols] data."""
+    from ganmf_tpu_torch.parallel import comm
+    from ganmf_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    n_cols = A.shape[1]
+    pad = (-n_cols) % plan.n_model
+    if pad:
+        A = torch.cat([A, A.new_zeros((A.shape[0], pad))], dim=1)
+        if w_kwargs["use_row_weights"] and mode == "euclidean":
+            # euclidean's weights index the candidate axis, padded here
+            row_weights = torch.cat([row_weights, row_weights.new_zeros(A.shape[1] - row_weights.shape[0])])
+    width = A.shape[1] // plan.n_model
+    off = plan.coords[MODEL_AXIS] * width
+    A_blk = A[:, off : off + width]
+    G = (row_weights[:, None] * A).T @ A_blk if gram_rw else A.T @ A_blk  # [n_cols_pad, width]
+    W = _w_block(G, torch.sum(A * A, dim=0), torch.sum(A_blk * A_blk, dim=0), off, n_rows, row_weights, mode,
+                 **w_kwargs)
+    del G
+    if pad:
+        # padded candidates must rank below every real similarity, negative
+        # ones too: -inf, not 0
+        W[n_cols:] = float("-inf")
+    vals, idx = tiled_topk(W.T, topk)  # [width, topk] for this rank's columns
+    vals = torch.where(torch.isfinite(vals), vals, 0.0)
+    return comm.all_gather(vals, plan, MODEL_AXIS)[:n_cols], comm.all_gather(idx, plan, MODEL_AXIS)[:n_cols]
+
+
 def csc_from_col_topk(vals, idx, n: int) -> sps.csc_matrix:
     """[n, n] CSC from per-column top-k candidates: column j holds rows
     idx[j] with values vals[j]; zero and -inf values are dropped, as the
@@ -353,8 +395,6 @@ def compute_similarity(
         raise ValueError(f"similarity must be one of {SIMILARITIES}, got '{similarity}'")
     if export not in ("csr", "device"):
         raise ValueError(f"export must be 'csr' or 'device', got '{export}'")
-    if mesh_plan is not None:
-        raise NotImplementedError("mesh_plan: the sharded similarity build is not ported")
     device = as_device(device)
 
     X = sps.csr_matrix(data_matrix, dtype=np.float32).copy()
@@ -402,6 +442,14 @@ def compute_similarity(
         tversky_beta=float(tversky_beta), normalize_avg_row=bool(normalize_avg_row),
         distance_mode=similarity_from_distance_mode, use_row_weights=use_row_weights,
     )
+    # a plan with more than one model rank takes the sharded dense route, at
+    # any size (JAX :577-580)
+    if mesh_plan is not None and mesh_plan.n_model > 1:
+        if export == "device":
+            raise ValueError("export='device' materializes [I, I] on one device; use export='csr' with mesh_plan")
+        vals, idx = similarity_topk_sharded(dense_from_sparse(X, device), rw, gram_rw, n_rows, mesh_plan,
+                                            **w_kwargs)
+        return csc_from_col_topk(vals, idx, n_cols).tocsr()
     if 4 * n_rows * n_cols > _DENSE_A_BYTE_LIMIT and 4 * n_cols * n_cols > _GRAM_BYTE_LIMIT:
         if export == "device":
             raise ValueError("export='device' materializes [I, I] on one device; the column-blocked "

@@ -112,6 +112,15 @@ def psum(x: torch.Tensor, plan, axis) -> torch.Tensor:
     return out
 
 
+def psum_many(parts, plan, axis):
+    """Each tensor of ``parts`` (one dtype) summed over ``axis``, in one
+    collective: the parts concatenated, summed and split again."""
+    if plan.group(axis) is None:
+        return list(parts)
+    flat = psum(torch.cat([p.reshape(-1) for p in parts]), plan, axis)
+    return [f.view_as(p) for f, p in zip(flat.split([p.numel() for p in parts]), parts)]
+
+
 def pmean(x: torch.Tensor, plan, axis) -> torch.Tensor:
     return psum(x, plan, axis) / plan.axis_size(axis)
 

@@ -426,8 +426,7 @@ def shard_g_loss(lay: ShardLayout, p: GANMFParams, uids, real, w, recon_coeffici
 def _user_sum(lay: ShardLayout, grads):
     """The data-parallel sum of shard gradients over the user axes, in one
     collective."""
-    flat = comm.psum(torch.cat([g.reshape(-1) for g in grads]), lay.plan, lay.user_axes)
-    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    return comm.psum_many(grads, lay.plan, lay.user_axes)
 
 
 def d_grads(lay: ShardLayout, p: GANMFParams, uids, real, w, m, d_reg, dtype=None):

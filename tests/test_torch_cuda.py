@@ -1383,3 +1383,81 @@ def test_gan_sharded_epochs_in_a_world_of_one_are_the_epochs_and_do_not_synchron
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(t).all()) for t in s.parameters())
+
+
+# -- IALS, MF-SGD, SLIM-BPR and EASE-R on a mesh -----------------------------------
+
+
+def _baseline_fit(name, train, plan):
+    """(the model, its full result tensors) of ``name``'s one-epoch fit with
+    ``plan`` (None: one card)."""
+    import ganmf_tpu_torch.models as pmodels
+    from ganmf_tpu_torch.models import ials
+
+    if name.startswith("ials"):
+        model = pmodels.IALSRecommender(train)
+        limit = ials._PAD_PLANE_BYTE_LIMIT
+        ials._PAD_PLANE_BYTE_LIMIT = 1 if name == "ials_flat" else limit
+        try:
+            model.fit(epochs=2, num_factors=16, alpha=5.0, urm_storage="csr" if name == "ials_flat" else "dense",
+                      mesh_plan=plan)
+        finally:
+            ials._PAD_PLANE_BYTE_LIMIT = limit
+        return model, [model._on_device(model._USER_factors_store), model._on_device(model._ITEM_factors_store)]
+    if name.startswith("mf"):
+        model = pmodels.MatrixFactorization_BPR(train)
+        model.fit(epochs=1, num_factors=16, batch_size=64, learning_rate=0.05, mesh_plan=plan,
+                  urm_storage="csr" if name.endswith("csr") else "dense")
+        return model, [model._on_device(model._USER_factors_store), model._on_device(model._ITEM_factors_store)]
+    model = pmodels.SLIM_BPR(train)
+    model.fit(epochs=1, topK=100, learning_rate=0.0539, lambda_i=2.93e-4, mesh_plan=plan)
+    return model, [model._full_w(model._state.W)]
+
+
+@pytest.mark.parametrize("name", ["ials_dense", "ials_flat", "mf_dense", "mf_csr", "slim"])
+def test_baseline_fits_in_a_world_of_one_match_the_one_card_fits(cuda, world_of_one, name):
+    """IALS (dense, flat csr), MF-SGD BPR (dense, csr) and SLIM-BPR with a
+    plan over a world of one on NCCL, against the one-card fit from the same
+    state and draws: flat-csr IALS bitwise, dense IALS within rtol 2e-4 /
+    atol 2e-6, MF-SGD and SLIM-BPR within 1e-5 (index_add_'s atomics order
+    a chunk's duplicate rows either way); then the mesh epochs of MF-SGD and
+    SLIM-BPR, run again, only enqueue (sync debug mode "error")."""
+    train, _ = _sim_split()
+    _, want = _baseline_fit(name, train, None)
+    model, got = _baseline_fit(name, train, world_of_one)
+    for a, b in zip(got, want):
+        if name == "ials_flat":
+            assert torch.equal(a, b)
+        elif name == "ials_dense":
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-6)
+        else:
+            assert float((a - b).abs().max()) <= 1e-5
+    if name.startswith("ials"):
+        return
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model._run_epoch(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in model._state[:4])
+
+
+def test_ease_r_topk_sharded_in_a_world_of_one_matches_the_card(cuda, world_of_one):
+    """``ease_r_topk_sharded`` on a plan over a world of one on NCCL (the
+    panel broadcasts real NCCL calls) against the one-card EASE-R: the same
+    count of entries in every column, the entries within rtol 1e-4 plus 1e-5
+    of max|B| (tests/test_torch_extras.py's bound)."""
+    from ganmf_tpu_torch.data.device import dense_from_sparse
+    from ganmf_tpu_torch.models.extras import ease_r_weights_topk
+    from ganmf_tpu_torch.ops.distchol import ease_r_topk_sharded
+    from ganmf_tpu_torch.ops.topk import scatter_col_topk_dense
+
+    train, _ = _sim_split(binary=True)
+    A = dense_from_sparse(train, cuda)
+    want = scatter_col_topk_dense(*ease_r_weights_topk(A, 50.0, 30)).cpu()
+    got = scatter_col_topk_dense(*ease_r_topk_sharded(A, 50.0, 30, world_of_one)).cpu()
+    assert torch.equal((got != 0).sum(0), (want != 0).sum(0))
+    both = (got != 0) & (want != 0)
+    torch.testing.assert_close(got[both], want[both], rtol=1e-4, atol=1e-5 * float(want.abs().max()))

@@ -16,6 +16,10 @@ A seeded 90 x 70 binary split with a cold user. Tolerances:
   crowd, and ROC_AUC@50 moves by 1.4e-4 with the ties); the pruned W
   against ``_ease_r_weights_topk``: ``assert_topk_close`` at rtol 1e-4 plus
   1e-5 of max|B|, every metric within 1e-6; the device prune bitwise equal to the host CSC branch;
+- EASE-R's ``mesh_plan`` as JAX's: an object that is no plan fails with
+  ``topK`` (AttributeError) and is not read without it; the 1 x 1 plan
+  (one model rank) takes the one-device route, bitwise (the sharded build on
+  4 ranks: tests/test_torch_parallel_linalg.py);
 - PredefinedList's lists equal to JAX's; its scoring raises.
 """
 
@@ -145,6 +149,25 @@ def test_ease_r_pruned_w_matches_jax_and_the_host_branch(split, topK, monkeypatc
     assert host._device_w is None
     np.testing.assert_array_equal(host.W_sparse.toarray(), model._device_w.numpy())
     assert (host.W_sparse != model.W_sparse).nnz == 0
+
+
+def test_ease_r_mesh_plan_follows_jax(split):
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    train, _ = split
+    with pytest.raises(AttributeError):
+        JaxEASE(train).fit(topK=5, l2_norm=50.0, mesh_plan=object())
+    with pytest.raises(AttributeError):
+        EASE_R_Recommender(train, device=CPU).fit(topK=5, l2_norm=50.0, mesh_plan=object())
+    dense = EASE_R_Recommender(train, device=CPU)
+    dense.fit(l2_norm=50.0, mesh_plan=object())  # without topK the plan is not read, as in JAX
+    plain = EASE_R_Recommender(train, device=CPU)
+    plain.fit(l2_norm=50.0)
+    assert torch.equal(dense._device_w, plain._device_w)
+    plain.fit(topK=5, l2_norm=50.0)
+    one = EASE_R_Recommender(train, device=CPU)
+    one.fit(topK=5, l2_norm=50.0, mesh_plan=make_mesh(device="cpu"))
+    assert torch.equal(one._device_w, plain._device_w)
 
 
 def test_predefined_list_serves_jax_lists_and_has_no_scores(split):

@@ -17,7 +17,11 @@ one seed. Tolerances:
 - a 6-epoch fit with early stopping: JAX's ``epochs_best`` and every metric
   within 1e-5;
 - cold rows keep their initial factors; crash resume reproduces the
-  uninterrupted fit (rtol 1e-5); ``mesh_plan`` raises.
+  uninterrupted fit (rtol 1e-5); ``mesh_plan``: an object that is no plan
+  fails as JAX's fit fails (AttributeError), and the 1 x 1 plan
+  (``make_mesh()`` without a process group) trains bitwise as no plan in
+  every storage (the mesh fits on 4 ranks:
+  tests/test_torch_parallel_baselines.py).
 """
 
 import pickle
@@ -217,8 +221,22 @@ def test_crash_resume_reproduces_the_uninterrupted_fit(tmp_path, urm_pair):
 def test_rejects_what_it_does_not_take(urm_pair, monkeypatch):
     train, _ = urm_pair
     model = IALSRecommender(train, device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh_plan"):
-        model.fit(epochs=1, mesh_plan=object())
+    # an object that is no plan fails as it fails JAX's fit
+    with pytest.raises(AttributeError):
+        JaxIALS(train).fit(epochs=1, num_factors=4, mesh_plan=object())
+    with pytest.raises(AttributeError):
+        model.fit(epochs=1, num_factors=4, mesh_plan=object())
+    # the 1 x 1 plan trains bitwise as no plan
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    for storage in ("dense", "csr"):
+        cfg = dict(epochs=2, num_factors=4, urm_storage=storage)
+        plain, meshed = IALSRecommender(train, device=CPU), IALSRecommender(train, device=CPU)
+        plain.fit(**cfg)
+        meshed.fit(mesh_plan=make_mesh(device="cpu"), **cfg)
+        np.testing.assert_array_equal(meshed.USER_factors, plain.USER_factors)
+        np.testing.assert_array_equal(meshed.ITEM_factors, plain.ITEM_factors)
+        assert meshed.cg_log == plain.cg_log
     with pytest.raises(ValueError, match="confidence_scaling"):
         model.fit(epochs=1, confidence_scaling="sqrt")
     with pytest.raises(ValueError, match="urm_storage"):

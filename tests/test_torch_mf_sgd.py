@@ -228,8 +228,25 @@ def test_csr_storage_fits_bitwise_like_dense_and_resumes(algorithm, tmp_path, mo
 
 def test_options_follow_jax():
     train, _ = _split()
-    with pytest.raises(NotImplementedError, match="mesh_plan"):
-        MatrixFactorization_BPR(train, device=CPU).fit(epochs=1, mesh_plan=object())
+    # an object that is no plan fails as it fails JAX's fit; the 1 x 1 plan
+    # trains bitwise as no plan
+    from ganmf_tpu.models import MatrixFactorization_BPR as JaxBPR
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(AttributeError):
+        JaxBPR(train).fit(epochs=1, num_factors=3, mesh_plan=object())
+    with pytest.raises(AttributeError):
+        MatrixFactorization_BPR(train, device=CPU).fit(epochs=1, num_factors=3, mesh_plan=object())
+    for cls in (MatrixFactorization_BPR, MatrixFactorization_AsySVD):
+        cfg = dict(epochs=2, num_factors=3, batch_size=16)
+        plain, meshed = cls(train, device=CPU), cls(train, device=CPU)
+        plain.fit(**cfg)
+        meshed.fit(mesh_plan=make_mesh(device="cpu"), **cfg)
+        np.testing.assert_array_equal(meshed.USER_factors, plain.USER_factors)
+        np.testing.assert_array_equal(meshed.ITEM_factors, plain.ITEM_factors)
+        if cls is MatrixFactorization_AsySVD:
+            np.testing.assert_array_equal(meshed.USER_bias, plain.USER_bias)
+            assert meshed.GLOBAL_bias == plain.GLOBAL_bias
     with pytest.raises(ValueError, match="urm_storage"):
         MatrixFactorization_FunkSVD(train, device=CPU).fit(epochs=1, urm_storage="sparse")
     # samples_per_epoch defaults to max(n_users, nnz // 4) (JAX :259-260); the

@@ -242,8 +242,17 @@ def test_streamed_routes_match_dense(similarity, row_weights, monkeypatch):
 
 def test_unported_routes_and_bad_arguments_raise(monkeypatch):
     X = make_urm(seed=8)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # an object that is no plan fails as it fails JAX's build; the 1 x 1
+    # plan takes the one-device route (the sharded build on 4 ranks:
+    # tests/test_torch_parallel_linalg.py)
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(AttributeError):
+        jsim.compute_similarity(X, mesh_plan=object())
+    with pytest.raises(AttributeError):
         psim.compute_similarity(X, mesh_plan=object(), device=CPU)
+    one = psim.compute_similarity(X, mesh_plan=make_mesh(device="cpu"), device=CPU)
+    assert (one != psim.compute_similarity(X, device=CPU)).nnz == 0
     monkeypatch.setattr(psim, "_DENSE_A_BYTE_LIMIT", 1)
     monkeypatch.setattr(psim, "_GRAM_BYTE_LIMIT", 1)
     # the column-blocked build is ported (tests/test_torch_similarity_colblock.py);

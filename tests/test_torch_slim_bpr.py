@@ -238,5 +238,16 @@ def test_crash_resume_and_options(tmp_path):
     other = SLIM_BPR_Cython(urm, device=CPU)
     other.fit(epochs=6, presample=True, train_with_sparse_weights=True, **params)
     assert (other.W_sparse != full.W_sparse).nnz == 0
-    with pytest.raises(NotImplementedError, match="mesh_plan"):
+    # an object that is no plan fails as it fails JAX's fit; the 1 x 1 plan
+    # trains bitwise as no plan
+    from ganmf_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(AttributeError):
+        JaxSLIM(urm).fit(epochs=1, mesh_plan=object())
+    with pytest.raises(AttributeError):
         SLIM_BPR(urm, device=CPU).fit(epochs=1, mesh_plan=object())
+    meshed = SLIM_BPR(urm, device=CPU)
+    meshed.fit(epochs=6, mesh_plan=make_mesh(device="cpu"), **params)
+    for a, b in zip(meshed._state, full._state):
+        assert torch.equal(a, b)
+    assert (meshed.W_sparse != full.W_sparse).nnz == 0
