@@ -25,21 +25,32 @@ planes, or from flat CSR where the padded planes of an orientation would
 pass ``_PAD_PLANE_BYTE_LIMIT`` (the JAX rule: 8 bytes a padded slot, set by
 GANMF_TPU_PAD_PLANE_GB).
 
-``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :336-396): U's rows
-over the user axes, V's over the model axis, each orientation in contiguous
-ranges of whole chunks (``parallel.baselines.RowShard.chunked``: rows padded
-to a multiple of chunk * n_shards, as JAX's flat-CSR mesh storage pads
-them), so that a rank solves chunks of the one-process fit. Dense storage
-keeps this rank's [users, items] block of the confidence matrices: a chunk's
-Gram and right-hand side are summed over the other orientation's shards
-(a psum over model in the user step, over the user axes in the item step),
-and the CG runs on the summed systems, replicated within that group, its
-exit test agreed over the group (a pmax of the host-read bool). Csr storage
-(padded or flat) keeps this rank's rows: each row shard runs the half-step
-on its rows against the full fixed factors (an all_gather), with no
-reduction, which gives the one-process fit's values bitwise. ``cg_log``
-keeps this rank's chunks; the factor stores and checkpoints hold the full
-factors (gathered, a collective every rank calls).
+``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :336-396), U's rows
+over the user axes and V's over the model axis:
+
+  * dense storage takes JAX's placements (``mesh_plan.urm``, ``user_rows``,
+    ``item_rows`` under the degrade rule) and keeps this rank's [users,
+    items] block of the confidence matrices. Every rank steps through the
+    one-process chunks and solves the rows of each that it holds: a chunk's
+    Gram and right-hand side are summed over the other orientation's shards
+    (a psum over model in the user step, over the user axes in the item
+    step), and the CG's exit test is agreed over the whole mesh (a pmax of
+    the host-read bool), so that each chunk stops where the one-process
+    chunk stops; a rank with no rows in a chunk still joins the test;
+  * csr storage (padded or flat) takes JAX's flat mesh layout
+    (``_flat_csr_stacked``: rows padded to a multiple of chunk * n_shards,
+    each shard a range of whole chunks, ``parallel.baselines.RowShard.
+    chunked``) for both forms: each shard runs the one-process half-step on
+    its own chunks against the full fixed factors (an all_gather), with no
+    collective inside, which gives the one-process fit's values bitwise. A
+    chunk split between two ranks would run its products at other shapes,
+    whose float32 sums differ (JAX's even padded-csr placement, which splits
+    chunks, is not taken for that reason). An orientation of fewer rows than
+    chunk * n_shards therefore lies on its first shard, as in JAX's flat
+    layout.
+
+``cg_log`` keeps the chunks this rank stepped through; the factor stores and
+checkpoints hold the full factors (gathered, a collective every rank calls).
 """
 
 from __future__ import annotations
@@ -109,16 +120,21 @@ def batched_cg(A: torch.Tensor, b: torch.Tensor, iters: int, rtol: float = 1e-5,
 
 
 def als_half_step(block, n_rows: int, Y: torch.Tensor, reg: float, chunk: int, log=None,
-                  reduce=None, agree=None) -> torch.Tensor:
+                  reduce=None, agree=None, span=None) -> torch.Tensor:
     """Solve (YtY + Yt diag(w_u) Y + reg I) x_u = Yt c_u for every row u
     (JAX :25-60), ``chunk`` rows at a time. ``block(lo, hi)`` gives the rows'
     (w, c) [hi - lo, n_cols]; Y [n_cols, K] holds the fixed factors. Appends
     each chunk's (iterations, host reads) to ``log``. Returns [n_rows, K].
 
-    On a mesh's dense storage the columns are this rank's shard of the
-    contraction axis: ``reduce`` sums YtY and each chunk's [Gram | rhs]
-    over the shards, and ``agree`` is the CG's shared exit test."""
+    On a mesh, ``span`` (lo, hi) is this rank's rows of the n_rows (``block``
+    takes local rows) and the result is theirs: each chunk solves its rows
+    in the span. With ``agree`` (the CG's exit test shared over the mesh)
+    every chunk is stepped through, an empty share too; without it the
+    chunks outside the span are skipped. With dense storage the columns are
+    this rank's shard of the contraction axis: ``reduce`` sums YtY and each
+    chunk's [Gram | rhs] over the shards, whose ranks hold the same rows."""
     n_cols, K = Y.shape
+    lo_r, hi_r = span or (0, n_rows)
     YtY = Y.T @ Y
     if reduce is not None:
         YtY = reduce(YtY)
@@ -128,9 +144,13 @@ def als_half_step(block, n_rows: int, Y: torch.Tensor, reg: float, chunk: int, l
     Z = (Y[:, :, None] * Y[:, None, :]).reshape(n_cols, K * K)
     xs = [Y.new_zeros((0, K))]
     for lo in range(0, n_rows, chunk):
-        w, conf = block(lo, min(lo + chunk, n_rows))
+        # the chunk's rows in the span, as local rows
+        r0, r1 = (min(max(x, lo_r), hi_r) - lo_r for x in (lo, min(lo + chunk, n_rows)))
+        if r0 == r1 and agree is None:
+            continue
+        w, conf = block(r0, r1)
         WZ, b = w @ Z, conf @ Y
-        if reduce is not None:
+        if reduce is not None and r1 > r0:
             WZ, b = (t.contiguous() for t in reduce(torch.cat([WZ, b], dim=1)).split([K * K, K], dim=1))
         A = WZ.reshape(-1, K, K).add_(YtY)
         x, it, reads = batched_cg(A, b, iters=K + 16, agree=agree)
@@ -219,59 +239,66 @@ class IALSRecommender(MatrixFactorizationRecommender, IncrementalTrainingEarlySt
 
         args = (confidence_scaling, alpha, epsilon)
         self.mesh_plan = plan = mesh_plan
-        # this rank's users and items (every row without a mesh)
-        if plan is None:
-            self._rows_u = self._rows_i = None
-            (u0, u1), (i0, i1) = (0, self.n_users), (0, self.n_items)
-        else:
+        agree = None
+        if plan is not None:
             from ganmf_tpu_torch.parallel import comm
             from ganmf_tpu_torch.parallel.baselines import RowShard
             from ganmf_tpu_torch.parallel.mesh import MODEL_AXIS
 
-            self._rows_u = RowShard.chunked(plan, self.n_users, self._chunk_u, plan.user_axes)
-            self._rows_i = RowShard.chunked(plan, self.n_items, self._chunk_i, MODEL_AXIS)
-            (u0, u1), (i0, i1) = (self._rows_u.lo, self._rows_u.hi), (self._rows_i.lo, self._rows_i.hi)
-        # per orientation: (form, block, reduce, agree); reduce None: the
-        # block's columns are whole and the half-step takes the full fixed
-        # factors
+            def over(axes):
+                """A sum over ``axes`` (None where no rank shares the sum)."""
+                if not axes or plan.group(axes) is None or plan.axis_size(axes) == 1:
+                    return None
+                return lambda x: comm.psum(x, plan, axes)
+
+            # the CG's exit test, agreed over the whole mesh
+            everyone = plan.axis_names if plan.axis_size(plan.axis_names) > 1 else ()
+            agree = None if not everyone else (
+                lambda go: comm.pmax(go.to(torch.int32), plan, everyone) > 0)
+        # per orientation: (form, block, reduce, agree, rows); reduce None:
+        # the block's columns are whole and the half-step takes the full
+        # fixed factors; rows: this rank's (None without a mesh)
         if urm_storage == "csr":
             # O(nnz) storage per orientation, each chunk's confidence block
             # built on the fly; an orientation whose padded planes would pass
             # the limit takes flat CSR (exactly O(nnz)); on a mesh, this
-            # rank's rows of either
-            def _storage_for(csr, n_cols, lo, hi):
+            # rank's range of whole chunks of either
+            def _storage_for(csr, n_cols, chunk, axes):
                 lens = np.ediff1d(csr.indptr)
                 L = max(int(lens.max()) if csr.shape[0] else 0, 1)
-                mine = csr[lo:hi]
+                rows = None if plan is None else RowShard.chunked(plan, csr.shape[0], chunk, axes)
+                mine = csr if rows is None else csr[rows.lo : rows.hi]
                 if 8 * csr.shape[0] * L > _PAD_PLANE_BYTE_LIMIT:
-                    return "flat", _flat_blocks(_flat_csr_device(mine, self.device), n_cols, *args), None, None
+                    return "flat", _flat_blocks(_flat_csr_device(mine, self.device), n_cols, *args), None, None, rows
                 return ("padded", _padded_blocks(padded_csr_from_sparse(mine, self.device), n_cols, *args),
-                        None, None)
+                        None, None, rows)
 
-            self._store_users = _storage_for(self.URM_train, self.n_items, u0, u1)
-            self._store_items = _storage_for(self.URM_train.T.tocsr(), self.n_users, i0, i1)
+            axes = (None, None) if plan is None else (plan.user_axes, MODEL_AXIS)
+            self._store_users = _storage_for(self.URM_train, self.n_items, self._chunk_u, axes[0])
+            self._store_items = _storage_for(self.URM_train.T.tocsr(), self.n_users, self._chunk_i, axes[1])
         else:
             if plan is None:
                 W, P = confidence(self.device_urm().dense, *args)
-                sums = (None, None), (None, None)
+                ru = ri = None
+                sums = None, None
             else:
-                # this rank's [users, items] block; the products are summed
-                # over the other orientation's shards
-                W, P = confidence(dense_from_sparse(self.URM_train[u0:u1][:, i0:i1], self.device), *args)
-
-                def over(axes):
-                    if plan.group(axes) is None or plan.axis_size(axes) == 1:
-                        return None, None
-                    return (lambda x: comm.psum(x, plan, axes),
-                            lambda go: comm.pmax(go.to(torch.int32), plan, axes) > 0)
-
-                sums = over(MODEL_AXIS), over(plan.user_axes)
-            self._store_users = ("dense", lambda lo, hi: (W[lo:hi], P[lo:hi]), *sums[0])
+                # this rank's [users, items] block of mesh_plan.urm; the
+                # products are summed over the other orientation's shards
+                ru = RowShard.placed(plan, self.n_users, plan.user_rows)
+                ri = RowShard.placed(plan, self.n_items, plan.item_rows)
+                W, P = confidence(dense_from_sparse(self.URM_train[ru.lo : ru.hi][:, ri.lo : ri.hi], self.device),
+                                  *args)
+                sums = over(ri.axes), over(ru.axes)
+            self._store_users = ("dense", lambda lo, hi: (W[lo:hi], P[lo:hi]), sums[0], agree, ru)
             # the item step's rows are W's columns, copied a chunk at a time
             # into the csr blocks' layout, so that both storages run the
             # same products
             self._store_items = ("dense", lambda lo, hi: (W.T[lo:hi].contiguous(), P.T[lo:hi].contiguous()),
-                                 *sums[1])
+                                 sums[1], agree, ri)
+        # this rank's users and items (every row without a mesh)
+        self._rows_u, self._rows_i = self._store_users[4], self._store_items[4]
+        u0, u1 = (0, self.n_users) if plan is None else (self._rows_u.lo, self._rows_u.hi)
+        i0, i1 = (0, self.n_items) if plan is None else (self._rows_i.lo, self._rows_i.hi)
         warm_u = np.ediff1d(self.URM_train.indptr)[u0:u1] > 0
         warm_i = np.ediff1d(self.URM_train.tocsc().indptr)[i0:i1] > 0
         self._warm_users = torch.from_numpy(warm_u).to(self.device)
@@ -294,21 +321,19 @@ class IALSRecommender(MatrixFactorizationRecommender, IncrementalTrainingEarlySt
         mesh)."""
         return x if rows is None else rows.gather(x)
 
-    def _half_step(self, store, rows, n_rows, Y, Y_rows, chunk, log):
-        _, block, reduce, agree = store
+    def _half_step(self, store, n_rows, Y, Y_rows, chunk, log):
+        _, block, reduce, agree, rows = store
         if reduce is None:
             Y = self._full(Y, Y_rows)  # the csr blocks span every column
-        n_local = n_rows if rows is None else rows.rows
-        return als_half_step(block, n_local, Y, self.reg, chunk, log, reduce, agree)
+        span = None if rows is None else (rows.lo, rows.hi)
+        return als_half_step(block, n_rows, Y, self.reg, chunk, log, reduce, agree, span)
 
     # -- epoch ------------------------------------------------------------------
     def _run_epoch(self, num_epoch):
         log = []
-        new_U = self._half_step(self._store_users, self._rows_u, self.n_users, self._V_dev, self._rows_i,
-                                self._chunk_u, log)
+        new_U = self._half_step(self._store_users, self.n_users, self._V_dev, self._rows_i, self._chunk_u, log)
         self._U_dev = torch.where(self._warm_users[:, None], new_U, self._U_dev)
-        new_V = self._half_step(self._store_items, self._rows_i, self.n_items, self._U_dev, self._rows_u,
-                                self._chunk_i, log)
+        new_V = self._half_step(self._store_items, self.n_items, self._U_dev, self._rows_u, self._chunk_i, log)
         self._V_dev = torch.where(self._warm_items[:, None], new_V, self._V_dev)
         self.cg_log.append(log)
 

@@ -28,13 +28,13 @@ no fixed order: two runs on the card need not be bitwise equal.
 ``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :240-255): U, bU and
 cacheU over the user rows, V, bV and cacheV over the item rows, the dense URM
 over (data, model), the padded planes over the user rows, bG replicated
-(``parallel.baselines``). Every rank draws the same samples as the
-one-process fit from its own generator, seeded alike, reading the drawn
-ids, ratings and seen tests from the ranks that hold them; each chunk
-gathers its rows from their owners, every rank computes the update alike and
-the owners apply it (``parallel.baselines.sharded_mf_epoch``). The factor
-stores and checkpoints hold the full tables (gathered, a collective every
-rank calls).
+(``parallel.baselines.Shards``). The draws and the epoch are the ones above,
+reading and writing rows through that layout: every rank draws the same
+samples as the one-process fit from its own generator, seeded alike, reading
+the drawn ids, ratings and seen tests from the ranks that hold them; each
+chunk gathers its rows from their owners, every rank computes the update
+alike and the owners apply it. The factor stores and checkpoints hold the
+full tables (gathered, a collective every rank calls).
 """
 
 from __future__ import annotations
@@ -81,12 +81,19 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def build_tables(urm: sps.csr_matrix, device: torch.device, storage: str = "dense") -> MFTables:
-    """The sampling tables of a CSR rating matrix (JAX :212-229)."""
+#: each field of an MFState: its rows on a mesh (None: replicated)
+STATE_ROWS = ("users", "items", "users", "items", None, "users", "items")
+
+
+def build_tables(urm: sps.csr_matrix, device: torch.device, storage: str = "dense", lay=None) -> MFTables:
+    """The sampling tables of a CSR rating matrix (JAX :212-229); with a
+    mesh layout ``lay`` (``parallel.baselines.Shards``) this rank's padded
+    rows and URM block, the warm users and the profile lengths whole."""
     lens = np.ediff1d(urm.indptr)
-    pc = padded_csr_from_sparse(urm, device)
+    rows, block = (urm, urm) if lay is None else lay.local_csr(urm)
+    pc = padded_csr_from_sparse(rows, device)
     return MFTables(
-        urm=None if storage == "csr" else dense_from_sparse(urm, device),
+        urm=None if storage == "csr" else dense_from_sparse(block, device),
         val=pc.val,
         warm=torch.from_numpy(np.where(lens > 0)[0].astype(np.int64)).to(device),
         profile=pc.idx,
@@ -104,32 +111,44 @@ def seen_in_profiles(profile: torch.Tensor, rows: torch.Tensor, cand: torch.Tens
                       for lo in range(0, len(rows), step)])
 
 
-def _first_unseen(tables: MFTables, u: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    """Per sample, the first of its candidates that u has not seen, or the
-    first candidate when all are seen (JAX's argmax over an all-zero row)."""
-    if tables.urm is not None:
-        seen = tables.urm[u[:, None], cand] != 0
-    else:
-        seen = seen_in_profiles(tables.profile, u, cand)
-    first = torch.argmax((~seen).to(torch.int32), dim=1)  # the first maximum: 0 if all are seen
-    return torch.gather(cand, 1, first[:, None])[:, 0]
-
-
-def draw_samples(tables: MFTables, shape, with_neg: bool, generator: torch.Generator):
+def draw_samples(tables, shape, with_neg: bool, generator: torch.Generator, lay=None, want_rating: bool = True):
     """(u, i, r_ui, j) of the given leading shape, int64 ids and float32
-    ratings on the tables' device (JAX :44-71); j is 0 without ``with_neg``."""
+    ratings on the tables' device (JAX :44-71); j is 0 without ``with_neg``,
+    r_ui None without ``want_rating``. The seen test reads the dense URM, or
+    u's padded row under csr storage (``tables.urm`` None).
+
+    With a mesh layout ``lay`` (``parallel.baselines.Shards``) and this
+    rank's ``build_tables(..., lay)``: the same random calls in the same
+    order on every rank, the drawn slot's item and rating and the
+    candidates' seen test read from the ranks that hold them, in two
+    collectives (the ids, then the ratings and the seen tests)."""
+    if lay is None:
+        from ganmf_tpu_torch.parallel.baselines import WHOLE as lay
+    rows, urm = lay.users, tables.urm
     dev = tables.profile.device
     n = int(np.prod(shape))
     u = tables.warm[torch.randint(0, tables.warm.shape[0], (n,), generator=generator, device=dev)]
     slot = torch.randint(0, 2**31 - 1, (n,), generator=generator, device=dev) % tables.profile_len[u]
-    i = tables.profile[u, slot]
-    r_ui = tables.val[u, slot] if tables.urm is None else tables.urm[u, i]
+    ints = [rows.take_at(tables.profile, u, slot)]
+    cand = torch.randint(0, tables.n_items, (n, 8), generator=generator, device=dev) if with_neg else None
+    if with_neg and urm is None:
+        ints.append(rows.read(lambda at: seen_in_profiles(tables.profile, at, cand), u).to(torch.int64))
+    ints = lay.psum(ints)
+    i = ints[0]
+    floats = []
+    if want_rating:
+        floats.append(rows.take_at(tables.val, u, slot) if urm is None else lay.urm_values(urm, u, i[:, None])[:, 0])
+    if with_neg and urm is not None:
+        floats.append(lay.urm_values(urm, u, cand))
+    floats = lay.psum(floats)
+    r_ui = floats.pop(0) if want_rating else None
     if with_neg:
-        cand = torch.randint(0, tables.n_items, (n, 8), generator=generator, device=dev)
-        j = _first_unseen(tables, u, cand)
+        seen = floats.pop(0) != 0 if urm is not None else ints[1] > 0
+        first = torch.argmax((~seen).to(torch.int32), dim=1)  # the first maximum: 0 if all are seen
+        j = torch.gather(cand, 1, first[:, None])[:, 0]
     else:
         j = torch.zeros_like(u)
-    return tuple(t.view(*shape) for t in (u, i, r_ui, j))
+    return tuple(None if t is None else t.view(*shape) for t in (u, i, r_ui, j))
 
 
 @torch.no_grad()
@@ -144,20 +163,33 @@ def mf_epoch(
     algorithm: str,
     use_adagrad: bool,
     use_bias: bool,
+    lay=None,
 ) -> MFState:
     """One epoch over the chunks of ``draws``, in JAX's update order
     (:100-155); returns a new state and leaves ``state`` as it was.
     ``algorithm`` is "bpr", or "funk_svd" / "asy_svd" (pointwise squared
-    error on the observed cells)."""
+    error on the observed cells).
+
+    With a mesh layout ``lay`` (``parallel.baselines.Shards``) the state is
+    this rank's shards (``lay.shard(state, STATE_ROWS)``): each chunk
+    gathers its rows of U (and bU), V at i (and j, or bV) in one collective,
+    and with AdaGrad the updated caches at u and i in a second."""
+    if lay is None:
+        from ganmf_tpu_torch.parallel.baselines import WHOLE as lay
+    users, items = lay.users, lay.items
     lr, ur, ir, br = _f32(learning_rate), _f32(user_reg), _f32(item_reg), _f32(bias_reg)
     U, V, bU, bV, bG, cacheU, cacheV = (t.clone() for t in state)
     bpr = algorithm == "bpr"
 
     for u, i, r_ui, j in draws:
-        Uu = U.index_select(0, u)  # [C, K]
-        Vi = V.index_select(0, i)
+        parts = [users.take(U, u), items.take(V, i)]  # [C, K]
         if bpr:
-            Vj = V.index_select(0, j)
+            parts.append(items.take(V, j))
+        elif use_bias:
+            parts += [users.take(bU, u), items.take(bV, i)]
+        Uu, Vi, *rest = lay.psum(parts)
+        if bpr:
+            Vj, = rest
             diff = Vi - Vj
             g = 1.0 / (1.0 + torch.exp(torch.sum(Uu * diff, dim=1)))  # the sigmoid gradient
             dU = g[:, None] * diff - ur * Uu
@@ -166,7 +198,7 @@ def mf_epoch(
         else:
             pred = torch.sum(Uu * Vi, dim=1)
             if use_bias:
-                bU_u, bV_i = bU.index_select(0, u), bV.index_select(0, i)
+                bU_u, bV_i = rest
                 pred = pred + bG[0] + bU_u + bV_i
             err = r_ui - pred
             dU = err[:, None] * Vi - ur * Uu
@@ -174,22 +206,23 @@ def mf_epoch(
 
         if use_adagrad:
             # the cache takes the chunk's squares first, then gives the scale
-            cacheU.index_add_(0, u, torch.mean(dU * dU, dim=1))
-            cacheV.index_add_(0, i, torch.mean(dVi * dVi, dim=1))
-            step_u = (lr * (1.0 / (torch.sqrt(cacheU.index_select(0, u)) + 1e-8)))[:, None]
-            step_v = (lr * (1.0 / (torch.sqrt(cacheV.index_select(0, i)) + 1e-8)))[:, None]
+            users.add_(cacheU, u, torch.mean(dU * dU, dim=1))
+            items.add_(cacheV, i, torch.mean(dVi * dVi, dim=1))
+            cu, cv = lay.psum([users.take(cacheU, u), items.take(cacheV, i)])
+            step_u = (lr * (1.0 / (torch.sqrt(cu) + 1e-8)))[:, None]
+            step_v = (lr * (1.0 / (torch.sqrt(cv) + 1e-8)))[:, None]
         else:
             step_u = step_v = lr
 
-        U.index_add_(0, u, step_u * dU)
-        V.index_add_(0, i, step_v * dVi)
+        users.add_(U, u, step_u * dU)
+        items.add_(V, i, step_v * dVi)
         if bpr:
-            V.index_add_(0, j, step_v * dVj)
+            items.add_(V, j, step_v * dVj)
         elif use_bias:
             # the biases step from the chunk's pre-update error; the global
             # bias with the chunk-mean gradient (JAX :141-153)
-            bU.index_add_(0, u, lr * (err - br * bU_u))
-            bV.index_add_(0, i, lr * (err - br * bV_i))
+            users.add_(bU, u, lr * (err - br * bU_u))
+            items.add_(bV, i, lr * (err - br * bV_i))
             bG = bG + lr * torch.mean(err - br * bG[0])
     return MFState(U, V, bU, bV, bG, cacheU, cacheV)
 
@@ -234,26 +267,13 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
         K = int(num_factors)
         self.num_factors = K
 
-        urm = self.URM_train
-        self.mesh_plan = plan = mesh_plan
-        self._lay = None
-        if plan is None:
-            # urm_storage="csr" trains from the padded planes alone
-            self._tables = build_tables(urm, self.device, urm_storage)
-        else:
-            from ganmf_tpu_torch.parallel.baselines import Shards
+        from ganmf_tpu_torch.parallel.baselines import WHOLE, Shards
 
-            # this rank's padded rows and URM block; the warm users and the
-            # profile lengths, which the draws index, whole
-            self._lay = lay = Shards.of(plan, self.n_users, self.n_items)
-            mine = build_tables(urm[lay.users.lo : lay.users.hi], self.device, "csr")
-            lens = np.ediff1d(urm.indptr)
-            block = urm[lay.urm_users.lo : lay.urm_users.hi][:, lay.urm_items.lo : lay.urm_items.hi]
-            self._tables = mine._replace(
-                urm=None if urm_storage == "csr" else dense_from_sparse(block, self.device),
-                warm=torch.from_numpy(np.where(lens > 0)[0].astype(np.int64)).to(self.device),
-                profile_len=torch.from_numpy(np.maximum(lens, 1).astype(np.int64)).to(self.device),
-                n_items=self.n_items)
+        urm = self.URM_train
+        self.mesh_plan = mesh_plan
+        self._lay = WHOLE if mesh_plan is None else Shards(mesh_plan, self.n_users, self.n_items)
+        # urm_storage="csr" trains from the padded planes alone
+        self._tables = build_tables(urm, self.device, urm_storage, self._lay)
 
         def table(shape):
             return torch.from_numpy(rng.normal(0, init_std, shape).astype(np.float32)).to(self.device)
@@ -263,10 +283,7 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
             U=table((self.n_users, K)), V=table((self.n_items, K)),
             bU=z(self.n_users), bV=z(self.n_items), bG=z(1), cacheU=z(self.n_users), cacheV=z(self.n_items),
         )
-        if plan is not None:
-            from ganmf_tpu_torch.parallel.baselines import shard_mf_state
-
-            self._state = shard_mf_state(self._state, self._lay)
+        self._state = self._lay.shard(self._state, STATE_ROWS)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(random_seed)
         self._chunk = int(batch_size)
@@ -289,35 +306,21 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
 
     def _draw(self, shape):
         """(u, i, r_ui, j) of ``draw_samples``; on a mesh from this rank's
-        shards (collectives every rank calls)."""
-        with_neg = self.ALGORITHM == "bpr"
-        if self._lay is None:
-            return draw_samples(self._tables, shape, with_neg, self._generator)
-        from ganmf_tpu_torch.parallel.baselines import sharded_draws
-
-        draws = sharded_draws(self._lay, self._tables, int(np.prod(shape)), with_neg=with_neg, want_rating=True,
-                              generator=self._generator)
-        return tuple(x.view(*shape) for x in draws)
+        shards (collectives every rank calls). One process calls it with its
+        four arguments alone, as JAX's draws are passed in."""
+        mesh = () if self.mesh_plan is None else (self._lay,)
+        return draw_samples(self._tables, shape, self.ALGORITHM == "bpr", self._generator, *mesh)
 
     def _run_epoch(self, num_epoch):
         if self._presample:
             draws = zip(*self._draw((self._n_chunks, self._chunk)))
         else:
             draws = (self._draw((self._chunk,)) for _ in range(self._n_chunks))
-        if self._lay is None:
-            self._state = mf_epoch(self._state, draws, **self._hyper)
-        else:
-            from ganmf_tpu_torch.parallel.baselines import sharded_mf_epoch
-
-            self._state = sharded_mf_epoch(self._lay, self._state, draws, **self._hyper)
+        self._state = mf_epoch(self._state, draws, **self._hyper, lay=self._lay)
 
     def _full_state(self) -> MFState:
         """The full state; on a mesh gathered from the shards (a collective)."""
-        if self._lay is None:
-            return self._state
-        from ganmf_tpu_torch.parallel.baselines import gather_mf_state
-
-        return gather_mf_state(self._state, self._lay)
+        return self._lay.gather(self._state, STATE_ROWS)
 
     # -- crash resume (the state and the generator's state); on a mesh the
     # full state, so that a checkpoint resumes on any plan ---------------------
@@ -325,11 +328,8 @@ class _MFSGDBase(MatrixFactorizationRecommender, IncrementalTrainingEarlyStoppin
         return {"state": self._full_state()._asdict(), "generator": self._generator.get_state()}
 
     def _restore_checkpoint_state(self, state):
-        self._state = MFState(**{k: v.to(self.device) for k, v in state["state"].items()})
-        if self._lay is not None:
-            from ganmf_tpu_torch.parallel.baselines import shard_mf_state
-
-            self._state = shard_mf_state(self._state, self._lay)
+        self._state = self._lay.shard(MFState(**{k: v.to(self.device) for k, v in state["state"].items()}),
+                                      STATE_ROWS)
         self._generator.set_state(state["generator"])
 
     def _export_biases(self, triple):

@@ -20,14 +20,15 @@ no fixed order: two runs on the card need not be bitwise equal.
 
 ``fit(mesh_plan=...)`` trains on a mesh of ranks (JAX :249-262): W, cache,
 m1 and m2 row-sharded over the model axis, the URM over (data, model), the
-padded profiles over the user rows (``parallel.baselines``). Every rank draws
-the same triples as the one-process fit, reading the drawn ids and seen
-tests from the ranks that hold them; each chunk gathers the whole seen rows
-and W's rows (and the symmetric form's columns) from their owners in one
-collective, every rank computes the update alike, and the owners apply it
-and their caches' updates (``parallel.baselines.sharded_bpr_epoch``). The
-prune and the ``W_sparse`` export run on the gathered W, the same on every
-rank; checkpoints hold the full state.
+padded profiles over the user rows (``parallel.baselines.Shards``). The draws
+and the epoch are the ones above, reading and writing rows through that
+layout: every rank draws the same triples as the one-process fit, reading
+the drawn ids and seen tests from the ranks that hold them; each chunk
+gathers the whole seen rows and W's rows (and the symmetric form's columns)
+from their owners in one collective, every rank computes the update alike,
+and the owners apply it and their caches' updates. The prune and the
+``W_sparse`` export run on the gathered W, the same on every rank;
+checkpoints hold the full state.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 from ganmf_tpu_torch.data.device import dense_from_sparse
 from ganmf_tpu_torch.models.base import ItemSimilarityRecommender, check_matrix, row_col_topk
 from ganmf_tpu_torch.models.early_stopping import IncrementalTrainingEarlyStopping
+from ganmf_tpu_torch.models.mf_sgd import draw_samples
 from ganmf_tpu_torch.ops.similarity import csc_from_col_topk
 from ganmf_tpu_torch.ops.topk import scatter_col_topk_dense
 
@@ -63,6 +65,11 @@ class BPRTables(NamedTuple):
     warm: torch.Tensor  # [W] users with 1 <= profile length < I
     profile: torch.Tensor  # [U, L] item ids, padded with 0
     profile_len: torch.Tensor  # [U], at least 1
+    n_items: int
+
+
+#: each field of an OptState: its rows on a mesh (None: replicated)
+STATE_ROWS = ("items", "items", "items", "items", None, None)
 
 
 def _f32(x) -> float:
@@ -113,33 +120,24 @@ def build_tables(urm_mask: sps.csr_matrix, device: torch.device, lay=None) -> BP
     n_users, n_items = urm_mask.shape
     lens = np.ediff1d(urm_mask.indptr)
     warm = np.where((lens > 0) & (lens < n_items))[0]
-    if lay is None:
-        urm, rows = urm_mask, urm_mask
-    else:
-        rows = urm_mask[lay.users.lo : lay.users.hi]
-        urm = urm_mask[lay.urm_users.lo : lay.urm_users.hi][:, lay.urm_items.lo : lay.urm_items.hi]
+    rows, urm = (urm_mask, urm_mask) if lay is None else lay.local_csr(urm_mask)
     return BPRTables(
         urm=dense_from_sparse(urm, device),
         warm=torch.from_numpy(warm.astype(np.int64)).to(device),
         profile=torch.from_numpy(_profiles(rows)).to(device),
         profile_len=torch.from_numpy(np.maximum(lens, 1).astype(np.int64)).to(device),
+        n_items=n_items,
     )
 
 
-def draw_triples(tables: BPRTables, n: int, generator: torch.Generator):
+def draw_triples(tables: BPRTables, n: int, generator: torch.Generator, lay=None):
     """(u, i, j), each [n] int64 on the tables' device: u a uniform warm
     user, i a uniform slot of u's profile, j the first of 8 uniform candidate
     items that u has not seen, or the first candidate when u has seen all 8
-    (JAX :38-52)."""
-    dev = tables.urm.device
-    n_items = tables.urm.shape[1]
-    u = tables.warm[torch.randint(0, tables.warm.shape[0], (n,), generator=generator, device=dev)]
-    slot = torch.randint(0, 2**31 - 1, (n,), generator=generator, device=dev) % tables.profile_len[u]
-    i = tables.profile[u, slot]
-    cand = torch.randint(0, n_items, (n, 8), generator=generator, device=dev)
-    unseen = (tables.urm[u[:, None], cand] == 0).to(torch.int32)
-    first = torch.argmax(unseen, dim=1)  # the first maximum: 0 if all are seen
-    return u, i, torch.gather(cand, 1, first[:, None])[:, 0]
+    (JAX :38-52): MF-SGD's ``draw_samples`` without the rating, on a mesh
+    layout ``lay`` as there."""
+    u, i, _, j = draw_samples(tables, (n,), True, generator, lay, want_rating=False)
+    return u, i, j
 
 
 @torch.no_grad()
@@ -156,11 +154,23 @@ def bpr_epoch(
     beta_2: float,
     sgd_mode: str,
     symmetric: bool,
+    lay=None,
 ) -> OptState:
     """One epoch over the triples, chunk by chunk in JAX's update order
     (:80-143); returns a new state and leaves ``state`` as it was. Any
     ``sgd_mode`` other than adagrad, rmsprop and adam is plain SGD, as in
-    JAX."""
+    JAX.
+
+    With a mesh layout ``lay`` (``parallel.baselines.Shards``) the state is
+    this rank's shards (``lay.shard(state, STATE_ROWS)``) and ``urm`` its
+    block: each chunk gathers in one collective the whole seen rows P [C, I]
+    of its users and the rows W[i], W[j] (with the symmetric form also each
+    rank's part of the columns W[:, i], W[:, j]); the caches update on the
+    ranks holding the items, and with adagrad, rmsprop or adam a second
+    collective gathers the chunk's updated cache (or moments) at i."""
+    if lay is None:
+        from ganmf_tpu_torch.parallel.baselines import WHOLE as lay
+    items = lay.items
     us, is_, js = triples
     chunk = us.shape[1]
     lr, li, lj = _f32(learning_rate), _f32(li_reg), _f32(lj_reg)
@@ -172,32 +182,37 @@ def bpr_epoch(
     b1t, b2t = state.beta1_t, state.beta2_t
 
     for u, i, j in zip(us, is_, js):
-        P = urm.index_select(0, u)  # [C, I] seen mask
-        Wi = W.index_select(0, i)
-        Wj = W.index_select(0, j)
+        parts = [lay.urm_rows(urm, u), items.take(W, i), items.take(W, j)]  # P: [C, I] seen mask
+        if symmetric:
+            parts += [lay.columns(W, i), lay.columns(W, j)]
+        P, Wi, Wj, *cols = lay.psum(parts)
         if symmetric:
             # the reference's triangular storage: the shared cell {a, b}
             # reads as W[a, b] + W[b, a]
-            Wi = Wi + W.index_select(1, i).T
-            Wj = Wj + W.index_select(1, j).T
+            Wi = Wi + cols[0]
+            Wj = Wj + cols[1]
         x_uij = torch.sum((Wi - Wj) * P, dim=1)
         g = 1.0 / (1.0 + torch.exp(x_uij))  # [C]
         g2 = g * g
 
         if sgd_mode == "adagrad":
-            cache.index_add_(0, i, g2).index_add_(0, j, g2)
-            g_upd = g / (torch.sqrt(cache[i]) + 1e-8)
+            items.add_(cache, i, g2)
+            items.add_(cache, j, g2)
+            c_i, = lay.psum([items.take(cache, i)])
+            g_upd = g / (torch.sqrt(c_i) + 1e-8)
         elif sgd_mode == "rmsprop":
             # the decay touches only the chunk's items, as in the reference
-            cache[i] = cache[i] * gm + one_m_gm * g2
-            cache[j] = cache[j] * gm + one_m_gm * g2
-            g_upd = g / (torch.sqrt(cache[i]) + 1e-8)
+            cache = items.set_(cache, i, lambda c: c * gm + one_m_gm * g2)
+            cache = items.set_(cache, j, lambda c: c * gm + one_m_gm * g2)
+            c_i, = lay.psum([items.take(cache, i)])
+            g_upd = g / (torch.sqrt(c_i) + 1e-8)
         elif sgd_mode == "adam":
-            m1[i] = m1[i] * b1 + one_m_b1 * g
-            m2[i] = m2[i] * b2 + one_m_b2 * g2
-            m1[j] = m1[j] * b1 + one_m_b1 * g
-            m2[j] = m2[j] * b2 + one_m_b2 * g2
-            g_upd = (m1[i] / (1 - b1t)) / (torch.sqrt(m2[i] / (1 - b2t)) + 1e-8)
+            m1 = items.set_(m1, i, lambda m: m * b1 + one_m_b1 * g)
+            m2 = items.set_(m2, i, lambda m: m * b2 + one_m_b2 * g2)
+            m1 = items.set_(m1, j, lambda m: m * b1 + one_m_b1 * g)
+            m2 = items.set_(m2, j, lambda m: m * b2 + one_m_b2 * g2)
+            m1_i, m2_i = lay.psum([items.take(m1, i), items.take(m2, i)])
+            g_upd = (m1_i / (1 - b1t)) / (torch.sqrt(m2_i / (1 - b2t)) + 1e-8)
             b1t = b1t * b1_pow
             b2t = b2t * b2_pow
         else:
@@ -207,10 +222,8 @@ def bpr_epoch(
         # every write is row-oriented (the symmetric reads do the mirroring)
         not_i = P.scatter(1, i[:, None], 0.0)
         not_j = P.scatter(1, j[:, None], 0.0)
-        delta_i = lr * (g_upd[:, None] - li * Wi) * not_i
-        delta_j = -lr * (g_upd[:, None] - lj * Wj) * not_j
-        W.index_add_(0, i, delta_i)
-        W.index_add_(0, j, delta_j)
+        items.add_(W, i, lr * (g_upd[:, None] - li * Wi) * not_i)
+        items.add_(W, j, -lr * (g_upd[:, None] - lj * Wj) * not_j)
     return OptState(W, cache, m1, m2, b1t, b2t)
 
 
@@ -265,21 +278,15 @@ class SLIM_BPR(ItemSimilarityRecommender, IncrementalTrainingEarlyStopping):
         if positive_threshold is not None:
             urm_mask.data = (urm_mask.data >= positive_threshold).astype(np.float32)
             urm_mask.eliminate_zeros()
+        from ganmf_tpu_torch.parallel.baselines import WHOLE, Shards
+
         self.mesh_plan = mesh_plan
-        self._lay = None
-        if mesh_plan is not None:
-            from ganmf_tpu_torch.parallel.baselines import Shards
-
-            self._lay = Shards.of(mesh_plan, self.n_users, self.n_items)
+        self._lay = WHOLE if mesh_plan is None else Shards(mesh_plan, self.n_users, self.n_items)
         self._tables = build_tables(urm_mask, self.device, self._lay)
-        if self._lay is None:
-            self._state = init_state(self.n_items, beta_1, beta_2, self.device)
-        else:
-            from ganmf_tpu_torch.parallel.baselines import shard_bpr_state
-
-            # the zero state's shards, made on the host
-            self._state = shard_bpr_state(init_state(self.n_items, beta_1, beta_2, torch.device("cpu")),
-                                          self._lay)
+        # on a mesh, the zero state's shards, made on the host
+        self._state = self._lay.shard(
+            init_state(self.n_items, beta_1, beta_2, self.device if mesh_plan is None else torch.device("cpu")),
+            STATE_ROWS)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(random_seed)
         # one reference epoch = n_users samples (+1 partial batch, pyx:201)
@@ -293,47 +300,30 @@ class SLIM_BPR(ItemSimilarityRecommender, IncrementalTrainingEarlyStopping):
     # -- epoch hooks ---------------------------------------------------------
     def _triples(self, n: int):
         """(u, i, j) of ``draw_triples``; on a mesh from this rank's shards
-        (collectives every rank calls)."""
-        if self._lay is None:
-            return draw_triples(self._tables, n, self._generator)
-        from ganmf_tpu_torch.parallel.baselines import sharded_draws
-
-        u, i, _, j = sharded_draws(self._lay, self._tables, n, with_neg=True, want_rating=False,
-                                   generator=self._generator)
-        return u, i, j
+        (collectives every rank calls). One process calls it with its three
+        arguments alone, as JAX's draws are passed in."""
+        mesh = () if self.mesh_plan is None else (self._lay,)
+        return draw_triples(self._tables, n, self._generator, *mesh)
 
     def _run_epoch(self, num_epoch):
         hyper = dict(learning_rate=self.learning_rate, li_reg=self.lambda_i, lj_reg=self.lambda_j,
                      gamma=self.gamma, beta_1=self.beta_1, beta_2=self.beta_2, sgd_mode=self.sgd_mode,
                      symmetric=self.symmetric)
         triples = tuple(t.view(self._n_chunks, self._chunk) for t in self._triples(self._n_chunks * self._chunk))
-        if self._lay is None:
-            self._state = bpr_epoch(self._state, self._tables.urm, triples, **hyper)
-        else:
-            from ganmf_tpu_torch.parallel.baselines import sharded_bpr_epoch
-
-            self._state = sharded_bpr_epoch(self._lay, self._state, self._tables.urm, triples, **hyper)
+        self._state = bpr_epoch(self._state, self._tables.urm, triples, **hyper, lay=self._lay)
 
     def _full_w(self, W: torch.Tensor) -> torch.Tensor:
         """The full W from this rank's rows (a collective on a mesh)."""
-        return W if self._lay is None else self._lay.items.gather(W)
+        return self._lay.items.gather(W)
 
     # -- crash resume (optimizer state and the generator's state); on a mesh
     # the full state, so that a checkpoint resumes on any plan -----------------
     def _checkpoint_state(self):
-        state = self._state
-        if self._lay is not None:
-            from ganmf_tpu_torch.parallel.baselines import gather_bpr_state
-
-            state = gather_bpr_state(state, self._lay)
-        return {"state": state._asdict(), "generator": self._generator.get_state()}
+        return {"state": self._lay.gather(self._state, STATE_ROWS)._asdict(), "generator": self._generator.get_state()}
 
     def _restore_checkpoint_state(self, state):
-        self._state = OptState(**{k: v.to(self.device) for k, v in state["state"].items()})
-        if self._lay is not None:
-            from ganmf_tpu_torch.parallel.baselines import shard_bpr_state
-
-            self._state = shard_bpr_state(self._state, self._lay)
+        self._state = self._lay.shard(OptState(**{k: v.to(self.device) for k, v in state["state"].items()}),
+                                      STATE_ROWS)
         self._generator.set_state(state["generator"])
 
     def _prepare_model_for_validation(self):

@@ -1,7 +1,7 @@
 """Multi-rank runtime of the port: the counterpart of ganmf_tpu.parallel on
 ``torch.distributed`` (comm, mesh, distributed), with the sharded epochs of
 GANMF (distributed), of DisGANMF, CFGAN and CAAE (adversarial), and the row
-layouts, draws and epochs of IALS, MF-SGD and SLIM-BPR (baselines)."""
+layouts through which IALS, MF-SGD and SLIM-BPR train on a mesh (baselines)."""
 
 from ganmf_tpu_torch.parallel.mesh import MeshPlan, make_mesh  # noqa: F401
 from ganmf_tpu_torch.parallel.distributed import (  # noqa: F401
@@ -13,15 +13,5 @@ from ganmf_tpu_torch.parallel.distributed import (  # noqa: F401
     shard_ganmf_params,
     shard_padded_csr,
 )
-from ganmf_tpu_torch.parallel.baselines import (  # noqa: F401
-    RowShard,
-    Shards,
-    gather_bpr_state,
-    gather_mf_state,
-    shard_bpr_state,
-    shard_mf_state,
-    sharded_bpr_epoch,
-    sharded_draws,
-    sharded_mf_epoch,
-)
+from ganmf_tpu_torch.parallel.baselines import WHOLE, RowShard, Shards  # noqa: F401
 from ganmf_tpu_torch.parallel import comm  # noqa: F401

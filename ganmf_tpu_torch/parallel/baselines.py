@@ -1,40 +1,72 @@
-"""Multi-rank training of the factor and similarity baselines: the row
-layouts of IALS, MF-SGD and SLIM-BPR on a mesh, their sharded draws, and the
-sharded epochs of MF-SGD and SLIM-BPR.
+"""Row layouts of the factor and similarity baselines (IALS, MF-SGD,
+SLIM-BPR) on a mesh, and their one-process counterpart.
 
 Port of the ``mesh_plan`` placements of ganmf_tpu/models/ials.py (:336-396),
 mf_sgd.py (:240-255) and slim_bpr.py (:249-262). JAX runs the one-device
-program under GSPMD on the sharded arrays; here every rank runs the same
-program on its shards and calls the collectives itself:
+program under GSPMD on the sharded arrays; here every rank runs the model's
+one epoch body on its shards, and the body reads and writes rows through a
+layout:
 
-  * IALS (``RowShard.chunked``): each orientation's rows split into
-    contiguous ranges of whole chunks (rows padded to a multiple of
-    chunk * n_shards, as JAX's flat-CSR mesh storage pads them,
-    ``_flat_csr_stacked``), so that every chunk a rank solves is a chunk of
-    the one-process fit and its CG exit is the one-process exit;
-  * MF-SGD and SLIM-BPR (``RowShard.placed``): the factor rows, the
-    biases, the caches and W's rows in JAX's placements under the degrade
-    rule of ``MeshPlan.put``. Every rank draws the same samples from its own
-    generator, seeded alike (the random calls depend on no table's contents),
-    and reads the drawn rows' ids, ratings and seen tests from the ranks that
-    hold them. A chunk's rows are gathered from their owners (a masked take,
-    then one sum over the mesh in which each entry has one contributor, so
-    the gathered values are exact), every rank computes the chunk's update
-    alike, and only the ranks holding a row apply it, with the one-card
-    ``index_add_`` and its duplicate-index sums.
+  * ``Shards`` (a mesh): a chunk's rows are gathered from their owners (a
+    masked take, then one sum over the mesh in which each entry has one
+    contributor, so the gathered values are exact); every rank computes the
+    chunk's update alike, and only the ranks holding a row apply it, with the
+    one-card ``index_add_`` and its duplicate-index sums;
+  * ``WHOLE`` (one process, no mesh): the same calls as the plain ops,
+    ``index_select``, ``index_add_`` and index writes, with no mask and no
+    collective.
+
+``RowShard.placed`` gives JAX's placements under the degrade rule of
+``MeshPlan.put``; ``RowShard.chunked`` gives the ranges of whole chunks of
+JAX's flat-CSR mesh storage (IALS, ``_flat_csr_stacked``).
 
 Nothing here reads the device to the host.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, NamedTuple, Optional, Sequence
+from typing import Optional
 
-import numpy as np
 import torch
 
 from ganmf_tpu_torch.parallel import comm
 from ganmf_tpu_torch.parallel.mesh import MeshPlan, _names
+
+
+def _keep(values: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """``values`` where ``mask`` (over the leading dimension), zeros
+    elsewhere; ``values`` itself without a mask."""
+    if mask is None:
+        return values
+    mask = mask.view(-1, *([1] * (values.dim() - 1)))
+    return torch.where(mask, values, torch.zeros((), dtype=values.dtype, device=values.device))
+
+
+class WholeRows:
+    """Every row of a tensor, in one process: ``RowShard``'s calls as the
+    plain indexing ops."""
+
+    def read(self, fn, ids: torch.Tensor) -> torch.Tensor:
+        return fn(ids)
+
+    def take(self, x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return x.index_select(0, ids)
+
+    def take_at(self, x: torch.Tensor, ids: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        return x[ids, cols]
+
+    def add_(self, x: torch.Tensor, ids: torch.Tensor, values: torch.Tensor) -> None:
+        x.index_add_(0, ids, values)
+
+    def set_(self, x: torch.Tensor, ids: torch.Tensor, fn) -> torch.Tensor:
+        x[ids] = fn(x[ids])
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def slice(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
 
 class RowShard:
@@ -42,7 +74,9 @@ class RowShard:
 
     ``sole``: this rank is the one contributor of its rows to a sum over
     the whole mesh (its coordinate is 0 on every axis the rows do not split
-    over), so that a masked take summed over the mesh gives each row once."""
+    over), so that a masked take summed over the mesh gives each row once.
+    ``take``, ``take_at``, ``add_`` and ``set_`` need at least one row, as
+    every ``placed`` shard has."""
 
     def __init__(self, plan: MeshPlan, n: int, lo: int, hi: int, axes, per: Optional[int] = None):
         self.plan, self.n, self.lo, self.hi = plan, n, lo, hi
@@ -59,9 +93,9 @@ class RowShard:
 
     @classmethod
     def chunked(cls, plan: MeshPlan, n: int, chunk: int, axes) -> "RowShard":
-        """IALS's layout: rows padded to a multiple of chunk * S (S the size
-        of ``axes``), each of the S ranges a whole number of chunks; the last
-        ranges may hold padding rows only (JAX :162-195)."""
+        """JAX's flat-CSR mesh layout: rows padded to a multiple of chunk * S
+        (S the size of ``axes``), each of the S ranges a whole number of
+        chunks; the last ranges may hold padding rows only (JAX :162-195)."""
         S = plan.axis_size(axes)
         per = -(-max(n, 1) // (chunk * S)) * chunk
         lo = min(plan.axis_index(axes) * per, n)
@@ -71,36 +105,42 @@ class RowShard:
     def rows(self) -> int:
         return self.hi - self.lo
 
-    def local(self, ids: torch.Tensor):
-        """(each id's local row, clamped into range; whether this rank holds it)."""
+    def owned(self, ids: torch.Tensor):
+        """(each id's local row, clamped into range; whether this rank is its
+        sole contributor)."""
         local = (ids - self.lo).clamp(0, max(self.rows - 1, 0))
-        return local, (ids >= self.lo) & (ids < self.hi)
+        return local, (ids >= self.lo) & (ids < self.hi) & self.sole
+
+    def read(self, fn, ids: torch.Tensor) -> torch.Tensor:
+        """``fn`` of the ids' local rows (a tensor over the ids), where this
+        rank is their sole contributor; zeros elsewhere."""
+        local, own = self.owned(ids)
+        return _keep(fn(local), own)
 
     def take(self, x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Rows ``ids`` of this rank's slice ``x`` where it is their sole
         contributor, zeros elsewhere (summed over the mesh: the rows)."""
-        local, held = self.local(ids)
-        held = held & self.sole
-        rows = x.index_select(0, local) if self.rows else x.new_zeros((len(ids),) + x.shape[1:])
-        return torch.where(held.view(-1, *([1] * (x.dim() - 1))), rows, torch.zeros((), dtype=x.dtype,
-                                                                                   device=x.device))
+        return self.read(lambda at: x.index_select(0, at), ids)
+
+    def take_at(self, x: torch.Tensor, ids: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        """x[ids, cols] of this rank's slice ``x`` where it is the rows' sole
+        contributor, zeros elsewhere (a column held elsewhere may pass this
+        rank's width: it is clamped, and masked)."""
+        return self.read(lambda at: x[at, cols.clamp(max=x.shape[1] - 1)], ids)
 
     def add_(self, x: torch.Tensor, ids: torch.Tensor, values: torch.Tensor) -> None:
         """``x.index_add_`` of the rows this rank holds (every replica of a
         row takes it); the others add zeros to a row in range."""
-        if not self.rows:
-            return
-        local, held = self.local(ids)
-        x.index_add_(0, local, torch.where(held.view(-1, *([1] * (values.dim() - 1))), values,
-                                           torch.zeros((), dtype=values.dtype, device=values.device)))
+        local = (ids - self.lo).clamp(0, self.rows - 1)
+        x.index_add_(0, local, _keep(values, (ids >= self.lo) & (ids < self.hi)))
 
     def set_(self, x: torch.Tensor, ids: torch.Tensor, fn) -> torch.Tensor:
         """``x[ids] = fn(x[ids])`` on the rows this rank holds, in the one-card
         order (a later duplicate overwrites an earlier one): the ids this rank
         does not hold write a spare slot. Returns the new ``x``."""
-        local, held = self.local(ids)
+        held = (ids >= self.lo) & (ids < self.hi)
         ext = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
-        slot = torch.where(held, local, self.rows)
+        slot = torch.where(held, ids - self.lo, self.rows)
         ext[slot] = fn(ext[slot])
         return ext[: self.rows]
 
@@ -118,305 +158,93 @@ class RowShard:
         return x[self.lo : self.hi]
 
 
-def psum_parts(plan: MeshPlan, parts: Sequence[torch.Tensor]):
-    """``parts`` (one dtype) each summed over the whole mesh, in one
-    collective."""
-    return comm.psum_many(parts, plan, plan.axis_names)
+class Whole:
+    """The one-process layout of an MF-SGD or SLIM-BPR fit: every user and
+    item row, the whole URM; no collective."""
+
+    users = items = WholeRows()
+
+    def psum(self, parts):
+        return list(parts)
+
+    def local_csr(self, urm):
+        """(this rank's rows of the CSR ``urm``, its [users, items] block)."""
+        return urm, urm
+
+    def urm_values(self, urm: torch.Tensor, users: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+        return urm[users[:, None], cols]
+
+    def urm_rows(self, urm: torch.Tensor, users: torch.Tensor) -> torch.Tensor:
+        return urm.index_select(0, users)
+
+    def columns(self, W: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """[C, I]: the columns W[:, ids], transposed."""
+        return W.index_select(1, ids).T
+
+    def shard(self, state, rows):
+        """This rank's shards of a full ``state`` (a NamedTuple), each field
+        by ``rows``: "users", "items" or None (replicated)."""
+        return state
+
+    def gather(self, state, rows):
+        """The full state from this rank's shards (a collective on a mesh)."""
+        return state
 
 
-class Shards(NamedTuple):
+WHOLE = Whole()
+
+
+class Shards(Whole):
     """Where a rank's part of a sharded MF-SGD or SLIM-BPR fit lies: its user
     rows, its item rows, and its [users, items] block of the URM."""
 
-    plan: MeshPlan
-    users: RowShard
-    items: RowShard
-    urm_users: RowShard  # the URM's rows (the user placement, sole over the URM's axes)
-    urm_items: RowShard  # its columns
-
-    @classmethod
-    def of(cls, plan: MeshPlan, n_users: int, n_items: int) -> "Shards":
+    def __init__(self, plan: MeshPlan, n_users: int, n_items: int):
         urm_axes = plan.effective_spec((n_users, n_items), plan.urm)
         (u0, u1), (i0, i1) = plan.bounds((n_users, n_items), plan.urm)
         both = tuple(urm_axes[0]) + tuple(urm_axes[1])
-        return cls(plan, RowShard.placed(plan, n_users, plan.user_rows),
-                   RowShard.placed(plan, n_items, plan.item_rows),
-                   RowShard(plan, n_users, u0, u1, both), RowShard(plan, n_items, i0, i1, both))
+        self.plan = plan
+        self.users = RowShard.placed(plan, n_users, plan.user_rows)
+        self.items = RowShard.placed(plan, n_items, plan.item_rows)
+        # the URM's rows and columns, sole over both of its axes
+        self.urm_users = RowShard(plan, n_users, u0, u1, both)
+        self.urm_items = RowShard(plan, n_items, i0, i1, both)
+
+    def psum(self, parts):
+        """``parts`` (one dtype) each summed over the whole mesh, in one
+        collective."""
+        return comm.psum_many(parts, self.plan, self.plan.axis_names) if parts else []
+
+    def local_csr(self, urm):
+        return (urm[self.users.lo : self.users.hi],
+                urm[self.urm_users.lo : self.urm_users.hi][:, self.urm_items.lo : self.urm_items.hi])
 
     def urm_values(self, urm: torch.Tensor, users: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
         """[n, c] entries urm[users, cols] of the global URM from this rank's
         block ``urm``, where this rank is their sole contributor (zeros
         elsewhere; summed over the mesh: the entries)."""
-        lu, hu = self.urm_users.local(users)
-        lc, hc = self.urm_items.local(cols)
-        own = hu[:, None] & hc & self.urm_users.sole
-        if not (self.urm_users.rows and self.urm_items.rows):
-            return torch.zeros(cols.shape, dtype=urm.dtype, device=urm.device)
-        return torch.where(own, urm[lu[:, None], lc], torch.zeros((), dtype=urm.dtype, device=urm.device))
+        lu, hu = self.urm_users.owned(users)
+        lc, hc = self.urm_items.owned(cols)
+        return torch.where(hu[:, None] & hc, urm[lu[:, None], lc],
+                           torch.zeros((), dtype=urm.dtype, device=urm.device))
 
     def urm_rows(self, urm: torch.Tensor, users: torch.Tensor) -> torch.Tensor:
         """[n, I] whole URM rows of ``users`` where this rank contributes
         them: its block in its columns, zeros elsewhere."""
-        lu, hu = self.urm_users.local(users)
         out = torch.zeros((len(users), self.urm_items.n), dtype=urm.dtype, device=urm.device)
-        if self.urm_users.rows:
-            block = urm.index_select(0, lu)
-            out[:, self.urm_items.lo : self.urm_items.hi] = torch.where(
-                (hu & self.urm_users.sole)[:, None], block, torch.zeros((), dtype=urm.dtype, device=urm.device))
+        out[:, self.urm_items.lo : self.urm_items.hi] = self.urm_users.take(urm, users)
         return out
 
-
-# -- the draws -------------------------------------------------------------------
-
-def sharded_draws(lay: Shards, tables, n: int, *, with_neg: bool, want_rating: bool, generator: torch.Generator):
-    """(u, i, r_ui, j), each [n], the draws of ``mf_sgd.draw_samples`` and
-    ``slim_bpr.draw_triples`` made from this rank's sampling ``tables``
-    (``MFTables`` or ``BPRTables`` whose ``profile``, ``val`` and ``urm``
-    hold this rank's rows and URM block, ``warm`` and ``profile_len`` whole):
-    the same random calls in the same order on every rank, the drawn slot's
-    item and rating read from the rank holding u's ``profile`` / ``val``
-    rows, and the candidates' seen test from the URM block (dense storage)
-    or u's profile row (``urm`` None: csr). Two collectives: the ids (with
-    csr storage also the seen tests), then the ratings (with dense storage
-    also the seen tests). ``r_ui`` is None without ``want_rating``, ``j``
-    zeros without ``with_neg``."""
-    from ganmf_tpu_torch.models.mf_sgd import seen_in_profiles
-
-    warm, profile, urm = tables.warm, tables.profile, tables.urm
-    plan, users = lay.plan, lay.users
-    dev = warm.device
-    u = warm[torch.randint(0, warm.shape[0], (n,), generator=generator, device=dev)]
-    slot = torch.randint(0, 2**31 - 1, (n,), generator=generator, device=dev) % tables.profile_len[u]
-    local, held = users.local(u)
-    own = held & users.sole
-    # the slot of a row held elsewhere may pass this rank's padded width
-    lslot = slot.clamp(max=profile.shape[1] - 1)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    if users.rows:
-        i_part = torch.where(own, profile[local, lslot], zero)
-    else:
-        i_part = torch.zeros_like(u)
-    cand = torch.randint(0, lay.items.n, (n, 8), generator=generator, device=dev) if with_neg else None
-    ints = [i_part]
-    if with_neg and urm is None:
-        seen = seen_in_profiles(profile, local, cand) if users.rows else torch.zeros_like(cand, dtype=torch.bool)
-        ints.append((seen & own[:, None]).to(torch.int64))
-    ints = psum_parts(plan, ints)
-    i = ints[0]
-    floats = []
-    if want_rating:
-        if urm is None:
-            floats.append(torch.where(own, tables.val[local, lslot], 0.0) if users.rows else torch.zeros(n, device=dev))
-        else:
-            floats.append(lay.urm_values(urm, u, i[:, None])[:, 0])
-    if with_neg and urm is not None:
-        floats.append(lay.urm_values(urm, u, cand))
-    floats = psum_parts(plan, floats) if floats else []
-    r_ui = floats.pop(0) if want_rating else None
-    if with_neg:
-        seen = (floats.pop(0) != 0) if urm is not None else ints[1] > 0
-        first = torch.argmax((~seen).to(torch.int32), dim=1)  # the first maximum: 0 if all are seen
-        j = torch.gather(cand, 1, first[:, None])[:, 0]
-    else:
-        j = torch.zeros_like(u)
-    return u, i, r_ui, j
-
-
-# -- MF-SGD ----------------------------------------------------------------------
-
-def shard_mf_state(state, lay: Shards):
-    """This rank's shards of a full MF-SGD state (``mf_sgd.MFState``, made
-    the same on every rank): U, bU and cacheU over the user rows, V, bV and
-    cacheV over the item rows, bG replicated."""
-    U, V, bU, bV, bG, cU, cV = state
-    dev = lay.plan.device
-    return type(state)(*(t.contiguous().to(dev) for t in (
-        lay.users.slice(U), lay.items.slice(V), lay.users.slice(bU), lay.items.slice(bV), bG,
-        lay.users.slice(cU), lay.items.slice(cV))))
-
-
-def gather_mf_state(state, lay: Shards):
-    """The full MF-SGD state from the shards (a collective)."""
-    U, V, bU, bV, bG, cU, cV = state
-    u, i = lay.users.gather, lay.items.gather
-    return type(state)(u(U), i(V), u(bU), i(bV), bG, u(cU), i(cV))
-
-
-@torch.no_grad()
-def sharded_mf_epoch(
-    lay: Shards,
-    state,
-    draws: Iterable,
-    *,
-    learning_rate: float,
-    user_reg: float,
-    item_reg: float,
-    bias_reg: float,
-    algorithm: str,
-    use_adagrad: bool,
-    use_bias: bool,
-):
-    """``mf_sgd.mf_epoch`` on this rank's shards (``shard_mf_state``): returns
-    the new shards. Each chunk gathers its rows of U (and bU), V at i (and
-    j, or bV) in one collective, and with AdaGrad the updated caches at u
-    and i in a second: one collective a chunk, two with AdaGrad."""
-    from ganmf_tpu_torch.models.mf_sgd import MFState, _f32
-
-    plan, users, items = lay.plan, lay.users, lay.items
-    lr, ur, ir, br = _f32(learning_rate), _f32(user_reg), _f32(item_reg), _f32(bias_reg)
-    U, V, bU, bV, bG, cacheU, cacheV = (t.clone() for t in state)
-    bpr = algorithm == "bpr"
-
-    for u, i, r_ui, j in draws:
-        parts = [users.take(U, u), items.take(V, i)]
-        if bpr:
-            parts.append(items.take(V, j))
-        elif use_bias:
-            parts += [users.take(bU, u)[:, None], items.take(bV, i)[:, None]]
-        parts = psum_parts(plan, parts)
-        Uu, Vi = parts[0], parts[1]
-        if bpr:
-            Vj = parts[2]
-            diff = Vi - Vj
-            g = 1.0 / (1.0 + torch.exp(torch.sum(Uu * diff, dim=1)))  # the sigmoid gradient
-            dU = g[:, None] * diff - ur * Uu
-            dVi = g[:, None] * Uu - ir * Vi
-            dVj = -g[:, None] * Uu - ir * Vj
-        else:
-            pred = torch.sum(Uu * Vi, dim=1)
-            if use_bias:
-                bU_u, bV_i = parts[2][:, 0], parts[3][:, 0]
-                pred = pred + bG[0] + bU_u + bV_i
-            err = r_ui - pred
-            dU = err[:, None] * Vi - ur * Uu
-            dVi = err[:, None] * Uu - ir * Vi
-
-        if use_adagrad:
-            users.add_(cacheU, u, torch.mean(dU * dU, dim=1))
-            items.add_(cacheV, i, torch.mean(dVi * dVi, dim=1))
-            cu, cv = psum_parts(plan, [users.take(cacheU, u), items.take(cacheV, i)])
-            step_u = (lr * (1.0 / (torch.sqrt(cu) + 1e-8)))[:, None]
-            step_v = (lr * (1.0 / (torch.sqrt(cv) + 1e-8)))[:, None]
-        else:
-            step_u = step_v = lr
-
-        users.add_(U, u, step_u * dU)
-        items.add_(V, i, step_v * dVi)
-        if bpr:
-            items.add_(V, j, step_v * dVj)
-        elif use_bias:
-            users.add_(bU, u, lr * (err - br * bU_u))
-            items.add_(bV, i, lr * (err - br * bV_i))
-            bG = bG + lr * torch.mean(err - br * bG[0])
-    return MFState(U, V, bU, bV, bG, cacheU, cacheV)
-
-
-# -- SLIM-BPR --------------------------------------------------------------------
-
-def shard_bpr_state(state, lay: Shards):
-    """This rank's shards of a full SLIM-BPR state (``slim_bpr.OptState``):
-    W, cache, m1 and m2 row-sharded over the item rows, the Adam powers
-    replicated."""
-    W, cache, m1, m2, b1t, b2t = state
-    dev = lay.plan.device
-    rows = lay.items.slice
-    return type(state)(*(t.contiguous().to(dev) for t in (rows(W), rows(cache), rows(m1), rows(m2), b1t, b2t)))
-
-
-def gather_bpr_state(state, lay: Shards):
-    """The full SLIM-BPR state from the shards (a collective)."""
-    W, cache, m1, m2, b1t, b2t = state
-    g = lay.items.gather
-    return type(state)(g(W), g(cache), g(m1), g(m2), b1t, b2t)
-
-
-@torch.no_grad()
-def sharded_bpr_epoch(
-    lay: Shards,
-    state,
-    urm: torch.Tensor,  # this rank's [users, items] block of the 0/1 mask
-    triples,  # (u, i, j), each [n_chunks, chunk] int64, the same on every rank
-    *,
-    learning_rate: float,
-    li_reg: float,
-    lj_reg: float,
-    gamma: float,
-    beta_1: float,
-    beta_2: float,
-    sgd_mode: str,
-    symmetric: bool,
-):
-    """``slim_bpr.bpr_epoch`` on this rank's shards (``shard_bpr_state``):
-    returns the new shards. Each chunk gathers in one collective the whole
-    seen rows P [C, I] of its users and the rows W[i], W[j] (with the
-    symmetric form also this rank's part of the columns W[:, i], W[:, j]);
-    the caches update on the ranks holding the items, and with adagrad,
-    rmsprop or adam a second collective gathers the chunk's updated cache
-    (or moments) at i. Two collectives a chunk, one with plain SGD."""
-    from ganmf_tpu_torch.models.slim_bpr import OptState, _f32, _integer_pow_f32
-
-    plan, items = lay.plan, lay.items
-    us, is_, js = triples
-    chunk = us.shape[1]
-    lr, li, lj = _f32(learning_rate), _f32(li_reg), _f32(lj_reg)
-    gm, b1, b2 = np.float32(gamma), np.float32(beta_1), np.float32(beta_2)
-    one_m_gm, one_m_b1, one_m_b2 = float(1 - gm), float(1 - b1), float(1 - b2)
-    gm, b1, b2 = float(gm), float(b1), float(b2)
-    b1_pow, b2_pow = _integer_pow_f32(b1, chunk), _integer_pow_f32(b2, chunk)
-    W, cache, m1, m2 = (t.clone() for t in state[:4])
-    b1t, b2t = state.beta1_t, state.beta2_t
-    n_items = items.n
-
-    def columns(ids):
+    def columns(self, W: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """[C, I]: this rank's rows of the columns W[:, ids], transposed, in
         its item range (the sole contributor's; zeros elsewhere)."""
-        out = torch.zeros((len(ids), n_items), dtype=W.dtype, device=W.device)
-        if items.rows and items.sole:
-            out[:, items.lo : items.hi] = W.index_select(1, ids).T
+        out = torch.zeros((len(ids), self.items.n), dtype=W.dtype, device=W.device)
+        if self.items.sole:
+            out[:, self.items.lo : self.items.hi] = W.index_select(1, ids).T
         return out
 
-    for u, i, j in zip(us, is_, js):
-        parts = [lay.urm_rows(urm, u), items.take(W, i), items.take(W, j)]
-        if symmetric:
-            parts += [columns(i), columns(j)]
-        parts = psum_parts(plan, parts)
-        P, Wi, Wj = parts[:3]
-        if symmetric:
-            # the reference's triangular storage: the shared cell {a, b}
-            # reads as W[a, b] + W[b, a]
-            Wi = Wi + parts[3]
-            Wj = Wj + parts[4]
-        x_uij = torch.sum((Wi - Wj) * P, dim=1)
-        g = 1.0 / (1.0 + torch.exp(x_uij))  # [C]
-        g2 = g * g
+    def shard(self, state, rows):
+        return type(state)(*((t if r is None else getattr(self, r).slice(t)).contiguous().to(self.plan.device)
+                             for t, r in zip(state, rows)))
 
-        if sgd_mode == "adagrad":
-            items.add_(cache, i, g2)
-            items.add_(cache, j, g2)
-            c_i, = psum_parts(plan, [items.take(cache, i)])
-            g_upd = g / (torch.sqrt(c_i) + 1e-8)
-        elif sgd_mode == "rmsprop":
-            # the decay touches only the chunk's items, as in the reference
-            cache = items.set_(cache, i, lambda c: c * gm + one_m_gm * g2)
-            cache = items.set_(cache, j, lambda c: c * gm + one_m_gm * g2)
-            c_i, = psum_parts(plan, [items.take(cache, i)])
-            g_upd = g / (torch.sqrt(c_i) + 1e-8)
-        elif sgd_mode == "adam":
-            m1 = items.set_(m1, i, lambda m: m * b1 + one_m_b1 * g)
-            m2 = items.set_(m2, i, lambda m: m * b2 + one_m_b2 * g2)
-            m1 = items.set_(m1, j, lambda m: m * b1 + one_m_b1 * g)
-            m2 = items.set_(m2, j, lambda m: m * b2 + one_m_b2 * g2)
-            m1_i, m2_i = psum_parts(plan, [items.take(m1, i), items.take(m2, i)])
-            g_upd = (m1_i / (1 - b1t)) / (torch.sqrt(m2_i / (1 - b2t)) + 1e-8)
-            b1t = b1t * b1_pow
-            b2t = b2t * b2_pow
-        else:
-            g_upd = g
-
-        # updates over the user's seen items, skipping the updated row's item;
-        # every write is row-oriented (the symmetric reads do the mirroring)
-        not_i = P.scatter(1, i[:, None], 0.0)
-        not_j = P.scatter(1, j[:, None], 0.0)
-        items.add_(W, i, lr * (g_upd[:, None] - li * Wi) * not_i)
-        items.add_(W, j, -lr * (g_upd[:, None] - lj * Wj) * not_j)
-    return OptState(W, cache, m1, m2, b1t, b2t)
+    def gather(self, state, rows):
+        return type(state)(*(t if r is None else getattr(self, r).gather(t) for t, r in zip(state, rows)))

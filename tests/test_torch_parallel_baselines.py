@@ -14,17 +14,19 @@ Cases and tolerances:
   at JAX's own mesh-test settings (tests/test_parallel.py:271-316): U and V
   within rtol 2e-4 / atol 2e-6 of JAX's mesh fit; the same three with 8-row
   chunks (``chunk_rows`` set to 8 in both fits, so that each rank solves
-  several chunks and the dense products are summed over the shards): dense
-  each factor row within 1e-4 of its norm of the port's one-process fit
+  several chunks, the dense products are summed over the shards and a dense
+  chunk is split between two data ranks): dense each factor row within 1e-4
+  of its norm of the port's one-process fit
   (tests/test_torch_ials.py's ``ROW_GAP`` for 8-row chunks: the shards'
   partial Gram sums change the float32 order, and several CG exits a
   half-step carry that on), padded and flat csr bitwise equal to it;
-- MF-SGD BPR (dense and csr) and AsySVD with biases (dense): the factors and
-  biases within rtol 1e-4 / atol 1e-5 of JAX's mesh fit (the port's one-card
-  bound, tests/test_torch_mf_sgd.py); the sharded draws bitwise equal to the
+- MF-SGD BPR (dense and csr), AsySVD with biases (dense) and FunkSVD with
+  biases and plain SGD (csr): the factors and biases within rtol 1e-4 /
+  atol 1e-5 of JAX's mesh fit (the port's one-card bound,
+  tests/test_torch_mf_sgd.py); the sharded draws bitwise equal to the
   one-process draws from the same seed, dense and csr;
-- SLIM-BPR asymmetric and symmetric, adagrad and adam: the trained dense W
-  (gathered) within rtol 1e-5 plus 1e-5 of max|W| of JAX's mesh fit's (the
+- SLIM-BPR asymmetric and symmetric, adagrad, adam and rmsprop: the trained
+  dense W (gathered) within rtol 1e-5 plus 1e-5 of max|W| of JAX's mesh fit's (the
   numbers of the port's one-card bound, tests/test_torch_slim_bpr.py, held
   before the prune: at lr 0.05 AdaGrad's first steps are exactly 0.05, and
   the prune breaks those exact ties by differences of one rounding), and
@@ -61,11 +63,12 @@ MF_N_CHUNKS = 10
 #: name: (class, fit keywords)
 MF_CASES = {"bpr_dense": ("MatrixFactorization_BPR", dict(urm_storage="dense")),
             "bpr_csr": ("MatrixFactorization_BPR", dict(urm_storage="csr")),
-            "asy_dense": ("MatrixFactorization_AsySVD", dict(urm_storage="dense", use_bias=True))}
+            "asy_dense": ("MatrixFactorization_AsySVD", dict(urm_storage="dense", use_bias=True)),
+            "funk_csr": ("MatrixFactorization_FunkSVD", dict(urm_storage="csr", use_bias=True, sgd_mode="sgd"))}
 SLIM_KW = dict(epochs=2, topK=12, learning_rate=0.05, lambda_i=1e-3, lambda_j=1e-4, chunk_size=16, random_seed=11,
                presample=True)
 SLIM_CASES = {f"{'sym' if sym else 'asym'}_{mode}": dict(symmetric=sym, sgd_mode=mode)
-              for sym in (False, True) for mode in ("adagrad", "adam")}
+              for sym in (False, True) for mode in ("adagrad", "adam", "rmsprop")}
 CKPT_EPOCHS = 4
 ROW_GAP = 1e-4  # tests/test_torch_ials.py's
 
@@ -129,7 +132,7 @@ def _case_baselines(inputs, workdir):
 
     from ganmf_tpu_torch import models
     from ganmf_tpu_torch.models import ials, mf_sgd, slim_bpr
-    from ganmf_tpu_torch.parallel import make_mesh, sharded_draws, Shards
+    from ganmf_tpu_torch.parallel import Shards, make_mesh
     from ganmf_tpu_torch.utils.checkpoint import TrainCheckpointer
 
     cpu = torch.device("cpu")
@@ -153,27 +156,23 @@ def _case_baselines(inputs, workdir):
                 alone.fit(**IALS_KW, **kw)
             out[f"ials_small/{name}/mesh"] = np.concatenate(_factors(meshed))
             out[f"ials_small/{name}/alone"] = np.concatenate(_factors(alone))
-            out[f"ials_small/{name}/rows"] = np.asarray([meshed._rows_u.rows, meshed._rows_i.rows,
-                                                         len(meshed.cg_log[0])])
+            out[f"ials_small/{name}/rows"] = np.asarray([meshed._rows_u.rows, meshed._rows_i.rows])
+            out[f"ials_small/{name}/its"] = np.asarray([[it for it, _ in epoch] for epoch in meshed.cg_log])
+            out[f"ials_small/{name}/alone_its"] = np.asarray([[it for it, _ in epoch] for epoch in alone.cg_log])
 
     # the sharded draws against the one-process draws from one seed
-    lay = Shards.of(plan, *train.shape)
+    lay = Shards(plan, *train.shape)
     for storage in ("dense", "csr"):
-        gen_a, gen_b = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
-        whole = mf_sgd.build_tables(train, cpu, storage)
-        want = mf_sgd.draw_samples(whole, (200,), True, gen_a)
-        block = train[lay.urm_users.lo : lay.urm_users.hi][:, lay.urm_items.lo : lay.urm_items.hi]
-        mine = mf_sgd.build_tables(train[lay.users.lo : lay.users.hi], cpu, "csr")._replace(
-            warm=whole.warm, profile_len=whole.profile_len,
-            urm=None if storage == "csr" else torch.from_numpy(block.toarray()))
-        got = sharded_draws(lay, mine, 200, with_neg=True, want_rating=True, generator=gen_b)
+        want = mf_sgd.draw_samples(mf_sgd.build_tables(train, cpu, storage), (200,), True,
+                                   torch.Generator().manual_seed(5))
+        got = mf_sgd.draw_samples(mf_sgd.build_tables(train, cpu, storage, lay), (200,), True,
+                                  torch.Generator().manual_seed(5), lay)
         out[f"draws/mf/{storage}"] = np.asarray([bool(torch.equal(a, b)) for a, b in zip(got, want)])
     mask = train.copy()
     mask.data = np.ones_like(mask.data)
     want = slim_bpr.draw_triples(slim_bpr.build_tables(mask, cpu), 200, torch.Generator().manual_seed(6))
-    got = sharded_draws(lay, slim_bpr.build_tables(mask, cpu, lay), 200, with_neg=True, want_rating=False,
-                        generator=torch.Generator().manual_seed(6))
-    out["draws/slim"] = np.asarray([bool(torch.equal(a, b)) for a, b in zip((got[0], got[1], got[3]), want)])
+    got = slim_bpr.draw_triples(slim_bpr.build_tables(mask, cpu, lay), 200, torch.Generator().manual_seed(6), lay)
+    out["draws/slim"] = np.asarray([bool(torch.equal(a, b)) for a, b in zip(got, want)])
 
     # MF-SGD from JAX's draws
     for name, (cls, kw) in MF_CASES.items():
@@ -319,17 +318,26 @@ elif not os.environ.get(RANK_ENV):
 
     @pytest.mark.parametrize("name", list(IALS_CASES))
     def test_ials_in_small_chunks_matches_one_process(runs, name):
-        """8-row chunks: the rows split over the ranks (50 users in 64 padded
-        rows, 32 and 18 real a data rank; 80 items, 40 a model rank), several
-        chunks a rank; csr bitwise."""
+        """8-row chunks, several a rank: dense in JAX's placements (25 users
+        a data rank, so that the chunk of users 24-31 is split between the
+        two; 40 items a model rank), padded and flat csr in JAX's flat
+        ranges of whole chunks (50 users in 64 padded rows, 32 and 18 real a
+        data rank); csr bitwise."""
         got, _ = runs
         rows = sorted({tuple(int(x) for x in res[f"ials_small/{name}/rows"][:2]) for res in got})
-        assert rows == [(18, 40), (32, 40)]
+        assert rows == ([(25, 40)] if name == "dense" else [(18, 40), (32, 40)])
         for res in got:
             mesh, alone = res[f"ials_small/{name}/mesh"], res[f"ials_small/{name}/alone"]
             if name == "dense":
                 gap = np.abs(mesh - alone).max(axis=1) / np.linalg.norm(alone, axis=1)
                 assert gap.max() <= ROW_GAP, gap.max()
+                # every rank steps through every chunk; in the first epoch,
+                # from the same start, each stops where one process stops
+                # (later, the summation order moves a chunk at the rtol edge
+                # by an iteration)
+                its, alone_its = res[f"ials_small/{name}/its"], res[f"ials_small/{name}/alone_its"]
+                assert its.shape == alone_its.shape
+                np.testing.assert_array_equal(its[0], alone_its[0])
             else:
                 np.testing.assert_array_equal(mesh, alone)
 
