@@ -264,7 +264,27 @@ Phases, in order; any failure exits nonzero:
     sharded similarity build against a one-card build (the same entries,
     values within 1e-6 of the largest); gloo stages its collectives through
     the host, so the seconds printed are no multi-card measurement;
-39. print one JSON line with every kernel's launches (by path), error, times
+39. the ML-20M stand-in (ganmf_tpu_torch.data.synthetic: 138,493 users x
+    26,744 items, ~19M ratings, written from its seed under build/chip_smoke),
+    parsed by the host engine (the Python parser fails the phase), reindexed
+    and split into the implicit five-way split and the explicit one, each
+    wall printed; then the stages of ganmf_tpu_torch/cli/scale20m.py at
+    their settings on the full user base and catalog, the iterative fits cut
+    to one epoch: TopPop, PureSVD (K=128, the resident bf16 route;
+    evaluation and serve_all), ItemKNN cosine (topK 300; the streamed Gram
+    timed alone with its share of the float32 peak), IALS csr (K=96, flat
+    CSR for the items; a fit of one epoch and one timed _run_epoch), GANMF
+    csr (K=128, E=128, batch 512), IALS linear and FunkSVD csr on the
+    explicit split (RMSE finite), and one CFGAN csr epoch at its published
+    LastFM params (K2 and the keyed draw once a G minibatch), each stage's
+    route, walls, eval users/s and peak device memory printed; PureSVD's and
+    ItemKNN's MAP@20 above TopPop's, every evaluation over all of
+    usersToEvaluate, K1 launched, its wide pair not; SCALE20M.json's TopPop
+    MAP@20 printed beside the port's; K1 at the evaluation block (B=3648,
+    K=128, k=50) and serve_all's (B=2048, k=20) on PureSVD's factors and
+    seen rows against its plain version, and K2 at [1024, 26744] on the
+    stand-in's rows, bitwise, each timed beside its bound;
+40. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own, and the keyed draw,
     which replaces no TPU kernel), then the card line, then the result line.
 
@@ -4074,6 +4094,159 @@ def phase_baseline_mesh_gloo(dev, card, refs):
     return launches
 
 
+# the ML-20M stand-in (phase 39): the full 138,493 x 26,744 user base and
+# catalog of ganmf_tpu_torch.data.synthetic, parsed and split by the port's
+# reader; the iterative fits cut to one epoch (IALS: a fit of 1 and one timed
+# _run_epoch, bench.py's row), no stage and no user or item cut
+ML20M_EPOCHS = 1
+ML20M_SERVE_BLOCK = 2048  # serve_all's default block
+ML20M_K2_ROWS = 1024  # CFGAN's G minibatch at its published params
+
+
+def ml20m_rows_line(key, r):
+    """One stage's route, walls, eval users/s and peak device memory."""
+    parts = [f"route {r['route']}", f"fit {r['fit_s']:.3f} s"]
+    for name in ("epoch_s", "gram_s", "serve_s"):
+        if name in r:
+            parts.append(f"{name[:-2]} {r[name]:.3f} s")
+    if "serve_users_per_s" in r:
+        parts.append(f"serve_all {r['serve_users_per_s']:,.0f} users/s")
+    if "eval_s" in r:
+        parts.append(f"eval {r['eval_s']:.3f} s (first {r['eval_first_s']:.3f}), {r['eval_users_per_s']:,.0f} "
+                     f"users/s over {r['n_eval_users']} users; MAP@20 {r['MAP@20']:.6f} NDCG@20 {r['NDCG@20']:.6f}")
+    if "RMSE" in r:
+        parts.append(f"RMSE {r['RMSE']:.6f} (global mean {r['global_mean_rmse']:.6f})")
+    parts.append("peak not measured" if r["peak_gib"] is None else f"peak {r['peak_gib']:.2f} GiB")
+    return f"  {key}: " + "; ".join(parts)
+
+
+def phase_ml20m(dev, card, scratch):
+    """The ML-20M stand-in end to end (ganmf_tpu_torch/cli/scale20m.py's
+    stages, cut to one epoch), then K1 at its evaluation and serve_all
+    blocks and K2 at CFGAN's minibatch on its rows, each against its plain
+    version. Returns (K1 fused launches, merge launches, K2 launches, keyed
+    launches, K1 times by shape, K2 times by shape, K1 error)."""
+    import torch
+
+    from ganmf_tpu_torch.cli import scale20m
+    from ganmf_tpu_torch.data import synthetic
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.ops import keyed, scorer, select
+    from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
+    from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
+
+    print("[39] the ML-20M stand-in (ganmf_tpu_torch.data.synthetic) end to end: the stages of "
+          f"ganmf_tpu_torch/cli/scale20m.py at their settings, the iterative fits cut to {ML20M_EPOCHS} epoch")
+    root = os.path.join(scratch, "ml20m")
+    shutil.rmtree(root, ignore_errors=True)  # every step runs and is timed
+    data_dir, split_dir = os.path.join(root, "data"), os.path.join(root, "splits")
+    t0 = time.perf_counter()
+    synthetic.synthesize(synthetic.ratings_path(data_dir), verbose=False)
+    synth_s = time.perf_counter() - t0
+    implicit, explicit, info = scale20m.load_splits(data_dir, split_dir, explicit=True,
+                                                    log=lambda line: print(f"  {line}", flush=True))
+    if info["parser"] != "native":
+        fail(f"ML-20M: the ratings were parsed by the {info['parser']} parser, not the host engine's")
+    shape = implicit.train.shape
+    if shape != ML20M_SHAPE or explicit.train.shape != ML20M_SHAPE:
+        fail(f"ML-20M: the splits are {shape} and {explicit.train.shape}, not {ML20M_SHAPE}")
+    print(f"  {shape[0]:,} users x {shape[1]:,} items; implicit train nnz {implicit.train.nnz:,}, test nnz "
+          f"{implicit.test.nnz:,}; walls: synthesize {synth_s:.2f} s, parse and reindex {info['read_s']:.2f} s "
+          f"({info['parser']} parser), implicit split {info['split_s']:.2f} s, save {info['save_s']:.2f} s, "
+          f"explicit split {info['explicit_split_s']:.2f} s")
+
+    ev = EvaluatorHoldout(implicit.test, CUTOFFS, device=dev)
+    ev_x = EvaluatorHoldout(explicit.test, scale20m.EXPLICIT_CUTOFFS, device=dev)
+    cut = dict(epochs=ML20M_EPOCHS)
+    # the main path: every count set to 0 just before it and read just after;
+    # K1's launches held against its plain version are taken out again
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+    rows = {}
+
+    def stage(key, fn, *args, **kwargs):
+        r, model = fn(*args, dev, **kwargs)
+        rows[key] = r
+        print(ml20m_rows_line(key, r) if key != "CFGAN_csr" else
+              f"  {key}: one epoch {r['epoch_s']:.3f} s (fit {r['fit_s']:.3f} s), K2 {r['k2_launches']} and the "
+              f"keyed draw {r['keyed_launches']} launches", flush=True)
+        return model
+
+    stage("TopPop", scale20m.toppop, implicit, ev)
+    svd = stage("PureSVD", scale20m.puresvd, implicit, ev)
+    # K1 at the path's two shapes on PureSVD's factors: the evaluator's first
+    # block (its users ordered by training length) and serve_all's first
+    saved = scorer.LAUNCHES, scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES
+    U, V, _ = svd._factors_device()
+    users = np.asarray(ev.usersToEvaluate, dtype=np.int64)
+    users = users[np.argsort(np.ediff1d(implicit.train.indptr)[users], kind="stable")]
+    k1_times, k1_err = {}, 0.0
+    for name, uids, k in (("evaluation block", users[: ev.block_rows()], max(CUTOFFS)),
+                          ("serve_all block", np.arange(min(ML20M_SERVE_BLOCK, shape[0])), 20)):
+        uids = torch.from_numpy(uids).to(dev)
+        Ub, M = U.index_select(0, uids).contiguous(), svd.device_seen_rows(uids)
+        k1_err = max(k1_err, compare_k1(f"K1 at ML-20M's {name}", Ub, V, M, k))
+        t = k1_times[f"ML-20M {name}: B={Ub.shape[0]} K={Ub.shape[1]} I={V.shape[0]} k={k}"] = time_k1(Ub, V, M, k)
+        print(f"    {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of it  [{card}]")
+    scorer.LAUNCHES, scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES = saved
+    del svd, U, V, Ub, M
+    stage("ItemKNN_cosine", scale20m.itemknn, implicit, ev)
+    r = rows["ItemKNN_cosine"]
+    print(f"    the streamed Gram alone: {r['gram_s']:.3f} s for {r['gram_flop']:.3e} FLOP, "
+          f"{100 * r['gram_f32_peak_share']:.1f}% of the float32 peak  [{card}]")
+    stage("IALS", scale20m.ials, implicit, ev, **cut)
+    stage("GANMF", scale20m.ganmf, implicit, ev, **cut)
+    stage("IALS_explicit", scale20m.ials_explicit, explicit, ev_x, **cut)
+    stage("FunkSVD_explicit", scale20m.funksvd_explicit, explicit, ev_x, **cut)
+    stage("CFGAN_csr", scale20m.cfgan, implicit)
+    wide, merge, k2, drawn = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES, select.LAUNCHES, keyed.LAUNCHES
+    fused = scorer.LAUNCHES - wide
+    per_epoch, _, _ = expected_csr_draws(scale20m.CFGAN_PARAMS, shape[0])
+    print(f"  launches on the ML-20M path: K1 fused {fused} (merge pass {merge}), wide pair {wide}, K2 {k2}, "
+          f"keyed draw {drawn}")
+    if fused == 0 or wide or k2 != per_epoch or drawn != per_epoch:
+        fail(f"ML-20M: K1's fused kernel launched {fused} times and its wide pair {wide}; K2 {k2} and the keyed "
+             f"draw {drawn} times, where CFGAN's csr epoch draws {per_epoch}")
+
+    floor = rows["TopPop"]["MAP@20"]
+    for key in ("PureSVD", "ItemKNN_cosine"):  # fits that are not iterative: the receipt holds at one epoch
+        if not rows[key]["MAP@20"] > floor:
+            fail(f"ML-20M: {key}'s MAP@20 {rows[key]['MAP@20']:.6f} is not above TopPop's {floor:.6f}")
+    for key, r in rows.items():
+        if "n_eval_users" in r and r["n_eval_users"] != r["users_to_evaluate"]:
+            fail(f"ML-20M: {key} scored {r['n_eval_users']} users of {r['users_to_evaluate']} to evaluate")
+    for key in ("IALS_explicit", "FunkSVD_explicit"):
+        if not np.isfinite(rows[key]["RMSE"]):
+            fail(f"ML-20M: {key}'s RMSE is not finite")
+    print(f"  PureSVD's and ItemKNN's MAP@20 above TopPop's ({floor:.6f}); every evaluation scored all "
+          f"{len(ev.usersToEvaluate):,} (explicit: {len(ev_x.usersToEvaluate):,}) users to evaluate; both explicit "
+          f"RMSEs finite")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "SCALE20M.json")) as fh:
+        jax_map = json.load(fh)["TopPop"]["MAP@20"]
+    print(f"  TopPop MAP@20: the port {floor:.8f}, SCALE20M.json (the JAX package on a TPU) {jax_map:.8f}, gap "
+          f"{abs(floor - jax_map):.3e}")
+
+    # K2 at CFGAN's G minibatch on the stand-in's rows: a seeded sample of
+    # users, their keyed draws with +inf at their interactions
+    g = torch.Generator().manual_seed(SEED + 39)
+    rows_k2 = torch.randperm(shape[0], generator=g)[:ML20M_K2_ROWS]
+    inter = torch.from_numpy(implicit.train[rows_k2.numpy()].toarray() != 0).to(dev)
+    rows_k2 = rows_k2.to(dev)
+    keys = keyed.keyed_uniforms_reference(SEED, 3, 0, rows_k2, shape[1]).masked_fill(inter, float("inf"))
+    ratio = torch.tensor(scale20m.CFGAN_PARAMS["zr_ratio"], device=dev)
+    k = ((~inter).sum(1).to(torch.float32) * ratio).to(torch.int32)
+    got, want = smallest_k_mask_cuda(keys, k), smallest_k_mask_reference(keys, k)
+    if not torch.equal(got, want):
+        fail(f"K2 at ML-20M's [{ML20M_K2_ROWS}, {shape[1]}] differs from its plain version")
+    name = f"ML-20M csr [{ML20M_K2_ROWS}, {shape[1]}] (the stand-in's rows)"
+    t = time_k2(keys, k)
+    print(f"  K2 {name}: bitwise equal ({int(got.sum())} selected, rows of {int(inter.sum(1).min())}-"
+          f"{int(inter.sum(1).max())} interactions); {t['ms']:.4f} ms through the wrapper, {t['launch_ms']:.4f} ms "
+          f"the launch alone; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
+    shutil.rmtree(root)
+    return fused, merge, k2, drawn, k1_times, {name: t}, k1_err
+
+
 def main():
     import torch
 
@@ -4315,12 +4488,20 @@ def main():
     base_gloo = phase_baseline_mesh_gloo(dev, card, base_refs)
     del base_refs
     elapsed("the gloo mesh of IALS, MF-SGD, SLIM-BPR, EASE-R and ItemKNN")
+    # the ML-20M stand-in (phase 39), its counts set to 0 just before its
+    # stages and read just after
+    m20s_fused, m20s_merge, m20s_k2, m20s_keyed, m20s_k1, m20s_k2_times, m20s_k1_err = phase_ml20m(
+        dev, card, SCRATCH)
+    k1_err = max(k1_err, m20s_k1_err)
+    fused.update(m20s_k1)
+    elapsed("the ML-20M stand-in")
     shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide
     k2_times.update(k2_csr_times)  # K2 at the csr storage's minibatch shapes too
     k2_times.update(k2_mesh_times)  # and at a data rank's shapes on phase 36's mesh
+    k2_times.update(m20s_k2_times)  # and at CFGAN's minibatch on the ML-20M stand-in's rows
     k2_shape, *k2_others = k2_times
     # each path's counts were set to 0 just before it and read just after; a
     # kernel's launches are the sum over the paths it carries
@@ -4334,6 +4515,10 @@ def main():
     k2_by_path = {"CFGAN training": k2_launches, "CAAE training": caae_k2, "CFGAN csr training": csr_k2,
                   "CFGAN csr ML-20M": m20_k2, "CAAE dedup": dedup_k2}
     keyed_by_path = {"CFGAN csr training": csr_keyed, "CFGAN csr ML-20M": m20_keyed}
+    fused_by_path["ML-20M stand-in"] = m20s_fused
+    k2_by_path["ML-20M stand-in"] = m20s_k2
+    keyed_by_path["ML-20M stand-in"] = m20s_keyed
+    merge_launches += m20s_merge
     for where, counts in (("one rank over NCCL", gan_nccl), ("4 gloo ranks on the card", gan_gloo)):
         for name, (n_k1, n_k2, n_keyed) in counts.items():
             if n_k1:

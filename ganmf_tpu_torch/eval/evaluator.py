@@ -369,9 +369,11 @@ class EvaluatorHoldout:
         # each block's float32 sums added in float64, as the JAX evaluator
         # adds them into Python floats
         diversity_acc = torch.zeros(len(cutoffs), dtype=torch.float64, device=self.device)
-        for _, _, stats, diversity in self._blocks(recommender_object):
+        scored = torch.zeros(1, dtype=torch.float32, device=self.device)  # exact below 2^24 users
+        for _, valid, stats, diversity in self._blocks(recommender_object):
             scalar_acc += stats.scalars
             counter_acc += stats.counters
+            scored += valid.sum()
             if diversity is not None:
                 diversity_acc += diversity
         if self._plan is not None:
@@ -379,15 +381,18 @@ class EvaluatorHoldout:
             from ganmf_tpu_torch.parallel import comm
 
             axes = self._plan.user_axes
-            scalar_acc, counter_acc = (comm.psum(t, self._plan, axes) for t in (scalar_acc, counter_acc))
+            scalar_acc, counter_acc, scored = (comm.psum(t, self._plan, axes) for t in (scalar_acc, counter_acc, scored))
             diversity_acc = comm.psum(diversity_acc, self._plan, axes)
 
         # one device-to-host transfer
-        packed = torch.cat([scalar_acc.ravel(), counter_acc.ravel()]).cpu().numpy()
+        packed = torch.cat([scalar_acc.ravel(), counter_acc.ravel(), scored]).cpu().numpy()
         ns = scalar_acc.numel()
+        #: the users the last evaluation ranked and scored (all ranks' under a
+        #: plan): every one of ``usersToEvaluate`` when nothing was dropped
+        self.users_scored = int(packed[-1])
         return self._finalize(
             packed[:ns].astype(np.float64).reshape(tuple(scalar_acc.shape)),
-            packed[ns:].astype(np.float64).reshape(tuple(counter_acc.shape)),
+            packed[ns:-1].astype(np.float64).reshape(tuple(counter_acc.shape)),
             len(self.usersToEvaluate), diversity_acc.cpu().numpy(),
         )
 
@@ -414,6 +419,18 @@ class EvaluatorHoldout:
         order = np.argsort(users, kind="stable")
         return users[order], ap[order]
 
+    def block_rows(self) -> int:
+        """Users a block ranks (before a plan rounds it to its data ranks):
+        at most 4096 and about 1e8 scores, the evaluated users split into
+        equal blocks, rounded up to a multiple of 8."""
+        block_size = int(min(4096, max(1, 1e8 / max(self.n_items, 1))))
+        n_eval = len(self.usersToEvaluate)
+        if n_eval:
+            n_blocks = -(-n_eval // block_size)
+            per_block = -(-n_eval // n_blocks)
+            block_size = min(block_size, -(-per_block // 8) * 8)
+        return block_size
+
     def _blocks(self, recommender_object):
         """(users, valid, BatchStats, diversity sums or None) of each block
         of the evaluated users (under a plan, this data rank's part of it,
@@ -439,11 +456,9 @@ class EvaluatorHoldout:
             self._nov_pop_key = key_obj
         novelty_terms, pop_norm = self._nov_pop
 
-        # at most 4096 rows per block, and equal blocks over the evaluated
-        # users, rounded to a multiple of 8
-        block_size = int(min(4096, max(1, 1e8 / max(self.n_items, 1))))
         users = np.asarray(self.usersToEvaluate, dtype=np.int64)
         n_eval = len(users)
+        block_size = self.block_rows()
         # evaluate users in training-profile-length order, so that each block
         # crops its seen-row and test-row scatters to its own length class
         # (power-of-two quantized); the metric sums do not depend on the order
@@ -451,9 +466,6 @@ class EvaluatorHoldout:
         test_lens = np.ediff1d(self.URM_test.indptr).astype(np.int64)
         if n_eval:
             users = users[np.argsort(train_lens[users], kind="stable")]
-            n_blocks = -(-n_eval // block_size)
-            per_block = -(-n_eval // n_blocks)
-            block_size = min(block_size, -(-per_block // 8) * 8)
         plan = self._plan
         if plan is not None:
             # each data rank scores an equal part of every block

@@ -143,6 +143,18 @@ def puresvd_factors_streamed(idx: torch.Tensor, val: torch.Tensor, n_cols: int, 
 class PureSVDRecommender(MatrixFactorizationRecommender):
     RECOMMENDER_NAME = "PureSVDRecommender"
 
+    def fit_route(self) -> str:
+        """The route ``fit`` takes (JAX :183-203): "dense" while the dense
+        float32 URM is within ``_DENSE_URM_BYTE_LIMIT``; past it "resident"
+        when the bf16 matrix is exact and its rows, padded to a multiple of
+        ``STREAM_CHUNK``, fit ``RESIDENT_BF16_BYTES``; else "streamed"."""
+        if not self._urm_streams():
+            return "dense"
+        rows = -(-self.n_users // STREAM_CHUNK) * STREAM_CHUNK
+        if self._urm_values_bf16_exact() and 2 * rows * self.n_items <= RESIDENT_BF16_BYTES:
+            return "resident"
+        return "streamed"
+
     def fit(self, num_factors: int = 100, random_seed: int = 1234, n_iter: int = 7,
             omega: Optional[torch.Tensor] = None):
         """Factorize the training URM by one of the three routes (JAX
@@ -157,9 +169,8 @@ class PureSVDRecommender(MatrixFactorizationRecommender):
         omega = omega.to(self.device, torch.float32)
         if omega.shape != (self.n_items, k):
             raise ValueError(f"omega must be [{self.n_items}, {k}], got {tuple(omega.shape)}")
-        if self._urm_streams():
-            # the dense f32 URM is past the budget: keep A as dense bf16 when
-            # that is exact and fits, else stream its products
+        route = self.fit_route()
+        if route != "dense":
             pc = self._padded_urm()
             pad = (-self.n_users) % STREAM_CHUNK
             idx, val = pc.idx, pc.val
@@ -167,7 +178,7 @@ class PureSVDRecommender(MatrixFactorizationRecommender):
                 idx = torch.cat([idx, torch.full((pad, idx.shape[1]), self.n_items, dtype=idx.dtype,
                                                  device=idx.device)])
                 val = torch.cat([val, torch.zeros((pad, val.shape[1]), dtype=val.dtype, device=val.device)])
-            if self._urm_values_bf16_exact() and 2 * idx.shape[0] * self.n_items <= RESIDENT_BF16_BYTES:
+            if route == "resident":
                 Ab = dense_bf16_from_padded(idx, val, self.n_items, STREAM_CHUNK)
                 U, V = puresvd_factors_resident(Ab, omega, num_factors, n_iter)
                 del Ab

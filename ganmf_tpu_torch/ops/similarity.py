@@ -213,12 +213,23 @@ def _padded_planes(X: sps.csr_matrix, row_weights: torch.Tensor, device: torch.d
     return idx_a, val_a, w_pad, ss2
 
 
+def build_route(n_rows: int, n_cols: int, mesh_plan=None) -> str:
+    """The route ``compute_similarity`` takes for an [n_rows, n_cols] input
+    (JAX :577-600): "sharded" under a plan with more than one model rank,
+    else "dense", "streamed" or "colblock" by the byte limits."""
+    if mesh_plan is not None and mesh_plan.n_model > 1:
+        return "sharded"
+    if 4 * n_rows * n_cols <= _DENSE_A_BYTE_LIMIT:
+        return "dense"
+    return "colblock" if 4 * n_cols * n_cols > _GRAM_BYTE_LIMIT else "streamed"
+
+
 def build_gram(X: sps.csr_matrix, row_weights: torch.Tensor, gram_rw: bool, device: torch.device):
     """(G, ss2, route) of the preprocessed data X by the dense or the
     streamed route (below ``_GRAM_BYTE_LIMIT``). ss2 is each column's sum of
     squares."""
     n_rows, n_cols = X.shape
-    if 4 * n_rows * n_cols <= _DENSE_A_BYTE_LIMIT:
+    if build_route(n_rows, n_cols) == "dense":
         A = dense_from_sparse(X, device)
         return _dense_gram(A, row_weights, gram_rw), torch.sum(A * A, dim=0), "dense"
     idx_a, val_a, w_pad, ss2 = _padded_planes(X, row_weights, device)
@@ -444,13 +455,14 @@ def compute_similarity(
     )
     # a plan with more than one model rank takes the sharded dense route, at
     # any size (JAX :577-580)
-    if mesh_plan is not None and mesh_plan.n_model > 1:
+    route = build_route(n_rows, n_cols, mesh_plan)
+    if route == "sharded":
         if export == "device":
             raise ValueError("export='device' materializes [I, I] on one device; use export='csr' with mesh_plan")
         vals, idx = similarity_topk_sharded(dense_from_sparse(X, device), rw, gram_rw, n_rows, mesh_plan,
                                             **w_kwargs)
         return csc_from_col_topk(vals, idx, n_cols).tocsr()
-    if 4 * n_rows * n_cols > _DENSE_A_BYTE_LIMIT and 4 * n_cols * n_cols > _GRAM_BYTE_LIMIT:
+    if route == "colblock":
         if export == "device":
             raise ValueError("export='device' materializes [I, I] on one device; the column-blocked "
                              "build exists because that does not fit")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The port's counterpart of bench.py's ML-1M rows, on one CUDA card.
+"""The port's counterpart of bench.py's rows, on one CUDA card.
 
-    python3 scripts/torch_bench.py
+    python3 scripts/torch_bench.py            # the ML-1M rows
+    python3 scripts/torch_bench.py --ml20m    # the two ML-20M rows
 
 Runs on the ML-1M-shaped split that bench.py synthesizes when the reference
 splits are absent (6040 x 3706, density 0.0446, 80/20 train/test, numpy seed
@@ -22,13 +23,22 @@ The card's name and power limit come first, then one JSON line in bench.py's
 shape (``metric``, ``value``, ``unit``, ``basket``) with ``min``, ``max`` and
 ``reps`` beside each value; it has no ``vs_baseline``, because bench.py's
 baselines are the reference's walls on another card. The script needs a
-card: without one it exits nonzero. bench.py's two ML-20M rows are not
-ported here.
+card: without one it exits nonzero.
+
+With ``--ml20m`` it prints bench.py:207-254's two rows instead, on the
+ML-20M stand-in's implicit split (ganmf_tpu_torch.cli.scale20m.load_splits:
+the ratings.csv of ganmf_tpu_torch.data.synthetic under $GANMF_TPU_DATA,
+written when missing, and the split under experiments/datasets, loaded when
+there), each the median of ML20M_REPS repetitions after ML20M_WARM warm ones:
+
+- ials20m_epoch_time: one IALS epoch at K=96, alpha 5, reg 1e-2,
+  urm_storage="csr", after a fit of one epoch, s;
+- serve20m_users_per_s: PureSVD at num_factors=128, serve_all(cutoff=20)
+  over all 138,493 users.
 """
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -37,6 +47,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 WARM, REPS = 2, 10
+ML20M_WARM, ML20M_REPS = 1, 5  # an ML-20M epoch takes seconds
 SEED = 1337
 # bench.py:42-46
 BEST_PARAMS_ML1M = dict(num_factors=250, emb_dim=992, batch_size=64, m=10, d_lr=0.0001,
@@ -59,49 +70,30 @@ def ml1m_split():
     return sps.csr_matrix(dense * mask), sps.csr_matrix(dense * ~mask)
 
 
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0].strip()
-
-
-def timed_runs(fn):
-    """Seconds of WARM + REPS synchronized calls of fn(); the warm ones are
-    dropped."""
+def timed_runs(fn, warm=WARM, reps=REPS):
+    """Seconds of ``warm`` + ``reps`` synchronized calls of fn(); the warm
+    ones are dropped."""
     import torch
 
     secs = []
-    for _ in range(WARM + REPS):
+    for _ in range(warm + reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    return secs[WARM:]
+    return secs[warm:]
 
 
 def epoch_seconds(model_class, train, dev, **params):
     """Seconds of each of WARM + REPS epochs of one fit without validation
     (the fit's own loop: the shuffle, the epoch and, for CFGAN, K2's draws);
     the warm ones are dropped."""
-    import torch
+    from ganmf_tpu_torch.cli.scale20m import with_epoch_walls
 
-    class Timed(model_class):
-        def _run_training_loop(self, *args, epoch_fn, **kwargs):
-            self.epoch_secs = []
-
-            def run(epoch):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                epoch_fn(epoch)
-                torch.cuda.synchronize()
-                self.epoch_secs.append(time.perf_counter() - t0)
-
-            return super()._run_training_loop(*args, epoch_fn=run, **kwargs)
-
-    model = Timed(train, mode="user", seed=SEED, is_experiment=True, device=dev)
+    model = with_epoch_walls(model_class, dev)(train, mode="user", seed=SEED, is_experiment=True, device=dev)
     model.fit(**params, epochs=WARM + REPS, validation_evaluator=None)
-    return model.epoch_secs[WARM:]
+    return model.epoch_walls[WARM:]
 
 
 def row(metric, unit, values):
@@ -110,12 +102,43 @@ def row(metric, unit, values):
     return {"metric": metric, "value": med, "unit": unit, "min": lo, "max": hi, "reps": len(values)}
 
 
-def main():
+def ml20m_rows(dev):
+    """bench.py's bench_20m rows on the ML-20M stand-in."""
+    from ganmf_tpu_torch.cli import scale20m
+    from ganmf_tpu_torch.data import synthetic
+    from ganmf_tpu_torch.models import IALSRecommender, PureSVDRecommender
+
+    data_dir = scale20m.default_data_dir()
+    synthetic.synthesize(synthetic.ratings_path(data_dir))
+    splits, _, _ = scale20m.load_splits(data_dir, os.path.join("experiments", "datasets"))
+    train = splits.train
+    runs = dict(warm=ML20M_WARM, reps=ML20M_REPS)
+
+    ials = IALSRecommender(train, device=dev)
+    ials.fit(epochs=1, **{k: v for k, v in scale20m.IALS_PARAMS.items() if k != "epochs"})
+    rows = [row("ials20m_epoch_time", "s", timed_runs(lambda: ials._run_epoch(0), **runs))]
+    del ials
+
+    svd = PureSVDRecommender(train, device=dev)
+    svd.fit(**scale20m.PURESVD_PARAMS)
+    rates = [train.shape[0] / s for s in timed_runs(lambda: svd.serve_all(cutoff=20), **runs)]
+    rows.append(row("serve20m_users_per_s", "users/s", rates))
+    return rows
+
+
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ml20m", action="store_true", help="bench.py's two ML-20M rows in place of the ML-1M ones")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_bench: no CUDA device is available", file=sys.stderr)
         return 1
+    from ganmf_tpu_torch.cli.scale20m import card_line
+
     print(card_line(), flush=True)
 
     from ganmf_tpu_torch.eval import EvaluatorHoldout
@@ -123,6 +146,10 @@ def main():
     from ganmf_tpu_torch.utils.device import cuda_device
 
     dev = cuda_device()
+    if args.ml20m:
+        head, *basket = ml20m_rows(dev)
+        print(json.dumps(dict(head, basket=basket)))
+        return 0
     train, test = ml1m_split()
     rows = [row("ganmf_ml1m_train_epoch_time", "s", epoch_seconds(GANMF, train, dev, **BEST_PARAMS_ML1M)),
             row("cfgan_ml1m_train_epoch_time", "s", epoch_seconds(CFGAN, train, dev, **CFGAN_PARAMS))]

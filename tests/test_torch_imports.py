@@ -1,6 +1,7 @@
-"""The port runs where JAX and scikit-learn are not installed: no module of
-ganmf_tpu_torch imports jax, ganmf_tpu or sklearn, directly or through another
-module. Importing it turns TF32 and bf16 reduced-precision reductions off."""
+"""The port runs where JAX, scikit-learn and pandas are not installed: no
+module of ganmf_tpu_torch (nor chip_smoke.py) imports jax, ganmf_tpu, sklearn
+or pandas, directly or through another module. Importing it turns TF32 and
+bf16 reduced-precision reductions off."""
 
 import os
 import subprocess
@@ -13,14 +14,14 @@ _CHECK = r"""
 import importlib, pkgutil, sys
 
 class _Refuse:
-    # a finder that fails any import of jax, ganmf_tpu or sklearn, even if
-    # some earlier code had already imported them
+    # a finder that fails any import of jax, ganmf_tpu, sklearn or pandas,
+    # even if some earlier code had already imported them
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn"):
+        if name.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn", "pandas"):
             raise ImportError(f"the port imported {name}")
         return None
 
-for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn")]:
+for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn", "pandas")]:
     del sys.modules[name]
 sys.meta_path.insert(0, _Refuse())
 
@@ -28,7 +29,7 @@ import ganmf_tpu_torch
 names = ["ganmf_tpu_torch"] + [m.name for m in pkgutil.walk_packages(ganmf_tpu_torch.__path__, "ganmf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn"))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ganmf_tpu", "sklearn", "pandas"))
 assert not leaked, leaked
 print("IMPORTED", len(names))
 print("NAMES", " ".join(names))
@@ -56,14 +57,14 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
                    "eval.significance", "cli.describe", "cli.ablation", "cli.mf_learned",
                    "ops.keyed", "ops.host", "utils.debug", "utils.profiling",
                    "parallel.comm", "parallel.mesh", "parallel.distributed", "parallel.adversarial",
-                   "parallel.baselines", "ops.distchol"):
+                   "parallel.baselines", "ops.distchol", "data.synthetic", "cli.scale20m"):
         assert f"ganmf_tpu_torch.{module}" in names, module
 
 
 def test_chip_smoke_imports_neither_jax_nor_ganmf_tpu():
-    """chip_smoke.py runs where JAX is not installed: no import statement of
-    it, at the top or inside a function, names jax or ganmf_tpu, and
-    importing it under the refusing finder works."""
+    """chip_smoke.py runs where JAX and pandas are not installed: no import
+    statement of it, at the top or inside a function, names jax, ganmf_tpu,
+    sklearn or pandas, and importing it under the refusing finder works."""
     import ast
 
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
@@ -74,7 +75,7 @@ def test_chip_smoke_imports_neither_jax_nor_ganmf_tpu():
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
     assert "ganmf_tpu_torch" in roots and "torch" in roots
-    assert not roots & {"jax", "jaxlib", "ganmf_tpu", "sklearn"}, roots
+    assert not roots & {"jax", "jaxlib", "ganmf_tpu", "sklearn", "pandas"}, roots
     check = _CHECK.split("import ganmf_tpu_torch")[0] + "import chip_smoke\nprint('IMPORTED', 1)\n"
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", check], capture_output=True, text=True,
