@@ -271,8 +271,11 @@ Phases, in order; any failure exits nonzero:
     wall printed; then the stages of ganmf_tpu_torch/cli/scale20m.py at
     their settings on the full user base and catalog, the iterative fits cut
     to one epoch: TopPop, PureSVD (K=128, the resident bf16 route;
-    evaluation and serve_all), ItemKNN cosine (topK 300; the streamed Gram
-    timed alone with its share of the float32 peak), IALS csr (K=96, flat
+    evaluation and serve_all), ItemKNN cosine (topK 300; JAX's resident
+    bf16 Gram timed alone with its share of the bf16 peak, then beside the
+    streamed float32 Gram in turns, G bitwise equal; evaluated through W's
+    bf16 planes and, the same model, through the float32 product; its
+    MAP@20 within 1e-4 of SCALE20M.json's), IALS csr (K=96, flat
     CSR for the items; a fit of one epoch and one timed _run_epoch), GANMF
     csr (K=128, E=128, batch 512), IALS linear and FunkSVD csr on the
     explicit split (RMSE finite), and one CFGAN csr epoch at its published
@@ -284,7 +287,21 @@ Phases, in order; any failure exits nonzero:
     K=128, k=50) and serve_all's (B=2048, k=20) on PureSVD's factors and
     seen rows against its plain version, and K2 at [1024, 26744] on the
     stand-in's rows, bitwise, each timed beside its bound;
-40. print one JSON line with every kernel's launches (by path), error, times
+40. JAX's bf16 similarity routes: on the LastFM-shaped split, the Gram of
+    0/1 data on the dense, resident, streamed, column-blocked scatter and
+    one-rank NCCL sharded routes (reached by lowering the limits) bitwise
+    the float32 product's, every product a bf16 one with a float32 output,
+    and the dense Gram's bf16 and float32 products timed in turns; then on a
+    4,000 x 24,000 binary split (past _SIM_SPLIT_MIN_ITEMS) ItemKNN and
+    UserKNN cosine: a block of 512 users through W's bf16 planes against the
+    CPU's plain version and against the card's float32 product (values and
+    ids by K1's rules), both products and both rankings timed, and the whole
+    evaluation through each;
+41. the graft entry points (ganmf_tpu_torch/graft.py): entry()'s losses on
+    the card, eagerly and under torch.compile, each within rtol 1e-5 of the
+    CPU's, then dryrun_multichip(8) as 8 gloo ranks sharing the card, its
+    wall; no kernel of the repo launched in phases 40-41;
+42. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own, and the keyed draw,
     which replaces no TPU kernel), then the card line, then the result line.
 
@@ -310,6 +327,7 @@ METRIC_TOL = 1e-5
 # an H100 SXM's peaks (NVIDIA's data sheet): float32 FMAs on the CUDA cores
 # (no TF32: the reference scores at Precision.HIGHEST) and HBM3 bandwidth
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+BF16_FLOPS = 989e12  # dense bf16 products on the tensor cores
 # CFGAN's published best params, user mode on LastFM (scripts/parity_check.py:46-54)
 CFGAN_PARAMS = dict(
     g_nodes=1024, g_layers=1, g_hidden_act="tanh",
@@ -4101,6 +4119,7 @@ def phase_baseline_mesh_gloo(dev, card, refs):
 ML20M_EPOCHS = 1
 ML20M_SERVE_BLOCK = 2048  # serve_all's default block
 ML20M_K2_ROWS = 1024  # CFGAN's G minibatch at its published params
+ML20M_MAP_GAP = 1e-4  # ItemKNN's MAP@20 against SCALE20M.json's
 
 
 def ml20m_rows_line(key, r):
@@ -4118,6 +4137,62 @@ def ml20m_rows_line(key, r):
         parts.append(f"RMSE {r['RMSE']:.6f} (global mean {r['global_mean_rmse']:.6f})")
     parts.append("peak not measured" if r["peak_gib"] is None else f"peak {r['peak_gib']:.2f} GiB")
     return f"  {key}: " + "; ".join(parts)
+
+
+def ml20m_itemknn_float32(model, train, ev, r, dev, card):
+    """Phase 39's ItemKNN beside the float32 routes it no longer takes, in
+    the same call: the resident bf16 Gram and the streamed float32 Gram in
+    turns (float32, bf16, bf16, float32), G bitwise equal; the evaluation of
+    the same model through the float32 product (``_SIM_SPLIT_MIN_ITEMS``
+    raised past the catalog) beside its plane evaluation; the plane
+    evaluation's MAP@20 within ML20M_MAP_GAP of SCALE20M.json's."""
+    import scipy.sparse as sps
+    import torch
+
+    from ganmf_tpu_torch.cli import scale20m
+    from ganmf_tpu_torch.models import base as pbase
+    from ganmf_tpu_torch.ops import similarity as psim
+
+    X = sps.csr_matrix(train, dtype=np.float32)
+    ones = torch.ones(X.shape[0], device=dev)
+    walls, grams = {True: [], False: []}, {}
+    for binary in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G, _, route = psim.build_gram(X, ones, False, dev, binary)
+        torch.cuda.synchronize()
+        walls[binary].append(time.perf_counter() - t0)
+        if route != ("resident" if binary else "streamed") or G.dtype != torch.float32:
+            fail(f"ML-20M: the {'bf16' if binary else 'float32'} Gram took the {route} route ({G.dtype})")
+        grams[binary] = G
+        del G
+    if not torch.equal(grams[True], grams[False]):
+        fail("ML-20M: the resident bf16 Gram differs from the streamed float32 one")
+    del grams
+    flop = r["gram_flop"]
+    for binary, what, peak in ((True, "resident bf16", scale20m.BF16_FLOPS),
+                               (False, "streamed float32", scale20m.F32_FLOPS)):
+        print(f"    {what} Gram: {', '.join(f'{w:.3f}' for w in walls[binary])} s, "
+              f"{100 * flop / min(walls[binary]) / peak:.1f}% of the {what.split()[1]} peak at the best  [{card}]")
+    print(f"    G bitwise equal on both routes; bf16 / float32 wall {min(walls[True]) / min(walls[False]):.3f}")
+
+    saved = pbase._SIM_SPLIT_MIN_ITEMS
+    pbase._SIM_SPLIT_MIN_ITEMS = X.shape[1] + 1
+    try:
+        results, f32_walls = scale20m.evaluate(ev, model)
+    finally:
+        pbase._SIM_SPLIT_MIN_ITEMS = saved
+    f32_map = float(results[20]["MAP"])
+    print(f"    evaluation through W's bf16 planes {r['eval_s']:.3f} s (first {r['eval_first_s']:.3f}), MAP@20 "
+          f"{r['MAP@20']:.6f}; through the float32 product {f32_walls[-1]:.3f} s (first {f32_walls[0]:.3f}), "
+          f"MAP@20 {f32_map:.6f}; gap {abs(r['MAP@20'] - f32_map):.3e}  [{card}]")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "SCALE20M.json")) as fh:
+        jax_map = json.load(fh)["ItemKNN_cosine"]["MAP@20"]
+    if not abs(r["MAP@20"] - jax_map) <= ML20M_MAP_GAP:
+        fail(f"ML-20M: ItemKNN's MAP@20 {r['MAP@20']:.6f} is not within {ML20M_MAP_GAP} of SCALE20M.json's "
+             f"{jax_map:.6f}")
+    print(f"    ItemKNN MAP@20: the port {r['MAP@20']:.8f}, SCALE20M.json (the JAX package on a TPU) "
+          f"{jax_map:.8f}, gap {abs(r['MAP@20'] - jax_map):.3e}")
 
 
 def phase_ml20m(dev, card, scratch):
@@ -4190,10 +4265,14 @@ def phase_ml20m(dev, card, scratch):
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of it  [{card}]")
     scorer.LAUNCHES, scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES = saved
     del svd, U, V, Ub, M
-    stage("ItemKNN_cosine", scale20m.itemknn, implicit, ev)
+    knn = stage("ItemKNN_cosine", scale20m.itemknn, implicit, ev)
     r = rows["ItemKNN_cosine"]
-    print(f"    the streamed Gram alone: {r['gram_s']:.3f} s for {r['gram_flop']:.3e} FLOP, "
-          f"{100 * r['gram_f32_peak_share']:.1f}% of the float32 peak  [{card}]")
+    if r["route"] != "resident bf16 Gram, bf16 planes scoring":
+        fail(f"ML-20M: ItemKNN took {r['route']}, not JAX's resident bf16 Gram and plane scoring")
+    print(f"    the {r['route'].split(',')[0]} alone: {r['gram_s']:.3f} s for {r['gram_flop']:.3e} FLOP, "
+          f"{100 * r['gram_peak_share']:.1f}% of the {r['gram_peak']} peak  [{card}]")
+    ml20m_itemknn_float32(knn, implicit.train, ev, r, dev, card)
+    del knn
     stage("IALS", scale20m.ials, implicit, ev, **cut)
     stage("GANMF", scale20m.ganmf, implicit, ev, **cut)
     stage("IALS_explicit", scale20m.ials_explicit, explicit, ev_x, **cut)
@@ -4245,6 +4324,261 @@ def phase_ml20m(dev, card, scratch):
           f"the launch alone; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     shutil.rmtree(root)
     return fused, merge, k2, drawn, k1_times, {name: t}, k1_err
+
+
+# -- phase 40: JAX's bf16 similarity routes -------------------------------------
+
+SPLIT_SHAPE, SPLIT_DENSITY = (4000, 24000), 0.00279  # past _SIM_SPLIT_MIN_ITEMS, at LastFM's density
+PLANE_BLOCK = 512  # users in the plane product's comparison block (the CPU ranks it too)
+
+
+def split_20k():
+    """A binary 80/20 split of SPLIT_SHAPE at SPLIT_DENSITY, its cells drawn
+    from SEED."""
+    import scipy.sparse as sps
+
+    n_rows, n_cols = SPLIT_SHAPE
+    rng = np.random.default_rng(SEED)
+    cells = rng.choice(n_rows * n_cols, size=int(SPLIT_DENSITY * n_rows * n_cols), replace=False)
+    held = rng.random(cells.size) >= 0.8
+    parts = []
+    for keep in (~held, held):
+        c = cells[keep]
+        parts.append(sps.csr_matrix((np.ones(c.size, np.float32), (c // n_cols, c % n_cols)), shape=SPLIT_SHAPE))
+    return parts
+
+
+def routes_gram_check(train, dev, card):
+    """G of 0/1 data on the dense, resident, streamed, column-blocked scatter
+    and one-rank sharded routes, each reached by lowering the port's limits,
+    bitwise the float32 product's, every product a bf16 one with a float32
+    output; the dense Gram's bf16 and float32 products timed in turns."""
+    import torch
+
+    from ganmf_tpu_torch.data.device import dense_from_sparse
+    from ganmf_tpu_torch.ops import similarity as psim
+    from ganmf_tpu_torch.parallel import comm, make_mesh
+
+    n_rows, n_cols = train.shape
+    ones = torch.ones(n_rows, device=dev)
+    G32, _, route = psim.build_gram(train, ones, False, dev)
+    if route != "dense":
+        fail(f"bf16 routes: the float32 reference took the {route} route")
+    calls, grams = [], []
+    bf16_mm, w_block = psim.bf16_mm, psim._w_block
+
+    def counting(a, b, out=None):
+        r = bf16_mm(a, b, out=out)
+        if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or r.dtype != torch.float32:
+            fail(f"bf16 routes: a product of {a.dtype} and {b.dtype} returned {r.dtype}")
+        calls.append(1)
+        return r
+
+    def capturing(G, s1, s2, off, *a, **k):
+        grams.append((G.clone(), off))
+        return w_block(G, s1, s2, off, *a, **k)
+
+    saved = {name: getattr(psim, name) for name in ("bf16_mm", "_w_block", "_DENSE_A_BYTE_LIMIT",
+                                                    "_GRAM_BYTE_LIMIT", "_INT8_A_BYTE_LIMIT", "device_memory_bytes")}
+    psim.bf16_mm, psim._w_block = counting, capturing
+    w_kw = dict(mode="cosine", topk=ITEMKNN_TOPK, shrink=0.0, normalize=True, asymmetric_alpha=0.5,
+                tversky_alpha=1.0, tversky_beta=1.0, normalize_avg_row=False, distance_mode="lin",
+                use_row_weights=False)
+    try:
+        for route in ("dense", "resident", "streamed", "colblock", "sharded"):
+            del calls[:], grams[:]
+            if route != "dense":
+                psim._DENSE_A_BYTE_LIMIT = 1
+            if route == "streamed":
+                psim.device_memory_bytes = lambda device: 1 << 30  # no room for the resident A
+            if route == "colblock":
+                psim._GRAM_BYTE_LIMIT, psim._INT8_A_BYTE_LIMIT = 4 * n_cols * n_cols - 1, 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route in ("dense", "resident", "streamed"):
+                G, _, got = psim.build_gram(train, ones, False, dev, True)
+                slabs = [(G, 0)]
+            elif route == "colblock":
+                got = psim.build_route(n_rows, n_cols)
+                psim.compute_similarity(train, "cosine", topK=ITEMKNN_TOPK, device=dev)
+                slabs = list(grams)
+            else:
+                comm.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+                try:
+                    plan = make_mesh()
+                    got = "sharded"
+                    psim.similarity_topk_sharded(dense_from_sparse(train, dev), ones, False, n_rows, plan,
+                                                 binary=True, **w_kw)
+                finally:
+                    comm.shutdown()
+                slabs = list(grams)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for name, value in saved.items():
+                if name not in ("bf16_mm", "_w_block"):
+                    setattr(psim, name, value)
+            if got != route or not calls or not slabs:
+                fail(f"bf16 routes: {route} took {got}, {len(calls)} bf16 products, {len(slabs)} Gram blocks")
+            for G, off in slabs:
+                if not torch.equal(G, G32[:, off : off + G.shape[1]]):
+                    fail(f"bf16 routes: the {route} route's G differs from the float32 product's")
+            print(f"  {route}: G bitwise the float32 product's over {len(slabs)} block(s) of "
+                  f"{slabs[0][0].shape[1]} columns, {len(calls)} bf16 products (float32 outputs); {wall:.3f} s "
+                  f"with its set-up  [{card}]")
+            slabs = G = None
+            grams.clear()
+    finally:
+        for name, value in saved.items():
+            setattr(psim, name, value)
+    A = dense_from_sparse(train, dev)
+    times = {True: [], False: []}
+    for binary in (False, True, True, False):
+        times[binary].append(cuda_ms(lambda: psim._dense_gram(A, ones, False, binary), reps=10))
+    flop = 2.0 * n_rows * n_cols * n_cols
+    ms16, ms32 = min(times[True]), min(times[False])
+    print(f"  the dense Gram at {n_rows} x {n_cols} ({flop:.3e} FLOP): bf16 product "
+          f"{', '.join(f'{t:.4f}' for t in times[True])} ms ({100 * flop / ms16 / 1e-3 / BF16_FLOPS:.1f}% of the bf16 "
+          f"peak), float32 {', '.join(f'{t:.4f}' for t in times[False])} ms "
+          f"({100 * flop / ms32 / 1e-3 / F32_FLOPS:.1f}% of the float32 peak); bf16 / float32 "
+          f"{ms16 / ms32:.4f}  [{card}]")
+
+
+def plane_block_check(name, model, ev, dev, card):
+    """One block of PLANE_BLOCK users of a similarity model whose operands
+    are planes: the card's plane product against the CPU's plain version
+    from the same operands and against the card's float32 product, values
+    within RTOL / ATOL and ids equal but at near ties (K1's rules); both
+    products and both rankings timed."""
+    import torch
+
+    from ganmf_tpu_torch.models.base import ItemSimilarityRecommender
+    from ganmf_tpu_torch.ops.simscore import masked_topk_matmul, plane_product
+
+    uids = torch.from_numpy(np.asarray(ev.usersToEvaluate[:PLANE_BLOCK], dtype=np.int64)).to(dev)
+    rows, right = model._fused_serving_operands(uids)
+    if not (isinstance(rows, tuple) or isinstance(right, tuple)):
+        fail(f"{name}: the operands are not bf16 planes at {model.n_items} items")
+    item_based = isinstance(model, ItemSimilarityRecommender)
+    seen = None if item_based else model.device_seen_rows(uids)
+    W = model._w_device()
+    f32_rows, f32_right = (rows.float(), W) if item_based else (W.index_select(0, uids), model.device_urm().dense)
+    pairs = torch.zeros((uids.shape[0], 1), dtype=torch.int64, device=dev)
+    k = max(CUTOFFS)
+
+    def rank(r, w, s, p):
+        return masked_topk_matmul(r, w, s, p, k, mask_from_rows=item_based)[:2]
+
+    def on_cpu(x):
+        return tuple(t.cpu() for t in x) if isinstance(x, tuple) else x.cpu()
+
+    vals, ids = rank(rows, right, seen, pairs)
+    pvals, pids = rank(on_cpu(rows), on_cpu(right), None if seen is None else seen.cpu(), pairs.cpu())
+    fvals, fids = rank(f32_rows, f32_right, seen, pairs)
+    excl = (rows != 0) if item_based else seen
+    plane_scores = plane_product(rows, right).masked_fill(excl, float("-inf"))
+    f32_scores = (f32_rows @ f32_right).masked_fill(excl, float("-inf"))
+    gaps = {}
+    for what, (ov, oi), scores in (("the CPU's plain version", (pvals.to(dev), pids.to(dev)), plane_scores),
+                                   ("the float32 product", (fvals, fids), f32_scores)):
+        fin = torch.isfinite(ov)
+        if not torch.equal(torch.isfinite(vals), fin):
+            fail(f"{name}: the planes and {what} differ in which slots are finite")
+        err = (vals[fin] - ov[fin]).abs()
+        if not bool((err <= RTOL * ov[fin].abs() + ATOL).all()):
+            fail(f"{name}: the plane scores differ from {what} beyond rtol {RTOL}")
+        gaps[what] = (float((err / ov[fin].abs().clamp_min(1e-30)).max()), ids_agree(ids, oi, scores, fin))
+    ms = cuda_ms(lambda: plane_product(rows, right), reps=10)
+    f32_ms = cuda_ms(lambda: f32_rows @ f32_right, reps=10)
+    rank_ms = cuda_ms(lambda: rank(rows, right, seen, pairs), reps=10)
+    f32_rank_ms = cuda_ms(lambda: rank(f32_rows, f32_right, seen, pairs), reps=10)
+    B, C = f32_rows.shape
+    flop = 2.0 * B * C * f32_right.shape[1]
+    n_pairs = (len(rows) if isinstance(rows, tuple) else 1) * (len(right) if isinstance(right, tuple) else 1)
+    print(f"  {name}: block of {B} users, [{B}, {C}] x [{C}, {f32_right.shape[1]}], {n_pairs} bf16 products; "
+          + "; ".join(f"against {w}: values within {g:.3e} (relative), {t} near-tie id slots"
+                      for w, (g, t) in gaps.items()))
+    print(f"    products: planes {ms:.4f} ms ({100 * n_pairs * flop / ms / 1e-3 / BF16_FLOPS:.1f}% of the bf16 peak), "
+          f"float32 {f32_ms:.4f} ms ({100 * flop / f32_ms / 1e-3 / F32_FLOPS:.1f}% of the float32 peak); masked "
+          f"top-{k}: planes {rank_ms:.4f} ms, float32 {f32_rank_ms:.4f} ms  [{card}]")
+
+
+def phase_bf16_routes(dev, card):
+    """Phase 40: the Gram's bf16 routes on the LastFM-shaped split, then
+    ItemKNN and UserKNN on a binary split past _SIM_SPLIT_MIN_ITEMS scoring
+    through W's bf16 planes: a block against the CPU and against the float32
+    product, and the whole evaluation in both products."""
+    import torch
+
+    from ganmf_tpu_torch.cli import scale20m
+    from ganmf_tpu_torch.eval import EvaluatorHoldout
+    from ganmf_tpu_torch.models import ItemKNNCFRecommender, UserKNNCFRecommender
+    from ganmf_tpu_torch.models import base as pbase
+
+    train, _ = lastfm_split()
+    print(f"[40] JAX's bf16 similarity routes: the Gram of the {train.shape[0]} x {train.shape[1]} binary split on "
+          f"every route, then ItemKNN and UserKNN on a {SPLIT_SHAPE[0]} x {SPLIT_SHAPE[1]} binary split through "
+          f"W's bf16 planes")
+    routes_gram_check(train, dev, card)
+    del train
+    train, test = split_20k()
+    if train.shape[1] < pbase._SIM_SPLIT_MIN_ITEMS:
+        fail(f"bf16 routes: {train.shape[1]} items do not reach _SIM_SPLIT_MIN_ITEMS")
+    ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
+    for cls in (ItemKNNCFRecommender, UserKNNCFRecommender):
+        model = cls(train, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(topK=ITEMKNN_TOPK, shrink=ITEMKNN_SHRINK, similarity="cosine")
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        name = cls.__name__.replace("Recommender", "")
+        plane_block_check(name, model, ev, dev, card)
+        results, walls = scale20m.evaluate(ev, model)
+        saved = pbase._SIM_SPLIT_MIN_ITEMS
+        pbase._SIM_SPLIT_MIN_ITEMS = train.shape[1] + 1
+        try:
+            f32_results, f32_walls = scale20m.evaluate(ev, model)
+        finally:
+            pbase._SIM_SPLIT_MIN_ITEMS = saved
+        gap = max(abs(results[c][m] - f32_results[c][m]) for c in CUTOFFS for m in ("PRECISION", "RECALL", "MAP",
+                                                                                    "NDCG"))
+        if not all(np.isfinite(results[c][m]) for c in CUTOFFS for m in ("PRECISION", "RECALL", "MAP", "NDCG")):
+            fail(f"{name}: a ranking metric of the plane evaluation is not finite")
+        n = len(ev.usersToEvaluate)
+        print(f"    fit {fit_s:.3f} s; evaluation of {n} users through the planes {walls[-1]:.4f} s, through the "
+              f"float32 product {f32_walls[-1]:.4f} s; MAP@20 {results[20]['MAP']:.6f} / "
+              f"{f32_results[20]['MAP']:.6f}, largest metric gap {gap:.3e}  [{card}]")
+        del model
+
+
+# -- phase 41: the graft entry points (ganmf_tpu_torch/graft.py) ----------------
+
+def phase_graft(dev, card):
+    """Phase 41: ``entry()``'s losses on the card, eager and under
+    torch.compile, each within rtol 1e-5 of the CPU's; then
+    ``dryrun_multichip(8)``, 8 gloo ranks sharing the card, and its wall."""
+    import torch
+
+    from ganmf_tpu_torch import graft
+
+    print("[41] the graft entry points (ganmf_tpu_torch/graft.py): entry() eagerly and under torch.compile, "
+          "then dryrun_multichip(8)")
+    fn, args = graft.entry()
+    cpu_fn, cpu_args = graft.entry(device="cpu")
+    want = [float(x.detach()) for x in cpu_fn(*cpu_args)]
+    eager = [float(x.detach()) for x in fn(*args)]
+    t0 = time.perf_counter()
+    compiled = [float(x.detach()) for x in torch.compile(fn)(*args)]
+    compile_s = time.perf_counter() - t0
+    for what, got in (("eager", eager), ("compiled", compiled)):
+        if not np.allclose(got, want, rtol=1e-5, atol=0):
+            fail(f"graft: entry()'s {what} losses {got} are not within rtol 1e-5 of the CPU's {want}")
+    print(f"  entry ok: CPU {want}, card eager {eager}, compiled {compiled} (first call {compile_s:.2f} s)")
+    mode = "NCCL ranks, one card each" if torch.cuda.device_count() >= 8 else "gloo ranks sharing card 0"
+    t0 = time.perf_counter()
+    graft.dryrun_multichip(8)
+    print(f"  dryrun ok: dryrun_multichip(8) as 8 {mode}, (data 4, model 2) and (slice 2, data 2, model 2), "
+          f"{time.perf_counter() - t0:.2f} s wall (the ranks' start-up included)  [{card}]")
 
 
 def main():
@@ -4495,6 +4829,10 @@ def main():
     k1_err = max(k1_err, m20s_k1_err)
     fused.update(m20s_k1)
     elapsed("the ML-20M stand-in")
+    # JAX's bf16 similarity routes (phase 40) and the graft entry points
+    # (phase 41): no kernel of the repo runs there
+    no_kernel(lambda: phase_bf16_routes(dev, card), "bf16 similarity routes")
+    no_kernel(lambda: phase_graft(dev, card), "graft entry points")
     shutil.rmtree(SCRATCH)
 
     eval_shape, *other_shapes = fused

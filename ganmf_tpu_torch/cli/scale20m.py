@@ -19,8 +19,10 @@ evaluator and the device, which a test can call small on the CPU):
   ``serve_all(cutoff=20)``;
 - ``ials``: K=96, alpha 5, reg 1e-2, csr storage, 6 epochs, then one timed
   ``_run_epoch`` (bench.py's row);
-- ``itemknn``: cosine, topK 300, shrink 0, the streamed Gram (timed alone
-  first, with its share of the float32 peak);
+- ``itemknn``: cosine, topK 300, shrink 0, on JAX's route past the dense
+  limit (the resident bf16 Gram where the device holds it, else the streamed
+  one; timed alone first, with its share of the bf16 tensor-core peak), and
+  evaluated through W's bf16 planes (from 20,000 items on);
 - ``ganmf``: K=128, E=128, batch 512, csr storage, user mode, seed 1337, 30
   epochs (each epoch synchronized and timed);
 - ``cfgan``: one csr epoch at CFGAN's published LastFM params (no metrics);
@@ -85,6 +87,7 @@ PERSONALIZED = ("PureSVD", "IALS", "ItemKNN_cosine", "GANMF")
 FUNKSVD_FLOOR_SHARE = 1.01
 EVALS = 2  # evaluations a model: the second is reported
 F32_FLOPS = 67e12  # an H100 SXM's float32 rate outside the tensor cores (NVIDIA's data sheet)
+BF16_FLOPS = 989e12  # its dense bf16 tensor-core rate (the same data sheet)
 
 
 class RouteError(RuntimeError):
@@ -304,23 +307,30 @@ def ials(split: SplitSet, ev, device, **overrides):
 
 
 def itemknn(split: SplitSet, ev, device, **overrides):
-    """ItemKNN on the streamed Gram (scripts/scale20m.py:188), which is first
-    built alone and timed."""
+    """ItemKNN on JAX's route past the dense limit (scripts/scale20m.py:188-189
+    asserts only "not dense"): its Gram is first built alone and timed. On
+    the binary split that route is resident or streamed, bf16 products
+    either way; the evaluation scores through W's bf16 planes where the
+    catalog has ``_SIM_SPLIT_MIN_ITEMS`` items."""
     from ganmf_tpu_torch.models import ItemKNNCFRecommender
     from ganmf_tpu_torch.ops import similarity
 
     n_rows, n_cols = split.train.shape
-    route = similarity.build_route(n_rows, n_cols)
-    if route != "streamed":
-        raise RouteError(f"ItemKNN must take the streamed Gram, took {route}")
-    begin(device)
     X = sps.csr_matrix(split.train, dtype=np.float32)
+    binary = bool(X.nnz == 0 or np.all(X.data == 1.0))
+    row_len = max(int(np.ediff1d(X.indptr).max()), 1)
+    route = similarity.build_route(n_rows, n_cols, binary=binary, row_len=row_len, device=device)
+    if route not in ("resident", "streamed"):
+        raise RouteError(f"ItemKNN must take the resident or the streamed Gram past the dense limit, took {route}")
+    begin(device)
     ones = torch.ones(n_rows, dtype=torch.float32, device=device)
     t0 = time.perf_counter()
-    G, _, _ = similarity.build_gram(X, ones, False, device)
+    G, _, got = similarity.build_gram(X, ones, False, device, binary)
     gram_s = stop_clock(device, G[0, 0]) - t0
     del G
-    # the streamed product over the rows padded to its chunk: 2 R I^2 FLOP
+    if got != route:
+        raise RouteError(f"ItemKNN's Gram took {got} where build_route gives {route}")
+    # the product over the rows padded to its chunk: 2 R I^2 FLOP
     rows = -(-n_rows // similarity._STREAM_CHUNK) * similarity._STREAM_CHUNK
     gram_flop = 2.0 * rows * n_cols * n_cols
     m = ItemKNNCFRecommender(split.train, device=device)
@@ -328,9 +338,12 @@ def itemknn(split: SplitSet, ev, device, **overrides):
     m.fit(**dict(ITEMKNN_PARAMS, **overrides))
     W = m._device_w
     fit_s = stop_clock(device, W.sum() if isinstance(W, torch.Tensor) else torch.tensor(m.W_sparse.nnz)) - t0
+    planes = isinstance(m._w_device(), torch.Tensor) and m._splits_w()
     results, walls = evaluate(ev, m)
-    return row(results, fit_s, walls, ev, route, device, gram_s=gram_s, gram_flop=gram_flop,
-               gram_f32_peak_share=gram_flop / gram_s / F32_FLOPS), m
+    peak = BF16_FLOPS if binary else F32_FLOPS
+    return row(results, fit_s, walls, ev, f"{route} {'bf16' if binary else 'float32'} Gram, "
+               f"{'bf16 planes' if planes else 'float32'} scoring", device, gram_s=gram_s, gram_flop=gram_flop,
+               gram_peak_share=gram_flop / gram_s / peak, gram_peak="bf16" if binary else "float32"), m
 
 
 def ganmf(split: SplitSet, ev, device, **overrides):

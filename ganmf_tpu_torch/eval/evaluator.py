@@ -16,9 +16,11 @@ JAX evaluator's ``_can_fuse`` and ``_can_fuse_sim`` pick it
   kernel runs; on a CPU model the scorer takes its plain version;
 - an item-based or user-based similarity model whose W is dense on the
   device takes the similarity route (:308-356): ``masked_topk_matmul``
-  (ops/simscore.py) scores the block with one float32 product, masks it and
-  ranks it with ``tiled_topk``, and its test-pair probe gives the RMSE. An
-  item-based model's seen mask comes from its own profile rows;
+  (ops/simscore.py) scores the block with one float32 product (from
+  20,000 items on, bf16 products of W's planes with float32 accumulation, as
+  the model's operands say), masks it and ranks it with ``tiled_topk``, and
+  its test-pair probe gives the RMSE. An item-based model's seen mask comes
+  from its own profile rows, unless its operands are planes;
 - every other model takes the dense route of the JAX evaluator
   (:209-222,496-535, without the mesh): ``score_device`` gives the masked
   [B, I] block and ``evaluate_batch`` ranks it with a stable top-k.
@@ -347,6 +349,7 @@ class EvaluatorHoldout:
             self.exclude_seen
             and self._ignore_items_mask is None
             and isinstance(model, ItemSimilarityRecommender)
+            and not isinstance(rows, tuple)
         )
         seen = None if mask_from_rows else self._seen_block(model, uids, max_len=max_len)
 

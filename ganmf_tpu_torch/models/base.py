@@ -30,8 +30,11 @@ float32 bytes are within ``_DENSE_W_BYTE_LIMIT``: a fit may leave it only
 there (``_adopt_device_w``), and the host CSR ``W_sparse`` is then made when
 something reads it. Past the limit W goes to the device as a torch sparse
 CSR tensor and is multiplied there; the JAX package multiplies on the host
-in that case (:760-764, :853-857). The evaluator ranks these models by the
-similarity route (eval/evaluator.py).
+in that case (:760-764, :853-857). The evaluator and ``recommend_fused`` rank
+these models by the similarity route (eval/evaluator.py, ops/simscore.py):
+from ``_SIM_SPLIT_MIN_ITEMS`` items on, when every URM value is bf16-exact,
+their operands are W's ``_SIM_MATMUL_PASSES`` bf16 planes and the bf16
+profile rows or URM, as JAX's (:736-776, :830-872).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from ganmf_tpu_torch.data.device import (
 )
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
 from ganmf_tpu_torch.ops.similarity import csc_from_col_topk
+from ganmf_tpu_torch.ops.simscore import masked_topk_matmul, split_bf16_planes
 from ganmf_tpu_torch.ops.topk import tiled_topk, topk_lowest_index
 from ganmf_tpu_torch.utils.dataio import DataIO
 from ganmf_tpu_torch.utils.device import as_device
@@ -76,6 +80,16 @@ def check_matrix(X, format: str = "csc", dtype=np.float32):
         X = cls(X)
     return X.astype(dtype)
 
+
+# bf16 planes the similarity family's scoring product splits its float32
+# operand W into when the other operand is bf16-exact (JAX :47-52): 2 gives
+# about 16 mantissa bits.
+_SIM_MATMUL_PASSES = 2
+
+# Catalog size from which that split is taken (JAX :54-62); below it the
+# float32 product keeps ``recommend_fused``'s lists equal to ``recommend``'s
+# at exact ties.
+_SIM_SPLIT_MIN_ITEMS = 20000
 
 # padded host block (elements) above which the sparse column prune runs on
 # the device instead (a near-dense column makes the host block quadratic)
@@ -375,15 +389,32 @@ class Recommender:
                         tile=None):
         """The fused-serving call of the JAX package (base.py:372-399,
         :642-671): a factor model ranks through K1, which never writes the
-        [B, I] scores, and a cold user gets an empty list; every other model
-        returns ``recommend``'s lists. ``tile`` is taken for the JAX
-        signature's sake and not used: K1's plan chooses its own tiling."""
-        if not self._ranks_with_k1():
+        [B, I] scores, and a cold user gets an empty list; a similarity model
+        whose W is dense on the device ranks by ``masked_topk_matmul`` on its
+        ``_fused_serving_operands`` (W's bf16 planes from
+        ``_SIM_SPLIT_MIN_ITEMS`` items on; below that ``recommend``'s lists);
+        every other model returns ``recommend``'s lists. ``tile`` is taken
+        for the JAX signature's sake and not used: K1's plan chooses its own
+        tiling."""
+        ops = getattr(self, "_fused_serving_operands", None)
+        if not self._ranks_with_k1() and ops is None:
             return self.recommend(user_id_array, cutoff=cutoff, remove_seen_flag=remove_seen_flag)
         user_id_array = np.atleast_1d(np.asarray(user_id_array))
         uids = self._uids(user_id_array)
-        vals, ids = self._k1_block(uids, self._exclusion_mask(uids, remove_seen_flag),
-                                   min(cutoff, self.n_items))
+        k = min(cutoff, self.n_items)
+        if self._ranks_with_k1():
+            vals, ids = self._k1_block(uids, self._exclusion_mask(uids, remove_seen_flag), k)
+        else:
+            operands = ops(uids)
+            if operands is None:  # W too large to be dense on the device
+                return self.recommend(user_id_array, cutoff=cutoff, remove_seen_flag=remove_seen_flag)
+            rows, right = operands
+            if remove_seen_flag:
+                seen = self.device_seen_rows(uids)
+            else:
+                seen = torch.zeros((len(user_id_array), self.n_items), dtype=torch.bool, device=self.device)
+            pair_ids = torch.zeros((len(user_id_array), 1), dtype=torch.int64, device=self.device)  # probe unused
+            vals, ids, _, _ = masked_topk_matmul(rows, right, seen, pair_ids, k)
         vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
         return [ids[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
 
@@ -620,6 +651,21 @@ class _SimilarityMatrixRecommender(Recommender):
     def _drop_device_w(self):
         self._device_w = None  # dense W; False above the byte limit
         self._device_w_sparse = None  # the sparse CSR form above the limit
+        self._device_w_planes = None  # the dense W's bf16 planes
+
+    def _w_device_split(self):
+        """The dense W's ``_SIM_MATMUL_PASSES`` bf16 planes, made once (JAX
+        :736-748, :830-842); the caller has checked that W is dense on the
+        device."""
+        if self._device_w_planes is None:
+            self._device_w_planes = split_bf16_planes(self._w_device(), _SIM_MATMUL_PASSES)
+        return self._device_w_planes
+
+    def _splits_w(self) -> bool:
+        """True when the scoring product takes W's bf16 planes: a catalog of
+        at least ``_SIM_SPLIT_MIN_ITEMS`` items whose URM values are all
+        bf16-exact (JAX :773, :868)."""
+        return self.n_items >= _SIM_SPLIT_MIN_ITEMS and self._urm_values_bf16_exact()
 
     @property
     def W_sparse(self) -> Optional[sps.csr_matrix]:
@@ -682,12 +728,16 @@ class ItemSimilarityRecommender(_SimilarityMatrixRecommender):
         return profiles @ W
 
     def _fused_serving_operands(self, uids: torch.Tensor, max_len: int = None):
-        """(rows, right) of the similarity route: the profile rows and W;
-        None above the dense limit."""
+        """(rows, right) of the similarity route (JAX :768-777): the profile
+        rows and W, or, where ``_splits_w``, the rows in bf16 and W's bf16
+        planes; None above the dense limit."""
         W = self._w_device()
         if W is False:
             return None
-        return self.device_profile_rows(uids, max_len=max_len), W
+        rows = self.device_profile_rows(uids, max_len=max_len)
+        if self._splits_w():
+            return rows.to(torch.bfloat16), self._w_device_split()
+        return rows, W
 
 
 class UserSimilarityRecommender(_SimilarityMatrixRecommender):
@@ -710,9 +760,14 @@ class UserSimilarityRecommender(_SimilarityMatrixRecommender):
         return W.index_select(0, user_ids) @ self.device_urm().dense
 
     def _fused_serving_operands(self, uids: torch.Tensor, max_len: int = None):
-        """(rows, right): W's rows and the dense URM; None above the dense
-        limit. ``max_len`` bounds profile lengths, which W's rows are not."""
+        """(rows, right) (JAX :861-873): W's rows and the dense URM, or,
+        where ``_splits_w``, the bf16 planes of W's rows and the dense URM in
+        bf16; None above the dense limit. ``max_len`` bounds profile lengths,
+        which W's rows are not."""
         W = self._w_device()
         if W is False:
             return None
+        if self._splits_w():
+            rows = tuple(p.index_select(0, uids) for p in self._w_device_split())
+            return rows, self.device_urm().dense.to(torch.bfloat16)
         return W.index_select(0, uids), self.device_urm().dense

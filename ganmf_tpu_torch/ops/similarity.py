@@ -8,30 +8,39 @@ column's top K comes from ``tiled_topk`` (lowest index first on ties). Only
 the preprocessing and the final CSR assembly run on the host.
 
 The JAX package is plain XLA here, with no Pallas kernel, and so is the port:
-the products are ``torch.matmul`` with TF32 off (utils/device.py). On 0/1
-data every partial sum of the Gram is an integer below 2^24, so the float32
-product is exact in any summation order: the JAX package's one-pass bf16
-Gram (``bf16_ok``), its float32 one and the port's are bitwise equal.
+the products are library calls. For binary data without row weights (JAX's
+``bf16_ok``, :550-559) every route builds the Gram as bf16 products
+accumulated and returned in float32 (``simscore.bf16_mm``: the tensor cores
+on the card), as JAX does (:150-156, :177-236, :294-336, :435-437); other
+data (ratings, centered data, row weights) multiplies in float32 with TF32
+off (utils/device.py). On 0/1 data every partial sum of the Gram is an
+integer below 2^24, so G is exact in any summation order: every route's G,
+in either product, and JAX's are bitwise equal.
 
-Routes, chosen by JAX's rules and byte limits (:600-650), so that one input
-takes one route in both packages:
+Routes, chosen by JAX's rules and byte limits (:600-680), so that one input
+takes one route in both packages (``build_route``):
 
 - dense: A [n_rows, n_cols] on the device when its float32 bytes are within
   ``_DENSE_A_BYTE_LIMIT``;
-- past that, streamed: the Gram is accumulated over ``_STREAM_CHUNK``-row
-  chunks of the padded-CSR planes (``_slab_gram_scatter`` over every
-  column). For binary data it is the dense route's G;
+- past that, resident (binary data): A kept on the device as dense bf16
+  (``dense_bf16_from_padded``) and the Gram accumulated over
+  ``_STREAM_CHUNK``-row slices of it (JAX :214-236), where JAX's rule
+  (:655-668) finds room for the bf16 A, the float32 Gram, the padded planes
+  and 1 GiB, with the device's memory in place of a TPU's;
+- else streamed: the Gram is accumulated over ``_STREAM_CHUNK``-row chunks
+  of the padded-CSR planes (``_slab_gram_scatter`` over every column; bf16
+  chunks for binary data);
 - past that, when the float32 [I, I] Gram would pass ``_GRAM_BYTE_LIMIT``,
   column-blocked (:294-388): target columns are built and ranked in slabs of
   ``width`` columns, a [n_cols, width] Gram slab at a time, so the [I, I]
   Gram never exists. The slab is accumulated over the padded-CSR row chunks
-  (the scatter form), or, for binary data whose dense int8 matrix fits
-  ``_INT8_A_BYTE_LIMIT``, read from A kept resident as int8: one int8 x int8
-  -> int32 product a slab (``torch._int_mm``, a library GEMM, where JAX
-  leaves the product to XLA), exact for 0/1 counts. The slab width beside
-  A8 is capped by the device's own memory (the card's total, or the host's
-  for CPU tensors), not by a TPU's. ``export="device"`` raises there, as in
-  JAX.
+  (the scatter form, bf16 for binary data), or, for binary data whose dense
+  int8 matrix fits ``_INT8_A_BYTE_LIMIT``, read from A kept resident as int8:
+  one int8 x int8 -> int32 product a slab (``torch._int_mm``, a library
+  GEMM, where JAX leaves the product to XLA), exact for 0/1 counts. The slab
+  width beside A8 is capped by the device's own memory (the card's total, or
+  the host's for CPU tensors), not by a TPU's. ``export="device"`` raises
+  there, as in JAX.
 
 The 6 GiB and 9 GiB limits are the JAX package's defaults, set on a TPU; an
 H100 measurement of where each route wins is still to make.
@@ -43,10 +52,6 @@ masks the padded candidates to -inf (so that negative similarities still
 rank above them) and ranks its columns; the ranks' candidates are gathered
 over ``model``. No streamed or column-blocked route is taken under such a
 plan, and ``export="device"`` raises there, as in JAX (:577-580, :686-691).
-
-Not ported: JAX's resident-bf16 Gram (:214-236), which gives the streamed
-route's G and was slower than it on an H100 at the one shape measured
-(PERF.md).
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ganmf_tpu_torch.data.device import dense_from_sparse, padded_csr_from_sparse
+from ganmf_tpu_torch.data.device import dense_bf16_from_padded, dense_from_sparse, padded_csr_from_sparse
+from ganmf_tpu_torch.ops.simscore import bf16_mm
 from ganmf_tpu_torch.ops.topk import scatter_col_topk_dense, tiled_topk
 from ganmf_tpu_torch.utils.device import as_device
 
@@ -179,11 +185,15 @@ def _w_block(
     return torch.where(torch.isnan(W), 0.0, W)
 
 
-def _dense_gram(A: torch.Tensor, row_weights: torch.Tensor, gram_rw: bool) -> torch.Tensor:
-    """G = A^T diag(w) A (with row weights, except euclidean's) or A^T A, in
-    float32 with TF32 off (JAX :147-158)."""
+def _dense_gram(A: torch.Tensor, row_weights: torch.Tensor, gram_rw: bool, binary: bool = False) -> torch.Tensor:
+    """G = A^T diag(w) A (with row weights, except euclidean's) or A^T A
+    (JAX :147-158): for binary data one bf16 product with float32
+    accumulation, else float32 with TF32 off."""
     if gram_rw:
         return (row_weights[:, None] * A).T @ A
+    if binary:
+        Ab = A.to(torch.bfloat16)
+        return bf16_mm(Ab.T, Ab)
     return A.T @ A
 
 
@@ -213,27 +223,57 @@ def _padded_planes(X: sps.csr_matrix, row_weights: torch.Tensor, device: torch.d
     return idx_a, val_a, w_pad, ss2
 
 
-def build_route(n_rows: int, n_cols: int, mesh_plan=None) -> str:
+def build_route(n_rows: int, n_cols: int, mesh_plan=None, *, binary: bool = False, row_len: int = 1,
+                device: Optional[torch.device] = None) -> str:
     """The route ``compute_similarity`` takes for an [n_rows, n_cols] input
-    (JAX :577-600): "sharded" under a plan with more than one model rank,
-    else "dense", "streamed" or "colblock" by the byte limits."""
+    (JAX :577-680): "sharded" under a plan with more than one model rank,
+    else "dense", "resident", "streamed" or "colblock" by the byte limits.
+    "resident" is JAX's rule (:655-668) with the device's memory in place of
+    a TPU's: ``binary`` data (JAX's ``bf16_ok``) whose bf16 A, float32 Gram,
+    padded planes (its longest row ``row_len``, at JAX's 8 bytes a slot) and
+    1 GiB fit the ``device``."""
     if mesh_plan is not None and mesh_plan.n_model > 1:
         return "sharded"
     if 4 * n_rows * n_cols <= _DENSE_A_BYTE_LIMIT:
         return "dense"
-    return "colblock" if 4 * n_cols * n_cols > _GRAM_BYTE_LIMIT else "streamed"
+    if 4 * n_cols * n_cols > _GRAM_BYTE_LIMIT:
+        return "colblock"
+    n_rows_pad = -(-n_rows // _STREAM_CHUNK) * _STREAM_CHUNK
+    need = 2 * n_rows_pad * n_cols + 4 * n_cols * n_cols + 8 * n_rows_pad * max(row_len, 1) + (1 << 30)
+    return "resident" if binary and need <= device_memory_bytes(device) else "streamed"
 
 
-def build_gram(X: sps.csr_matrix, row_weights: torch.Tensor, gram_rw: bool, device: torch.device):
-    """(G, ss2, route) of the preprocessed data X by the dense or the
-    streamed route (below ``_GRAM_BYTE_LIMIT``). ss2 is each column's sum of
+def _gram_resident_bf16(Ab: torch.Tensor, chunk: int) -> torch.Tensor:
+    """G = A^T A over the resident dense bf16 A (JAX :214-236), ``chunk``
+    rows at a time: each slice's bf16 product accumulated into the float32
+    G. The row count must be a multiple of ``chunk``."""
+    G = torch.zeros((Ab.shape[1], Ab.shape[1]), dtype=torch.float32, device=Ab.device)
+    for lo in range(0, Ab.shape[0], chunk):
+        D = Ab[lo : lo + chunk]
+        bf16_mm(D.T, D, out=G)
+    return G
+
+
+def build_gram(X: sps.csr_matrix, row_weights: torch.Tensor, gram_rw: bool, device: torch.device,
+               binary: bool = False):
+    """(G, ss2, route) of the preprocessed data X by the dense, resident or
+    streamed route (below ``_GRAM_BYTE_LIMIT``), bf16 products for
+    ``binary`` data (0/1 without row weights). ss2 is each column's sum of
     squares."""
     n_rows, n_cols = X.shape
-    if build_route(n_rows, n_cols) == "dense":
+    binary = binary and not gram_rw
+    row_len = max(int(np.ediff1d(X.indptr).max()) if n_rows else 0, 1)
+    route = build_route(n_rows, n_cols, binary=binary, row_len=row_len, device=device)
+    if route == "dense":
         A = dense_from_sparse(X, device)
-        return _dense_gram(A, row_weights, gram_rw), torch.sum(A * A, dim=0), "dense"
+        return _dense_gram(A, row_weights, gram_rw, binary), torch.sum(A * A, dim=0), route
     idx_a, val_a, w_pad, ss2 = _padded_planes(X, row_weights, device)
-    return _slab_gram_scatter(idx_a, val_a, w_pad, n_cols, 0, n_cols, _STREAM_CHUNK, gram_rw), ss2, "streamed"
+    if route == "resident":
+        Ab = dense_bf16_from_padded(idx_a, val_a, n_cols, _STREAM_CHUNK)
+        del idx_a, val_a  # the padded planes go before the Gram lands
+        return _gram_resident_bf16(Ab, _STREAM_CHUNK), ss2, route
+    G = _slab_gram_scatter(idx_a, val_a, w_pad, n_cols, 0, n_cols, _STREAM_CHUNK, gram_rw, binary)
+    return G, ss2, route
 
 
 def device_memory_bytes(device: torch.device) -> int:
@@ -285,18 +325,24 @@ def _slab_gram_int8(A8t: torch.Tensor, off: int, width: int) -> torch.Tensor:
 
 
 def _slab_gram_scatter(idx, val, w_pad, n_cols: int, off: int, width: int, chunk: int,
-                       gram_rw: bool) -> torch.Tensor:
+                       gram_rw: bool, binary: bool = False) -> torch.Tensor:
     """[n_cols, width] float32 Gram slab G = A^T diag(w) A[:, off:off + width]
     accumulated over padded-CSR row chunks (JAX :176-211, :294-335): each
     chunk is scattered into a [chunk, n_cols] block (pad slots carry the
     sentinel column n_cols and the value 0) and left^T @ T is added, T the
     block's target columns and left = w * D with row weights. The dense
-    [n_rows, n_cols] matrix never exists. Float32 products with TF32 off,
+    [n_rows, n_cols] matrix never exists. ``binary`` data (0/1, no row
+    weights) is scattered in bf16 and multiplied by bf16 products with
+    float32 accumulation, other data in float32 with TF32 off; both are
     exact on 0/1 data. The row count must be a multiple of ``chunk``."""
+    dt = torch.bfloat16 if binary else torch.float32
     G = torch.zeros((n_cols, width), dtype=torch.float32, device=val.device)
     for lo in range(0, idx.shape[0], chunk):
-        D = torch.zeros((chunk, n_cols + 1), dtype=torch.float32, device=val.device)
-        D = D.scatter_add_(1, idx[lo : lo + chunk], val[lo : lo + chunk])[:, :n_cols]
+        D = torch.zeros((chunk, n_cols + 1), dtype=dt, device=val.device)
+        D = D.scatter_add_(1, idx[lo : lo + chunk], val[lo : lo + chunk].to(dt))[:, :n_cols]
+        if binary:
+            bf16_mm(D.T, D[:, off : off + width], out=G)
+            continue
         left = w_pad[lo : lo + chunk, None] * D if gram_rw else D
         G.addmm_(left.T, D[:, off : off + width])
     return G
@@ -320,7 +366,8 @@ def similarity_topk_colblock(X: sps.csr_matrix, row_weights: torch.Tensor, gram_
         if use_int8:
             G = _slab_gram_int8(A8t, off, width)
         else:
-            G = _slab_gram_scatter(idx_a, val_a, w_pad, n_cols, off, width, _STREAM_CHUNK, gram_rw)
+            G = _slab_gram_scatter(idx_a, val_a, w_pad, n_cols, off, width, _STREAM_CHUNK, gram_rw,
+                                   binary and not gram_rw)
         W = _w_block(G, ss2, ss2[off : off + width], off, n_rows, row_weights, mode, **w_kwargs)
         del G
         v, i = tiled_topk(W.T, topk)  # [width, topk] for this slab's columns
@@ -332,14 +379,16 @@ def similarity_topk_colblock(X: sps.csr_matrix, row_weights: torch.Tensor, gram_
 
 
 def similarity_topk_sharded(A: torch.Tensor, row_weights: torch.Tensor, gram_rw: bool, n_rows: int, plan,
-                            *, mode: str, topk: int, **w_kwargs):
+                            *, mode: str, topk: int, binary: bool = False, **w_kwargs):
     """([n_cols, topk] values, [n_cols, topk] ids) of every column, the
     columns split over the plan's model axis (JAX :391-470): this rank's
     target columns [off, off + width) of the zero-padded A (n_cols padded to
     a multiple of n_model) against every candidate, its [n_cols_pad, width]
     Gram block normalized by ``_w_block``, the padded candidates at -inf,
     each column's top ``topk`` (0 where fewer are finite), then gathered
-    over ``model``. A: the whole dense [n_rows, n_cols] data."""
+    over ``model``. A: the whole dense [n_rows, n_cols] data; ``binary``
+    (0/1, no row weights): the Gram block is one bf16 product with float32
+    accumulation (JAX :435-437)."""
     from ganmf_tpu_torch.parallel import comm
     from ganmf_tpu_torch.parallel.mesh import MODEL_AXIS
 
@@ -353,7 +402,12 @@ def similarity_topk_sharded(A: torch.Tensor, row_weights: torch.Tensor, gram_rw:
     width = A.shape[1] // plan.n_model
     off = plan.coords[MODEL_AXIS] * width
     A_blk = A[:, off : off + width]
-    G = (row_weights[:, None] * A).T @ A_blk if gram_rw else A.T @ A_blk  # [n_cols_pad, width]
+    if gram_rw:
+        G = (row_weights[:, None] * A).T @ A_blk  # [n_cols_pad, width]
+    elif binary:
+        G = bf16_mm(A.to(torch.bfloat16).T, A_blk.to(torch.bfloat16))
+    else:
+        G = A.T @ A_blk
     W = _w_block(G, torch.sum(A * A, dim=0), torch.sum(A_blk * A_blk, dim=0), off, n_rows, row_weights, mode,
                  **w_kwargs)
     del G
@@ -453,6 +507,9 @@ def compute_similarity(
         tversky_beta=float(tversky_beta), normalize_avg_row=bool(normalize_avg_row),
         distance_mode=similarity_from_distance_mode, use_row_weights=use_row_weights,
     )
+    # binary data (JAX's bf16_ok, :550-559) takes bf16 products on every
+    # route, and may take the resident route or the colblock's int8 form
+    binary = row_weights is None and bool(X.nnz == 0 or np.all(X.data == 1.0))
     # a plan with more than one model rank takes the sharded dense route, at
     # any size (JAX :577-580)
     route = build_route(n_rows, n_cols, mesh_plan)
@@ -460,17 +517,15 @@ def compute_similarity(
         if export == "device":
             raise ValueError("export='device' materializes [I, I] on one device; use export='csr' with mesh_plan")
         vals, idx = similarity_topk_sharded(dense_from_sparse(X, device), rw, gram_rw, n_rows, mesh_plan,
-                                            **w_kwargs)
+                                            binary=binary, **w_kwargs)
         return csc_from_col_topk(vals, idx, n_cols).tocsr()
     if route == "colblock":
         if export == "device":
             raise ValueError("export='device' materializes [I, I] on one device; the column-blocked "
                              "build exists because that does not fit")
-        # binary data (JAX's bf16_ok, :550-554) may take the int8 form
-        binary = row_weights is None and bool(X.nnz == 0 or np.all(X.data == 1.0))
         vals, idx = similarity_topk_colblock(X, rw, gram_rw, binary, n_rows, device, **w_kwargs)
         return csc_from_col_topk(vals, idx, n_cols).tocsr()
-    G, ss2, _ = build_gram(X, rw, gram_rw, device)
+    G, ss2, _ = build_gram(X, rw, gram_rw, device, binary)
     vals, idx = _similarity_topk_from_gram(G, ss2, rw, n_rows, **w_kwargs)
     del G
     if export == "device":

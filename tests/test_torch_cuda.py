@@ -75,6 +75,12 @@ lists against K1 over every item; in a world of one rank over NCCL,
 bitwise the one-card epoch, without a host synchronization; so too the
 sharded epochs of DisGANMF, CFGAN (dense and csr, K2 and the keyed draw on
 the mesh path) and CAAE (dedup, K2 on the mesh path).
+JAX's bf16 similarity routes: ``bf16_mm`` keeps float32 outputs and
+accumulates in place; the Gram of 0/1 data by bf16 products on the dense,
+resident and streamed routes bitwise the float32 Gram and the CPU's; the
+split-plane scoring product within rtol 1e-5 / atol 1e-7 of the CPU's, ids
+equal but at near ties. The graft entry point ``entry()`` on the card,
+eager and under torch.compile, within rtol 1e-5 of the CPU's losses.
 """
 
 import numpy as np
@@ -1461,3 +1467,74 @@ def test_ease_r_topk_sharded_in_a_world_of_one_matches_the_card(cuda, world_of_o
     assert torch.equal((got != 0).sum(0), (want != 0).sum(0))
     both = (got != 0) & (want != 0)
     torch.testing.assert_close(got[both], want[both], rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+# -- JAX's bf16 similarity routes and the graft entry points ----------------------
+
+def test_bf16_products_on_card_keep_float32_outputs(cuda):
+    """``bf16_mm`` on the card (``torch.mm``/``addmm`` with
+    ``out_dtype=torch.float32``): a float32 result that no bf16 output could
+    hold, and the in-place accumulation into a float32 G."""
+    from ganmf_tpu_torch.ops.simscore import bf16_mm
+
+    a = torch.ones((3, 601), dtype=torch.bfloat16, device=cuda)
+    s = bf16_mm(a, a.T)
+    assert s.dtype == torch.float32 and bool((s == 601.0).all())
+    G = torch.ones((3, 3), device=cuda)
+    assert bf16_mm(a, a.T, out=G).data_ptr() == G.data_ptr() and bool((G == 602.0).all())
+
+
+@pytest.mark.parametrize("route", ["dense", "resident", "streamed"])
+def test_bf16_gram_routes_on_card_are_bitwise(cuda, route, monkeypatch):
+    """The Gram of 0/1 data by bf16 products on each single-card route,
+    bitwise the card's float32 Gram and the CPU's bf16 one."""
+    from ganmf_tpu_torch.ops import similarity as psim
+
+    train, _ = _sim_split(binary=True)
+    ones_c, ones = torch.ones(train.shape[0], device=cuda), torch.ones(train.shape[0])
+    want, _, _ = psim.build_gram(train, ones_c, False, cuda)
+    monkeypatch.setattr(psim, "_STREAM_CHUNK", 64)
+    if route != "dense":
+        monkeypatch.setattr(psim, "_DENSE_A_BYTE_LIMIT", 1)
+    if route == "streamed":
+        monkeypatch.setattr(psim, "device_memory_bytes", lambda device: 1 << 30)
+    G, _, got = psim.build_gram(train, ones_c, False, cuda, True)
+    Gp, _, _ = psim.build_gram(train, ones, False, torch.device("cpu"), True)
+    assert got == route and G.dtype == torch.float32
+    assert torch.equal(G, want) and torch.equal(G.cpu(), Gp)
+
+
+def test_plane_scoring_on_card_matches_cpu(cuda):
+    """The split-plane product on the card against the CPU's plain version
+    from the same planes: values within rtol 1e-5 / atol 1e-7, ids equal but
+    at near ties of the card's scores."""
+    from ganmf_tpu_torch.ops.simscore import masked_topk_matmul, plane_product, split_bf16_planes
+
+    rng = np.random.RandomState(4)
+    rows = torch.from_numpy((rng.rand(256, 3000) < 0.02).astype(np.float32)).to(torch.bfloat16)
+    W = torch.from_numpy((rng.rand(3000, 3000) * (rng.rand(3000, 3000) < 0.05)).astype(np.float32))
+    planes = split_bf16_planes(W.to(cuda))
+    pairs = torch.zeros((256, 1), dtype=torch.int64)
+    v, i, _, _ = masked_topk_matmul(rows.to(cuda), planes, None, pairs.to(cuda), 50, mask_from_rows=True)
+    pv, pi, _, _ = masked_topk_matmul(rows, tuple(p.cpu() for p in planes), None, pairs, 50, mask_from_rows=True)
+    v, i = v.cpu(), i.cpu()
+    fin = torch.isfinite(pv)
+    assert torch.equal(torch.isfinite(v), fin)
+    torch.testing.assert_close(v[fin], pv[fin], rtol=RTOL, atol=ATOL)
+    scores = plane_product(rows.to(cuda), planes).masked_fill(rows.to(cuda) != 0, float("-inf")).cpu()
+    diff = (i != pi) & fin
+    sa, sb = torch.gather(scores, 1, i)[diff], torch.gather(scores, 1, pi)[diff]
+    assert bool(((sa - sb).abs() <= RTOL * sb.abs() + ATOL).all())
+
+
+def test_graft_entry_on_card_eager_and_compiled(cuda):
+    """``entry()``'s losses on the card, eagerly and under torch.compile,
+    within rtol 1e-5 of the CPU's."""
+    from ganmf_tpu_torch import graft
+
+    fn, args = graft.entry()
+    cpu_fn, cpu_args = graft.entry(device="cpu")
+    want = torch.stack([x.detach() for x in cpu_fn(*cpu_args)])
+    for f in (fn, torch.compile(fn)):
+        got = torch.stack([x.detach() for x in f(*args)]).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

@@ -50,14 +50,14 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
     # the host engine, the debug and profiling utilities and the mesh
     # layer (parallel.comm, parallel.mesh, parallel.distributed,
     # parallel.adversarial, parallel.baselines) and the distributed
-    # Cholesky (ops.distchol) among them
-    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 58, r.stdout
+    # Cholesky (ops.distchol), and the graft entry points (graft) among them
+    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 59, r.stdout
     names = set(r.stdout.split("NAMES")[1].split())
     for module in ("models.mf_sgd", "models.irgan", "models.extras", "utils.analysis", "utils.timing",
                    "eval.significance", "cli.describe", "cli.ablation", "cli.mf_learned",
                    "ops.keyed", "ops.host", "utils.debug", "utils.profiling",
                    "parallel.comm", "parallel.mesh", "parallel.distributed", "parallel.adversarial",
-                   "parallel.baselines", "ops.distchol", "data.synthetic", "cli.scale20m"):
+                   "parallel.baselines", "ops.distchol", "data.synthetic", "cli.scale20m", "graft"):
         assert f"ganmf_tpu_torch.{module}" in names, module
 
 

@@ -166,6 +166,8 @@ def low_limits(monkeypatch):
         monkeypatch.setattr(mod, "_PAD_PLANE_BYTE_LIMIT", 1)
     for mod in (jsim, psim):
         monkeypatch.setattr(mod, "_DENSE_A_BYTE_LIMIT", 1)
+    # the resident Gram's rule reads the device's memory where JAX reads a TPU's
+    monkeypatch.setattr(psim, "device_memory_bytes", lambda device: jsim._CHIP_HBM_BYTES)
 
 
 def assert_metrics_close(got, want, tol):
@@ -191,7 +193,8 @@ def _check_row(row, results, ev, tol):
     assert row["eval_s"] > 0 and row["fit_s"] > 0 and row["peak_gib"] is None  # no device memory on the CPU
 
 
-def test_toppop_and_itemknn_match_jax(stand_in, low_limits):
+def test_toppop_and_itemknn_match_jax(stand_in, low_limits, monkeypatch):
+    jax_resident = jsim._gram_resident_bf16
     _, split, _ = stand_in
     ev, jev = _evaluators(split, scale20m.CUTOFFS)
     row, model = scale20m.toppop(split, ev, CPU)
@@ -202,10 +205,15 @@ def test_toppop_and_itemknn_match_jax(stand_in, low_limits):
     assert "RMSE" not in row and row["route"] == "dense ranking"
     assert_metrics_close(ev.evaluateRecommender(model)[0], want, tol=1e-6)
 
+    resident = []
+    monkeypatch.setattr(jsim, "_gram_resident_bf16", lambda *a, **k: resident.append(1) or jax_resident(*a, **k))
     row, model = scale20m.itemknn(split, ev, CPU)
-    assert row["route"] == "streamed" and 4 * split.train.shape[0] * split.train.shape[1] > jsim._DENSE_A_BYTE_LIMIT
+    assert row["route"] == "resident bf16 Gram, float32 scoring"
+    assert 4 * split.train.shape[0] * split.train.shape[1] > jsim._DENSE_A_BYTE_LIMIT
+    assert row["gram_peak"] == "bf16" and row["gram_peak_share"] > 0
     jm = JaxItemKNN(split.train)
     jm.fit(**scale20m.ITEMKNN_PARAMS)
+    assert resident  # JAX's build took the resident route too
     want, _ = jev.evaluateRecommender(jm)
     _check_row(row, want, ev, 1e-6)
     assert row["gram_flop"] == 2.0 * 2048 * split.train.shape[1] ** 2  # the rows padded to one chunk
