@@ -246,6 +246,7 @@ Phases, in order; any failure exits nonzero:
     world_size 1, make_mesh()): IALS at the committed LastFM params (K=130)
     on the LastFM-shaped split, dense and then csr with the flat route
     forced, MF-SGD BPR at the JAX fit's defaults on the ML-1M-shaped split
+    (its epoch cut to MESH_MF_SGD_SAMPLES draws, a quarter of the default)
     and SLIM-BPR at phase 19's params, one epoch each with the plan, held
     against the one-card fit from the same state and draws (IALS dense
     within rtol 2e-4 / atol 2e-6, flat csr bitwise, MF-SGD within 1e-5,
@@ -301,7 +302,27 @@ Phases, in order; any failure exits nonzero:
     the card, eagerly and under torch.compile, each within rtol 1e-5 of the
     CPU's, then dryrun_multichip(8) as 8 gloo ranks sharing the card, its
     wall; no kernel of the repo launched in phases 40-41;
-42. print one JSON line with every kernel's launches (by path), error, times
+42. training past the card's memory (ganmf_tpu_torch/cli/beyond_hbm.py, the
+    counterpart of scripts/beyond_hbm_demo.py): on the JAX script's
+    synthetic URM at 262,144 x 131,072 with 100 draws a user (about 26.2M
+    interactions; 128 GiB as a dense float32 URM, past the card's 80 GB),
+    one csr epoch each of GANMF, CFGAN and IALS through fit at the script's
+    settings: each fit's walls, storage and peak device memory, which must
+    stay under 16 GiB (a bool [U, I] mask alone would take 32), its tensors
+    finite; K2 and the keyed draw launched once a CFGAN G minibatch (2048
+    each, K2 on its streamed-row route) and by no other fit; then the keyed
+    draw and K2 on CFGAN's first G minibatch, [128, 131072], each bitwise its
+    plain version and timed beside its bound, with the rows' tied keys and
+    K2's tie cuts counted (DisGANMF and MF-BPR: scripts/torch_beyond_hbm.py);
+43. serving latency (ganmf_tpu_torch/cli/serving_latency.py, the counterpart
+    of scripts/serving_latency.py): p50 and p99 of recommend(cutoff=20) at
+    b=1 (200 calls) and b=32 (100 calls) for PureSVD (K=50) and GANMF (K=64,
+    emb_dim 128, 2 epochs) on the ML-1M- and LastFM-shaped splits, every
+    timed list equal to an untimed call's, K1's fused kernel launched on
+    every timed call and its wide pair never; then K1 fused at each model's
+    B=1 and B=32 shapes against its plain version, timed beside the library
+    composition and its bound (ItemKNN: scripts/torch_serving_latency.py);
+44. print one JSON line with every kernel's launches (by path), error, times
     and bound (K1's two forms as entries of their own, and the keyed draw,
     which replaces no TPU kernel), then the card line, then the result line.
 
@@ -500,23 +521,17 @@ def fail(msg):
 def ml1m_split():
     """The ML-1M-shaped synthetic split of bench.py: 6040 x 3706, density
     0.0446, 80/20 train/test, numpy seed 0."""
-    import scipy.sparse as sps
+    from ganmf_tpu_torch.data.synthetic import ml1m_shaped_split
 
-    rng = np.random.RandomState(0)
-    dense = (rng.rand(6040, 3706) < 0.0446).astype(np.float32)
-    mask = rng.rand(6040, 3706) < 0.8
-    return sps.csr_matrix(dense * mask), sps.csr_matrix(dense * ~mask)
+    return ml1m_shaped_split()
 
 
 def lastfm_split():
     """A LastFM-shaped synthetic split (BASELINE.md:11): 1884 x 17632,
     density 0.00279, 80/20 train/test, numpy seed 0."""
-    import scipy.sparse as sps
+    from ganmf_tpu_torch.data.synthetic import lastfm_shaped_split
 
-    rng = np.random.RandomState(0)
-    dense = (rng.rand(1884, 17632) < 0.00279).astype(np.float32)
-    mask = rng.rand(1884, 17632) < 0.8
-    return sps.csr_matrix(dense * mask), sps.csr_matrix(dense * ~mask)
+    return lastfm_shaped_split()
 
 
 def card_line():
@@ -3761,6 +3776,10 @@ def phase_gan_mesh_gloo(dev, card, refs):
 #: at the JAX fit's defaults on the ML-1M-shaped split (phase 22), SLIM-BPR at
 #: phase 19's params
 BASELINE_MESH_FITS = ("IALS dense", "IALS flat csr", "MF-SGD BPR", "SLIM-BPR")
+# MF-SGD's mesh epoch (one-card reference and mesh alike) draws a quarter of
+# the default max(U, nnz / 4) samples: on 4 gloo ranks each chunk pays two
+# host-staged collectives, and the whole epoch took 17 s of phase 38
+MESH_MF_SGD_SAMPLES = 50_000
 BASELINE_MESH_RANK_TIMEOUT = 600  # phase 38's ranks: four fits, three evaluations, EASE-R, ItemKNN
 EASE_MESH_RTOL, EASE_MESH_ATOL_SHARE = 1e-4, 1e-5  # tests/test_torch_extras.py's bound on a pruned W
 
@@ -3786,7 +3805,7 @@ def baseline_mesh_fit(name, train, test, dev, plan):
         params = dict(ials_best_params(), urm_storage="csr" if "csr" in name else "dense")
     elif name.startswith("MF-SGD"):
         model = models.MatrixFactorization_BPR(train, device=dev)
-        params = dict(MF_SGD_PARAMS)
+        params = dict(MF_SGD_PARAMS, samples_per_epoch=MESH_MF_SGD_SAMPLES)
     else:
         model = models.SLIM_BPR(train, device=dev)
         params = similarity_best_params("SLIM_BPR_Recommender__LastFM")
@@ -4581,6 +4600,196 @@ def phase_graft(dev, card):
           f"{time.perf_counter() - t0:.2f} s wall (the ranks' start-up included)  [{card}]")
 
 
+# -- phase 42: training past the card's memory (ganmf_tpu_torch/cli/beyond_hbm.py) -
+
+BEYOND_SHAPE = (262144, 131072, 100)  # users, items, draws a user: 128 GiB as a dense float32 URM
+BEYOND_MODELS = ("ganmf", "cfgan", "ials")  # DisGANMF and MF-BPR: scripts/torch_beyond_hbm.py
+BEYOND_K2_ROWS = 128  # CFGAN's G minibatch at the JAX script's settings
+K2_SMEM_MAX_COLS = 56320  # K2 holds a row in shared memory up to this width (csrc/select.cu kSmemMaxCols)
+
+
+def phase_beyond_hbm(dev, card):
+    """Phase 42: one csr epoch each of GANMF, CFGAN and IALS through ``fit``
+    at scripts/beyond_hbm_demo.py's settings (``cli.beyond_hbm``'s stages) on
+    a ``synthetic_urm`` of BEYOND_SHAPE, whose dense float32 form is past the
+    card's memory: each fit's walls, storage and peak device memory (under
+    the module's PEAK_BOUND_GIB, 16: half a bool [U, I] mask), its tensors
+    finite; K2 and the keyed draw launched once a CFGAN G minibatch and by
+    no other fit. Returns (the URM, CFGAN's expected launches)."""
+    import torch
+
+    from ganmf_tpu_torch.cli import beyond_hbm
+    from ganmf_tpu_torch.data.synthetic import synthetic_urm
+    from ganmf_tpu_torch.ops import keyed, select
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    t0 = time.perf_counter()
+    train = synthetic_urm(*BEYOND_SHAPE)
+    U, I = train.shape
+    print(f"[42] training past the card's memory: {U} x {I}, {train.nnz} interactions (synthetic_urm, "
+          f"{BEYOND_SHAPE[2]} uniform draws a user, numpy seed 0; {time.perf_counter() - t0:.2f} s); dense "
+          f"float32 {4 * U * I / 2**30:.0f} GiB, a bool mask {U * I / 2**30:.0f} GiB, the card's "
+          f"{total / 2**30:.1f} GiB; one csr epoch each through fit at scripts/beyond_hbm_demo.py's settings")
+    expected, _, _ = expected_csr_draws(dict(beyond_hbm.CFGAN_PARAMS, d_steps=1, g_steps=1), U)
+    for name in BEYOND_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        k2, drawn, t0 = select.LAUNCHES, keyed.LAUNCHES, time.perf_counter()
+        if name == "ials":
+            row, detail, model = beyond_hbm.ials(train, dev, card, timed_epochs=0)
+            tensors = [model._U_dev, model._V_dev]
+            extra = (f"; chunks of {detail['chunks'][0]} users and {detail['chunks'][1]} items, "
+                     f"{detail['cg_reads']} host reads of CG's exit test")
+        else:
+            row, detail, model = getattr(beyond_hbm, name)(train, dev, card, epochs=1)
+            tensors, extra = list(model.params.parameters()), ""
+        wall = time.perf_counter() - t0
+        k2, drawn = select.LAUNCHES - k2, keyed.LAUNCHES - drawn
+        want = expected if name == "cfgan" else 0
+        if k2 != want or drawn != want:
+            fail(f"beyond HBM {name}: K2 launched {k2} times and the keyed draw {drawn}, expected {want} each")
+        if not row["peak_gib"] < beyond_hbm.PEAK_BOUND_GIB:
+            fail(f"beyond HBM {name}: peak device memory {row['peak_gib']:.3f} GiB, not under "
+                 f"{beyond_hbm.PEAK_BOUND_GIB}")
+        if not all(bool(torch.isfinite(t).all()) for t in tensors):
+            fail(f"beyond HBM {name}: a trained tensor is not finite")
+        print(f"  {row['bench']}: storage {row['storage']}; epoch {detail['epoch_walls'][0]:.3f} s, fit "
+              f"{detail['fit_s']:.3f} s ({wall:.3f} s with the model's set-up); peak {row['peak_gib']:.3f} GiB, "
+              f"under {beyond_hbm.PEAK_BOUND_GIB}; K2 {k2} and the keyed draw {drawn} launches{extra}  [{card}]")
+        del model, tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train, expected
+
+
+def phase_beyond_hbm_kernels(dev, card, train):
+    """K2 and the keyed draw at [BEYOND_K2_ROWS, I] on CFGAN's first G
+    minibatch at phase 42's shape (seed 1, epoch 1, the ZR stream; +inf at
+    the interactions, k = int(n_zeros * zr_ratio) in float32): each bitwise
+    its plain version, timed beside its bound; the rows' tied keys and the
+    rows whose k-th key ties (K2's tie cut) counted. Returns (K2's times,
+    the keyed draw's times) by shape."""
+    import torch
+
+    from ganmf_tpu_torch.cli import beyond_hbm
+    from ganmf_tpu_torch.data.device import padded_csr_from_sparse, padded_rows_dense
+    from ganmf_tpu_torch.models.cfgan import ZR_STREAM
+    from ganmf_tpu_torch.ops import _build, keyed
+    from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
+    from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
+
+    R, I = BEYOND_K2_ROWS, train.shape[1]
+    seed, ratio = beyond_hbm.SEED, beyond_hbm.CFGAN_PARAMS["zr_ratio"]
+    rows = torch.arange(R, device=dev)
+    cond = padded_rows_dense(padded_csr_from_sparse(train[:R], dev), rows, I)
+    u = keyed.keyed_uniforms_cuda(seed, 1, ZR_STREAM, rows, I)
+    if not torch.equal(u, keyed.keyed_uniforms_reference(seed, 1, ZR_STREAM, rows, I)):
+        fail(f"beyond HBM: the keyed draw at [{R}, {I}] differs from its plain version")
+    lib, stream, out = _build.load_library(), _build.stream_handle(dev), torch.empty_like(u)
+    k0, k1 = keyed.key_halves(seed)
+
+    def launch():
+        _build.check(lib, lib.ganmf_keyed_uniforms(rows.data_ptr(), R, I, k0, k1, 1, ZR_STREAM, out.data_ptr(),
+                                                   stream), "chip_smoke: keyed draw launch")
+
+    kt = {"ms": cuda_ms(lambda: keyed.keyed_uniforms_cuda(seed, 1, ZR_STREAM, rows, I)), "launch_ms": cuda_ms(launch),
+          "plain_ms": cuda_ms(lambda: keyed.keyed_uniforms_reference(seed, 1, ZR_STREAM, rows, I), reps=5),
+          "library_ms": None}
+    kt["bound_ms"], kt["bound_by"] = bound(0, 4 * R * I + 8 * R)
+    print(f"  keyed draw [{R}, {I}] (CFGAN's G minibatch): bitwise equal; {kt['ms']:.4f} ms through the wrapper, "
+          f"{kt['launch_ms']:.4f} ms the launch alone, plain {kt['plain_ms']:.4f} ms, bound {kt['bound_ms']:.4f} ms "
+          f"({kt['bound_by']}), {100 * kt['bound_ms'] / kt['launch_ms']:.1f}% of it  [{card}]")
+
+    # negative_mask's keys and k (models/cfgan.py)
+    interacted = cond != 0
+    keys = torch.where(interacted, float("inf"), u)
+    k = ((~interacted).sum(1).to(torch.float32) * float(ratio)).to(torch.int32)
+    got = smallest_k_mask_cuda(keys, k)
+    n_diff = int((got != smallest_k_mask_reference(keys, k)).sum())
+    if n_diff:
+        fail(f"beyond HBM: K2 at [{R}, {I}] differs from its plain version in {n_diff} entries")
+    if not torch.equal(got.sum(1), k.long()):
+        fail(f"beyond HBM: a row of K2's mask at [{R}, {I}] does not hold k entries")
+    ordered = torch.sort(keys, dim=1).values
+    tied = int((ordered[:, 1:] == ordered[:, :-1]).logical_and(torch.isfinite(ordered[:, 1:])).sum())
+    kth = ordered.gather(1, (k.long() - 1).clamp(min=0)[:, None])
+    cut = int(((k > 0) & ((keys == kth).sum(1) > k - (keys < kth).sum(1))).sum())
+    t = time_k2(keys, k)
+    route = "streamed-row" if I > K2_SMEM_MAX_COLS else "shared-memory"
+    print(f"  K2 [{R}, {I}] on those keys (its {route} route): bitwise equal, every row count = k; "
+          f"{tied} keys equal to a smaller neighbour, {cut} of {R} rows cut at a tied k-th key; {t['ms']:.4f} ms "
+          f"through the wrapper, {t['launch_ms']:.4f} ms the launch alone; plain {t['plain_ms']:.4f} ms; bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['launch_ms']:.1f}% of it  [{card}]")
+    shape = f"beyond HBM [{R}, {I}]"
+    return {shape: t}, {shape: kt}
+
+
+# -- phase 43: serving latency (ganmf_tpu_torch/cli/serving_latency.py) ------------
+
+SERVING_FAMILIES = ("MF", "GANMF")  # ItemKNN (the dense route): scripts/torch_serving_latency.py
+SERVING_K1_BATCHES = (1, 32)
+
+
+def phase_serving_latency(dev, card):
+    """Phase 43: p50 and p99 of ``recommend(cutoff=20)`` at b=1 and b=32 for
+    PureSVD (K=50) and GANMF (K=64, 2 epochs) on the ML-1M- and LastFM-shaped
+    splits (``cli.serving_latency``'s settings and measure: every timed list
+    equal to an untimed call's, K1's fused kernel launched on every timed
+    call and its wide pair never). Returns the models by (dataset, family)."""
+    import torch
+
+    from ganmf_tpu_torch.cli import serving_latency
+
+    print(f"[43] serving latency: p50 and p99 of recommend(cutoff={serving_latency.CUTOFF}) at b=1 "
+          f"({serving_latency.N_SINGLE} calls) and b={serving_latency.BATCH} ({serving_latency.N_BATCH} calls) "
+          f"for {', '.join(SERVING_FAMILIES)} on the ML-1M- and LastFM-shaped splits")
+    models = {}
+    for ds, split in (("1M", ml1m_split), ("LastFM", lastfm_split)):
+        train, _ = split()
+        for family in SERVING_FAMILIES:
+            t0 = time.perf_counter()
+            model = serving_latency.fit_family(family, train, dev)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            rows = serving_latency.measure(model, family, ds, train.shape[0], dev, card,
+                                           log=lambda line: print("  " + line))
+            for r in rows:
+                if not (0 < r["p50_ms"] <= r["p99_ms"] < float("inf")):
+                    fail(f"serving latency {r['name']}: p50 {r['p50_ms']} and p99 {r['p99_ms']} ms")
+                if r["k1_fused_launches"] < r["n"] or r["k1_wide_launches"]:
+                    fail(f"serving latency {r['name']}: K1 fused {r['k1_fused_launches']} and wide "
+                         f"{r['k1_wide_launches']} launches over {r['n']} timed calls")
+            print(f"    {family} on {ds}: fit {fit_s:.3f} s; K1 fused launches over the timed calls "
+                  f"{rows[0]['k1_fused_launches']} (b=1) and {rows[1]['k1_fused_launches']} "
+                  f"(b={serving_latency.BATCH}), wide 0; every timed list equal to an untimed call's")
+            models[ds, family] = model
+    return models
+
+
+def phase_serving_kernels(dev, card, models):
+    """K1's fused kernel at the latency path's shapes (B=1 and B=32, k=20, on
+    each model's factors and seen rows), held against its plain version and
+    timed beside the library composition and its bound. Returns (the largest
+    error, the times by shape)."""
+    import torch
+
+    from ganmf_tpu_torch.cli import serving_latency
+
+    k, worst, times = serving_latency.CUTOFF, 0.0, {}
+    for (ds, family), model in models.items():
+        U, V, _ = model._factors_device()
+        rng = np.random.RandomState(0)
+        for B in SERVING_K1_BATCHES:
+            users = torch.from_numpy(rng.randint(0, model.n_users, size=B)).to(dev)
+            Ub, mask = U.index_select(0, users).contiguous(), model._exclusion_mask(users, True)
+            label = f"serving latency {family} {ds}"
+            worst = max(worst, compare_k1(label, Ub, V, mask, k))
+            t = times[f"{label}: B={B} K={U.shape[1]} I={V.shape[0]} k={k}"] = time_k1(Ub, V, mask, k)
+            print(f"    {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}), bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of it  [{card}]")
+    return worst, times
+
+
 def main():
     import torch
 
@@ -4834,12 +5043,43 @@ def main():
     no_kernel(lambda: phase_bf16_routes(dev, card), "bf16 similarity routes")
     no_kernel(lambda: phase_graft(dev, card), "graft entry points")
     shutil.rmtree(SCRATCH)
+    # training past the card's memory (phase 42), its counts set to 0 just
+    # before its fits and read just after; the kernel comparisons come after
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+    beyond_urm, beyond_expected = phase_beyond_hbm(dev, card)
+    beyond_k2, beyond_keyed = select.LAUNCHES, keyed.LAUNCHES
+    if beyond_k2 != beyond_expected or beyond_keyed != beyond_expected or scorer.LAUNCHES:
+        fail(f"the beyond-HBM path launched K2 {beyond_k2} times and the keyed draw {beyond_keyed} times "
+             f"(CFGAN's G minibatches: {beyond_expected}) and K1 {scorer.LAUNCHES} times")
+    print(f"  launches on the beyond-HBM path: K2 {beyond_k2}, keyed draw {beyond_keyed} (one a CFGAN G "
+          f"minibatch), K1 0")
+    beyond_k2_times, beyond_keyed_times = phase_beyond_hbm_kernels(dev, card, beyond_urm)
+    del beyond_urm
+    elapsed("beyond the card's memory")
+    # serving latency (phase 43), its counts set to 0 just before it and read
+    # just after
+    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+    latency_models = phase_serving_latency(dev, card)
+    latency_wide, latency_merge = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES
+    latency_fused = scorer.LAUNCHES - latency_wide
+    if latency_fused == 0 or latency_wide or select.LAUNCHES or keyed.LAUNCHES:
+        fail(f"the serving-latency path launched K1's fused kernel {latency_fused} times, its wide pair "
+             f"{latency_wide} times and K2 {select.LAUNCHES} times")
+    print(f"  launches on the serving-latency path: K1 fused {latency_fused} (merge pass {latency_merge}), "
+          f"wide pair 0, K2 0")
+    latency_err, latency_times = phase_serving_kernels(dev, card, latency_models)
+    k1_err = max(k1_err, latency_err)
+    fused.update(latency_times)
+    del latency_models
+    elapsed("serving latency")
 
     eval_shape, *other_shapes = fused
     wide_shape, *wide_others = wide
     k2_times.update(k2_csr_times)  # K2 at the csr storage's minibatch shapes too
     k2_times.update(k2_mesh_times)  # and at a data rank's shapes on phase 36's mesh
     k2_times.update(m20s_k2_times)  # and at CFGAN's minibatch on the ML-20M stand-in's rows
+    k2_times.update(beyond_k2_times)  # and on its streamed-row route past the card's memory
+    keyed_times.update(beyond_keyed_times)
     k2_shape, *k2_others = k2_times
     # each path's counts were set to 0 just before it and read just after; a
     # kernel's launches are the sum over the paths it carries
@@ -4857,6 +5097,10 @@ def main():
     k2_by_path["ML-20M stand-in"] = m20s_k2
     keyed_by_path["ML-20M stand-in"] = m20s_keyed
     merge_launches += m20s_merge
+    k2_by_path["beyond HBM"] = beyond_k2
+    keyed_by_path["beyond HBM"] = beyond_keyed
+    fused_by_path["serving latency"] = latency_fused
+    merge_launches += latency_merge
     for where, counts in (("one rank over NCCL", gan_nccl), ("4 gloo ranks on the card", gan_gloo)):
         for name, (n_k1, n_k2, n_keyed) in counts.items():
             if n_k1:

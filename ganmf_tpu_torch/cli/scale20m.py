@@ -274,12 +274,28 @@ def puresvd(split: SplitSet, ev, device, omega=None, **overrides):
                serve_users_per_s=m.n_users / serve[-1]), m
 
 
+def ials_storage(m) -> Dict[str, str]:
+    """Each orientation's storage ("padded" or "flat") of an IALS model fit
+    on csr storage; raises RouteError where it is not the one JAX's rule
+    gives (padded planes of 8 bytes a slot past ``_PAD_PLANE_BYTE_LIMIT``
+    take flat CSR, ganmf_tpu/models/ials.py:333-347)."""
+    from ganmf_tpu_torch.models import ials as ials_mod
+
+    kinds = {}
+    for name, csr in (("users", m.URM_train), ("items", m.URM_train.T.tocsr())):
+        L = max(int(np.ediff1d(csr.indptr).max()) if csr.shape[0] else 0, 1)
+        want = "flat" if 8 * csr.shape[0] * L > ials_mod._PAD_PLANE_BYTE_LIMIT else "padded"
+        kinds[name] = getattr(m, f"_store_{name}")[0]
+        if kinds[name] != want:
+            raise RouteError(f"IALS's {name} took {kinds[name]} storage where JAX's rule gives {want}")
+    return kinds
+
+
 def ials(split: SplitSet, ev, device, **overrides):
     """IALS on csr storage, then one timed ``_run_epoch`` (bench.py:227-237).
     Each orientation's storage is the one JAX's rule picks, and at least one
     is flat CSR, the form a head-heavy orientation takes at scale."""
     from ganmf_tpu_torch.models import IALSRecommender
-    from ganmf_tpu_torch.models import ials as ials_mod
 
     params = dict(IALS_PARAMS, **overrides)
     begin(device)
@@ -287,13 +303,7 @@ def ials(split: SplitSet, ev, device, **overrides):
     t0 = time.perf_counter()
     m.fit(**params)
     fit_s = stop_clock(device, m._U_dev.sum()) - t0
-    kinds = {}
-    for name, csr in (("users", split.train), ("items", split.train.T.tocsr())):
-        L = max(int(np.ediff1d(csr.indptr).max()), 1)
-        want = "flat" if 8 * csr.shape[0] * L > ials_mod._PAD_PLANE_BYTE_LIMIT else "padded"
-        kinds[name] = getattr(m, f"_store_{name}")[0]
-        if kinds[name] != want:
-            raise RouteError(f"IALS's {name} took {kinds[name]} storage where JAX's rule gives {want}")
+    kinds = ials_storage(m)
     if "flat" not in kinds.values():
         raise RouteError(f"IALS took no flat-CSR storage ({kinds})")
     t0 = time.perf_counter()

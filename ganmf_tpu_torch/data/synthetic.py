@@ -15,6 +15,13 @@ cluster boosts its ~418-item slice 60x), log-normal user activity clipped to
 [20, 1600], and ratings in {0.5, ..., 5.0} skewed toward 3.5-4.5. It lands
 where ``Movielens("20M")`` looks before it would download:
 ``<data_dir>/ml-20m/ratings.csv``.
+
+``synthetic_urm`` is the uniform 0/1 URM of scripts/beyond_hbm_demo.py:30-40
+(``per_user`` uniform item draws a user, duplicates merged), copied with its
+``RandomState`` call order. ``ml1m_shaped_split`` and ``lastfm_shaped_split``
+are the 0/1 train/test splits of bench.py:49-66's form (numpy seed 0, a
+Bernoulli matrix at the dataset's density, 80/20) that stand in for the
+reference splits, which are absent from the repository.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import os
 import time
 
 import numpy as np
+import scipy.sparse as sps
 
 N_USERS = 138_493
 N_ITEMS = 26_744
@@ -176,3 +184,34 @@ def synthesize(path: str, seed: int = SEED, verbose: bool = True, *, n_users: in
     if log:
         log(f"done: {len(users):,} ratings, {os.path.getsize(path) / 1e6:.0f} MB, {time.perf_counter() - t0:.1f} s")
     return path
+
+
+def synthetic_urm(u: int, i: int, per_user: int, seed: int = 0) -> sps.csr_matrix:
+    """A ``u`` x ``i`` float32 0/1 CSR matrix of ``per_user`` uniform item
+    draws a user, duplicates merged to 1 (scripts/beyond_hbm_demo.py:30-40)."""
+    rng = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(u, dtype=np.int64), per_user)
+    cols = rng.randint(0, i, size=u * per_user).astype(np.int64)
+    mat = sps.csr_matrix((np.ones(u * per_user, np.float32), (rows, cols)), shape=(u, i))
+    mat.sum_duplicates()
+    mat.data[:] = 1.0
+    return mat
+
+
+def shaped_split(n_users: int, n_items: int, density: float):
+    """(train, test) float32 CSR of a Bernoulli(``density``) 0/1 matrix,
+    each entry in train with probability 0.8 (numpy seed 0, bench.py:49-66)."""
+    rng = np.random.RandomState(0)
+    dense = (rng.rand(n_users, n_items) < density).astype(np.float32)
+    mask = rng.rand(n_users, n_items) < 0.8
+    return sps.csr_matrix(dense * mask), sps.csr_matrix(dense * ~mask)
+
+
+def ml1m_shaped_split():
+    """The ML-1M-shaped split: 6040 x 3706, density 0.0446."""
+    return shaped_split(6040, 3706, 0.0446)
+
+
+def lastfm_shaped_split():
+    """The LastFM-shaped split (BASELINE.md:11): 1884 x 17632, density 0.00279."""
+    return shaped_split(1884, 17632, 0.00279)

@@ -62,12 +62,9 @@ CUTOFFS = [5, 10, 20, 50]
 
 def ml1m_split():
     """bench.py:49-66's synthetic split: 6040 x 3706, density 0.0446, 80/20."""
-    import scipy.sparse as sps
+    from ganmf_tpu_torch.data.synthetic import ml1m_shaped_split
 
-    rng = np.random.RandomState(0)
-    dense = (rng.rand(6040, 3706) < 0.0446).astype(np.float32)
-    mask = rng.rand(6040, 3706) < 0.8
-    return sps.csr_matrix(dense * mask), sps.csr_matrix(dense * ~mask)
+    return ml1m_shaped_split()
 
 
 def timed_runs(fn, warm=WARM, reps=REPS):

@@ -64,7 +64,10 @@ max|B|; K1 at the shapes these models' evaluations and `recommend` give it.
 The keyed per-row draw of CFGAN's csr storage bitwise its
 plain version (and not synchronizing); one CFGAN csr epoch in both modes,
 card against CPU (the keyed masks bitwise, parameters within the Adam bound,
-K2 and the keyed draw launched once a minibatch for each mask drawn); the
+K2 and the keyed draw launched once a minibatch for each mask drawn); past
+the card's memory: K2's streamed-row route at [128, 65536] and [128, 131072]
+on keyed-draw keys with ties bitwise its plain version, and CFGAN's csr
+epoch at 8,192 x 131,072 without a host synchronization; the
 column-blocked similarity build of 0/1 data in both forms bitwise the CPU's;
 CAAE's dedup D phase, two card runs bitwise equal and within 1% of the
 distance moved of the direct form.
@@ -1159,6 +1162,90 @@ def test_cfgan_csr_epoch_on_card_matches_cpu(cuda, mode):
         diff = (a - b).abs()
         assert float(diff.max()) <= 2.2 * lr * max(d_n, g_n)
         assert float((diff <= 0.01 * lr).float().mean()) >= 0.99
+
+
+def _beyond_hbm_keys(cuda, I, grid):
+    """A CFGAN csr G minibatch's keys at the beyond-HBM script's settings:
+    128 rows of a ``synthetic_urm`` (100 draws a user), the keyed draw's
+    uniforms (or those cut to a grid of 4096ths, so that nearly every row's
+    k-th key ties), +inf at the interactions, k = int(n_zeros * 0.3)."""
+    from ganmf_tpu_torch.cli import beyond_hbm
+    from ganmf_tpu_torch.data.synthetic import synthetic_urm
+    from ganmf_tpu_torch.ops import keyed
+
+    cond = torch.from_numpy(synthetic_urm(128, I, 100).toarray()).to(cuda)
+    u = keyed.keyed_uniforms(beyond_hbm.SEED, 1, pcf.ZR_STREAM, torch.arange(128, device=cuda), I)
+    if grid == "4096ths":
+        u = torch.floor(u * 4096) / 4096
+    keys = torch.where(cond != 0, float("inf"), u)
+    k = ((cond == 0).sum(1).to(torch.float32) * float(beyond_hbm.CFGAN_PARAMS["zr_ratio"])).to(torch.int32)
+    return keys, k
+
+
+@pytest.mark.parametrize("grid", ["keyed", "4096ths"])
+@pytest.mark.parametrize("I", [65536, 131072])
+def test_k2_past_shared_memory_on_keyed_keys(cuda, I, grid):
+    """K2's streamed-row route (rows past 56,320 keys) at the beyond-HBM
+    widths, [128, 65536] and [128, 131072], on keyed-draw keys with ties:
+    bitwise the plain version, every row holding k; the keyed draw's 2^-24
+    grid ties keys in every row, the coarse grid ties the k-th key (K2's tie
+    cut) in most."""
+    keys, k = _beyond_hbm_keys(cuda, I, grid)
+    before = select.LAUNCHES
+    got = smallest_k_mask(keys, k)
+    assert select.LAUNCHES == before + 1
+    assert torch.equal(got, smallest_k_mask_reference(keys, k))
+    assert torch.equal(got.sum(1), k.long())
+    ordered = torch.sort(keys, dim=1).values
+    assert bool(((ordered[:, 1:] == ordered[:, :-1]) & torch.isfinite(ordered[:, 1:])).any(1).all())
+    kth = ordered.gather(1, (k.long() - 1)[:, None])
+    cut = (keys == kth).sum(1) > k - (keys < kth).sum(1)
+    if grid == "4096ths":
+        assert int(cut.sum()) > 64
+
+
+def test_cfgan_csr_epoch_past_shared_memory_does_not_synchronize(cuda):
+    """CFGAN's csr epoch at the beyond-HBM script's settings (d_nodes 64,
+    g_nodes 256, ZR 0.3, batches 128) on an 8,192 x 131,072 synthetic URM,
+    its masks through K2's streamed-row route: K2 and the keyed draw launched
+    once a G minibatch, and a second epoch only enqueuing (sync debug mode
+    "error"); the parameters finite, and moved."""
+    from ganmf_tpu_torch.cli import beyond_hbm
+    from ganmf_tpu_torch.data.synthetic import synthetic_urm
+    from ganmf_tpu_torch.ops import keyed
+
+    p_ = beyond_hbm.CFGAN_PARAMS
+    train = synthetic_urm(8192, 131072, 100)
+    n_rows, n_cols = train.shape
+    d_n, d_pad = make_batches(n_rows, p_["d_batch_size"])
+    g_n, g_pad = make_batches(n_rows, p_["g_batch_size"])
+    w = torch.from_numpy(padded_weights(n_rows, max(d_pad, g_pad))).to(cuda)
+    pc = padded_csr_from_sparse(train, cuda)
+    p = pcf.init_params([n_cols, p_["g_nodes"], n_cols], [2 * n_cols, p_["d_nodes"], 1],
+                        torch.Generator().manual_seed(beyond_hbm.SEED), cuda)
+    init = [t.detach().clone() for t in p.parameters()]
+    d_opt = torch.optim.Adam(p.D.parameters(), lr=1e-3, betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+    g_opt = torch.optim.Adam(p.G.parameters(), lr=1e-3, betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
+    kw = dict(d_reg=0.0, g_reg=0.0, zr_ratio=p_["zr_ratio"], zp_ratio=0.0, zr_coefficient=p_["zr_coefficient"],
+              scheme=p_["scheme"], d_hidden_act="linear", g_hidden_act="linear", d_n_batches=d_n,
+              d_batch=p_["d_batch_size"], g_n_batches=g_n, g_batch=p_["g_batch_size"], d_steps=1, g_steps=1)
+
+    def epoch(e):
+        pcf.cfgan_epoch(p, d_opt, g_opt, pc, lambda stream, rows: keyed.keyed_uniforms(beyond_hbm.SEED, e, stream,
+                                                                                       rows, n_cols), w, w, **kw)
+
+    k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+    epoch(1)
+    assert select.LAUNCHES - k2 == keyed.LAUNCHES - drawn == g_n == 64
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        epoch(2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in p.parameters())
+    assert all(not torch.equal(t, i) for t, i in zip(p.parameters(), init))
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "scatter"])

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 
 _CHECK = r"""
@@ -50,14 +52,16 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
     # the host engine, the debug and profiling utilities and the mesh
     # layer (parallel.comm, parallel.mesh, parallel.distributed,
     # parallel.adversarial, parallel.baselines) and the distributed
-    # Cholesky (ops.distchol), and the graft entry points (graft) among them
-    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 59, r.stdout
+    # Cholesky (ops.distchol), the graft entry points (graft), and the
+    # beyond-HBM and serving-latency paths (cli.beyond_hbm,
+    # cli.serving_latency) among them
+    assert int(r.stdout.split("IMPORTED")[1].split()[0]) >= 61, r.stdout
     names = set(r.stdout.split("NAMES")[1].split())
     for module in ("models.mf_sgd", "models.irgan", "models.extras", "utils.analysis", "utils.timing",
                    "eval.significance", "cli.describe", "cli.ablation", "cli.mf_learned",
                    "ops.keyed", "ops.host", "utils.debug", "utils.profiling",
                    "parallel.comm", "parallel.mesh", "parallel.distributed", "parallel.adversarial",
-                   "parallel.baselines", "ops.distchol", "data.synthetic", "cli.scale20m", "graft"):
+                   "parallel.baselines", "ops.distchol", "data.synthetic", "cli.scale20m", "graft", "cli.beyond_hbm", "cli.serving_latency"):
         assert f"ganmf_tpu_torch.{module}" in names, module
 
 
@@ -81,6 +85,28 @@ def test_chip_smoke_imports_neither_jax_nor_ganmf_tpu():
     r = subprocess.run([sys.executable, "-c", check], capture_output=True, text=True,
                        cwd=str(REPO), env=env, timeout=300)
     assert r.returncode == 0 and "IMPORTED" in r.stdout, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("script", ["torch_beyond_hbm.py", "torch_serving_latency.py", "torch_scale20m.py",
+                                    "torch_bench.py"])
+def test_port_scripts_import_neither_jax_nor_ganmf_tpu(script):
+    """The port's scripts run where JAX is not installed: under the refusing
+    finder each parses its arguments (``--help``) through its whole import
+    chain."""
+    check = _CHECK.split("import ganmf_tpu_torch")[0] + (
+        "import runpy\n"
+        f"sys.argv = [{str(REPO / 'scripts' / script)!r}, '--help']\n"
+        "try:\n"
+        "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ganmf_tpu'))\n"
+        "assert not leaked, leaked\n"
+        "print('RAN', 1)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", check], capture_output=True, text=True,
+                       cwd=str(REPO), env=env, timeout=300)
+    assert r.returncode == 0 and "RAN" in r.stdout, r.stderr[-2000:]
 
 
 def test_port_models_cover_the_jax_packages():
