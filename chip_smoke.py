@@ -518,6 +518,20 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def _counter(name: str) -> int:
+    """A counter of the port (ganmf_tpu_torch/utils/profiling.py): 0 before
+    its first count."""
+    from ganmf_tpu_torch.utils import profiling
+
+    return profiling.counters().get(name, 0)
+
+
+def _reset_counters() -> None:
+    from ganmf_tpu_torch.utils import profiling
+
+    profiling.reset_counters()
+
+
 def ml1m_split():
     """The ML-1M-shaped synthetic split of bench.py: 6040 x 3706, density
     0.0446, 80/20 train/test, numpy seed 0."""
@@ -797,7 +811,6 @@ def phase_slice(dev, card, train, test):
 
     from ganmf_tpu_torch.eval import EvaluatorHoldout
     from ganmf_tpu_torch.models import GANMF, init_params
-    from ganmf_tpu_torch.ops import scorer
 
     cpu = torch.device("cpu")
     for mode in ("user", "item"):
@@ -819,9 +832,9 @@ def phase_slice(dev, card, train, test):
                 if len(a) != len(b) or not np.allclose(s[a].numpy(), s[b].numpy(), rtol=RTOL, atol=ATOL):
                     fail(f"{mode}: recommend lists differ from the plain path beyond near-ties")
         print(f"  recommend(users 0-4, cutoff=20): user 0 -> {recs[0][:10]} ...")
-        before = scorer.WIDE_LAUNCHES
+        before = _counter("k1.wide_launches")
         recs = model.recommend(users)  # the default cutoff, n_items - 1
-        if scorer.WIDE_LAUNCHES != before + 1:
+        if _counter("k1.wide_launches") != before + 1:
             fail(f"{mode}: recommend at the default cutoff did not launch K1's wide pair")
         precs = plain.recommend(users)
         scores = plain.score_device(torch.as_tensor(users))
@@ -848,10 +861,10 @@ def phase_slice(dev, card, train, test):
               f"(first call), near-tie swaps vs plain: {swaps}")
 
         ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
-        before = scorer.LAUNCHES
+        before = _counter("k1.launches")
         results, text = ev.evaluateRecommender(model)
         torch.cuda.synchronize()
-        if scorer.LAUNCHES <= before:
+        if _counter("k1.launches") <= before:
             fail(f"{mode}: the evaluation did not launch K1")
         t0 = time.perf_counter()
         results, text = ev.evaluateRecommender(model)
@@ -891,7 +904,6 @@ def phase_ganmf_train(dev, card, train, test):
 
     from ganmf_tpu_torch.eval import EvaluatorHoldout
     from ganmf_tpu_torch.models import GANMF, init_params
-    from ganmf_tpu_torch.ops import scorer
 
     models = {}
     for mode in ("user", "item"):
@@ -899,10 +911,10 @@ def phase_ganmf_train(dev, card, train, test):
               f"{train.shape[1]}, {GANMF_EPOCHS} epochs, early stopping every epoch")
         model = timed(GANMF)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
         ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
-        fused_before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+        fused_before = _counter("k1.launches") - _counter("k1.wide_launches")
         returned = model.fit(**GANMF_PARAMS, epochs=GANMF_EPOCHS, validation_evaluator=ev, freq=1)
         torch.cuda.synchronize()
-        fused = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - fused_before
+        fused = _counter("k1.launches") - _counter("k1.wide_launches") - fused_before
         if len(model.epoch_log) != GANMF_EPOCHS:
             fail(f"{mode}: {len(model.epoch_log)} epochs ran, not {GANMF_EPOCHS} (fit returned {returned})")
         if fused < GANMF_EPOCHS:
@@ -924,9 +936,9 @@ def phase_ganmf_train(dev, card, train, test):
             if not bool((t != t0).any()):
                 fail(f"{mode}: {name} did not move in training")
 
-        before = scorer.WIDE_LAUNCHES
+        before = _counter("k1.wide_launches")
         recs = model.recommend(np.arange(5))  # the default cutoff, n_items - 1
-        if scorer.WIDE_LAUNCHES != before + 1:
+        if _counter("k1.wide_launches") != before + 1:
             fail(f"{mode}: recommend at the default cutoff on the trained model did not launch K1's wide pair")
         seen = np.ediff1d(train.indptr)[:5]
         for u, lst in enumerate(recs):
@@ -1256,18 +1268,16 @@ def timed(model_class):
     (synchronized) and K2 launches in ``epoch_log``."""
     import torch
 
-    from ganmf_tpu_torch.ops import select
-
     class Timed(model_class):
         def _run_training_loop(self, *args, epoch_fn, **kwargs):
             self.epoch_log = []
 
             def run(epoch):
                 torch.cuda.synchronize()
-                before, t0 = select.LAUNCHES, time.perf_counter()
+                before, t0 = _counter("k2.launches"), time.perf_counter()
                 epoch_fn(epoch)
                 torch.cuda.synchronize()
-                self.epoch_log.append((time.perf_counter() - t0, select.LAUNCHES - before))
+                self.epoch_log.append((time.perf_counter() - t0, _counter("k2.launches") - before))
 
             return super()._run_training_loop(*args, epoch_fn=run, **kwargs)
 
@@ -1312,8 +1322,6 @@ def serve_checks(name, model, ev, train, card, cold=()):
     evaluator. Returns the evaluation."""
     import torch
 
-    from ganmf_tpu_torch.ops import scorer
-
     t0 = time.perf_counter()
     results, text = ev.evaluateRecommender(model)
     torch.cuda.synchronize()
@@ -1330,9 +1338,9 @@ def serve_checks(name, model, ev, train, card, cold=()):
     recs = model.recommend(users, cutoff=20)
     if model.recommend_fused(users, cutoff=20) != recs:
         fail(f"{name}: recommend_fused's lists differ from recommend's")
-    before = scorer.WIDE_LAUNCHES
+    before = _counter("k1.wide_launches")
     full = model.recommend(users)  # the default cutoff, n_items - 1
-    if model._ranks_with_k1() and scorer.WIDE_LAUNCHES != before + 1:
+    if model._ranks_with_k1() and _counter("k1.wide_launches") != before + 1:
         fail(f"{name}: recommend at the default cutoff did not launch K1's wide pair")
     seen = np.ediff1d(train.indptr)
     for u, (short, lst) in enumerate(zip(recs, full)):
@@ -1360,7 +1368,6 @@ def phase_disganmf(dev, card, train, test):
     from ganmf_tpu_torch.eval import EvaluatorHoldout
     from ganmf_tpu_torch.models import DisGANMF
     from ganmf_tpu_torch.models import disganmf as pdg
-    from ganmf_tpu_torch.ops import scorer
 
     p = DISGANMF_PARAMS
     models = {}
@@ -1369,10 +1376,10 @@ def phase_disganmf(dev, card, train, test):
               f"{DISGANMF_EPOCHS} epochs, early stopping every epoch")
         model = timed(DisGANMF)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
         ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
-        fused_before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+        fused_before = _counter("k1.launches") - _counter("k1.wide_launches")
         returned = model.fit(**p, epochs=DISGANMF_EPOCHS, validation_evaluator=ev, freq=1)
         torch.cuda.synchronize()
-        fused = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - fused_before
+        fused = _counter("k1.launches") - _counter("k1.wide_launches") - fused_before
         if len(model.epoch_log) != DISGANMF_EPOCHS:
             fail(f"DisGANMF {mode}: {len(model.epoch_log)} epochs ran (fit returned {returned})")
         if fused < DISGANMF_EPOCHS:
@@ -1747,18 +1754,17 @@ def phase_ials_train(dev, card, train, test):
     import torch
 
     from ganmf_tpu_torch.eval import EvaluatorHoldout
-    from ganmf_tpu_torch.ops import scorer
 
     params = dict(ials_best_params(), epochs=IALS_ES_EPOCHS)
     print(f"[15] IALS with early stopping: {params}, a validation every 5 epochs, on {train.shape[0]} x "
           f"{train.shape[1]}")
     model = timed_ials()(train, device=dev)
     ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
-    fused_before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+    fused_before = _counter("k1.launches") - _counter("k1.wide_launches")
     model.fit(**params, validation_every_n=5, stop_on_validation=True, validation_metric="MAP",
               lower_validations_allowed=5, evaluator_object=ev)
     torch.cuda.synchronize()
-    fused = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - fused_before
+    fused = _counter("k1.launches") - _counter("k1.wide_launches") - fused_before
     if fused < IALS_ES_EPOCHS // 5:
         fail(f"IALS: the early-stopping validations launched K1's fused kernel {fused} times")
     secs = model.epoch_log
@@ -2339,15 +2345,14 @@ def validated_fit(model, test, dev, **params):
     import torch
 
     from ganmf_tpu_torch.eval import EvaluatorHoldout
-    from ganmf_tpu_torch.ops import scorer
 
-    before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+    before = _counter("k1.launches") - _counter("k1.wide_launches")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.fit(evaluator_object=EvaluatorHoldout(test, [5], device=dev), validation_every_n=1,
               validation_metric="MAP", **params)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, scorer.LAUNCHES - scorer.WIDE_LAUNCHES - before
+    return time.perf_counter() - t0, _counter("k1.launches") - _counter("k1.wide_launches") - before
 
 
 def state_gap(name, got, want, atol):
@@ -2912,7 +2917,7 @@ def phase_cfgan_csr(dev, card, train, test):
         base = torch.cuda.memory_allocated(dev)
         model = timed(CFGAN)(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
         ev = EvaluatorHoldout(test, CUTOFFS, device=dev)
-        drawn, epochs = keyed.LAUNCHES, CFGAN_CSR_EPOCHS
+        drawn, epochs = _counter("keyed.launches"), CFGAN_CSR_EPOCHS
         model.fit(**p, epochs=epochs, urm_storage="csr", validation_evaluator=ev, freq=1, allow_worse=5)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev) - base
@@ -2920,8 +2925,8 @@ def phase_cfgan_csr(dev, card, train, test):
               f"csr {peak / 2**20:.1f} MiB, dense {CFGAN_DENSE_PEAKS[mode] / 2**20:.1f} MiB (phase 9's "
               f"{CFGAN_EPOCHS}-epoch fit)  [{card}]")
         k2 = [n for _, n in model.epoch_log]
-        if k2 != [per_epoch] * epochs or keyed.LAUNCHES - drawn != per_epoch * epochs:
-            fail(f"csr {mode}: K2 launches per epoch {k2} and keyed draws {keyed.LAUNCHES - drawn}, "
+        if k2 != [per_epoch] * epochs or _counter("keyed.launches") - drawn != per_epoch * epochs:
+            fail(f"csr {mode}: K2 launches per epoch {k2} and keyed draws {_counter("keyed.launches") - drawn}, "
                  f"expected {per_epoch} an epoch")
         print(f"  csr epochs: {[round(t, 4) for t, _ in model.epoch_log]} s; K2 and the keyed draw launched "
               f"{per_epoch} times an epoch (expected {per_epoch})  [{card}]")
@@ -3017,7 +3022,6 @@ def phase_cfgan_20m(dev, card):
     import torch
 
     from ganmf_tpu_torch.models import CFGAN
-    from ganmf_tpu_torch.ops import keyed, select
 
     total = torch.cuda.get_device_properties(dev).total_memory
     t0 = time.perf_counter()
@@ -3031,14 +3035,14 @@ def phase_cfgan_20m(dev, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     model = timed(CFGAN)(train, seed=SEED, is_experiment=True, device=dev)
-    drawn, t0 = keyed.LAUNCHES, time.perf_counter()
+    drawn, t0 = _counter("keyed.launches"), time.perf_counter()
     model.fit(**CFGAN_PARAMS, epochs=1, urm_storage="csr")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     (epoch_s, k2), = model.epoch_log
-    if k2 != per_epoch or keyed.LAUNCHES - drawn != per_epoch:
-        fail(f"ML-20M csr: K2 launched {k2} times and the keyed draw {keyed.LAUNCHES - drawn}, expected {per_epoch}")
+    if k2 != per_epoch or _counter("keyed.launches") - drawn != per_epoch:
+        fail(f"ML-20M csr: K2 launched {k2} times and the keyed draw {_counter("keyed.launches") - drawn}, expected {per_epoch}")
     if peak >= total:
         fail(f"ML-20M csr: peak device memory {peak / 1e9:.2f} GB is not under the card's {total / 1e9:.2f} GB")
     for t in model.params.parameters():
@@ -3280,7 +3284,6 @@ def mesh_fit(train, test, mode, dev, plan):
 
     from ganmf_tpu_torch.eval import EvaluatorHoldout
     from ganmf_tpu_torch.models import GANMF
-    from ganmf_tpu_torch.ops import scorer
 
     model = GANMF(train, mode=mode, seed=SEED, is_experiment=True, device=dev)
     torch.cuda.synchronize()
@@ -3289,10 +3292,10 @@ def mesh_fit(train, test, mode, dev, plan):
     losses = [(float(d), float(g)) for d, g in zip(model.train_d_loss, model.train_g_loss)]  # waits
     fit_s = time.perf_counter() - t0
     ev = EvaluatorHoldout(test, CUTOFFS, mesh_plan=plan, device=dev)
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     t0 = time.perf_counter()
     results, _ = ev.evaluateRecommender(model)  # reads its sums to the host
-    return model, results, losses, fit_s, time.perf_counter() - t0, scorer.LAUNCHES - before, ev
+    return model, results, losses, fit_s, time.perf_counter() - t0, _counter("k1.launches") - before, ev
 
 
 def hold_mesh(name, params, losses, results, ref):
@@ -3321,7 +3324,6 @@ def phase_mesh_nccl(dev, card, train, test):
     import torch
     import torch.distributed as dist
 
-    from ganmf_tpu_torch.ops import scorer
     from ganmf_tpu_torch.ops.scorer import masked_topk_scores
     from ganmf_tpu_torch.parallel import comm, make_mesh
 
@@ -3337,11 +3339,11 @@ def phase_mesh_nccl(dev, card, train, test):
             single, s_res, s_losses, s_fit, s_eval, _, _ = mesh_fit(train, test, mode, dev, None)
             ref = ([t.detach().cpu() for t in single.params.parameters()], s_losses, s_res,
                    single._train_matrix().shape[0])
-            scorer.LAUNCHES = 0
+            _reset_counters()
             t0 = time.perf_counter()
             model, res, losses, fit_s, eval_s, k1, _ = mesh_fit(train, test, mode, dev, plan)
             wall = time.perf_counter() - t0
-            launches += scorer.LAUNCHES
+            launches += _counter("k1.launches")
             if k1 == 0:
                 fail(f"the one-rank mesh evaluation, {mode} mode, launched K1 {k1} times")
             full = [t.detach() for t in model._full_params().parameters()]
@@ -3380,7 +3382,7 @@ def mesh_worker(rank, world, port, out_dir):
     gathered parameters) to out_dir."""
     import torch
 
-    from ganmf_tpu_torch.ops import _build, scorer
+    from ganmf_tpu_torch.ops import _build
     from ganmf_tpu_torch.parallel import comm, make_mesh
 
     comm.initialize(f"tcp://127.0.0.1:{port}", world, rank, local_rank=0, backend="gloo")
@@ -3388,9 +3390,9 @@ def mesh_worker(rank, world, port, out_dir):
         plan = make_mesh(**MESH_GLOO)
         _build.load_library()  # built by the parent
         train, test = ml1m_split()
-        scorer.LAUNCHES = 0
+        _reset_counters()
         model, res, losses, fit_s, eval_s, k1, ev = mesh_fit(train, test, "user", plan.device, plan)
-        launches = scorer.LAUNCHES
+        launches = _counter("k1.launches")
         full = [t.detach().cpu().numpy() for t in model._full_params().parameters()]
         out = dict(losses=np.asarray(losses), fit_s=fit_s, eval_s=eval_s, k1=k1, launches=launches,
                    split=np.asarray(ev._item_split() or (0, 0)), keys=np.asarray(list(res[CUTOFFS[0]])),
@@ -3488,7 +3490,6 @@ def gan_mesh_fit(name, train, test, dev, plan):
     from ganmf_tpu_torch import models
     from ganmf_tpu_torch.eval import EvaluatorHoldout
     from ganmf_tpu_torch.models import cfgan as pcf
-    from ganmf_tpu_torch.ops import scorer
 
     _, kind, params = GAN_MESH_FITS[name]
     model = getattr(models, kind)(train, seed=SEED, is_experiment=True, device=dev)
@@ -3503,10 +3504,10 @@ def gan_mesh_fit(name, train, test, dev, plan):
     finally:
         pcf.smallest_k_mask = draw
     ev = EvaluatorHoldout(test, CUTOFFS, mesh_plan=plan, device=dev)
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     t0 = time.perf_counter()
     results, _ = ev.evaluateRecommender(model)  # reads its sums to the host
-    return model, results, fit_s, time.perf_counter() - t0, scorer.LAUNCHES - before, masks
+    return model, results, fit_s, time.perf_counter() - t0, _counter("k1.launches") - before, masks
 
 
 def gan_steps_lrs(name, n_rows, n_params):
@@ -3559,7 +3560,6 @@ def phase_gan_mesh_nccl(dev, card):
     import torch
     import torch.distributed as dist
 
-    from ganmf_tpu_torch.ops import keyed, scorer, select
     from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
     from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
     from ganmf_tpu_torch.parallel import comm, make_mesh
@@ -3579,16 +3579,16 @@ def phase_gan_mesh_nccl(dev, card):
             ref = ([t.detach().cpu() for t in single.params.parameters()], s_res, init,
                    single._train_matrix().shape[0])
             del single
-            scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+            _reset_counters()
             t0 = time.perf_counter()
             model, res, fit_s, eval_s, k1, masks = gan_mesh_fit(name, train, test, dev, plan)
             wall = time.perf_counter() - t0
-            launches[name] = (scorer.LAUNCHES, select.LAUNCHES, keyed.LAUNCHES)
+            launches[name] = (_counter("k1.launches"), _counter("k2.launches"), _counter("keyed.launches"))
             want_k2 = kind != "DisGANMF"
-            if (k1 == 0) == (kind == "DisGANMF") or (select.LAUNCHES == 0) == want_k2 or (
-                    (keyed.LAUNCHES == 0) == ("csr" in name)):
+            if (k1 == 0) == (kind == "DisGANMF") or (_counter("k2.launches") == 0) == want_k2 or (
+                    (_counter("keyed.launches") == 0) == ("csr" in name)):
                 fail(f"the one-rank mesh's {name} path launched K1 {k1} times in its evaluation, K2 "
-                     f"{select.LAUNCHES} times and the keyed draw {keyed.LAUNCHES} times")
+                     f"{_counter("k2.launches")} times and the keyed draw {_counter("keyed.launches")} times")
             if kind == "CFGAN":
                 if len(masks) != len(s_masks) or not all(torch.equal(a, b) for a, b in zip(masks, s_masks)):
                     fail(f"{name}: the mesh's {len(masks)} masks are not bitwise the one-card path's {len(s_masks)}")
@@ -3599,8 +3599,8 @@ def phase_gan_mesh_nccl(dev, card):
             what = "share of the distance moved" if kind == "CAAE" else "parameter difference"
             mask_note = f"{len(masks)} K2 masks bitwise the one-card path's; " if kind == "CFGAN" else ""
             print(f"  {name}: {fit_s / MESH_EPOCHS:.4f} s/epoch on the mesh ({s_fit / MESH_EPOCHS:.4f} one card); "
-                  f"evaluation {eval_s:.4f} s ({s_eval:.4f}); launches K1 {k1} (evaluation), K2 {select.LAUNCHES}, "
-                  f"keyed draw {keyed.LAUNCHES}; {mask_note}largest {what} {worst:.3e}, metrics within "
+                  f"evaluation {eval_s:.4f} s ({s_eval:.4f}); launches K1 {k1} (evaluation), K2 {_counter("k2.launches")}, "
+                  f"keyed draw {_counter("keyed.launches")}; {mask_note}largest {what} {worst:.3e}, metrics within "
                   f"{worst_m:.3e}; phase wall {wall:.2f} s  [{card}]")
             del model
     finally:
@@ -3669,7 +3669,7 @@ def gan_mesh_worker(rank, world, port, out_dir):
     0 also the gathered parameters) to out_dir, one file a fit."""
     import torch
 
-    from ganmf_tpu_torch.ops import _build, keyed, scorer, select
+    from ganmf_tpu_torch.ops import _build
     from ganmf_tpu_torch.parallel import comm, make_mesh
 
     comm.initialize(f"tcp://127.0.0.1:{port}", world, rank, local_rank=0, backend="gloo")
@@ -3678,9 +3678,9 @@ def gan_mesh_worker(rank, world, port, out_dir):
         _build.load_library()  # built by the parent
         for i, (name, (which, _, _)) in enumerate(GAN_MESH_FITS.items()):
             train, test = gan_split(which)
-            scorer.LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+            _reset_counters()
             model, res, fit_s, eval_s, k1, masks = gan_mesh_fit(name, train, test, plan.device, plan)
-            out = dict(fit_s=fit_s, eval_s=eval_s, k1=k1, k2=select.LAUNCHES, keyed=keyed.LAUNCHES,
+            out = dict(fit_s=fit_s, eval_s=eval_s, k1=k1, k2=_counter("k2.launches"), keyed=_counter("keyed.launches"),
                        keys=np.asarray(list(res[CUTOFFS[0]])), values=np.asarray([list(res[c].values()) for c in CUTOFFS]),
                        local_bytes=sum(t.numel() * t.element_size() for t in model.params.parameters()))
             full = [t.detach().cpu().numpy() for t in model._full_params().parameters()]
@@ -3798,7 +3798,6 @@ def baseline_mesh_fit(name, train, test, dev, plan):
     from ganmf_tpu_torch import models
     from ganmf_tpu_torch.eval import EvaluatorHoldout
     from ganmf_tpu_torch.models import ials
-    from ganmf_tpu_torch.ops import scorer
 
     if name.startswith("IALS"):
         model = models.IALSRecommender(train, device=dev)
@@ -3826,11 +3825,11 @@ def baseline_mesh_fit(name, train, test, dev, plan):
     if name == "SLIM-BPR":
         return model, [model._full_w(model._state.W)], fit_s, 0.0, 0, None
     ev = EvaluatorHoldout(test, CUTOFFS, mesh_plan=plan, device=dev)
-    before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+    before = _counter("k1.launches") - _counter("k1.wide_launches")
     t0 = time.perf_counter()
     results, _ = ev.evaluateRecommender(model)  # reads its sums to the host
     eval_s = time.perf_counter() - t0
-    k1 = scorer.LAUNCHES - scorer.WIDE_LAUNCHES - before
+    k1 = _counter("k1.launches") - _counter("k1.wide_launches") - before
     factors = [model._on_device(model._USER_factors_store), model._on_device(model._ITEM_factors_store)]
     return model, factors, fit_s, eval_s, k1, results
 
@@ -3907,7 +3906,6 @@ def phase_baseline_mesh_nccl(dev, card):
 
     from ganmf_tpu_torch.data.device import dense_from_sparse
     from ganmf_tpu_torch.models.extras import ease_r_weights_topk
-    from ganmf_tpu_torch.ops import keyed, scorer, select
     from ganmf_tpu_torch.ops.distchol import ease_r_topk_sharded
     from ganmf_tpu_torch.ops.topk import scatter_col_topk_dense
     from ganmf_tpu_torch.parallel import comm, make_mesh
@@ -3926,13 +3924,13 @@ def phase_baseline_mesh_nccl(dev, card):
             single, want, s_fit, s_eval, _, s_res = baseline_mesh_fit(name, train, test, dev, None)
             refs[name] = ([t.cpu() for t in want], s_res)
             del single
-            scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+            _reset_counters()
             t0 = time.perf_counter()
             model, got, fit_s, eval_s, k1, res = baseline_mesh_fit(name, train, test, dev, plan)
             wall = time.perf_counter() - t0
-            if select.LAUNCHES or keyed.LAUNCHES or (k1 == 0) != (name == "SLIM-BPR"):
+            if _counter("k2.launches") or _counter("keyed.launches") or (k1 == 0) != (name == "SLIM-BPR"):
                 fail(f"the one-rank mesh's {name} path launched K1 {k1} times in its evaluation, K2 "
-                     f"{select.LAUNCHES} times and the keyed draw {keyed.LAUNCHES} times")
+                     f"{_counter("k2.launches")} times and the keyed draw {_counter("keyed.launches")} times")
             launches[name] = k1
             worst = hold_baseline(name, got, want, summed=False)
             metrics = ""
@@ -3974,7 +3972,7 @@ def baseline_mesh_worker(rank, world, port, out_dir):
     import torch
 
     from ganmf_tpu_torch import models
-    from ganmf_tpu_torch.ops import _build, scorer
+    from ganmf_tpu_torch.ops import _build
     from ganmf_tpu_torch.parallel import comm, make_mesh
 
     comm.initialize(f"tcp://127.0.0.1:{port}", world, rank, local_rank=0, backend="gloo")
@@ -3983,7 +3981,7 @@ def baseline_mesh_worker(rank, world, port, out_dir):
         _build.load_library()  # built by the parent
         for i, name in enumerate(BASELINE_MESH_FITS):
             train, test = baseline_split(name)
-            scorer.LAUNCHES = scorer.WIDE_LAUNCHES = 0
+            _reset_counters()
             model, got, fit_s, eval_s, k1, res = baseline_mesh_fit(name, train, test, plan.device, plan)
             out = dict(fit_s=fit_s, eval_s=eval_s, k1=k1)
             if res is not None:
@@ -4225,7 +4223,7 @@ def phase_ml20m(dev, card, scratch):
     from ganmf_tpu_torch.cli import scale20m
     from ganmf_tpu_torch.data import synthetic
     from ganmf_tpu_torch.eval import EvaluatorHoldout
-    from ganmf_tpu_torch.ops import keyed, scorer, select
+    from ganmf_tpu_torch.ops import keyed
     from ganmf_tpu_torch.ops.select import smallest_k_mask_cuda
     from ganmf_tpu_torch.ops.topk import smallest_k_mask_reference
 
@@ -4254,7 +4252,7 @@ def phase_ml20m(dev, card, scratch):
     cut = dict(epochs=ML20M_EPOCHS)
     # the main path: every count set to 0 just before it and read just after;
     # K1's launches held against its plain version are taken out again
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+    _reset_counters()
     rows = {}
 
     def stage(key, fn, *args, **kwargs):
@@ -4269,7 +4267,8 @@ def phase_ml20m(dev, card, scratch):
     svd = stage("PureSVD", scale20m.puresvd, implicit, ev)
     # K1 at the path's two shapes on PureSVD's factors: the evaluator's first
     # block (its users ordered by training length) and serve_all's first
-    saved = scorer.LAUNCHES, scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES
+    k1_counters = ("k1.launches", "k1.wide_launches", "k1.merge_launches")
+    saved = [_counter(name) for name in k1_counters]
     U, V, _ = svd._factors_device()
     users = np.asarray(ev.usersToEvaluate, dtype=np.int64)
     users = users[np.argsort(np.ediff1d(implicit.train.indptr)[users], kind="stable")]
@@ -4282,7 +4281,10 @@ def phase_ml20m(dev, card, scratch):
         t = k1_times[f"ML-20M {name}: B={Ub.shape[0]} K={Ub.shape[1]} I={V.shape[0]} k={k}"] = time_k1(Ub, V, M, k)
         print(f"    {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% of it  [{card}]")
-    scorer.LAUNCHES, scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES = saved
+    from ganmf_tpu_torch.utils import profiling
+
+    for name, n in zip(k1_counters, saved):
+        profiling.count(name, n - _counter(name))
     del svd, U, V, Ub, M
     knn = stage("ItemKNN_cosine", scale20m.itemknn, implicit, ev)
     r = rows["ItemKNN_cosine"]
@@ -4297,8 +4299,8 @@ def phase_ml20m(dev, card, scratch):
     stage("IALS_explicit", scale20m.ials_explicit, explicit, ev_x, **cut)
     stage("FunkSVD_explicit", scale20m.funksvd_explicit, explicit, ev_x, **cut)
     stage("CFGAN_csr", scale20m.cfgan, implicit)
-    wide, merge, k2, drawn = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES, select.LAUNCHES, keyed.LAUNCHES
-    fused = scorer.LAUNCHES - wide
+    wide, merge, k2, drawn = _counter("k1.wide_launches"), _counter("k1.merge_launches"), _counter("k2.launches"), _counter("keyed.launches")
+    fused = _counter("k1.launches") - wide
     per_epoch, _, _ = expected_csr_draws(scale20m.CFGAN_PARAMS, shape[0])
     print(f"  launches on the ML-20M path: K1 fused {fused} (merge pass {merge}), wide pair {wide}, K2 {k2}, "
           f"keyed draw {drawn}")
@@ -4620,7 +4622,6 @@ def phase_beyond_hbm(dev, card):
 
     from ganmf_tpu_torch.cli import beyond_hbm
     from ganmf_tpu_torch.data.synthetic import synthetic_urm
-    from ganmf_tpu_torch.ops import keyed, select
 
     total = torch.cuda.get_device_properties(dev).total_memory
     t0 = time.perf_counter()
@@ -4634,7 +4635,7 @@ def phase_beyond_hbm(dev, card):
     for name in BEYOND_MODELS:
         gc.collect()
         torch.cuda.empty_cache()
-        k2, drawn, t0 = select.LAUNCHES, keyed.LAUNCHES, time.perf_counter()
+        k2, drawn, t0 = _counter("k2.launches"), _counter("keyed.launches"), time.perf_counter()
         if name == "ials":
             row, detail, model = beyond_hbm.ials(train, dev, card, timed_epochs=0)
             tensors = [model._U_dev, model._V_dev]
@@ -4644,7 +4645,7 @@ def phase_beyond_hbm(dev, card):
             row, detail, model = getattr(beyond_hbm, name)(train, dev, card, epochs=1)
             tensors, extra = list(model.params.parameters()), ""
         wall = time.perf_counter() - t0
-        k2, drawn = select.LAUNCHES - k2, keyed.LAUNCHES - drawn
+        k2, drawn = _counter("k2.launches") - k2, _counter("keyed.launches") - drawn
         want = expected if name == "cfgan" else 0
         if k2 != want or drawn != want:
             fail(f"beyond HBM {name}: K2 launched {k2} times and the keyed draw {drawn}, expected {want} each")
@@ -4801,7 +4802,7 @@ def main():
     card = card_line()
     print(f"[2] card: {card}")
 
-    from ganmf_tpu_torch.ops import _build, keyed, scorer, select
+    from ganmf_tpu_torch.ops import _build
     from ganmf_tpu_torch.utils.device import cuda_device
 
     dev = cuda_device()
@@ -4822,21 +4823,21 @@ def main():
 
     train, test = ml1m_split()
     # count only the main path's launches
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    _reset_counters()
     phase_slice(dev, card, train, test)
-    wide_launches = scorer.WIDE_LAUNCHES
-    k1_launches = scorer.LAUNCHES - wide_launches  # the fused kernel's
-    merge_launches = scorer.MERGE_LAUNCHES
+    wide_launches = _counter("k1.wide_launches")
+    k1_launches = _counter("k1.launches") - wide_launches  # the fused kernel's
+    merge_launches = _counter("k1.merge_launches")
     if k1_launches == 0 or wide_launches == 0 or merge_launches == 0:
         fail(f"the GANMF path launched K1's fused kernel {k1_launches} times (its merge pass "
              f"{merge_launches} times) and its wide pair {wide_launches} times")
 
     # GANMF's training path, its counts read alone
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    _reset_counters()
     ganmf_models = phase_ganmf_train(dev, card, train, test)
-    train_wide = scorer.WIDE_LAUNCHES
-    train_fused = scorer.LAUNCHES - train_wide
-    train_merge = scorer.MERGE_LAUNCHES
+    train_wide = _counter("k1.wide_launches")
+    train_fused = _counter("k1.launches") - train_wide
+    train_merge = _counter("k1.merge_launches")
     if train_fused == 0 or train_wide == 0:
         fail(f"GANMF's training path launched K1's fused kernel {train_fused} times and its wide "
              f"pair {train_wide} times")
@@ -4846,9 +4847,9 @@ def main():
     del ganmf_models
 
     train, test = lastfm_split()
-    select.LAUNCHES = 0
+    _reset_counters()
     models = phase_cfgan(dev, card, train, test)
-    k2_launches = select.LAUNCHES
+    k2_launches = _counter("k2.launches")
     if k2_launches < 2 * CFGAN_EPOCHS:
         fail(f"the CFGAN path launched K2 {k2_launches} times, under once per epoch")
     phase_cfgan_plain(dev, card, train, test, models)
@@ -4856,11 +4857,11 @@ def main():
     del models
 
     # DisGANMF's training path on the LastFM-shaped split, its counts read alone
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    _reset_counters()
     dis_models = phase_disganmf(dev, card, train, test)
-    dis_wide = scorer.WIDE_LAUNCHES
-    dis_fused = scorer.LAUNCHES - dis_wide
-    dis_merge = scorer.MERGE_LAUNCHES
+    dis_wide = _counter("k1.wide_launches")
+    dis_fused = _counter("k1.launches") - dis_wide
+    dis_merge = _counter("k1.merge_launches")
     if dis_fused == 0 or dis_wide == 0:
         fail(f"DisGANMF's training path launched K1's fused kernel {dis_fused} times and its wide pair "
              f"{dis_wide} times")
@@ -4870,11 +4871,11 @@ def main():
 
     # PureSVD's serving path on the ML-1M-shaped split with cold users
     train, test = ml1m_cold_split()
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    _reset_counters()
     svd, svd_ev = phase_puresvd(dev, card, train, test)
-    svd_wide = scorer.WIDE_LAUNCHES
-    svd_fused = scorer.LAUNCHES - svd_wide
-    svd_merge = scorer.MERGE_LAUNCHES
+    svd_wide = _counter("k1.wide_launches")
+    svd_fused = _counter("k1.launches") - svd_wide
+    svd_merge = _counter("k1.merge_launches")
     if svd_fused == 0 or svd_wide == 0:
         fail(f"PureSVD's serving path launched K1's fused kernel {svd_fused} times and its wide pair "
              f"{svd_wide} times")
@@ -4884,9 +4885,9 @@ def main():
 
     # CAAE's training path on the ML-1M-shaped split, its K2 count read alone
     train, test = ml1m_split()
-    select.LAUNCHES = 0
+    _reset_counters()
     caae, caae_ev = phase_caae(dev, card, train, test)
-    caae_k2 = select.LAUNCHES
+    caae_k2 = _counter("k2.launches")
     if caae_k2 < CAAE_EPOCHS:
         fail(f"the CAAE path launched K2 {caae_k2} times, under once per epoch")
     phase_caae_plain(dev, card, train, test, caae, caae_ev)
@@ -4894,10 +4895,10 @@ def main():
     del caae
 
     # TopPop on the ML-1M-shaped split: the dense route, no kernel
-    scorer.LAUNCHES = 0
+    _reset_counters()
     phase_toppop(dev, card, train, test)
-    if scorer.LAUNCHES:
-        fail(f"TopPop's path launched K1 {scorer.LAUNCHES} times: it ranks by the dense route")
+    if _counter("k1.launches"):
+        fail(f"TopPop's path launched K1 {_counter("k1.launches")} times: it ranks by the dense route")
     elapsed("TopPop")
 
     # the new phases write their splits, logs and results under SCRATCH
@@ -4905,20 +4906,20 @@ def main():
     split_dir = os.path.join(SCRATCH, "splits")
     os.makedirs(split_dir)
     # IALS's serving path: run_best at the committed LastFM params
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    _reset_counters()
     phase_ials_run_best(dev, card, split_dir, SCRATCH)
-    ials_serve_wide = scorer.WIDE_LAUNCHES
-    ials_serve_fused = scorer.LAUNCHES - ials_serve_wide
-    ials_serve_merge = scorer.MERGE_LAUNCHES
+    ials_serve_wide = _counter("k1.wide_launches")
+    ials_serve_fused = _counter("k1.launches") - ials_serve_wide
+    ials_serve_merge = _counter("k1.merge_launches")
     if ials_serve_fused == 0:
         fail("IALS run_best's test evaluation did not launch K1's fused kernel")
     # IALS's training path: early stopping, then serving on the trained model
     train, test = lastfm_split()
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    _reset_counters()
     phase_ials_train(dev, card, train, test)
-    ials_wide = scorer.WIDE_LAUNCHES
-    ials_fused = scorer.LAUNCHES - ials_wide
-    ials_merge = scorer.MERGE_LAUNCHES
+    ials_wide = _counter("k1.wide_launches")
+    ials_fused = _counter("k1.launches") - ials_wide
+    ials_merge = _counter("k1.merge_launches")
     if ials_fused == 0 or ials_wide == 0:
         fail(f"IALS's training path launched K1's fused kernel {ials_fused} times and its wide pair "
              f"{ials_wide} times")
@@ -4928,11 +4929,11 @@ def main():
     elapsed("IALS")
 
     # the tuner on the ML-1M-shaped split, its counts read alone
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = 0
+    _reset_counters()
     phase_tuner(dev, card, split_dir, SCRATCH)
-    tuner_wide = scorer.WIDE_LAUNCHES
-    tuner_fused = scorer.LAUNCHES - tuner_wide
-    tuner_merge = scorer.MERGE_LAUNCHES
+    tuner_wide = _counter("k1.wide_launches")
+    tuner_fused = _counter("k1.launches") - tuner_wide
+    tuner_merge = _counter("k1.merge_launches")
     if tuner_fused == 0:
         fail("the tuner's validations did not launch K1's fused kernel")
     elapsed("the tuner")
@@ -4940,11 +4941,11 @@ def main():
     # the similarity family: each path's counts set to 0 just before it and
     # read just after; no kernel of the repo runs there
     def no_kernel(run, what):
-        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+        _reset_counters()
         run()
-        if scorer.LAUNCHES or select.LAUNCHES or keyed.LAUNCHES:
-            fail(f"{what} launched K1 {scorer.LAUNCHES} times, K2 {select.LAUNCHES} times and the keyed "
-                 f"draw {keyed.LAUNCHES} times")
+        if _counter("k1.launches") or _counter("k2.launches") or _counter("keyed.launches"):
+            fail(f"{what} launched K1 {_counter("k1.launches")} times, K2 {_counter("k2.launches")} times and the keyed "
+                 f"draw {_counter("keyed.launches")} times")
         print(f"  K1, K2 and keyed-draw launches on the {what} path: 0")
         elapsed(what)
 
@@ -4962,10 +4963,10 @@ def main():
     new_paths = {}
 
     def through_k1(run, what):
-        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+        _reset_counters()
         run()
-        wide, merge, k2 = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES, select.LAUNCHES + keyed.LAUNCHES
-        fused = scorer.LAUNCHES - wide
+        wide, merge, k2 = _counter("k1.wide_launches"), _counter("k1.merge_launches"), _counter("k2.launches") + _counter("keyed.launches")
+        fused = _counter("k1.launches") - wide
         if fused == 0 or k2:
             fail(f"the {what} path launched K1's fused kernel {fused} times and K2 {k2} times")
         new_paths[what] = (fused, wide, merge, k2)
@@ -4985,11 +4986,11 @@ def main():
     # set to 0 just before it and read just after: CFGAN's csr storage draws
     # through the keyed draw and K2 and ranks by the dense route
     def through_k2(run, what):
-        scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+        _reset_counters()
         run()
-        k2, drawn = select.LAUNCHES, keyed.LAUNCHES
-        if k2 == 0 or drawn == 0 or scorer.LAUNCHES:
-            fail(f"the {what} path launched K2 {k2} times, the keyed draw {drawn} times and K1 {scorer.LAUNCHES}")
+        k2, drawn = _counter("k2.launches"), _counter("keyed.launches")
+        if k2 == 0 or drawn == 0 or _counter("k1.launches"):
+            fail(f"the {what} path launched K2 {k2} times, the keyed draw {drawn} times and K1 {_counter("k1.launches")}")
         print(f"  launches on the {what} path: K2 {k2}, keyed draw {drawn}, K1 0")
         elapsed(what)
         return k2, drawn
@@ -4998,11 +4999,11 @@ def main():
     m20_k2, m20_keyed = through_k2(lambda: phase_cfgan_20m(dev, card), "CFGAN csr ML-20M")
     no_kernel(lambda: phase_colblock(dev, card), "column-blocked similarity")
     no_kernel(lambda: phase_eval_extras(dev, card, train, test, ganmf_user), "evaluator extras")
-    select.LAUNCHES = keyed.LAUNCHES = 0
+    _reset_counters()
     dedup_epochs = phase_caae_dedup(dev, card, train)
-    dedup_k2 = select.LAUNCHES
-    if dedup_k2 != dedup_epochs or keyed.LAUNCHES:  # one G step an epoch
-        fail(f"the CAAE dedup path launched K2 {dedup_k2} times and the keyed draw {keyed.LAUNCHES} times")
+    dedup_k2 = _counter("k2.launches")
+    if dedup_k2 != dedup_epochs or _counter("keyed.launches"):  # one G step an epoch
+        fail(f"the CAAE dedup path launched K2 {dedup_k2} times and the keyed draw {_counter("keyed.launches")} times")
     elapsed("CAAE dedup")
     phase_host(SCRATCH)
 
@@ -5045,12 +5046,12 @@ def main():
     shutil.rmtree(SCRATCH)
     # training past the card's memory (phase 42), its counts set to 0 just
     # before its fits and read just after; the kernel comparisons come after
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+    _reset_counters()
     beyond_urm, beyond_expected = phase_beyond_hbm(dev, card)
-    beyond_k2, beyond_keyed = select.LAUNCHES, keyed.LAUNCHES
-    if beyond_k2 != beyond_expected or beyond_keyed != beyond_expected or scorer.LAUNCHES:
+    beyond_k2, beyond_keyed = _counter("k2.launches"), _counter("keyed.launches")
+    if beyond_k2 != beyond_expected or beyond_keyed != beyond_expected or _counter("k1.launches"):
         fail(f"the beyond-HBM path launched K2 {beyond_k2} times and the keyed draw {beyond_keyed} times "
-             f"(CFGAN's G minibatches: {beyond_expected}) and K1 {scorer.LAUNCHES} times")
+             f"(CFGAN's G minibatches: {beyond_expected}) and K1 {_counter("k1.launches")} times")
     print(f"  launches on the beyond-HBM path: K2 {beyond_k2}, keyed draw {beyond_keyed} (one a CFGAN G "
           f"minibatch), K1 0")
     beyond_k2_times, beyond_keyed_times = phase_beyond_hbm_kernels(dev, card, beyond_urm)
@@ -5058,13 +5059,13 @@ def main():
     elapsed("beyond the card's memory")
     # serving latency (phase 43), its counts set to 0 just before it and read
     # just after
-    scorer.LAUNCHES = scorer.WIDE_LAUNCHES = scorer.MERGE_LAUNCHES = select.LAUNCHES = keyed.LAUNCHES = 0
+    _reset_counters()
     latency_models = phase_serving_latency(dev, card)
-    latency_wide, latency_merge = scorer.WIDE_LAUNCHES, scorer.MERGE_LAUNCHES
-    latency_fused = scorer.LAUNCHES - latency_wide
-    if latency_fused == 0 or latency_wide or select.LAUNCHES or keyed.LAUNCHES:
+    latency_wide, latency_merge = _counter("k1.wide_launches"), _counter("k1.merge_launches")
+    latency_fused = _counter("k1.launches") - latency_wide
+    if latency_fused == 0 or latency_wide or _counter("k2.launches") or _counter("keyed.launches"):
         fail(f"the serving-latency path launched K1's fused kernel {latency_fused} times, its wide pair "
-             f"{latency_wide} times and K2 {select.LAUNCHES} times")
+             f"{latency_wide} times and K2 {_counter("k2.launches")} times")
     print(f"  launches on the serving-latency path: K1 fused {latency_fused} (merge pass {latency_merge}), "
           f"wide pair 0, K2 0")
     latency_err, latency_times = phase_serving_kernels(dev, card, latency_models)

@@ -380,19 +380,20 @@ def cfgan(split: SplitSet, device):
     ML-20M row), user mode: its synchronized wall and the fit's launches of
     K2 and the keyed draw, no metrics."""
     from ganmf_tpu_torch.models import CFGAN
-    from ganmf_tpu_torch.ops import keyed, select
+    from ganmf_tpu_torch.utils.profiling import counters
 
     begin(device)
     m = with_epoch_walls(CFGAN, device)(split.train, seed=SEED, is_experiment=True, device=device)
-    k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+    before = counters()
     t0 = time.perf_counter()
     m.fit(**CFGAN_PARAMS, epochs=1, urm_storage="csr")
     fit_s = stop_clock(device, next(m.params.parameters()).sum()) - t0
     if not m._urm_streams():
         raise RouteError("CFGAN must train on csr storage")
-    return {"fit_s": fit_s, "epoch_s": m.epoch_walls[0],
-            "k2_launches": select.LAUNCHES - k2, "keyed_launches": keyed.LAUNCHES - drawn, "route": "csr",
-            "peak_gib": peak_gib(device)}, m
+    after = counters()
+    k2, drawn = (after.get(k, 0) - before.get(k, 0) for k in ("k2.launches", "keyed.launches"))
+    return {"fit_s": fit_s, "epoch_s": m.epoch_walls[0], "k2_launches": k2, "keyed_launches": drawn,
+            "route": "csr", "peak_gib": peak_gib(device)}, m
 
 
 def global_mean_rmse(split: SplitSet) -> float:

@@ -83,16 +83,18 @@ def percentiles(samples) -> tuple:
 def _timed_calls(model, draws: List) -> tuple:
     """(walls, lists, K1 fused launches, wide launches) of one timed
     ``recommend`` a draw (a user id or an id array)."""
-    from ganmf_tpu_torch.ops import scorer
+    from ganmf_tpu_torch.utils.profiling import counters
 
     walls, lists, fused, wide = [], [], [], []
     for users in draws:
-        n0, w0 = scorer.LAUNCHES, scorer.WIDE_LAUNCHES
+        before = counters()
         t0 = time.perf_counter()
         lists.append(model.recommend(users, cutoff=CUTOFF, remove_seen_flag=True))
         walls.append(time.perf_counter() - t0)
-        wide.append(scorer.WIDE_LAUNCHES - w0)
-        fused.append(scorer.LAUNCHES - n0 - wide[-1])
+        after = counters()
+        n, w = (after.get(k, 0) - before.get(k, 0) for k in ("k1.launches", "k1.wide_launches"))
+        wide.append(w)
+        fused.append(n - w)
     return walls, lists, fused, wide
 
 

@@ -79,6 +79,7 @@ from ganmf_tpu_torch.ops.simscore import masked_topk_matmul
 from ganmf_tpu_torch.ops.topk import merge_shard_topk, sharded_topk, topk_lowest_index
 from ganmf_tpu_torch.utils.debug import debug_enabled
 from ganmf_tpu_torch.utils.device import as_device
+from ganmf_tpu_torch.utils.profiling import root, span, to_device, to_host
 
 
 def _pair_rmse(U_b, V, cold_b, ids, tvals, pvalid, seen_pairs):
@@ -366,38 +367,50 @@ class EvaluatorHoldout:
 
     @torch.no_grad()
     def evaluateRecommender(self, recommender_object):
-        cutoffs = self.cutoff_list
-        scalar_acc = torch.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=torch.float32, device=self.device)
-        counter_acc = torch.zeros((len(cutoffs), self.n_items), dtype=torch.float32, device=self.device)
-        # each block's float32 sums added in float64, as the JAX evaluator
-        # adds them into Python floats
-        diversity_acc = torch.zeros(len(cutoffs), dtype=torch.float64, device=self.device)
-        scored = torch.zeros(1, dtype=torch.float32, device=self.device)  # exact below 2^24 users
-        for _, valid, stats, diversity in self._blocks(recommender_object):
-            scalar_acc += stats.scalars
-            counter_acc += stats.counters
-            scored += valid.sum()
-            if diversity is not None:
-                diversity_acc += diversity
-        if self._plan is not None:
-            # the data ranks' sums, reduced once after the last block
-            from ganmf_tpu_torch.parallel import comm
+        """(results by cutoff, their string). The call is the root span
+        ``eval.evaluate``: ``eval.order`` sets the blocks up, each block is
+        an ``eval.block`` span with three children (``eval.prep``,
+        ``eval.rank``, ``eval.metrics``), and ``eval.finalize`` reads the sums
+        back and finishes the metrics on the host."""
+        with root("eval.evaluate"):
+            cutoffs = self.cutoff_list
+            scalar_acc = torch.zeros((len(cutoffs), len(SCALAR_FIELDS)), dtype=torch.float32,
+                                     device=self.device)
+            counter_acc = torch.zeros((len(cutoffs), self.n_items), dtype=torch.float32, device=self.device)
+            # each block's float32 sums added in float64, as the JAX evaluator
+            # adds them into Python floats
+            diversity_acc = torch.zeros(len(cutoffs), dtype=torch.float64, device=self.device)
+            scored = torch.zeros(1, dtype=torch.float32, device=self.device)  # exact below 2^24 users
+            for _, valid, stats, diversity in self._blocks(recommender_object):
+                scalar_acc += stats.scalars
+                counter_acc += stats.counters
+                scored += valid.sum()
+                if diversity is not None:
+                    diversity_acc += diversity
+            if self._plan is not None:
+                # the data ranks' sums, reduced once after the last block
+                from ganmf_tpu_torch.parallel import comm
 
-            axes = self._plan.user_axes
-            scalar_acc, counter_acc, scored = (comm.psum(t, self._plan, axes) for t in (scalar_acc, counter_acc, scored))
-            diversity_acc = comm.psum(diversity_acc, self._plan, axes)
+                axes = self._plan.user_axes
+                scalar_acc, counter_acc, scored = (comm.psum(t, self._plan, axes)
+                                                   for t in (scalar_acc, counter_acc, scored))
+                diversity_acc = comm.psum(diversity_acc, self._plan, axes)
 
-        # one device-to-host transfer
-        packed = torch.cat([scalar_acc.ravel(), counter_acc.ravel(), scored]).cpu().numpy()
-        ns = scalar_acc.numel()
-        #: the users the last evaluation ranked and scored (all ranks' under a
-        #: plan): every one of ``usersToEvaluate`` when nothing was dropped
-        self.users_scored = int(packed[-1])
-        return self._finalize(
-            packed[:ns].astype(np.float64).reshape(tuple(scalar_acc.shape)),
-            packed[ns:-1].astype(np.float64).reshape(tuple(counter_acc.shape)),
-            len(self.usersToEvaluate), diversity_acc.cpu().numpy(),
-        )
+            with span("eval.finalize"):
+                # one device-to-host transfer, and the diversity sums'
+                packed = to_host(torch.cat([scalar_acc.ravel(), counter_acc.ravel(), scored]),
+                                 "eval.sums").numpy()
+                diversity_values = to_host(diversity_acc, "eval.diversity").numpy()
+                ns = scalar_acc.numel()
+                #: the users the last evaluation ranked and scored (all ranks'
+                #: under a plan): every one of ``usersToEvaluate`` when nothing
+                #: was dropped
+                self.users_scored = int(packed[-1])
+                return self._finalize(
+                    packed[:ns].astype(np.float64).reshape(tuple(scalar_acc.shape)),
+                    packed[ns:-1].astype(np.float64).reshape(tuple(counter_acc.shape)),
+                    len(self.usersToEvaluate), diversity_values,
+                )
 
     @torch.no_grad()
     def per_user_ap(self, recommender_object, cutoff: int):
@@ -445,110 +458,118 @@ class EvaluatorHoldout:
         if self.ignore_items_flag and hasattr(recommender_object, "set_items_to_ignore"):
             recommender_object.set_items_to_ignore(self.ignore_items_ID)
 
-        urm_train = recommender_object.get_URM_train()
-        # novelty and popularity depend only on the training URM: keep them
-        # across repeated evaluations of the same model
-        key_obj = getattr(recommender_object, "URM_train", None)
-        if key_obj is None:
-            key_obj = urm_train
-        if self._nov_pop_key is not key_obj:
-            self._nov_pop = tuple(
-                torch.from_numpy(a.astype(np.float32)).to(self.device)
-                for a in (item_novelty_terms(urm_train, self.n_items), normalized_popularity(urm_train))
-            )
-            self._nov_pop_key = key_obj
-        novelty_terms, pop_norm = self._nov_pop
+        with span("eval.order"):
+            urm_train = recommender_object.get_URM_train()
+            # novelty and popularity depend only on the training URM: keep them
+            # across repeated evaluations of the same model
+            key_obj = getattr(recommender_object, "URM_train", None)
+            if key_obj is None:
+                key_obj = urm_train
+            if self._nov_pop_key is not key_obj:
+                self._nov_pop = tuple(
+                    torch.from_numpy(a.astype(np.float32)).to(self.device)
+                    for a in (item_novelty_terms(urm_train, self.n_items), normalized_popularity(urm_train))
+                )
+                self._nov_pop_key = key_obj
+            novelty_terms, pop_norm = self._nov_pop
 
-        users = np.asarray(self.usersToEvaluate, dtype=np.int64)
-        n_eval = len(users)
-        block_size = self.block_rows()
-        # evaluate users in training-profile-length order, so that each block
-        # crops its seen-row and test-row scatters to its own length class
-        # (power-of-two quantized); the metric sums do not depend on the order
-        train_lens = np.ediff1d(urm_train.indptr).astype(np.int64)
-        test_lens = np.ediff1d(self.URM_test.indptr).astype(np.int64)
-        if n_eval:
-            users = users[np.argsort(train_lens[users], kind="stable")]
-        plan = self._plan
-        if plan is not None:
-            # each data rank scores an equal part of every block
-            block_size = -(-block_size // plan.n_user_shards) * plan.n_user_shards
-            part = block_size // plan.n_user_shards
-            lo = plan.axis_index(plan.user_axes) * part
-        cutoffs = tuple(self.cutoff_list)
-        plain = self._plain_holdout()
-        use_k1 = plain and recommender_object._ranks_with_k1()
-        use_sim = plain and not use_k1 and plan is None and self._can_fuse_sim(recommender_object)
-        # a factor model's tables, fetched once for the whole evaluation
-        factors = recommender_object._factors_device() if use_k1 else None
-        split = self._item_split()
-        # a mesh-trained model that scores this rank's item columns itself
-        # (CFGAN, CAAE) hands them over where the blocks rank by item shards
-        own_cols = None
-        if (split is not None and not use_k1
-                and type(self)._restrict_candidates is EvaluatorHoldout._restrict_candidates
-                and getattr(recommender_object, "mesh_plan", None) is not None):
-            own_cols = getattr(recommender_object, "score_device_columns", None)
-        debug = debug_enabled()
+            users = np.asarray(self.usersToEvaluate, dtype=np.int64)
+            n_eval = len(users)
+            block_size = self.block_rows()
+            # evaluate users in training-profile-length order, so that each block
+            # crops its seen-row and test-row scatters to its own length class
+            # (power-of-two quantized); the metric sums do not depend on the order
+            train_lens = np.ediff1d(urm_train.indptr).astype(np.int64)
+            test_lens = np.ediff1d(self.URM_test.indptr).astype(np.int64)
+            if n_eval:
+                users = users[np.argsort(train_lens[users], kind="stable")]
+            plan = self._plan
+            if plan is not None:
+                # each data rank scores an equal part of every block
+                block_size = -(-block_size // plan.n_user_shards) * plan.n_user_shards
+                part = block_size // plan.n_user_shards
+                lo = plan.axis_index(plan.user_axes) * part
+            cutoffs = tuple(self.cutoff_list)
+            plain = self._plain_holdout()
+            use_k1 = plain and recommender_object._ranks_with_k1()
+            use_sim = plain and not use_k1 and plan is None and self._can_fuse_sim(recommender_object)
+            # a factor model's tables, fetched once for the whole evaluation
+            factors = recommender_object._factors_device() if use_k1 else None
+            split = self._item_split()
+            # a mesh-trained model that scores this rank's item columns itself
+            # (CFGAN, CAAE) hands them over where the blocks rank by item shards
+            own_cols = None
+            if (split is not None and not use_k1
+                    and type(self)._restrict_candidates is EvaluatorHoldout._restrict_candidates
+                    and getattr(recommender_object, "mesh_plan", None) is not None):
+                own_cols = getattr(recommender_object, "score_device_columns", None)
+            debug = debug_enabled()
 
         # blocks are not padded to block_size but under a plan: the last one
         # is just shorter
         for start in range(0, n_eval, block_size):
-            chunk = users[start : start + block_size]
-            crop_train = _pow2_crop(train_lens[chunk].max(), train_lens.max())
-            crop_test = _pow2_crop(test_lens[chunk].max(), test_lens.max())
-            ok = np.ones(len(chunk), bool)
-            if plan is not None:
-                mine = chunk[lo : lo + part]
-                chunk = np.concatenate([mine, np.zeros(part - len(mine), np.int64)])
-                ok = np.arange(part) < len(mine)
+            with span("eval.block"):
+                with span("eval.prep"):
+                    chunk = users[start : start + block_size]
+                    crop_train = _pow2_crop(train_lens[chunk].max(), train_lens.max())
+                    crop_test = _pow2_crop(test_lens[chunk].max(), test_lens.max())
+                    ok = np.ones(len(chunk), bool)
+                    if plan is not None:
+                        mine = chunk[lo : lo + part]
+                        chunk = np.concatenate([mine, np.zeros(part - len(mine), np.int64)])
+                        ok = np.arange(part) < len(mine)
 
-            uids = torch.from_numpy(chunk).to(self.device)
-            test_rows = padded_rows_dense(self._test_padded, uids, self.n_items, max_len=crop_test)
-            n_pos = self._n_pos.index_select(0, uids)
-            valid = torch.from_numpy(ok).to(self.device)
-            diversity = None
-            if use_k1 or use_sim:
-                if use_k1:
-                    top_vals, top_idx, user_rmse = self._fused_block(
-                        recommender_object, factors, uids, max_len=crop_train, pair_len=crop_test)
-                else:
-                    top_vals, top_idx, user_rmse = self._fused_sim_block(
-                        recommender_object, uids, max_len=crop_train, pair_len=crop_test)
-                if debug:
-                    _raise_on_nan_scores(top_vals, start)
-                stats = evaluate_batch_from_topk(
-                    top_vals, top_idx, test_rows, n_pos, valid, novelty_terms, pop_norm,
-                    user_rmse, cutoffs=cutoffs, max_cutoff=self.max_cutoff,
-                )
-            elif own_cols is not None:
-                # a mesh-trained model hands over this rank's item columns
-                i0, i1 = split
-                seen = self._seen_block(recommender_object, uids, max_len=crop_train)[:, i0:i1]
-                scores = own_cols(uids, i0, i1).masked_fill(seen, float("-inf"))
-                if debug:
-                    _raise_on_nan_scores(scores, start)
-                topk = sharded_topk(scores, self.max_cutoff, plan)
-                stats = evaluate_batch_from_topk(
-                    *topk, test_rows, n_pos, valid, novelty_terms, pop_norm,
-                    _shard_rmse(scores, test_rows[:, i0:i1], plan), cutoffs=cutoffs, max_cutoff=self.max_cutoff,
-                )
-            else:
-                scores = self._score_block(recommender_object, uids, max_len=crop_train)
-                scores = self._restrict_candidates(scores, uids)
-                if debug:
-                    _raise_on_nan_scores(scores, start)
-                if split is not None:
-                    topk = sharded_topk(scores[:, split[0] : split[1]], self.max_cutoff, plan)
-                else:
-                    topk = topk_lowest_index(scores, self.max_cutoff)
-                stats = evaluate_batch(
-                    scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
-                    cutoffs=cutoffs, max_cutoff=self.max_cutoff, topk=topk,
-                )
-            if self.diversity_object is not None and not (use_k1 or use_sim):
-                top_val, top_idx = topk
-                diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs, valid)
+                    uids = to_device(chunk, self.device, "eval.uids")
+                    test_rows = padded_rows_dense(self._test_padded, uids, self.n_items, max_len=crop_test)
+                    n_pos = self._n_pos.index_select(0, uids)
+                    valid = to_device(ok, self.device, "eval.valid")
+                # the dense route's scores, or the per-user RMSE of a ranking
+                # from K1, the similarity route or a model's own columns
+                scores = user_rmse = None
+                with span("eval.rank"):
+                    if use_k1 or use_sim:
+                        if use_k1:
+                            top_vals, top_idx, user_rmse = self._fused_block(
+                                recommender_object, factors, uids, max_len=crop_train, pair_len=crop_test)
+                        else:
+                            top_vals, top_idx, user_rmse = self._fused_sim_block(
+                                recommender_object, uids, max_len=crop_train, pair_len=crop_test)
+                        if debug:
+                            _raise_on_nan_scores(top_vals, start)
+                        topk = top_vals, top_idx
+                    elif own_cols is not None:
+                        # a mesh-trained model hands over this rank's item columns
+                        i0, i1 = split
+                        seen = self._seen_block(recommender_object, uids, max_len=crop_train)[:, i0:i1]
+                        own = own_cols(uids, i0, i1).masked_fill(seen, float("-inf"))
+                        if debug:
+                            _raise_on_nan_scores(own, start)
+                        topk = sharded_topk(own, self.max_cutoff, plan)
+                        user_rmse = _shard_rmse(own, test_rows[:, i0:i1], plan)
+                    else:
+                        scores = self._score_block(recommender_object, uids, max_len=crop_train)
+                        scores = self._restrict_candidates(scores, uids)
+                        if debug:
+                            _raise_on_nan_scores(scores, start)
+                        if split is not None:
+                            topk = sharded_topk(scores[:, split[0] : split[1]], self.max_cutoff, plan)
+                        else:
+                            topk = topk_lowest_index(scores, self.max_cutoff)
+                with span("eval.metrics"):
+                    if scores is None:
+                        stats = evaluate_batch_from_topk(
+                            *topk, test_rows, n_pos, valid, novelty_terms, pop_norm,
+                            user_rmse, cutoffs=cutoffs, max_cutoff=self.max_cutoff,
+                        )
+                    else:
+                        stats = evaluate_batch(
+                            scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
+                            cutoffs=cutoffs, max_cutoff=self.max_cutoff, topk=topk,
+                        )
+                    diversity = None
+                    if self.diversity_object is not None and not (use_k1 or use_sim):
+                        top_val, top_idx = topk
+                        diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs, valid)
             yield chunk, valid, stats, diversity
 
         if self.ignore_items_flag and hasattr(recommender_object, "reset_items_to_ignore"):

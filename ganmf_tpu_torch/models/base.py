@@ -61,6 +61,7 @@ from ganmf_tpu_torch.ops.simscore import masked_topk_matmul, split_bf16_planes
 from ganmf_tpu_torch.ops.topk import tiled_topk, topk_lowest_index
 from ganmf_tpu_torch.utils.dataio import DataIO
 from ganmf_tpu_torch.utils.device import as_device
+from ganmf_tpu_torch.utils.profiling import root, span, to_device, to_host
 
 
 def check_matrix(X, format: str = "csc", dtype=np.float32):
@@ -290,7 +291,7 @@ class Recommender:
         scores = self.score_device(self._uids(np.atleast_1d(user_id_array)))
         if items_to_compute is not None:
             keep = torch.zeros(self.n_items, dtype=torch.bool, device=self.device)
-            keep[torch.as_tensor(np.asarray(items_to_compute, dtype=np.int64), device=self.device)] = True
+            keep[to_device(np.asarray(items_to_compute, dtype=np.int64), self.device, "serve.items")] = True
             scores = scores.masked_fill(~keep, float("-inf"))
         return scores
 
@@ -310,7 +311,7 @@ class Recommender:
         return vals.masked_fill(cold.index_select(0, uids)[:, None], float("-inf")), ids
 
     def _uids(self, user_id_array) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(user_id_array, dtype=np.int64)).to(self.device)
+        return to_device(np.asarray(user_id_array, dtype=np.int64), self.device, "serve.ids")
 
     def _exclusion_mask(self, uids: torch.Tensor, remove_seen_flag: bool,
                         items_to_compute=None, remove_top_pop_flag: bool = False,
@@ -330,7 +331,7 @@ class Recommender:
         if remove_CustomItems_flag:
             columns.append(np.asarray(self.items_to_ignore_ID, dtype=np.int64))
         if columns:
-            cols = torch.from_numpy(np.concatenate(columns).astype(np.int64)).to(self.device)
+            cols = to_device(np.concatenate(columns).astype(np.int64), self.device, "serve.columns")
             mask[:, cols] = True
         return mask
 
@@ -348,41 +349,51 @@ class Recommender:
     ):
         """Ranked recommendation lists (reference BaseRecommender.py:155-247),
         through K1 or the dense route as ``_ranks_with_k1`` decides. Any
-        cutoff works on either device; the default is n_items - 1."""
-        if np.isscalar(user_id_array):
-            user_id_array = np.atleast_1d(user_id_array)
-            single_user = True
-        else:
-            user_id_array = np.asarray(user_id_array)
-            single_user = False
+        cutoff works on either device; the default is n_items - 1. Its parts
+        are the spans ``serve.ids``, ``serve.mask``, ``serve.rank``,
+        ``serve.readback`` and ``serve.lists`` under ``serve.recommend``."""
+        with root("serve.recommend"):
+            if np.isscalar(user_id_array):
+                user_id_array = np.atleast_1d(user_id_array)
+                single_user = True
+            else:
+                user_id_array = np.asarray(user_id_array)
+                single_user = False
 
-        if cutoff is None:
-            cutoff = self.URM_train.shape[1] - 1
-        cutoff = min(cutoff, self.URM_train.shape[1])
+            if cutoff is None:
+                cutoff = self.URM_train.shape[1] - 1
+            cutoff = min(cutoff, self.URM_train.shape[1])
 
-        uids = self._uids(user_id_array)
-        use_k1 = self._ranks_with_k1()
-        scores = None
-        if return_scores or not use_k1:
-            scores = self._compute_item_score(user_id_array, items_to_compute=items_to_compute)
-            scores = scores.masked_fill(
-                self._exclusion_mask(uids, remove_seen_flag, None, remove_top_pop_flag,
-                                     remove_CustomItems_flag),
-                float("-inf"))
-        if use_k1:
-            mask = self._exclusion_mask(uids, remove_seen_flag, items_to_compute,
-                                        remove_top_pop_flag, remove_CustomItems_flag)
-            vals, ids = self._k1_block(uids, mask, cutoff)
-        else:
-            vals, ids = topk_lowest_index(scores, cutoff)
-        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
-        ranking_list = [ids[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
+            with span("serve.ids"):
+                uids = self._uids(user_id_array)
+            use_k1 = self._ranks_with_k1()
+            scores = None
+            if return_scores or not use_k1:
+                with span("serve.rank"):
+                    scores = self._compute_item_score(user_id_array, items_to_compute=items_to_compute)
+                with span("serve.mask"):
+                    mask = self._exclusion_mask(uids, remove_seen_flag, None, remove_top_pop_flag,
+                                                remove_CustomItems_flag)
+                scores = scores.masked_fill(mask, float("-inf"))
+            if use_k1:
+                with span("serve.mask"):
+                    mask = self._exclusion_mask(uids, remove_seen_flag, items_to_compute,
+                                                remove_top_pop_flag, remove_CustomItems_flag)
+                with span("serve.rank"):
+                    vals, ids = self._k1_block(uids, mask, cutoff)
+            else:
+                with span("serve.rank"):
+                    vals, ids = topk_lowest_index(scores, cutoff)
+            with span("serve.readback"):
+                vals, ids = to_host(vals, "serve.vals").numpy(), to_host(ids, "serve.top_ids").numpy()
+            with span("serve.lists"):
+                ranking_list = [ids[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
 
-        if single_user:
-            ranking_list = ranking_list[0]
-        if return_scores:
-            return ranking_list, scores.cpu().numpy()
-        return ranking_list
+            if single_user:
+                ranking_list = ranking_list[0]
+            if return_scores:
+                return ranking_list, to_host(scores, "serve.scores").numpy()
+            return ranking_list
 
     @torch.no_grad()
     def recommend_fused(self, user_id_array, cutoff: int = 20, remove_seen_flag: bool = True,
@@ -415,7 +426,7 @@ class Recommender:
                 seen = torch.zeros((len(user_id_array), self.n_items), dtype=torch.bool, device=self.device)
             pair_ids = torch.zeros((len(user_id_array), 1), dtype=torch.int64, device=self.device)  # probe unused
             vals, ids, _, _ = masked_topk_matmul(rows, right, seen, pair_ids, k)
-        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+        vals, ids = to_host(vals, "serve.vals").numpy(), to_host(ids, "serve.top_ids").numpy()
         return [ids[b][np.isfinite(vals[b])].tolist() for b in range(len(user_id_array))]
 
     def _serve_block(self, uids: torch.Tensor, k: int, remove_seen_flag: bool):

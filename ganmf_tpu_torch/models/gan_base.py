@@ -25,6 +25,7 @@ from ganmf_tpu_torch.data.device import dense_from_sparse
 from ganmf_tpu_torch.models.base import Recommender
 from ganmf_tpu_torch.models.early_stopping import EarlyStoppingScheduler
 from ganmf_tpu_torch.utils.analysis import plot_loss
+from ganmf_tpu_torch.utils.profiling import root
 
 
 class AdversarialRecommender(Recommender):
@@ -162,9 +163,10 @@ class AdversarialRecommender(Recommender):
                            allow_worse, freq, metrics, after, epoch_fn, start_epoch: int = 1):
         """The reference's fit() main loop (GANMF.py:151-244).
 
-        ``epoch_fn(epoch_index)`` runs one full epoch on the device. Returns
-        the reference's fit() return value: the last epoch run when early
-        stopping stopped the fit, else ``epochs + 1``.
+        ``epoch_fn(epoch_index)`` runs one full epoch on the device, the
+        root span ``train.epoch``. Returns the reference's fit() return
+        value: the last epoch run when early stopping stopped the fit, else
+        ``epochs + 1``.
         """
         self._stop_training = False
         early_stop = None
@@ -179,7 +181,8 @@ class AdversarialRecommender(Recommender):
         lead = self._lead()
         epoch = start_epoch
         while not self._stop_training and epoch < epochs + 1:
-            epoch_fn(epoch)
+            with root("train.epoch"):
+                epoch_fn(epoch)
 
             if self.metrics_logger is not None and lead:
                 self.metrics_logger.log_epoch(epoch)

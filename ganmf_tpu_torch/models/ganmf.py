@@ -55,6 +55,7 @@ from ganmf_tpu_torch.models.gan_base import (
     shuffled_padded_perm,
 )
 from ganmf_tpu_torch.utils.debug import debug_enabled, raise_on_nan
+from ganmf_tpu_torch.utils.profiling import span, to_device
 
 #: GANMFParams' tensors, in the JAX NamedTuple's field order
 FIELDS = ("user_emb", "item_emb", "enc_w", "enc_b", "dec_w", "dec_b")
@@ -236,7 +237,10 @@ def mf_generator_epoch(
     at ``g_lr``. ``d_loss_fn(uids, real, w)`` and ``g_loss_fn`` give one
     minibatch's losses. Returns the mean losses as device scalars. Under
     ``GANMF_TPU_DEBUG`` each step's loss and updated tensors are checked for
-    NaN (one host read a step); otherwise the epoch never reads the device."""
+    NaN (one host read a step); otherwise the epoch never reads the device.
+    Each minibatch is a ``train.d_step`` or ``train.g_step`` span with three
+    children: ``train.rows`` (the batch's rows), ``train.grad`` (the loss and
+    its gradient) and ``train.update`` (the optimizer steps)."""
     n_cols = params.item_emb.shape[0]
     d_params, g_params = params.d_params(), params.g_params()
     debug = debug_enabled()
@@ -251,27 +255,37 @@ def mf_generator_epoch(
 
     d_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
     for step in range(d_steps * n_batches):
-        loss = d_loss_fn(*batch(step))
-        apply_grads(d_opt, d_params, torch.autograd.grad(loss, d_params))
-        if debug:
-            raise_on_nan(f"D step {step}", loss=loss, **{names[id(p)]: p for p in d_params})
-        d_sum += loss.detach()
+        with span("train.d_step"):
+            with span("train.rows"):
+                rows = batch(step)
+            with span("train.grad"):
+                loss = d_loss_fn(*rows)
+                grads = torch.autograd.grad(loss, d_params)
+            with span("train.update"):
+                apply_grads(d_opt, d_params, grads)
+            if debug:
+                raise_on_nan(f"D step {step}", loss=loss, **{names[id(p)]: p for p in d_params})
+            d_sum += loss.detach()
 
     g_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
     user_emb, item_emb = g_params
     for step in range(g_steps * n_batches):
-        uids, real, w = batch(step)
-        loss = g_loss_fn(uids, real, w)
-        g_user, g_item = torch.autograd.grad(loss, g_params)
-        row_mask = None
-        if lazy_user_adam:
-            row_mask = torch.zeros(user_emb.shape[0], dtype=torch.float32, device=w.device)
-            row_mask.scatter_reduce_(0, uids, w, reduce="amax")
-        tf1_adam_(user_emb, g_user, user_state, g_lr, row_mask)
-        apply_grads(item_opt, [item_emb], [g_item])
-        if debug:
-            raise_on_nan(f"G step {step}", loss=loss, user_emb=user_emb, item_emb=item_emb)
-        g_sum += loss.detach()
+        with span("train.g_step"):
+            with span("train.rows"):
+                uids, real, w = batch(step)
+            with span("train.grad"):
+                loss = g_loss_fn(uids, real, w)
+                g_user, g_item = torch.autograd.grad(loss, g_params)
+            with span("train.update"):
+                row_mask = None
+                if lazy_user_adam:
+                    row_mask = torch.zeros(user_emb.shape[0], dtype=torch.float32, device=w.device)
+                    row_mask.scatter_reduce_(0, uids, w, reduce="amax")
+                tf1_adam_(user_emb, g_user, user_state, g_lr, row_mask)
+                apply_grads(item_opt, [item_emb], [g_item])
+            if debug:
+                raise_on_nan(f"G step {step}", loss=loss, user_emb=user_emb, item_emb=item_emb)
+            g_sum += loss.detach()
 
     d_opt.zero_grad(set_to_none=True)
     item_opt.zero_grad(set_to_none=True)
@@ -364,7 +378,9 @@ class MFGeneratorRecommender(AdversarialRecommender):
 
         def epoch_fn(epoch):
             # the epoch's permutation goes to the device once, before its steps
-            perm = torch.from_numpy(shuffled_padded_perm(rng, n_rows, padded)).to(self.device, torch.int64)
+            with span("train.shuffle"):
+                perm = to_device(shuffled_padded_perm(rng, n_rows, padded), self.device, "train.shuffle",
+                                 torch.int64)
             run_epoch(perm, weights, n_batches)
 
         result = self._run_training_loop(epochs, *loop_args, epoch_fn=epoch_fn, start_epoch=start_epoch)

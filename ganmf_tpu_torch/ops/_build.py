@@ -10,7 +10,8 @@ named by a hash of the sources and the flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. A measurement script may build a
 variant of the sources with extra nvcc flags (``-D`` defines); it lands
 beside the library under a name of its own. Nothing here runs at import
-time.
+time. A load is the ``kernels.load`` span; each build by nvcc counts
+``kernels.nvcc_builds`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
+
+from ganmf_tpu_torch.utils.profiling import count, span
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -88,6 +91,7 @@ def build(flags=()) -> Path:
     out = library_path(flags)
     if out.exists():
         return out
+    count("kernels.nvcc_builds")
     srcs, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -107,7 +111,8 @@ def load_library(flags=()) -> ctypes.CDLL:
     the port's own), with every entry point's C signature set."""
     flags = tuple(flags)
     if flags not in _LIBS:
-        lib = ctypes.CDLL(str(build(flags)))
+        with span("kernels.load"):
+            lib = ctypes.CDLL(str(build(flags)))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ganmf_masked_topk.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.ganmf_masked_topk.restype = i32

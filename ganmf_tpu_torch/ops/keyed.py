@@ -28,10 +28,7 @@ from __future__ import annotations
 import torch
 
 from ganmf_tpu_torch.ops._build import check, load_library, on_device, stream_handle
-
-#: Kernel launches since the last reset; incremented only where the wrapper
-#: launches the kernel.
-LAUNCHES = 0
+from ganmf_tpu_torch.utils.profiling import count
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32's multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # its key increments (Weyl sequence)
@@ -93,7 +90,6 @@ def keyed_uniforms_cuda(seed: int, epoch: int, stream: int, rows: torch.Tensor,
                         n_cols: int) -> torch.Tensor:
     """Launch the kernel on a CUDA ``rows`` (int32 or int64). Raises on
     anything else, and when the launch fails."""
-    global LAUNCHES
     check_keyed_args(rows, n_cols)
     if rows.device.type != "cuda":
         raise ValueError(f"keyed_uniforms_cuda takes a CUDA tensor, not {rows.device}")
@@ -108,7 +104,7 @@ def keyed_uniforms_cuda(seed: int, epoch: int, stream: int, rows: torch.Tensor,
                                         int(epoch) & _MASK, int(stream) & _MASK, out.data_ptr(),
                                         stream_handle(rows.device))
     check(lib, code, "keyed_uniforms launch")
-    LAUNCHES += 1
+    count("keyed.launches")
     return out
 
 

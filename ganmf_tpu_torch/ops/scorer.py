@@ -27,18 +27,7 @@ from functools import lru_cache
 import torch
 
 from ganmf_tpu_torch.ops._build import check, load_library, on_device, stream_handle
-
-#: Kernel launches since the last reset; incremented only where the wrapper
-#: launches K1 (either form), so a run can show that its main path went
-#: through the kernel.
-LAUNCHES = 0
-
-#: Launches of K1's wide pair (k > MAX_K) since the last reset.
-WIDE_LAUNCHES = 0
-
-#: Launches of the fused kernel's merge pass (a fused launch with more than
-#: one item split) since the last reset.
-MERGE_LAUNCHES = 0
+from ganmf_tpu_torch.utils.profiling import count
 
 #: Item splits (the plan's S) of the last launch of the fused kernel; 0
 #: before the first.
@@ -238,7 +227,7 @@ def masked_topk_scores(user_factors, item_factors, seen_mask, k: int, id_offset:
 
 
 def _masked_topk(user_factors, item_factors, seen_mask, k: int):
-    global LAUNCHES, WIDE_LAUNCHES, MERGE_LAUNCHES, LAST_SPLITS
+    global LAST_SPLITS
     _check(user_factors, item_factors, seen_mask, k)
     device = user_factors.device
     if device.type == "cpu":
@@ -276,10 +265,11 @@ def _masked_topk(user_factors, item_factors, seen_mask, k: int):
                 vals.data_ptr(), ids.data_ptr(), part.data_ptr() if part is not None else None,
                 B, I, K, k, plan.tiles_per_split, plan.splits, stream)
     check(lib, code, "K1 masked_topk wide launch" if wide else "K1 masked_topk launch")
-    LAUNCHES += 1
+    count("k1.launches")
     if wide:
-        WIDE_LAUNCHES += 1
+        count("k1.wide_launches")
     else:
         LAST_SPLITS = plan.splits
-        MERGE_LAUNCHES += plan.splits > 1
+        if plan.splits > 1:
+            count("k1.merge_launches")
     return vals, ids

@@ -15,13 +15,10 @@ from __future__ import annotations
 import torch
 
 from ganmf_tpu_torch.ops._build import check, load_library, on_device, stream_handle
+from ganmf_tpu_torch.utils.profiling import count
 
 #: Widest row the kernel takes (its histograms hold 16-bit counts, 8 per bin).
 MAX_COLS = 8 * 0xFFFF
-
-#: Kernel launches since the last reset; incremented only where the wrapper
-#: launches K2, so a run can show that its main path went through the kernel.
-LAUNCHES = 0
 
 
 def check_select_args(keys: torch.Tensor, k: torch.Tensor) -> None:
@@ -42,7 +39,6 @@ def smallest_k_mask_cuda(keys: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Launch K2 on CUDA tensors: keys [R, I] float32 (contiguous), k [R]
     int32 or int64 (any values: clamped to [0, I] per row). Returns a bool
     [R, I] mask. Raises on anything else, and when the launch fails."""
-    global LAUNCHES
     check_select_args(keys, k)
     if keys.device.type != "cuda":
         raise ValueError(f"smallest_k_mask_cuda takes CUDA tensors, not {keys.device}")
@@ -62,5 +58,5 @@ def smallest_k_mask_cuda(keys: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         code = lib.ganmf_smallest_k_mask(keys.data_ptr(), k.data_ptr(), k.dtype == torch.int64,
                                          out.data_ptr(), R, I, stream)
     check(lib, code, "K2 smallest_k_mask launch")
-    LAUNCHES += 1
+    count("k2.launches")
     return out

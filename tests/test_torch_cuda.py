@@ -84,7 +84,13 @@ resident and streamed routes bitwise the float32 Gram and the CPU's; the
 split-plane scoring product within rtol 1e-5 / atol 1e-7 of the CPU's, ids
 equal but at near ties. The graft entry point ``entry()`` on the card,
 eager and under torch.compile, within rtol 1e-5 of the CPU's losses.
+The port's tracing: the host_sync counter against the synchronizations of
+CUDA's sync debug mode over a GANMF epoch, an evaluation and ``recommend``,
+and a program span against its kernel in a profile of the card.
 """
+
+import contextlib
+import warnings
 
 import numpy as np
 import pytest
@@ -100,8 +106,14 @@ from ganmf_tpu_torch.models.gan_base import make_batches, padded_weights, shuffl
 from ganmf_tpu_torch.ops import scorer, select
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores, masked_topk_scores_reference
 from ganmf_tpu_torch.ops.topk import smallest_k_mask, smallest_k_mask_reference
+from ganmf_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
+
+
+def _counter(name: str) -> int:
+    """A counter of the port (ganmf_tpu_torch/utils/profiling.py)."""
+    return profiling.counters().get(name, 0)
 
 
 @pytest.fixture
@@ -165,10 +177,10 @@ def _assert_k1_matches(U, V, mask, k, vals, ids, exact):
 @pytest.mark.parametrize("B", [1, 5, 37, 3024])
 def test_kernel_matches_plain(cuda, B, K, I, k, case):
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
-    before, wide_before = scorer.LAUNCHES, scorer.WIDE_LAUNCHES
+    before, wide_before = _counter("k1.launches"), _counter("k1.wide_launches")
     vals, ids = masked_topk_scores(U, V, mask, k)
-    assert scorer.LAUNCHES == before + 1
-    assert scorer.WIDE_LAUNCHES == wide_before + (k > scorer.MAX_K)
+    assert _counter("k1.launches") == before + 1
+    assert _counter("k1.wide_launches") == wide_before + (k > scorer.MAX_K)
     _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
 
 
@@ -188,9 +200,9 @@ def test_kernel_at_the_factor_models_shapes(cuda, B, K, I, k, case):
     """K1 at the shapes the MF-SGD, IRGAN and NMF evaluations and the studies
     give it, against its plain version."""
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     vals, ids = masked_topk_scores(U, V, mask, k)
-    assert scorer.LAUNCHES == before + 1
+    assert _counter("k1.launches") == before + 1
     _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
 
 
@@ -202,9 +214,9 @@ def test_fused_and_wide_share_one_arithmetic(cuda, B, I, K, case):
     different summation order would change the bits, and with exact ties."""
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
     fused = masked_topk_scores(U, V, mask, scorer.MAX_K)
-    before = scorer.WIDE_LAUNCHES
+    before = _counter("k1.wide_launches")
     wide = masked_topk_scores(U, V, mask, scorer.MAX_K + 1)
-    assert scorer.WIDE_LAUNCHES == before + 1
+    assert _counter("k1.wide_launches") == before + 1
     fin = torch.isfinite(fused[0])
     assert torch.equal(fused[0], wide[0][:, :scorer.MAX_K])
     assert torch.equal(fused[1][fin], wide[1][:, :scorer.MAX_K][fin])
@@ -219,9 +231,9 @@ def test_merge_pass_at_the_evaluation_shape(cuda):
     plan = scorer.fused_plan(3024, 3706, 50, torch.cuda.get_device_properties(cuda).multi_processor_count)
     assert plan.splits > 1
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", 3024, 3706, 250))
-    before = scorer.MERGE_LAUNCHES
+    before = _counter("k1.merge_launches")
     vals, ids = masked_topk_scores(U, V, mask, 50)
-    assert scorer.MERGE_LAUNCHES == before + 1
+    assert _counter("k1.merge_launches") == before + 1
     assert scorer.LAST_SPLITS == plan.splits
     _assert_k1_matches(U, V, mask, 50, vals, ids, exact=False)
 
@@ -235,9 +247,9 @@ def test_wide_pair_matches_plain(cuda, B, I, at, case):
     and a row of 128 tiles, just above the fused kernel's k and at I - 1."""
     k = scorer.MAX_K + 1 if at == "k=65" else I - 1
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, 64))
-    before = scorer.WIDE_LAUNCHES
+    before = _counter("k1.wide_launches")
     vals, ids = masked_topk_scores(U, V, mask, k)
-    assert scorer.WIDE_LAUNCHES == before + 1
+    assert _counter("k1.wide_launches") == before + 1
     _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
 
 
@@ -292,7 +304,7 @@ def test_slice_on_card_matches_plain_cpu_path(cuda):
         plain = GANMF(train, mode=mode, device=cpu)
         plain.params = init_params(n_rows, n_cols, 16, 32, torch.Generator().manual_seed(3), cpu)
 
-        before = scorer.LAUNCHES
+        before = _counter("k1.launches")
         users = np.arange(20)
         assert card.recommend(users, cutoff=10) == plain.recommend(users, cutoff=10)
         idx, vals = card.serve_all(cutoff=20, block=128)
@@ -301,7 +313,7 @@ def test_slice_on_card_matches_plain_cpu_path(cuda):
         np.testing.assert_allclose(vals, pvals, rtol=1e-5, atol=1e-6)
         got, _ = EvaluatorHoldout(test, [5, 10, 20, 50], device=cuda).evaluateRecommender(card)
         want, _ = EvaluatorHoldout(test, [5, 10, 20, 50], device=cpu).evaluateRecommender(plain)
-        assert scorer.LAUNCHES >= before + 1 + 3 + 1  # recommend, 3 serve blocks, eval
+        assert _counter("k1.launches") >= before + 1 + 3 + 1  # recommend, 3 serve blocks, eval
         for c in want:
             for metric, value in want[c].items():
                 assert got[c][metric] == pytest.approx(value, abs=1e-5), (mode, c, metric)
@@ -334,9 +346,9 @@ def _select_case(case, R, I, seed=0):
 ])
 def test_k2_matches_plain(cuda, R, I, case):
     keys, k = (t.to(cuda) for t in _select_case(case, R, I))
-    before = select.LAUNCHES
+    before = _counter("k2.launches")
     got = smallest_k_mask(keys, k)
-    assert select.LAUNCHES == before + 1
+    assert _counter("k2.launches") == before + 1
     want = smallest_k_mask_reference(keys, k)
     assert torch.equal(got, want)
     assert torch.equal(got.sum(1), k.long())
@@ -433,13 +445,13 @@ def test_recommend_default_cutoff_on_card(cuda):
     card.params = init_params(50, 300, 8, 16, torch.Generator().manual_seed(3), cuda)
     plain = GANMF(train, device=torch.device("cpu"))
     plain.params = init_params(50, 300, 8, 16, torch.Generator().manual_seed(3), torch.device("cpu"))
-    before = scorer.WIDE_LAUNCHES
+    before = _counter("k1.wide_launches")
     got = card.recommend(4)
     assert len(got) == 300 - train[4].nnz
     assert got == plain.recommend(4)
     got, _ = EvaluatorHoldout(train, [5, 100], device=cuda).evaluateRecommender(card)
     assert np.isfinite(got[100]["MAP"])
-    assert scorer.WIDE_LAUNCHES >= before + 2
+    assert _counter("k1.wide_launches") >= before + 2
 
 
 def _ganmf_epoch_inputs(dev, mode, storage, seed=0):
@@ -520,11 +532,11 @@ def test_ganmf_fit_on_card_launches_k1(cuda):
         model = GANMF(train, mode=mode, seed=5, is_experiment=True)
         assert model.device == cuda
         ev = EvaluatorHoldout(test, [5, 10, 20, 50])
-        before = scorer.LAUNCHES - scorer.WIDE_LAUNCHES
+        before = _counter("k1.launches") - _counter("k1.wide_launches")
         returned = model.fit(num_factors=16, emb_dim=64, epochs=3, batch_size=32, d_lr=1e-3, g_lr=1e-3,
                              validation_evaluator=ev, freq=1, allow_worse=5)
         assert returned == 4 and len(model.train_d_loss) == 3
-        assert scorer.LAUNCHES - scorer.WIDE_LAUNCHES >= before + 3
+        assert _counter("k1.launches") - _counter("k1.wide_launches") >= before + 3
         plain = GANMF(train, mode=mode, device=torch.device("cpu"))
         plain.params = copy.deepcopy(model.params).cpu()
         got, _ = ev.evaluateRecommender(model)
@@ -549,9 +561,9 @@ def test_run_best_on_card(cuda, tmp_path, monkeypatch):
     (tmp_path / "experiments" / "GANMF_item_synth").mkdir(parents=True)
     (tmp_path / "experiments" / "GANMF_item_synth" / "best_params.pkl").write_bytes(
         pickle.dumps(dict(num_factors=8, emb_dim=32, epochs=2, batch_size=32)))
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     results = run("synth", "GANMF", train_mode="item")
-    assert scorer.LAUNCHES > before
+    assert _counter("k1.launches") > before
     out = tmp_path / "test_results" / "GANMF_item_synth"
     assert sorted(p.name for p in out.iterdir()) == ["GANMF.zip", "test_results.pkl", "test_results.txt"]
     assert np.isfinite(results[5]["MAP"])
@@ -634,9 +646,9 @@ def test_puresvd_fit_on_card_matches_cpu(cuda):
     got = card.score_device(torch.from_numpy(users).to(cuda)).cpu()
     want = plain.score_device(torch.from_numpy(users))
     assert float((got - want).abs().max()) <= 2e-4 * float(want.abs().max())
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     lists = card.recommend_fused(np.arange(10), cutoff=20)
-    assert scorer.LAUNCHES == before + 1 and lists[5] == [] and all(len(lists[u]) == 20 for u in (0, 1, 9))
+    assert _counter("k1.launches") == before + 1 and lists[5] == [] and all(len(lists[u]) == 20 for u in (0, 1, 9))
     idx, vals = card.serve_all(cutoff=20)
     assert np.isneginf(vals[[5, 77]]).all() and np.isfinite(vals[users]).all()
 
@@ -670,9 +682,9 @@ def test_caae_epoch_on_card_matches_cpu(cuda):
     runs = []
     for dev in (cuda, torch.device("cpu")):
         params, urm, users, items, w, draws, kw = _caae_epoch_args(dev)
-        before = select.LAUNCHES
+        before = _counter("k2.launches")
         losses = pca.caae_epoch(params, urm, users, items, w, draws, **kw)
-        assert select.LAUNCHES == before + (dev.type == "cuda")  # K2 drew Nu on the card
+        assert _counter("k2.launches") == before + (dev.type == "cuda")  # K2 drew Nu on the card
         runs.append([t.detach().cpu() for t in params.parameters()])
         assert all(np.isfinite(float(x)) for x in losses)
     init = _caae_epoch_args(torch.device("cpu"))[0]
@@ -753,11 +765,11 @@ def test_ials_fits_without_tf32(cuda, monkeypatch):
         orig(n)
 
     model._run_epoch = epoch
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     model.fit(epochs=4, num_factors=16, alpha=5.0, validation_every_n=2, validation_metric="MAP",
               evaluator_object=EvaluatorHoldout(urm, [5]))
     assert seen == [(False, "highest")] * 4
-    assert scorer.LAUNCHES >= before + 2
+    assert _counter("k1.launches") >= before + 2
     assert model.epochs_best in (2, 4) and isinstance(model._USER_factors_store, torch.Tensor)
 
 
@@ -795,9 +807,9 @@ def test_tuner_trial_on_card(cuda, tmp_path, monkeypatch):
     dims = list(DICT_DIMENSIONS["ALS"]) + [Categorical([10], name="epochs")]
     exp = experiment.RecSysExp(experiment.IALSRecommender, "synth", fit_param_names=[d.name for d in dims])
     assert exp.device == cuda
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     exp.tune(dims, evals=1)
-    assert scorer.LAUNCHES >= before + 3  # two early-stopping validations and the trial's
+    assert _counter("k1.launches") >= before + 3  # two early-stopping validations and the trial's
     out = tmp_path / "experiments" / "IALSRecommender__synth"
     assert sorted(p.name for p in out.iterdir()) == ["best_params.pkl", "best_params.txt", "checkpoint.pkl",
                                                     "results.txt"]
@@ -907,11 +919,11 @@ def test_similarity_models_on_card_match_cpu(cuda, cls, params):
     plain.fit(**params)
     assert isinstance(card._device_w, torch.Tensor) and card._device_w.device == cuda
     _assert_topk_close(card.W_sparse, plain.W_sparse, rtol)
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     _metrics_close(card, plain, test)
     users = np.arange(20)
     assert card.recommend(users, cutoff=10) == plain.recommend(users, cutoff=10)
-    assert scorer.LAUNCHES == before
+    assert _counter("k1.launches") == before
 
 
 def test_sparse_w_route_on_card(cuda, monkeypatch):
@@ -976,9 +988,9 @@ def test_itemknn_cold_estimate_on_card(cuda):
         m.USER_factors, m.ITEM_factors = U.astype(np.float32), V.astype(np.float32)
         m.set_URM_train(train, estimate_model_for_cold_users="itemKNN", topK=50)
     assert (card._ItemKNNRecommender.W_sparse != plain._ItemKNNRecommender.W_sparse).nnz == 0
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     _metrics_close(card, plain, test)
-    assert scorer.LAUNCHES == before  # the dense route ranks it
+    assert _counter("k1.launches") == before  # the dense route ranks it
 
 
 # -- the MF-SGD family, IRGAN, NMF and EASE-R ----------------------------------
@@ -1022,15 +1034,15 @@ def test_bpr_evaluation_on_card_launches_k1(cuda):
 
     train, test = _sim_split()
     model = MatrixFactorization_BPR(train)
-    before = scorer.LAUNCHES
+    before = _counter("k1.launches")
     model.fit(epochs=2, num_factors=8, learning_rate=0.05, evaluator_object=EvaluatorHoldout(test, [5]),
               validation_every_n=1, validation_metric="MAP")
-    assert scorer.LAUNCHES >= before + 2  # each validation through K1
-    before = scorer.LAUNCHES
+    assert _counter("k1.launches") >= before + 2  # each validation through K1
+    before = _counter("k1.launches")
     copy = MatrixFactorization_BPR(train, device=torch.device("cpu"))
     copy.USER_factors, copy.ITEM_factors = model.USER_factors, model.ITEM_factors
     _metrics_close(model, copy, test)
-    assert scorer.LAUNCHES == before + 1
+    assert _counter("k1.launches") == before + 1
 
 
 @pytest.mark.parametrize("kind", ["pretraining", "adversarial"])
@@ -1105,9 +1117,9 @@ def test_keyed_uniforms_on_card_are_the_plain_version(cuda, B, I, dtype):
     from ganmf_tpu_torch.ops import keyed
 
     rows = torch.from_numpy(np.random.RandomState(B).permutation(5 * B)[:B]).to(dtype).to(cuda)
-    before = keyed.LAUNCHES
+    before = _counter("keyed.launches")
     got = keyed.keyed_uniforms((3 << 32) | 1234, 7, 1, rows, I)
-    assert keyed.LAUNCHES == before + 1
+    assert _counter("keyed.launches") == before + 1
     want = keyed.keyed_uniforms_reference((3 << 32) | 1234, 7, 1, rows, I)
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), keyed.keyed_uniforms((3 << 32) | 1234, 7, 1, rows.cpu(), I))
@@ -1150,10 +1162,10 @@ def test_cfgan_csr_epoch_on_card_matches_cpu(cuda, mode):
         d_opt = torch.optim.Adam(p.D.parameters(), lr=lr, betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
         g_opt = torch.optim.Adam(p.G.parameters(), lr=lr, betas=pcf.ADAM_BETAS, eps=pcf.ADAM_EPS)
         t_w = torch.from_numpy(w).to(dev)
-        k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+        k2, drawn = _counter("k2.launches"), _counter("keyed.launches")
         pcf.cfgan_epoch(p, d_opt, g_opt, pc, row_uniforms, t_w, t_w, **kw)
         if dev.type == "cuda":
-            assert select.LAUNCHES - k2 == keyed.LAUNCHES - drawn == d_n + 2 * g_n
+            assert _counter("k2.launches") - k2 == _counter("keyed.launches") - drawn == d_n + 2 * g_n
         runs.append(([m.cpu() for m in masks], [t.detach().cpu() for t in p.parameters()]))
     (card_masks, card_p), (cpu_masks, cpu_p) = runs
     for a, b in zip(card_masks, cpu_masks):
@@ -1191,9 +1203,9 @@ def test_k2_past_shared_memory_on_keyed_keys(cuda, I, grid):
     grid ties keys in every row, the coarse grid ties the k-th key (K2's tie
     cut) in most."""
     keys, k = _beyond_hbm_keys(cuda, I, grid)
-    before = select.LAUNCHES
+    before = _counter("k2.launches")
     got = smallest_k_mask(keys, k)
-    assert select.LAUNCHES == before + 1
+    assert _counter("k2.launches") == before + 1
     assert torch.equal(got, smallest_k_mask_reference(keys, k))
     assert torch.equal(got.sum(1), k.long())
     ordered = torch.sort(keys, dim=1).values
@@ -1234,9 +1246,9 @@ def test_cfgan_csr_epoch_past_shared_memory_does_not_synchronize(cuda):
         pcf.cfgan_epoch(p, d_opt, g_opt, pc, lambda stream, rows: keyed.keyed_uniforms(beyond_hbm.SEED, e, stream,
                                                                                        rows, n_cols), w, w, **kw)
 
-    k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+    k2, drawn = _counter("k2.launches"), _counter("keyed.launches")
     epoch(1)
-    assert select.LAUNCHES - k2 == keyed.LAUNCHES - drawn == g_n == 64
+    assert _counter("k2.launches") - k2 == _counter("keyed.launches") - drawn == g_n == 64
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1298,9 +1310,9 @@ def test_k1_on_an_item_shard_with_its_offset(cuda, case):
     parts = []
     for i0, i1 in ((0, 1853), (1853, 3706)):
         Vm, Mm = V[i0:i1].contiguous(), mask[:, i0:i1].contiguous()
-        before = scorer.LAUNCHES
+        before = _counter("k1.launches")
         vals, ids = masked_topk_scores(U, Vm, Mm, 50, id_offset=i0)
-        assert scorer.LAUNCHES == before + 1
+        assert _counter("k1.launches") == before + 1
         assert int(ids.min()) >= i0 and int(ids.max()) < i1
         _assert_k1_matches(U, Vm, Mm, 50, vals, ids - i0, case in EXACT)
         parts.append((vals, ids))
@@ -1458,14 +1470,13 @@ def test_gan_sharded_epochs_in_a_world_of_one_are_the_epochs_and_do_not_synchron
     same state and draws (the same products; the collectives copy), with K2
     launched on the mesh path by CFGAN and CAAE (and the keyed draw by csr),
     and, run again, only enqueuing (sync debug mode "error")."""
-    from ganmf_tpu_torch.ops import keyed
 
     one_card, sharded, p, s = _gan_epoch_pair(kind, cuda, world_of_one)
     one_card()
-    k2, drawn = select.LAUNCHES, keyed.LAUNCHES
+    k2, drawn = _counter("k2.launches"), _counter("keyed.launches")
     sharded()
-    assert (select.LAUNCHES > k2) == (kind != "disganmf")
-    assert (keyed.LAUNCHES > drawn) == (kind == "cfgan_csr")
+    assert (_counter("k2.launches") > k2) == (kind != "disganmf")
+    assert (_counter("keyed.launches") > drawn) == (kind == "cfgan_csr")
     for a, b in zip(s.parameters(), p.parameters()):
         assert torch.equal(a, b)
     torch.cuda.synchronize()
@@ -1625,3 +1636,91 @@ def test_graft_entry_on_card_eager_and_compiled(cuda):
     for f in (fn, torch.compile(fn)):
         got = torch.stack([x.detach() for x in f(*args)]).cpu()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _host_syncs() -> int:
+    return sum(v for k, v in profiling.counters().items() if k.startswith("host_sync."))
+
+
+@contextlib.contextmanager
+def _sync_warnings():
+    """The warnings of the block, with CUDA's sync debug mode on "warn": one
+    for each synchronization of the host with the card."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def _syncs_in(caught) -> int:
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+class _EpochSyncs:
+    """A metrics logger that takes, at each epoch's end, the synchronizations
+    reported so far and the host_sync counter."""
+
+    def __init__(self):
+        self.caught, self.at = None, []
+
+    def log_epoch(self, epoch):
+        self.at.append((_syncs_in(self.caught), _host_syncs()))
+
+    def log_eval(self, epoch, results):
+        pass
+
+
+def test_host_sync_counter_is_the_sync_debug_count(cuda):
+    """On the three paths the benchmark times, the host_sync counter rises
+    by the synchronizations CUDA's sync debug mode reports: a GANMF epoch
+    after the first (dense and csr, one: the shuffle's upload), a full
+    evaluation after the first (two a block and the two reads back) and a
+    recommend call (the ids in, the values and the ids back)."""
+    rng = np.random.RandomState(3)
+    full = (rng.rand(300, 500) < 0.05).astype(np.float32)
+    held = rng.rand(300, 500) < 0.2
+    train, test = sps.csr_matrix(full * ~held), sps.csr_matrix(full * held)
+    for storage in ("dense", "csr"):
+        model = GANMF(train, seed=5, is_experiment=True)
+        model.metrics_logger = logger = _EpochSyncs()
+        with _sync_warnings() as caught:
+            logger.caught = caught
+            model.fit(num_factors=16, emb_dim=64, epochs=3, batch_size=32, urm_storage=storage)
+        (w1, c1), (w2, c2), (w3, c3) = logger.at
+        assert (w2 - w1, c2 - c1, w3 - w2, c3 - c2) == (1, 1, 1, 1), (storage, logger.at)
+    ev = EvaluatorHoldout(test, [5, 10, 20, 50])
+    ev.block_rows = lambda: 64
+    blocks = -(-len(ev.usersToEvaluate) // 64)
+    for call, want in ((lambda: ev.evaluateRecommender(model), 2 * blocks + 2),
+                       (lambda: model.recommend(7, cutoff=20), 3),
+                       (lambda: model.recommend(np.arange(5), cutoff=20), 3)):
+        call()  # the one-time uploads
+        before = _host_syncs()
+        with _sync_warnings() as caught:
+            call()
+        assert _syncs_in(caught) == _host_syncs() - before == want
+
+
+def test_span_holds_its_kernel_on_the_profilers_clock(cuda):
+    """A span around a kernel's launch and a synchronize holds that kernel's
+    interval in a profile of the host and the card, within 20 us."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    with profiling.recording():
+        with profiling.span("sleep"):
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+    prof.stop()
+    (s,), _ = profiling.drain()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    k = max(kernels, key=lambda e: e.end_ns() - e.start_ns())
+    assert k.end_ns() - k.start_ns() > 100_000
+    assert s.start_ns - 20_000 <= k.start_ns() and k.end_ns() <= s.end_ns + 20_000, \
+        (k.start_ns() - s.start_ns, s.end_ns - k.end_ns())

@@ -246,16 +246,10 @@ def test_profiling_hooks(tmp_path):
     with profiling.device_trace(None) as prof:
         assert prof is None
     with profiling.device_trace(str(tmp_path / "trace")):
-        with profiling.annotate("block"):
+        with profiling.span("block"):
             torch.ones(64).sum()
     trace = (tmp_path / "trace" / "trace.json").read_text()
     assert '"block"' in trace
-    timer = profiling.EpochTimer()
-    for _ in range(2):
-        timer.start()
-        torch.ones(16).sum()
-        assert timer.stop() >= 0.0
-    assert len(timer.times) == 2 and timer.mean == pytest.approx(sum(timer.times) / 2)
     assert os.path.isdir(tmp_path / "trace")
 
 

@@ -19,8 +19,14 @@ from ganmf_tpu.ops.pallas_select import smallest_k_mask_pallas
 from ganmf_tpu.ops.topk import smallest_k_mask as jax_smallest_k_mask
 from ganmf_tpu_torch.ops import select
 from ganmf_tpu_torch.ops.topk import monotone_key_image, smallest_k_mask, smallest_k_mask_reference
+from ganmf_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
+
+
+def _counter(name: str) -> int:
+    """A counter of the port (ganmf_tpu_torch/utils/profiling.py)."""
+    return profiling.counters().get(name, 0)
 
 
 def _both(keys: np.ndarray, k: np.ndarray):
@@ -119,12 +125,12 @@ def test_wrappers_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         smallest_k_mask(keys, k[:3])
     # the kernel wrapper launches on CUDA tensors only, and counts nothing else
-    before = select.LAUNCHES
+    before = _counter("k2.launches")
     with pytest.raises(ValueError):
         select.smallest_k_mask_cuda(keys, k)
-    assert select.LAUNCHES == before
+    assert _counter("k2.launches") == before
     assert torch.equal(smallest_k_mask(keys, k), smallest_k_mask_reference(keys, k))
-    assert select.LAUNCHES == before
+    assert _counter("k2.launches") == before
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
