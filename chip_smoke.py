@@ -532,6 +532,18 @@ def _reset_counters() -> None:
     profiling.reset_counters()
 
 
+def _k3_launches(what: str, by_path: dict) -> int:
+    """K3's launches on a path whose counts were set to 0 just before it,
+    kept in ``by_path`` where there are any: one a block of each of the
+    path's evaluations on the card."""
+    k3, blocks = _counter("k3.launches"), _counter("eval.blocks.cuda")
+    if k3 != blocks:
+        fail(f"the {what} path launched K3 {k3} times in {blocks} evaluation blocks on the card")
+    if k3:
+        by_path[what] = k3
+    return k3
+
+
 def ml1m_split():
     """The ML-1M-shaped synthetic split of bench.py: 6040 x 3706, density
     0.0446, 80/20 train/test, numpy seed 0."""
@@ -2861,6 +2873,115 @@ def phase_keyed(dev, card):
     return worst, keyed_times, k2_times
 
 
+#: ML-20M's evaluation block for K3: users, items, list places, cutoffs and
+#: the longest test row of the block (its power-of-two crop)
+K3_BLOCK = dict(B=3648, I=26744, K=50, cutoffs=(5, 10, 20, 50), max_test=2048)
+
+
+def k3_block(dev, B, I, K, cutoffs, max_test, seed=SEED + 44):
+    """evaluate_pairs' arguments for one evaluation block on ``dev``, and its
+    dense test rows: a ranked list of K places a user (a few short, one
+    empty), test rows of Zipf lengths up to ``max_test`` with ratings 1-5, a
+    few rows not counted (two with a NaN RMSE)."""
+    import scipy.sparse as sps
+    import torch
+
+    from ganmf_tpu_torch.eval.metrics import item_novelty_terms, normalized_popularity, pairs_from_sparse
+
+    rng = np.random.RandomState(seed)
+    lens = np.minimum(rng.zipf(1.6, size=B) + 4, max_test)
+    lens[:4] = max_test
+    rows = np.repeat(np.arange(B), lens)
+    cols = np.concatenate([rng.choice(I, size=n, replace=False) for n in lens])
+    test = sps.csr_matrix((rng.randint(1, 6, len(rows)).astype(np.float32), (rows, cols)), shape=(B, I))
+    vals = -np.sort(-rng.randn(B, K).astype(np.float32), axis=1)
+    vals[5, 12:] = -np.inf
+    vals[6, :] = -np.inf
+    idx = rng.randint(0, I, size=(B, K)).astype(np.int64)
+    idx[:, :3] = cols[np.minimum(test.indptr[:-1, None] + np.arange(3), test.indptr[1:, None] - 1)]
+    valid = np.ones(B, bool)
+    valid[[0, 9, B - 1]] = False
+    rmse = rng.rand(B).astype(np.float32)
+    rmse[[9, B - 1]] = np.nan
+    train = sps.csr_matrix((rng.rand(2000, I) < 0.005).astype(np.float32))
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = (put(vals), put(idx), pairs_from_sparse(test, dev), torch.arange(B, device=dev),
+            put(np.diff(test.indptr).astype(np.int64)), put(valid),
+            put(item_novelty_terms(train, I).astype(np.float32)),
+            put(normalized_popularity(train).astype(np.float32)), put(rmse), tuple(cutoffs))
+    return args, test
+
+
+def k3_bound(args):
+    """(ms, what bounds it) of K3 on ``args``: every input byte read once
+    (the lists, each user's test pairs and row bounds, the per-user inputs,
+    the novelty and popularity of each listed place), the counters, the
+    per-user AP and the sums written once; no operation counts against the
+    float32 rate at these bytes."""
+    import torch
+
+    top_vals, top_idx, pairs, uids = args[:4]
+    B, K = top_vals.shape
+    nc, I = len(args[9]), args[6].shape[0]
+    n = int((pairs.indptr[uids + 1] - pairs.indptr[uids]).sum())
+    listed = int(torch.isfinite(top_vals).sum())
+    nbytes = 12 * B * K + 12 * n + B * (16 + 8 + 1 + 4) + 8 * listed + 4 * nc * (I + B + 13)
+    return bound(0, nbytes)
+
+
+def phase_metrics(dev, card):
+    """K3 at ML-20M's evaluation block against its plain version (counters
+    equal; sums and each user's AP within float32 summation order), two runs
+    bitwise equal, and timed beside its bound, its plain version and the
+    dense computation it replaced. Returns (worst relative error, times)."""
+    import torch
+
+    from ganmf_tpu_torch.data.device import padded_csr_from_sparse, padded_rows_dense
+    from ganmf_tpu_torch.eval.metrics import evaluate_batch_from_topk, evaluate_pairs_cuda, evaluate_pairs_reference
+
+    print("[44] K3 (an evaluation block's metrics) at ML-20M's block shape against its plain version")
+    args, test = k3_block(dev, **K3_BLOCK)
+    got = evaluate_pairs_cuda(*args)
+    again = evaluate_pairs_cuda(*args)
+    want = evaluate_pairs_reference(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("K3: two runs on the same inputs differ")
+    if not torch.equal(got.counters, want.counters):
+        fail("K3: the counters differ from the plain version's")
+    worst = worst_rel = 0.0
+    for name in ("scalars", "user_ap"):
+        g, w = getattr(got, name), getattr(want, name)
+        worst = max(worst, float((g - w).abs().max()))
+        worst_rel = max(worst_rel, float(((g - w).abs() / w.abs().clamp(min=1e-6)).max()))
+        if not torch.allclose(g, w, rtol=METRIC_TOL, atol=1e-6):
+            fail(f"K3: {name} differ from the plain version's beyond rtol {METRIC_TOL}")
+    uids = args[3]
+    rows = padded_rows_dense(padded_csr_from_sparse(test, dev), uids, K3_BLOCK["I"], max_len=K3_BLOCK["max_test"])
+    # the yardstick: the dense computation the evaluator made before K3, with
+    # its top-k over the dense block of test ratings
+    dense_args = args[:2] + (rows,) + args[4:] + (K3_BLOCK["K"],)
+    t = {"ms": cuda_ms(lambda: evaluate_pairs_cuda(*args)),
+         "plain_ms": cuda_ms(lambda: evaluate_pairs_reference(*args), reps=5),
+         "library_ms": cuda_ms(lambda: evaluate_batch_from_topk(*dense_args))}
+    densify_ms = cuda_ms(lambda: padded_rows_dense(padded_csr_from_sparse(test, dev), uids, K3_BLOCK["I"],
+                                                   max_len=K3_BLOCK["max_test"]))
+    t["bound_ms"], t["bound_by"] = k3_bound(args)
+    B, K = args[0].shape
+    print(f"  K3 B={B} K={K} I={K3_BLOCK['I']} cutoffs={K3_BLOCK['cutoffs']} "
+          f"test pairs {int(args[2].indptr[-1])}: counters equal, worst error {worst:.3e} ({worst_rel:.3e} "
+          f"relative), two runs "
+          f"bitwise equal; {t['ms']:.4f} ms through the wrapper (both kernels and the counters' zeroing), "
+          f"plain {t['plain_ms']:.4f} ms, the dense computation {t['library_ms']:.4f} ms (its dense test "
+          f"block {densify_ms:.4f} ms more), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of it  [{card}]")
+    t["densify_ms"] = densify_ms
+    from ganmf_tpu_torch.utils import profiling
+
+    profiling.reset_counters()  # these launches are no path's
+    return worst, {f"B={B} K={K} I={K3_BLOCK['I']} cutoffs={len(K3_BLOCK['cutoffs'])}": t}
+
+
 def expected_csr_draws(p, n_rows):
     """(K2 launches an epoch, d minibatches, g minibatches) of a csr epoch:
     one launch a D minibatch for the PM mask and one a G minibatch for each
@@ -4301,9 +4422,11 @@ def phase_ml20m(dev, card, scratch):
     stage("CFGAN_csr", scale20m.cfgan, implicit)
     wide, merge, k2, drawn = _counter("k1.wide_launches"), _counter("k1.merge_launches"), _counter("k2.launches"), _counter("keyed.launches")
     fused = _counter("k1.launches") - wide
+    k3 = {}
+    _k3_launches("ML-20M stand-in", k3)
     per_epoch, _, _ = expected_csr_draws(scale20m.CFGAN_PARAMS, shape[0])
     print(f"  launches on the ML-20M path: K1 fused {fused} (merge pass {merge}), wide pair {wide}, K2 {k2}, "
-          f"keyed draw {drawn}")
+          f"keyed draw {drawn}, K3 {sum(k3.values())}")
     if fused == 0 or wide or k2 != per_epoch or drawn != per_epoch:
         fail(f"ML-20M: K1's fused kernel launched {fused} times and its wide pair {wide}; K2 {k2} and the keyed "
              f"draw {drawn} times, where CFGAN's csr epoch draws {per_epoch}")
@@ -4344,7 +4467,7 @@ def phase_ml20m(dev, card, scratch):
           f"{int(inter.sum(1).max())} interactions); {t['ms']:.4f} ms through the wrapper, {t['launch_ms']:.4f} ms "
           f"the launch alone; plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']})  [{card}]")
     shutil.rmtree(root)
-    return fused, merge, k2, drawn, k1_times, {name: t}, k1_err
+    return fused, merge, k2, drawn, k3, k1_times, {name: t}, k1_err
 
 
 # -- phase 40: JAX's bf16 similarity routes -------------------------------------
@@ -4819,7 +4942,9 @@ def main():
     k1_err, fused, wide_err, wide = phase_kernel(dev, card)
     k2_err, k2_times = phase_select(dev, card)
     keyed_err, keyed_times, k2_csr_times = phase_keyed(dev, card)
+    k3_err, k3_times = phase_metrics(dev, card)
     elapsed("the kernel phases")
+    k3_by_path = {}  # K3's launches on each path below, read with its other counts
 
     train, test = ml1m_split()
     # count only the main path's launches
@@ -4831,6 +4956,8 @@ def main():
     if k1_launches == 0 or wide_launches == 0 or merge_launches == 0:
         fail(f"the GANMF path launched K1's fused kernel {k1_launches} times (its merge pass "
              f"{merge_launches} times) and its wide pair {wide_launches} times")
+    if not _k3_launches("GANMF serving", k3_by_path):
+        fail("the GANMF path's evaluations on the card did not launch K3")
 
     # GANMF's training path, its counts read alone
     _reset_counters()
@@ -4838,6 +4965,7 @@ def main():
     train_wide = _counter("k1.wide_launches")
     train_fused = _counter("k1.launches") - train_wide
     train_merge = _counter("k1.merge_launches")
+    _k3_launches("GANMF training", k3_by_path)
     if train_fused == 0 or train_wide == 0:
         fail(f"GANMF's training path launched K1's fused kernel {train_fused} times and its wide "
              f"pair {train_wide} times")
@@ -4850,6 +4978,7 @@ def main():
     _reset_counters()
     models = phase_cfgan(dev, card, train, test)
     k2_launches = _counter("k2.launches")
+    _k3_launches("CFGAN training", k3_by_path)
     if k2_launches < 2 * CFGAN_EPOCHS:
         fail(f"the CFGAN path launched K2 {k2_launches} times, under once per epoch")
     phase_cfgan_plain(dev, card, train, test, models)
@@ -4862,6 +4991,7 @@ def main():
     dis_wide = _counter("k1.wide_launches")
     dis_fused = _counter("k1.launches") - dis_wide
     dis_merge = _counter("k1.merge_launches")
+    _k3_launches("DisGANMF training", k3_by_path)
     if dis_fused == 0 or dis_wide == 0:
         fail(f"DisGANMF's training path launched K1's fused kernel {dis_fused} times and its wide pair "
              f"{dis_wide} times")
@@ -4876,6 +5006,7 @@ def main():
     svd_wide = _counter("k1.wide_launches")
     svd_fused = _counter("k1.launches") - svd_wide
     svd_merge = _counter("k1.merge_launches")
+    _k3_launches("PureSVD serving", k3_by_path)
     if svd_fused == 0 or svd_wide == 0:
         fail(f"PureSVD's serving path launched K1's fused kernel {svd_fused} times and its wide pair "
              f"{svd_wide} times")
@@ -4888,6 +5019,7 @@ def main():
     _reset_counters()
     caae, caae_ev = phase_caae(dev, card, train, test)
     caae_k2 = _counter("k2.launches")
+    _k3_launches("CAAE training", k3_by_path)
     if caae_k2 < CAAE_EPOCHS:
         fail(f"the CAAE path launched K2 {caae_k2} times, under once per epoch")
     phase_caae_plain(dev, card, train, test, caae, caae_ev)
@@ -4897,6 +5029,7 @@ def main():
     # TopPop on the ML-1M-shaped split: the dense route, no kernel
     _reset_counters()
     phase_toppop(dev, card, train, test)
+    _k3_launches("TopPop serving", k3_by_path)
     if _counter("k1.launches"):
         fail(f"TopPop's path launched K1 {_counter("k1.launches")} times: it ranks by the dense route")
     elapsed("TopPop")
@@ -4911,6 +5044,7 @@ def main():
     ials_serve_wide = _counter("k1.wide_launches")
     ials_serve_fused = _counter("k1.launches") - ials_serve_wide
     ials_serve_merge = _counter("k1.merge_launches")
+    _k3_launches("IALS serving", k3_by_path)
     if ials_serve_fused == 0:
         fail("IALS run_best's test evaluation did not launch K1's fused kernel")
     # IALS's training path: early stopping, then serving on the trained model
@@ -4920,6 +5054,7 @@ def main():
     ials_wide = _counter("k1.wide_launches")
     ials_fused = _counter("k1.launches") - ials_wide
     ials_merge = _counter("k1.merge_launches")
+    _k3_launches("IALS training", k3_by_path)
     if ials_fused == 0 or ials_wide == 0:
         fail(f"IALS's training path launched K1's fused kernel {ials_fused} times and its wide pair "
              f"{ials_wide} times")
@@ -4934,6 +5069,7 @@ def main():
     tuner_wide = _counter("k1.wide_launches")
     tuner_fused = _counter("k1.launches") - tuner_wide
     tuner_merge = _counter("k1.merge_launches")
+    _k3_launches("tuner", k3_by_path)
     if tuner_fused == 0:
         fail("the tuner's validations did not launch K1's fused kernel")
     elapsed("the tuner")
@@ -4946,7 +5082,8 @@ def main():
         if _counter("k1.launches") or _counter("k2.launches") or _counter("keyed.launches"):
             fail(f"{what} launched K1 {_counter("k1.launches")} times, K2 {_counter("k2.launches")} times and the keyed "
                  f"draw {_counter("keyed.launches")} times")
-        print(f"  K1, K2 and keyed-draw launches on the {what} path: 0")
+        print(f"  K1, K2 and keyed-draw launches on the {what} path: 0; K3 "
+              f"{_k3_launches(what, k3_by_path)}")
         elapsed(what)
 
     train, test = lastfm_split()
@@ -4970,7 +5107,8 @@ def main():
         if fused == 0 or k2:
             fail(f"the {what} path launched K1's fused kernel {fused} times and K2 {k2} times")
         new_paths[what] = (fused, wide, merge, k2)
-        print(f"  launches on the {what} path: K1 fused {fused} (merge pass {merge}), wide pair {wide}, K2 {k2}")
+        print(f"  launches on the {what} path: K1 fused {fused} (merge pass {merge}), wide pair {wide}, K2 {k2}, "
+              f"K3 {_k3_launches(what, k3_by_path)}")
         elapsed(what)
 
     train, test = ml1m_split()
@@ -4991,7 +5129,8 @@ def main():
         k2, drawn = _counter("k2.launches"), _counter("keyed.launches")
         if k2 == 0 or drawn == 0 or _counter("k1.launches"):
             fail(f"the {what} path launched K2 {k2} times, the keyed draw {drawn} times and K1 {_counter("k1.launches")}")
-        print(f"  launches on the {what} path: K2 {k2}, keyed draw {drawn}, K1 0")
+        print(f"  launches on the {what} path: K2 {k2}, keyed draw {drawn}, K1 0, "
+              f"K3 {_k3_launches(what, k3_by_path)}")
         elapsed(what)
         return k2, drawn
 
@@ -5002,6 +5141,7 @@ def main():
     _reset_counters()
     dedup_epochs = phase_caae_dedup(dev, card, train)
     dedup_k2 = _counter("k2.launches")
+    _k3_launches("CAAE dedup", k3_by_path)
     if dedup_k2 != dedup_epochs or _counter("keyed.launches"):  # one G step an epoch
         fail(f"the CAAE dedup path launched K2 {dedup_k2} times and the keyed draw {_counter("keyed.launches")} times")
     elapsed("CAAE dedup")
@@ -5034,8 +5174,9 @@ def main():
     elapsed("the gloo mesh of IALS, MF-SGD, SLIM-BPR, EASE-R and ItemKNN")
     # the ML-20M stand-in (phase 39), its counts set to 0 just before its
     # stages and read just after
-    m20s_fused, m20s_merge, m20s_k2, m20s_keyed, m20s_k1, m20s_k2_times, m20s_k1_err = phase_ml20m(
+    m20s_fused, m20s_merge, m20s_k2, m20s_keyed, m20s_k3, m20s_k1, m20s_k2_times, m20s_k1_err = phase_ml20m(
         dev, card, SCRATCH)
+    k3_by_path.update(m20s_k3)
     k1_err = max(k1_err, m20s_k1_err)
     fused.update(m20s_k1)
     elapsed("the ML-20M stand-in")
@@ -5049,6 +5190,7 @@ def main():
     _reset_counters()
     beyond_urm, beyond_expected = phase_beyond_hbm(dev, card)
     beyond_k2, beyond_keyed = _counter("k2.launches"), _counter("keyed.launches")
+    _k3_launches("beyond HBM", k3_by_path)
     if beyond_k2 != beyond_expected or beyond_keyed != beyond_expected or _counter("k1.launches"):
         fail(f"the beyond-HBM path launched K2 {beyond_k2} times and the keyed draw {beyond_keyed} times "
              f"(CFGAN's G minibatches: {beyond_expected}) and K1 {_counter("k1.launches")} times")
@@ -5063,6 +5205,7 @@ def main():
     latency_models = phase_serving_latency(dev, card)
     latency_wide, latency_merge = _counter("k1.wide_launches"), _counter("k1.merge_launches")
     latency_fused = _counter("k1.launches") - latency_wide
+    _k3_launches("serving latency", k3_by_path)
     if latency_fused == 0 or latency_wide or _counter("k2.launches") or _counter("keyed.launches"):
         fail(f"the serving-latency path launched K1's fused kernel {latency_fused} times, its wide pair "
              f"{latency_wide} times and K2 {_counter("k2.launches")} times")
@@ -5115,6 +5258,7 @@ def main():
             if n_k1:
                 fused_by_path[f"{name} mesh, {where}"] = n_k1
     keyed_shape, *keyed_others = keyed_times
+    (k3_shape, k3_t), = k3_times.items()
     for what, (n_fused, n_wide, n_merge, n_k2) in new_paths.items():
         fused_by_path[what], wide_by_path[what], k2_by_path[what] = n_fused, n_wide, n_k2
         merge_launches += n_merge
@@ -5169,6 +5313,17 @@ def main():
             "shape": keyed_shape,
             **keyed_times[keyed_shape],
             "other_shapes": [{"shape": name, **keyed_times[name]} for name in keyed_others],
+        },
+        {
+            "name": "evaluate_pairs (K3, an evaluation block's metrics at every cutoff; not a TPU kernel)",
+            "route": "cuda",
+            "source": "ganmf_tpu_torch/csrc/block_metrics.cu",
+            "replaces": "ganmf_tpu/eval/metrics.py _evaluate_core (XLA ops: no TPU kernel)",
+            "launches": sum(k3_by_path.values()),
+            "launches_by_path": k3_by_path,
+            "max_abs_err": k3_err,
+            "shape": k3_shape,
+            **k3_t,
         },
     ]}))
     print(card)

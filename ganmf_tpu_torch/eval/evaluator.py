@@ -23,7 +23,14 @@ JAX evaluator's ``_can_fuse`` and ``_can_fuse_sim`` pick it
   from its own profile rows, unless its operands are planes;
 - every other model takes the dense route of the JAX evaluator
   (:209-222,496-535, without the mesh): ``score_device`` gives the masked
-  [B, I] block and ``evaluate_batch`` ranks it with a stable top-k.
+  [B, I] block, a stable top-k ranks it, and the block's dense test rows
+  give the RMSE.
+
+Whatever the route, a block's metrics come from its ranked lists and its
+users' test pairs in CSR form (``evaluate_pairs``, eval/metrics.py): one
+launch of K3 (csrc/block_metrics.cu) on the card, the plain version on the
+CPU. No dense block of test ratings is made but for the RMSE of the dense
+route and of a model's own columns.
 
 No route is a fallback: a failure raises. K1 and the similarity route
 serve plain holdout evaluation only: with a ``diversity_object`` or in
@@ -64,22 +71,23 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-from ganmf_tpu_torch.data.device import padded_csr_from_sparse, padded_rows_dense
 from ganmf_tpu_torch.eval.metrics import (
     METRIC_ORDER,
     SCALAR_FIELDS,
-    evaluate_batch,
-    evaluate_batch_from_topk,
+    block_pairs,
+    evaluate_pairs,
     finalize_counter_metrics,
     item_novelty_terms,
     normalized_popularity,
+    pairs_from_sparse,
+    score_rmse,
 )
 from ganmf_tpu_torch.ops.scorer import masked_topk_scores
 from ganmf_tpu_torch.ops.simscore import masked_topk_matmul
 from ganmf_tpu_torch.ops.topk import merge_shard_topk, sharded_topk, topk_lowest_index
 from ganmf_tpu_torch.utils.debug import debug_enabled
 from ganmf_tpu_torch.utils.device import as_device
-from ganmf_tpu_torch.utils.profiling import root, span, to_device, to_host
+from ganmf_tpu_torch.utils.profiling import count, root, span, to_device, to_host
 
 
 def _pair_rmse(U_b, V, cold_b, ids, tvals, pvalid, seen_pairs):
@@ -131,7 +139,7 @@ def _diversity_block(M: torch.Tensor, top_idx: torch.Tensor, top_val: torch.Tens
 
 def _shard_rmse(scores: torch.Tensor, test_rows: torch.Tensor, plan) -> torch.Tensor:
     """Each row's RMSE over its test items with finite scores (metrics.py
-    ``evaluate_batch``'s), from this rank's item columns of both: the squared
+    ``score_rmse``'s), from this rank's item columns of both: the squared
     errors and counts summed over the model axis."""
     from ganmf_tpu_torch.parallel import comm
 
@@ -216,9 +224,11 @@ class EvaluatorHoldout:
             users = np.array(sorted(set(users.tolist()) - set(self.ignore_users_ID.tolist())))
         self.usersToEvaluate = list(users)
 
-        # test ratings in padded-CSR form, O(nnz) on the device; blocks
-        # densify their [B, I] rows by scatter
-        self._test_padded = padded_csr_from_sparse(self.URM_test, self.device)
+        # each user's test pairs, O(nnz) on the device: the one device form
+        # of the test ratings, which every block's metrics (K3 on the card),
+        # pair RMSE and dense test rows read
+        self._pairs = pairs_from_sparse(self.URM_test, self.device)
+        self._max_test_len = max(1, int(n_ratings.max()) if len(n_ratings) else 1)
         self._n_pos = torch.from_numpy(n_ratings.astype(np.int64)).to(self.device)
 
         if len(self.ignore_items_ID):
@@ -228,28 +238,17 @@ class EvaluatorHoldout:
         else:
             self._ignore_items_mask = None
 
-        self._test_pairs = None  # lazy [U, P] padded test (ids, vals, mask)
         self._nov_pop_key = None
         self.diversity_object = diversity_object
         self._diversity_dev = None  # the dense [I, I] float32 matrix, made at first use
 
-    def _padded_test_arrays(self):
-        """Padded per-user test pairs for the RMSE gather."""
-        if self._test_pairs is None:
-            csr = self.URM_test
-            U = self.n_users
-            nnz = np.diff(csr.indptr)
-            P = max(1, int(nnz.max()) if len(nnz) else 1)
-            ids = np.zeros((U, P), np.int64)
-            vals = np.zeros((U, P), np.float32)
-            msk = np.zeros((U, P), bool)
-            row_of = np.repeat(np.arange(U), nnz)
-            slot = np.arange(csr.nnz, dtype=np.int64) - np.repeat(csr.indptr[:-1], nnz)
-            ids[row_of, slot] = csr.indices
-            vals[row_of, slot] = csr.data
-            msk[row_of, slot] = True
-            self._test_pairs = tuple(torch.from_numpy(a).to(self.device) for a in (ids, vals, msk))
-        return self._test_pairs
+    def _dense_test_rows(self, uids: torch.Tensor, max_len: int) -> torch.Tensor:
+        """[B, I] the test ratings of a block of users (0 = none), for the
+        RMSE of the routes that score every item; ``max_len`` is at least
+        the block's longest test row."""
+        ids, vals, _ = block_pairs(self._pairs, uids, max_len)
+        return torch.zeros((uids.shape[0], self.n_items), dtype=torch.float32,
+                           device=self.device).scatter_add_(1, ids, vals)
 
     def _seen_block(self, model, uids: torch.Tensor, max_len: int = None) -> torch.Tensor:
         """[B, I] bool: the seen and ignored items of a block of users."""
@@ -315,15 +314,9 @@ class EvaluatorHoldout:
         cold_b = cold.index_select(0, uids)
         vals = vals.masked_fill(cold_b[:, None], float("-inf"))
 
-        ids, tvals, pvalid = self._padded_test_arrays()
-        tp = pair_len if pair_len is not None else ids.shape[1]
-        pair_ids = ids.index_select(0, uids)[:, :tp]
-        seen_pairs = torch.gather(seen, 1, pair_ids)
-        user_rmse = _pair_rmse(
-            U_b, V, cold_b, pair_ids,
-            tvals.index_select(0, uids)[:, :tp],
-            pvalid.index_select(0, uids)[:, :tp], seen_pairs,
-        )
+        pair_ids, tvals, pvalid = block_pairs(self._pairs, uids,
+                                              pair_len if pair_len is not None else self._max_test_len)
+        user_rmse = _pair_rmse(U_b, V, cold_b, pair_ids, tvals, pvalid, torch.gather(seen, 1, pair_ids))
         return vals, idx, user_rmse
 
     def _can_fuse_sim(self, model) -> bool:
@@ -354,13 +347,11 @@ class EvaluatorHoldout:
         )
         seen = None if mask_from_rows else self._seen_block(model, uids, max_len=max_len)
 
-        ids, tvals, pvalid = self._padded_test_arrays()
-        tp = pair_len if pair_len is not None else ids.shape[1]
-        pair_ids = ids.index_select(0, uids)[:, :tp]
+        pair_ids, tvals, pvalid = block_pairs(self._pairs, uids,
+                                              pair_len if pair_len is not None else self._max_test_len)
         vals, idx, ps, pf = masked_topk_matmul(rows, right, seen, pair_ids, k=self.max_cutoff,
                                                mask_from_rows=mask_from_rows)
-        user_rmse = _pair_rmse_from_probe(
-            ps, pf, tvals.index_select(0, uids)[:, :tp], pvalid.index_select(0, uids)[:, :tp])
+        user_rmse = _pair_rmse_from_probe(ps, pf, tvals, pvalid)
         return vals, idx, user_rmse
 
     # -- main entry ------------------------------------------------------------
@@ -510,6 +501,7 @@ class EvaluatorHoldout:
         for start in range(0, n_eval, block_size):
             with span("eval.block"):
                 with span("eval.prep"):
+                    count("eval.blocks." + self.device.type)
                     chunk = users[start : start + block_size]
                     crop_train = _pow2_crop(train_lens[chunk].max(), train_lens.max())
                     crop_test = _pow2_crop(test_lens[chunk].max(), test_lens.max())
@@ -520,12 +512,10 @@ class EvaluatorHoldout:
                         ok = np.arange(part) < len(mine)
 
                     uids = to_device(chunk, self.device, "eval.uids")
-                    test_rows = padded_rows_dense(self._test_padded, uids, self.n_items, max_len=crop_test)
                     n_pos = self._n_pos.index_select(0, uids)
                     valid = to_device(ok, self.device, "eval.valid")
-                # the dense route's scores, or the per-user RMSE of a ranking
-                # from K1, the similarity route or a model's own columns
-                scores = user_rmse = None
+                # the ranking and each user's RMSE, from K1, the similarity
+                # route, a model's own columns or the dense route's scores
                 with span("eval.rank"):
                     if use_k1 or use_sim:
                         if use_k1:
@@ -545,6 +535,7 @@ class EvaluatorHoldout:
                         if debug:
                             _raise_on_nan_scores(own, start)
                         topk = sharded_topk(own, self.max_cutoff, plan)
+                        test_rows = self._dense_test_rows(uids, crop_test)
                         user_rmse = _shard_rmse(own, test_rows[:, i0:i1], plan)
                     else:
                         scores = self._score_block(recommender_object, uids, max_len=crop_train)
@@ -555,17 +546,11 @@ class EvaluatorHoldout:
                             topk = sharded_topk(scores[:, split[0] : split[1]], self.max_cutoff, plan)
                         else:
                             topk = topk_lowest_index(scores, self.max_cutoff)
+                        user_rmse = score_rmse(scores, self._dense_test_rows(uids, crop_test))
                 with span("eval.metrics"):
-                    if scores is None:
-                        stats = evaluate_batch_from_topk(
-                            *topk, test_rows, n_pos, valid, novelty_terms, pop_norm,
-                            user_rmse, cutoffs=cutoffs, max_cutoff=self.max_cutoff,
-                        )
-                    else:
-                        stats = evaluate_batch(
-                            scores, test_rows, n_pos, valid, novelty_terms, pop_norm,
-                            cutoffs=cutoffs, max_cutoff=self.max_cutoff, topk=topk,
-                        )
+                    # K3 takes float32 lists and RMSEs; a model may score in another type
+                    stats = evaluate_pairs(topk[0].float(), topk[1], self._pairs, uids, n_pos, valid,
+                                           novelty_terms, pop_norm, user_rmse.float(), cutoffs)
                     diversity = None
                     if self.diversity_object is not None and not (use_k1 or use_sim):
                         top_val, top_idx = topk

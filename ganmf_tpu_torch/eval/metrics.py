@@ -1,11 +1,16 @@
 """Vectorized ranking metrics.
 
-Port of ganmf_tpu/eval/metrics.py. One batch of users is evaluated across all
+Port of ganmf_tpu/eval/metrics.py. One block of users is evaluated across all
 cutoffs at once from its ranked top-k (the fused scorer's output, or the
-stable top-k of a dense score block in ``evaluate_batch``); the
-per-user scalar metrics are summed on the device and the counter metrics
-update a per-cutoff item counter with a scatter-add. The finalizers run once
-on the host in float64 and are copied from the JAX package as they are.
+stable top-k of a dense score block) and each user's test pairs (``PairsCSR``): the per-user scalar metrics are summed on the
+device and the counter metrics count each listed item per cutoff.
+``evaluate_pairs`` computes them. On CUDA tensors it launches K3, the
+hand-written kernel of csrc/block_metrics.cu; on CPU tensors it takes the
+plain version, ``evaluate_pairs_reference``: the JAX package's computation
+over a dense [B, I] block of test ratings, with that block's two reads (a
+listed item's rating, the ideal DCG's largest values) made from the pairs
+instead. The finalizers run once on the host in float64 and are copied from
+the JAX package as they are.
 
 Metric definitions follow the reference's Base/Evaluation/metrics.py,
 as documented in the JAX module.
@@ -13,12 +18,15 @@ as documented in the JAX module.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence
 
 import numpy as np
+import scipy.sparse as sps
 import torch
 
-from ganmf_tpu_torch.ops.topk import topk_lowest_index
+from ganmf_tpu_torch.ops._build import check, load_library, on_device, stream_handle
+from ganmf_tpu_torch.utils.profiling import count
 
 #: Metric presentation order = the reference's EvaluatorMetrics enum order.
 METRIC_ORDER = [
@@ -69,6 +77,31 @@ class BatchStats(NamedTuple):
     user_ap: torch.Tensor  # [n_cutoffs, B] each user's AP (MAP's term)
 
 
+class PairsCSR(NamedTuple):
+    """Each user's test items in CSR form, as K3 reads them: a row's ids
+    ascending and unique (duplicates summed in float32, as the dense block's
+    scatter-add sums them; exact zeros dropped), their values, and the row's
+    values again in descending order."""
+
+    indptr: torch.Tensor  # [U + 1] int64
+    ids: torch.Tensor  # [nnz] int32
+    vals: torch.Tensor  # [nnz] float32
+    desc: torch.Tensor  # [nnz] float32
+
+
+def pairs_from_sparse(matrix, device: torch.device) -> PairsCSR:
+    """The pairs of a scipy matrix's rows, on ``device``."""
+    csr = sps.csr_matrix(matrix, dtype=np.float32, copy=True)
+    csr.sum_duplicates()
+    csr.eliminate_zeros()
+    indptr, ids, vals = (torch.from_numpy(a).to(device) for a in
+                         (csr.indptr.astype(np.int64), csr.indices.astype(np.int32), csr.data))
+    rows = torch.repeat_interleave(torch.arange(csr.shape[0], device=device), indptr.diff(), output_size=csr.nnz)
+    by_val = torch.sort(vals, descending=True, stable=True).indices
+    by_row = torch.sort(rows[by_val], stable=True).indices
+    return PairsCSR(indptr, ids, vals, vals[by_val][by_row])
+
+
 def average_precision(relm: torch.Tensor, length: torch.Tensor, n_pos: torch.Tensor) -> torch.Tensor:
     """Each user's average precision, MAP's term: ``relm`` [B, K] is the 0/1
     relevance of the ranked list, zero past its ``length`` [B]; the sum of
@@ -79,33 +112,16 @@ def average_precision(relm: torch.Tensor, length: torch.Tensor, n_pos: torch.Ten
     return torch.where(length > 0, p_at_k.sum(1) / torch.minimum(n_pos, length).clamp(min=1.0), 0.0)
 
 
-def evaluate_batch(
-    scores: torch.Tensor,  # [B, I] seen-masked model scores (-inf = removed)
-    test_ratings: torch.Tensor,  # [B, I] test interaction values (0 = none)
-    n_pos: torch.Tensor,  # [B] number of test interactions per user
-    user_valid: torch.Tensor,  # [B] bool, False for rows not to count
-    item_novelty: torch.Tensor,  # [I]
-    pop_normalized: torch.Tensor,  # [I]
-    cutoffs: Sequence[int],
-    max_cutoff: int,
-    topk=None,
-) -> BatchStats:
-    """Metrics from a dense score block (the dense route): the top-k with ties
-    to the lowest item id, and the per-user RMSE over the test items from the
-    scores themselves (reference Evaluator.py:298-299). ``topk`` is a ranking
-    made already (e.g. ``sharded_topk``'s merge over item shards)."""
-    top_vals, top_idx = topk if topk is not None else topk_lowest_index(scores, max_cutoff)
+def score_rmse(scores: torch.Tensor, test_ratings: torch.Tensor) -> torch.Tensor:
+    """[B] each user's RMSE over the test items with a finite score, from a
+    dense score block (reference Evaluator.py:298-299); NaN for a user with
+    none."""
     test_mask = (test_ratings != 0).float()
     finite_scores = torch.isfinite(scores)
     fin = test_mask * finite_scores.float()
     sq_err = torch.where(finite_scores, (scores - test_ratings) ** 2, 0.0) * fin
     fin_cnt = fin.sum(1)
-    user_rmse = torch.where(
-        fin_cnt > 0, torch.sqrt(sq_err.sum(1) / fin_cnt.clamp(min=1.0)), float("nan"))
-    return _evaluate_core(
-        top_vals, top_idx, test_ratings, n_pos, user_valid, item_novelty,
-        pop_normalized, user_rmse, cutoffs, max_cutoff,
-    )
+    return torch.where(fin_cnt > 0, torch.sqrt(sq_err.sum(1) / fin_cnt.clamp(min=1.0)), float("nan"))
 
 
 def evaluate_batch_from_topk(
@@ -120,28 +136,140 @@ def evaluate_batch_from_topk(
     cutoffs: Sequence[int],
     max_cutoff: int,
 ) -> BatchStats:
-    """Metrics from a precomputed ranking: the [B, I] score matrix never
-    exists in device memory."""
-    return _evaluate_core(
-        top_vals, top_idx, test_ratings, n_pos, user_valid, item_novelty,
-        pop_normalized, user_rmse, cutoffs, max_cutoff,
-    )
-
-
-def _evaluate_core(
-    top_vals, top_idx, test_ratings, n_pos, user_valid, item_novelty,
-    pop_normalized, user_rmse, cutoffs, K,
-) -> BatchStats:
-    I = test_ratings.shape[1]
-    dev = test_ratings.device
-    valid = torch.isfinite(top_vals)  # -inf entries are dropped from rankings
-
+    """Metrics from a precomputed ranking and a dense block of test ratings,
+    as the JAX package computes them; the evaluator computes them from the
+    test pairs (``evaluate_pairs``)."""
     rel_ratings = torch.gather(test_ratings, 1, top_idx)  # [B, K]
-    rel = (rel_ratings != 0).float()
-
     # per-user ideal relevance ordering for NDCG; only the values are used,
     # so any exact top-k serves
-    ideal_ratings = torch.topk(test_ratings, K, dim=1).values  # [B, K]
+    ideal_ratings = torch.topk(test_ratings, max_cutoff, dim=1).values  # [B, K]
+    return _metrics_from_ratings(top_vals, top_idx, rel_ratings, ideal_ratings, n_pos, user_valid, item_novelty,
+                                 pop_normalized, user_rmse, cutoffs)
+
+
+def check_pairs_args(top_vals, top_idx, pairs, uids, n_pos, user_valid, item_novelty, pop_normalized,
+                     user_rmse, cutoffs) -> None:
+    """Raise unless the inputs are what K3 and its plain version take: only
+    shapes, types, layouts and devices are checked, on the host."""
+    if top_vals.dim() != 2 or tuple(top_idx.shape) != tuple(top_vals.shape):
+        raise ValueError(f"top_vals and top_idx must be [B, K], got {tuple(top_vals.shape)} "
+                         f"and {tuple(top_idx.shape)}")
+    B = top_vals.shape[0]
+    per_user = {"uids": uids, "n_pos": n_pos, "user_valid": user_valid, "user_rmse": user_rmse}
+    per_item = {"item_novelty": item_novelty, "pop_normalized": pop_normalized}
+    for name, t in {**per_user, **per_item, **pairs._asdict()}.items():
+        if t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+    for name, t in per_user.items():
+        if t.shape[0] != B:
+            raise ValueError(f"{name} has {t.shape[0]} rows, the lists {B}")
+    if item_novelty.shape != pop_normalized.shape or top_vals.shape[1] > item_novelty.shape[0]:
+        raise ValueError(f"item_novelty {tuple(item_novelty.shape)} and pop_normalized "
+                         f"{tuple(pop_normalized.shape)} must cover the same items, at least K")
+    if not pairs.ids.shape == pairs.vals.shape == pairs.desc.shape:
+        raise ValueError("the pairs' ids, vals and desc must have one length")
+    dtypes = {"top_vals": (top_vals, torch.float32), "top_idx": (top_idx, torch.int64),
+              "uids": (uids, torch.int64), "n_pos": (n_pos, torch.int64), "user_valid": (user_valid, torch.bool),
+              "user_rmse": (user_rmse, torch.float32), "item_novelty": (item_novelty, torch.float32),
+              "pop_normalized": (pop_normalized, torch.float32), "pairs.indptr": (pairs.indptr, torch.int64),
+              "pairs.ids": (pairs.ids, torch.int32), "pairs.vals": (pairs.vals, torch.float32),
+              "pairs.desc": (pairs.desc, torch.float32)}
+    for name, (t, dtype) in dtypes.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != top_vals.device:
+            raise ValueError(f"{name} on {t.device}, top_vals on {top_vals.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not cutoffs or min(cutoffs) < 1:
+        raise ValueError(f"cutoffs must be one or more positive ints, got {cutoffs}")
+
+
+def evaluate_pairs(top_vals, top_idx, pairs: PairsCSR, uids, n_pos, user_valid, item_novelty, pop_normalized,
+                   user_rmse, cutoffs: Sequence[int]) -> BatchStats:
+    """Every cutoff's metric sums, item counters and per-user AP of one block
+    of users. ``top_vals`` [B, K] float32 and ``top_idx`` [B, K] int64 are
+    their ranked lists (-inf: no item at that place), ``uids`` [B] int64
+    their rows of ``pairs``, ``n_pos`` [B] int64 their test interactions,
+    ``user_valid`` [B] bool False for rows not to count, ``item_novelty``
+    and ``pop_normalized`` [I] float32, ``user_rmse`` [B] float32. On CUDA
+    tensors it launches K3, on CPU tensors it takes the plain version."""
+    cutoffs = tuple(int(c) for c in cutoffs)
+    args = (top_vals, top_idx, pairs, uids, n_pos, user_valid, item_novelty, pop_normalized, user_rmse, cutoffs)
+    if top_vals.device.type == "cpu":
+        check_pairs_args(*args)
+        return evaluate_pairs_reference(*args)
+    return evaluate_pairs_cuda(*args)
+
+
+def _block_slots(pairs: PairsCSR, uids: torch.Tensor, width: int):
+    """Where the first ``width`` pairs of each user's row lie in ``pairs``:
+    [B, width] positions (clamped into range past the row's end) and
+    [B, width] bool, True where the row holds a pair."""
+    start = pairs.indptr.index_select(0, uids)
+    n = pairs.indptr.index_select(0, uids + 1) - start
+    slots = torch.arange(width, device=uids.device)[None, :]
+    return (start[:, None] + slots).clamp(max=max(pairs.ids.shape[0] - 1, 0)), slots < n[:, None]
+
+
+def _take(values: torch.Tensor, at: torch.Tensor, inside: torch.Tensor, fill) -> torch.Tensor:
+    """``values[at]`` where ``inside``, ``fill`` elsewhere."""
+    if not values.numel():
+        return torch.full(at.shape, fill, dtype=values.dtype, device=at.device)
+    return torch.where(inside, values[at], fill)
+
+
+def block_pairs(pairs: PairsCSR, uids: torch.Tensor, width: int, pad_id: int = 0):
+    """[B, width] the first ``width`` test pairs of each user's row: the ids
+    (int64, ascending, ``pad_id`` past the row's end), the values (0 past
+    it), and True where the row holds a pair."""
+    at, inside = _block_slots(pairs, uids, width)
+    return _take(pairs.ids, at, inside, pad_id).long(), _take(pairs.vals, at, inside, 0.0), inside
+
+
+def _ratings_at(ids: torch.Tensor, vals: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
+    """[B, K] the test value of each listed item, 0 where the user has none:
+    a search over the block's rows of ids, ascending and padded past each
+    row's end with an id no list holds."""
+    at = torch.searchsorted(ids, top_idx).clamp(max=ids.shape[1] - 1)
+    return torch.where(torch.gather(ids, 1, at) == top_idx, torch.gather(vals, 1, at), 0.0)
+
+
+def _ideal_values(desc: torch.Tensor, n: torch.Tensor, K: int, n_items: int) -> torch.Tensor:
+    """[B, K] each user's K largest test values over all items, zeros for
+    the unrated ones, as a dense top-k of the row gives them: the positive
+    values in descending order, then the I - n zeros, then the negative
+    values. ``desc`` [B, P] holds each row's values descending, 0 past its
+    ``n`` [B] pairs."""
+    q = (desc > 0).sum(1, keepdim=True)
+    zeros = (n_items - n)[:, None]
+    j = torch.arange(K, device=desc.device)[None, :]
+    src = torch.where(j < q, j, j - zeros).clamp(0, desc.shape[1] - 1)
+    return torch.where((j < q) | (j >= q + zeros), torch.gather(desc, 1, src), 0.0)
+
+
+def evaluate_pairs_reference(top_vals, top_idx, pairs, uids, n_pos, user_valid, item_novelty, pop_normalized,
+                             user_rmse, cutoffs) -> BatchStats:
+    """The plain version of ``evaluate_pairs``: the dense computation with
+    its two reads of the test block made from the block's rows of pairs."""
+    I, K = item_novelty.shape[0], top_vals.shape[1]
+    n = pairs.indptr.index_select(0, uids + 1) - pairs.indptr.index_select(0, uids)
+    at, inside = _block_slots(pairs, uids, max(int(n.max()) if n.numel() else 0, 1))
+    ids = _take(pairs.ids, at, inside, I).long()  # I sorts past every id and is never listed
+    ratings = _ratings_at(ids, _take(pairs.vals, at, inside, 0.0), top_idx)
+    ideal = _ideal_values(_take(pairs.desc, at, inside, 0.0), n, K, I)
+    return _metrics_from_ratings(top_vals, top_idx, ratings, ideal, n_pos, user_valid, item_novelty,
+                                 pop_normalized, user_rmse, cutoffs)
+
+
+def _metrics_from_ratings(top_vals, top_idx, rel_ratings, ideal_ratings, n_pos, user_valid, item_novelty,
+                          pop_normalized, user_rmse, cutoffs) -> BatchStats:
+    """The metrics of ranked lists from each listed item's test rating and
+    each user's largest test values ([B, K] both)."""
+    I, K = item_novelty.shape[0], top_vals.shape[1]
+    dev = top_vals.device
+    valid = torch.isfinite(top_vals)  # -inf entries are dropped from rankings
+    rel = (rel_ratings != 0).float()
 
     slots = torch.arange(K, device=dev)
     positions = slots.float()
@@ -211,6 +339,42 @@ def _evaluate_core(
         per_cutoff_ap.append(ap)
 
     return BatchStats(torch.stack(per_cutoff_scalars), torch.stack(per_cutoff_counters), torch.stack(per_cutoff_ap))
+
+
+def evaluate_pairs_cuda(top_vals, top_idx, pairs, uids, n_pos, user_valid, item_novelty, pop_normalized,
+                        user_rmse, cutoffs) -> BatchStats:
+    """Launch K3 on CUDA tensors (as ``check_pairs_args`` takes them). It
+    launches on the current stream, does not synchronize, and raises when a
+    launch fails."""
+    check_pairs_args(top_vals, top_idx, pairs, uids, n_pos, user_valid, item_novelty, pop_normalized,
+                     user_rmse, cutoffs)
+    device = top_vals.device
+    if device.type != "cuda":
+        raise ValueError(f"evaluate_pairs_cuda takes CUDA tensors, not {device}")
+    B, K = top_vals.shape
+    I, nc, nf = item_novelty.shape[0], len(cutoffs), len(SCALAR_FIELDS)
+    scalars = torch.empty((nc, nf), dtype=torch.float32, device=device)
+    counters = torch.zeros((nc, I), dtype=torch.float32, device=device)
+    user_ap = torch.empty((nc, B), dtype=torch.float32, device=device)
+    if B == 0:
+        return BatchStats(scalars.zero_(), counters, user_ap)
+    lib = load_library()
+    group = lib.ganmf_block_metrics_max_cutoffs()
+    rows = lib.ganmf_block_metrics_rows()
+    partial = torch.empty(-(-B // rows) * min(nc, group) * nf, dtype=torch.float32, device=device)
+    with on_device(device):
+        stream = stream_handle(device)
+        for g in range(0, nc, group):
+            part = cutoffs[g : g + group]
+            code = lib.ganmf_block_metrics(
+                top_vals.data_ptr(), top_idx.data_ptr(), B, K, uids.data_ptr(), pairs.indptr.data_ptr(),
+                pairs.ids.data_ptr(), pairs.vals.data_ptr(), pairs.desc.data_ptr(), n_pos.data_ptr(),
+                user_valid.data_ptr(), user_rmse.data_ptr(), item_novelty.data_ptr(), pop_normalized.data_ptr(),
+                I, (ctypes.c_int * len(part))(*part), len(part), partial.data_ptr(), scalars[g].data_ptr(),
+                counters[g].data_ptr(), user_ap[g].data_ptr(), stream)
+            check(lib, code, "K3 block_metrics launch")
+            count("k3.launches")
+    return BatchStats(scalars, counters, user_ap)
 
 
 def finalize_counter_metrics(counter: np.ndarray, n_users_eval: int, cutoff: int, n_items: int,

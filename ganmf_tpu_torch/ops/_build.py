@@ -129,6 +129,11 @@ def load_library(flags=()) -> ctypes.CDLL:
         u32 = ctypes.c_uint
         lib.ganmf_keyed_uniforms.argtypes = [ptr, i32, i32, u32, u32, u32, u32, ptr, ptr]
         lib.ganmf_keyed_uniforms.restype = i32
+        lib.ganmf_block_metrics.argtypes = [ptr, ptr, i32, i32] + [ptr] * 10 + [i32, ptr, i32] + [ptr] * 5
+        lib.ganmf_block_metrics.restype = i32
+        for name in ("ganmf_block_metrics_rows", "ganmf_block_metrics_max_cutoffs"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
         lib.ganmf_cuda_error_string.argtypes = [i32]
         lib.ganmf_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[flags] = lib

@@ -87,6 +87,13 @@ eager and under torch.compile, within rtol 1e-5 of the CPU's losses.
 The port's tracing: the host_sync counter against the synchronizations of
 CUDA's sync debug mode over a GANMF epoch, an evaluation and ``recommend``,
 and a program span against its kernel in a profile of the card.
+K3, an evaluation block's metrics: against its plain version on the cases of
+tests/test_torch_metrics.py and at ML-20M's block shape (counters equal, the
+sums and each user's AP within rtol 1e-5: float32 sums in another order),
+two runs bitwise equal and no synchronization, the shapes, types and devices
+it refuses, and a GANMF evaluation at ML-20M's block shape that launches it
+once a block, gives the CPU's metrics and meets no synchronization in a
+block's ranking and metrics.
 """
 
 import contextlib
@@ -99,6 +106,14 @@ import torch
 
 from ganmf_tpu_torch.data.device import padded_csr_from_sparse
 from ganmf_tpu_torch.eval import EvaluatorHoldout
+from ganmf_tpu_torch.eval.metrics import (
+    evaluate_pairs,
+    evaluate_pairs_cuda,
+    evaluate_pairs_reference,
+    item_novelty_terms,
+    normalized_popularity,
+    pairs_from_sparse,
+)
 from ganmf_tpu_torch.models import GANMF, init_params
 from ganmf_tpu_torch.models import cfgan as pcf
 from ganmf_tpu_torch.models import ganmf as pgm
@@ -287,6 +302,168 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         masked_topk_scores(U, V.T.contiguous().T, mask, 5)  # not contiguous
     with pytest.raises(ValueError):
         masked_topk_scores(U, V.cpu(), mask, 5)  # devices differ
+
+
+def _k3_case(case, dev, seed=0, B=24, I=70, K=20, cutoffs=(5, 10, 20), max_test=None):
+    """(evaluate_pairs' arguments, on ``dev``) for one of the cases that
+    tests/test_torch_metrics.py holds the plain version to the dense
+    computation with; "ml20m" is ML-20M's evaluation block (test rows of up
+    to ``max_test`` items, most short)."""
+    rng = np.random.RandomState(seed)
+    if case == "ml20m":
+        lens = np.minimum(rng.zipf(1.6, size=B), max_test)
+        lens[:4] = max_test
+        test = np.zeros((B, I), np.float32)
+        for b, n in enumerate(lens):
+            test[b, rng.choice(I, size=n, replace=False)] = rng.randint(1, 6, size=n)
+    else:
+        density = {"npos_above_k": 0.6, "cutoff_beyond_list": 0.3}.get(case, 0.15)
+        test = (rng.rand(B, I) < density).astype(np.float32)
+        if case in ("negative", "cutoff_beyond_list"):
+            test *= rng.choice([-3.0, -1.0, 1.0, 2.0, 4.0], size=test.shape)
+        elif case != "implicit":
+            test *= rng.randint(1, 6, size=test.shape)
+    vals = -np.sort(-rng.randn(B, K).astype(np.float32), axis=1)
+    idx = np.stack([rng.permutation(I)[:K] for _ in range(B)]).astype(np.int64)
+    for b in range(B):  # each row's first places on its test items, where it has them
+        hit = np.flatnonzero(test[b])[: K // 10 + 1]
+        rest = [i for i in idx[b] if i not in hit]
+        idx[b] = np.concatenate([hit, rest])[:K]
+    valid = np.ones(B, bool)
+    rmse = rng.rand(B).astype(np.float32)
+    if case in ("short_lists", "ml20m"):
+        vals[5, 12:] = -np.inf
+        vals[6, :] = -np.inf
+    if case in ("invalid_nan", "ml20m"):
+        valid[[0, 9, B - 1]] = False
+        rmse[[9, B - 1]] = np.nan
+    if case == "unsorted_duplicates":  # ids out of order, some values split in two entries
+        rows, cols = np.nonzero(test)
+        data = test[rows, cols]
+        split = rng.rand(len(data)) < 0.3
+        rows = np.concatenate([rows, rows[split]])
+        cols = np.concatenate([cols, cols[split]])
+        data = np.concatenate([np.where(split, data - 1.0, data), np.ones(split.sum())]).astype(np.float32)
+        order = np.lexsort((rng.rand(len(rows)), rows))
+        counts = np.bincount(rows, minlength=B)
+        csr = sps.csr_matrix((data[order], cols[order].astype(np.int32), np.concatenate([[0], np.cumsum(counts)])),
+                             shape=(B, I))
+    else:
+        csr = sps.csr_matrix(test)
+    train = sps.csr_matrix((rng.rand(50, I) < 0.2).astype(np.float32))
+    novelty = item_novelty_terms(train, I).astype(np.float32)
+    pop = normalized_popularity(train).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (vals, idx)]
+    t += [pairs_from_sparse(csr, dev), torch.arange(B, device=dev)]
+    t += [torch.from_numpy(a).to(dev) for a in (np.diff(csr.indptr).astype(np.int64), valid, novelty, pop, rmse)]
+    return (*t, cutoffs)
+
+
+K3_CASES = {
+    "implicit": {}, "explicit": {}, "negative": {}, "npos_above_k": {}, "short_lists": {}, "invalid_nan": {},
+    "cutoff_beyond_list": dict(K=70, cutoffs=(5, 20, 100)), "unsorted_duplicates": {},
+    "many_cutoffs": dict(K=70, cutoffs=tuple(range(1, 71, 3))),
+    "ml20m": dict(B=3648, I=26744, K=50, cutoffs=(5, 10, 20, 50), max_test=2048),
+}
+
+
+def _assert_k3_close(got, want):
+    np.testing.assert_array_equal(got.counters.cpu().numpy(), want.counters.cpu().numpy())
+    np.testing.assert_allclose(got.user_ap.cpu().numpy(), want.user_ap.cpu().numpy(), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got.scalars.cpu().numpy(), want.scalars.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_matches_its_plain_version(cuda, case):
+    """K3 against the plain version on the same CUDA tensors: one launch a
+    group of cutoffs, the counters equal, the sums and each user's AP within
+    float32 summation order."""
+    from ganmf_tpu_torch.ops._build import load_library
+
+    args = _k3_case(case, cuda, **K3_CASES[case])
+    before = _counter("k3.launches")
+    got = evaluate_pairs(*args)
+    want = evaluate_pairs_reference(*args)
+    torch.cuda.synchronize()
+    groups = -(-len(args[-1]) // load_library().ganmf_block_metrics_max_cutoffs())
+    assert groups == (2 if case == "many_cutoffs" else 1)
+    assert _counter("k3.launches") == before + groups
+    _assert_k3_close(got, want)
+    assert torch.isfinite(got.scalars).all()  # NaN RMSEs only on rows not counted
+
+
+def test_k3_repeats_bitwise_and_does_not_sync(cuda):
+    """Two runs at ML-20M's block shape give the same bits; a launch meets no
+    synchronization under CUDA's sync debug mode."""
+    args = _k3_case("ml20m", cuda, **K3_CASES["ml20m"])
+    first = evaluate_pairs(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = evaluate_pairs(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k3_rejects_what_it_does_not_take(cuda):
+    args = list(_k3_case("explicit", cuda))
+    with pytest.raises(TypeError):
+        evaluate_pairs(args[0], args[1].int(), *args[2:])  # int32 ids
+    with pytest.raises(ValueError):
+        evaluate_pairs(args[0][:, :5].contiguous(), *args[1:])  # the lists' shapes differ
+    with pytest.raises(ValueError):
+        evaluate_pairs(args[0].T.contiguous().T, *args[1:])  # not contiguous
+    with pytest.raises(ValueError):
+        evaluate_pairs(*args[:8], args[8].cpu(), args[9])  # devices differ
+    with pytest.raises(ValueError):
+        evaluate_pairs_cuda(*_k3_case("explicit", torch.device("cpu")))  # the wrapper takes CUDA tensors
+    with pytest.raises(ValueError):
+        evaluate_pairs(*args[:9], ())  # no cutoff
+
+
+def test_evaluation_launches_k3_once_a_block(cuda):
+    """A K1-route evaluation of GANMF at ML-20M's block shape (3,648 users of
+    26,744 items a block) counts one K3 launch a block and gives the CPU's
+    metrics; the CPU's evaluation launches none. Its blocks' ranking and
+    metrics meet no synchronization beyond the host_sync sites."""
+    rng = np.random.RandomState(8)
+    U, I, B = 7296, 26744, 3648
+    lens = np.minimum(rng.zipf(1.6, size=U) + 4, 2048)
+    rows = np.repeat(np.arange(U), lens)
+    cols = np.concatenate([rng.choice(I, size=n, replace=False) for n in lens])
+    held = rng.rand(len(rows)) < 0.2
+    train = sps.csr_matrix((np.ones((~held).sum(), np.float32), (rows[~held], cols[~held])), shape=(U, I))
+    test = sps.csr_matrix((rng.randint(1, 6, held.sum()).astype(np.float32), (rows[held], cols[held])),
+                          shape=(U, I))
+    models, results = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        model = GANMF(train, device=dev)
+        model.params = init_params(U, I, 16, 32, torch.Generator().manual_seed(3), dev)
+        ev = EvaluatorHoldout(test, [5, 10, 20, 50], device=dev)
+        ev.block_rows = lambda: B
+        blocks = -(-len(ev.usersToEvaluate) // B)
+        before = _counter("k3.launches"), _counter("eval.blocks." + dev.type)
+        results[dev.type], _ = ev.evaluateRecommender(model)
+        assert _counter("eval.blocks." + dev.type) - before[1] == blocks
+        assert _counter("k3.launches") - before[0] == (blocks if dev.type == "cuda" else 0)
+        models[dev.type] = (model, ev)
+    for c in results["cpu"]:
+        for metric, value in results["cpu"][c].items():
+            assert results["cuda"][c][metric] == pytest.approx(value, abs=1e-5), (c, metric)
+    model, ev = models["cuda"]
+    factors = model._factors_device()
+    uids = torch.from_numpy(np.asarray(ev.usersToEvaluate[:B], np.int64)).to(cuda)
+    n_pos, valid = ev._n_pos.index_select(0, uids), torch.ones(B, dtype=torch.bool, device=cuda)
+    novelty, pop = ev._nov_pop
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals, idx, rmse = ev._fused_block(model, factors, uids, max_len=2048, pair_len=2048)
+        evaluate_pairs(vals, idx, ev._pairs, uids, n_pos, valid, novelty, pop, rmse, ev.cutoff_list)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def test_slice_on_card_matches_plain_cpu_path(cuda):

@@ -186,6 +186,7 @@ def test_evaluation_spans_and_syncs(split, block_rows):
     blocks = [i for i, s in enumerate(spans) if s.name == "eval.block"]
     assert all(_children(spans, i) == ["eval.prep", "eval.rank", "eval.metrics"] for i in blocks)
     assert changed["eval.evaluate.calls"] == 2
+    assert changed["eval.blocks.cpu"] == 2 * n_blocks and "k3.launches" not in changed
     assert _syncs(changed) == {"eval.uids": 2 * n_blocks, "eval.valid": 2 * n_blocks,
                                "eval.sums": 2, "eval.diversity": 2}
 
