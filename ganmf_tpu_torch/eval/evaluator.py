@@ -65,7 +65,7 @@ out-of-memory error raises instead of falling back to another path.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sps
@@ -163,6 +163,33 @@ def _pow2_crop(max_needed: int, full: int) -> int:
     return min(int(full), 1 << (m - 1).bit_length())
 
 
+class _Block(NamedTuple):
+    """One block of an evaluation: its first place in the evaluation's
+    order, its crop widths, and its users, their test counts and its valid
+    rows on the device."""
+
+    start: int
+    crop_train: int
+    crop_test: int
+    uids: torch.Tensor
+    n_pos: torch.Tensor
+    valid: torch.Tensor
+
+
+class _BlockPlan(NamedTuple):
+    """An evaluation's blocks and the item terms of its metrics, built from
+    one training matrix. ``urm`` (that matrix, by identity) and ``key`` (the
+    block size, this data rank's part of a block and the matrix's stored
+    entries, which a fit's in-place ``eliminate_zeros`` changes) are what it
+    was built for."""
+
+    urm: object
+    key: tuple
+    novelty: torch.Tensor
+    popularity: torch.Tensor
+    blocks: List[_Block]
+
+
 def get_result_string(results_run: Dict, n_decimals: int = 7) -> str:
     """Reference-identical result formatting (Evaluator.py:95-110)."""
     output = ""
@@ -238,7 +265,7 @@ class EvaluatorHoldout:
         else:
             self._ignore_items_mask = None
 
-        self._nov_pop_key = None
+        self._block_plan_cache: Optional[_BlockPlan] = None
         self.diversity_object = diversity_object
         self._diversity_dev = None  # the dense [I, I] float32 matrix, made at first use
 
@@ -372,10 +399,10 @@ class EvaluatorHoldout:
             # adds them into Python floats
             diversity_acc = torch.zeros(len(cutoffs), dtype=torch.float64, device=self.device)
             scored = torch.zeros(1, dtype=torch.float32, device=self.device)  # exact below 2^24 users
-            for _, valid, stats, diversity in self._blocks(recommender_object):
+            for block, stats, diversity in self._blocks(recommender_object):
                 scalar_acc += stats.scalars
                 counter_acc += stats.counters
-                scored += valid.sum()
+                scored += block.valid.sum()
                 if diversity is not None:
                     diversity_acc += diversity
             if self._plan is not None:
@@ -410,9 +437,9 @@ class EvaluatorHoldout:
         the same ranking route. Under a plan every rank gets every user's."""
         ci = self.cutoff_list.index(cutoff)
         users, valid, aps = [torch.zeros(0, dtype=torch.int64, device=self.device)], [], []
-        for chunk, ok, stats, _ in self._blocks(recommender_object):
-            users.append(torch.from_numpy(chunk).to(self.device))
-            valid.append(ok)
+        for block, stats, _ in self._blocks(recommender_object):
+            users.append(block.uids)
+            valid.append(block.valid)
             aps.append(stats.user_ap[ci])
         users = torch.cat(users)
         valid = torch.cat(valid) if valid else torch.zeros(0, dtype=torch.bool, device=self.device)
@@ -438,11 +465,74 @@ class EvaluatorHoldout:
             block_size = min(block_size, -(-per_block // 8) * 8)
         return block_size
 
+    def _block_plan(self, recommender_object, block_size: int, mine: Optional[tuple]) -> _BlockPlan:
+        """The blocks of an evaluation of ``recommender_object`` and its
+        metrics' item terms, from its training matrix read in place
+        (``get_URM_train`` only for an object without ``URM_train``).
+        ``mine`` is this data rank's (start, length) in a block under a mesh
+        plan. A model's plan serves its later evaluations while its
+        ``URM_train`` is the same object with as many stored entries and
+        ``block_size`` and ``mine`` are the same; an object without ``URM_train`` gets a new plan every time,
+        and none is kept. A build makes two counted uploads: every block's
+        users and valid rows, and the item terms."""
+        urm = getattr(recommender_object, "URM_train", None)
+        key = (block_size, mine, None if urm is None else urm.nnz)
+        kept = self._block_plan_cache
+        if urm is not None and kept is not None and kept.urm is urm and kept.key == key:
+            count("eval.plan.hits")
+            return kept
+        count("eval.plan.builds")
+        keep = urm is not None
+        if urm is None:
+            urm = recommender_object.get_URM_train()
+
+        users = np.asarray(self.usersToEvaluate, dtype=np.int64)
+        # evaluate users in training-profile-length order, so that each block
+        # crops its seen-row and test-row scatters to its own length class
+        # (power-of-two quantized); the metric sums do not depend on the order
+        train_lens = np.ediff1d(urm.indptr).astype(np.int64)
+        test_lens = np.ediff1d(self.URM_test.indptr).astype(np.int64)
+        if len(users):
+            users = users[np.argsort(train_lens[users], kind="stable")]
+        # blocks are not padded to block_size but under a mesh plan: the last
+        # one is just shorter
+        starts = range(0, len(users), block_size)
+        chunks, oks, crops = [], [], []
+        for start in starts:
+            chunk = users[start : start + block_size]
+            crops.append((_pow2_crop(train_lens[chunk].max(), train_lens.max()),
+                          _pow2_crop(test_lens[chunk].max(), test_lens.max())))
+            ok = np.ones(len(chunk), bool)
+            if mine is not None:
+                lo, part = mine
+                ranked = chunk[lo : lo + part]
+                chunk = np.concatenate([ranked, np.zeros(part - len(ranked), np.int64)])
+                ok = np.arange(part) < len(ranked)
+            chunks.append(chunk)
+            oks.append(ok)
+
+        packed = np.zeros((2, sum(map(len, chunks))), np.int64)
+        if chunks:
+            packed[0], packed[1] = np.concatenate(chunks), np.concatenate(oks)
+        packed = to_device(packed, self.device, "eval.plan")
+        uids, valid = packed[0], packed[1] != 0
+        n_pos = self._n_pos.index_select(0, uids)
+        blocks, at = [], 0
+        for start, chunk, (crop_train, crop_test) in zip(starts, chunks, crops):
+            rows = slice(at, at + len(chunk))
+            blocks.append(_Block(start, crop_train, crop_test, uids[rows], n_pos[rows], valid[rows]))
+            at += len(chunk)
+        terms = np.stack([item_novelty_terms(urm, self.n_items), normalized_popularity(urm)]).astype(np.float32)
+        novelty, popularity = to_device(terms, self.device, "eval.plan")
+        plan = _BlockPlan(urm, key, novelty, popularity, blocks)
+        self._block_plan_cache = plan if keep else None
+        return plan
+
     def _blocks(self, recommender_object):
-        """(users, valid, BatchStats, diversity sums or None) of each block
-        of the evaluated users (under a plan, this data rank's part of it,
-        padded with user 0 at valid False), ranked by K1, by the similarity
-        route or from dense scores."""
+        """(``_Block``, BatchStats, diversity sums or None) of each block of
+        the evaluated users (under a plan, this data rank's part of it, padded
+        with user 0 at valid False), ranked by K1, by the similarity route or
+        from dense scores."""
         if recommender_object.device != self.device:
             raise ValueError(
                 f"model on {recommender_object.device}, evaluator on {self.device}")
@@ -450,36 +540,14 @@ class EvaluatorHoldout:
             recommender_object.set_items_to_ignore(self.ignore_items_ID)
 
         with span("eval.order"):
-            urm_train = recommender_object.get_URM_train()
-            # novelty and popularity depend only on the training URM: keep them
-            # across repeated evaluations of the same model
-            key_obj = getattr(recommender_object, "URM_train", None)
-            if key_obj is None:
-                key_obj = urm_train
-            if self._nov_pop_key is not key_obj:
-                self._nov_pop = tuple(
-                    torch.from_numpy(a.astype(np.float32)).to(self.device)
-                    for a in (item_novelty_terms(urm_train, self.n_items), normalized_popularity(urm_train))
-                )
-                self._nov_pop_key = key_obj
-            novelty_terms, pop_norm = self._nov_pop
-
-            users = np.asarray(self.usersToEvaluate, dtype=np.int64)
-            n_eval = len(users)
-            block_size = self.block_rows()
-            # evaluate users in training-profile-length order, so that each block
-            # crops its seen-row and test-row scatters to its own length class
-            # (power-of-two quantized); the metric sums do not depend on the order
-            train_lens = np.ediff1d(urm_train.indptr).astype(np.int64)
-            test_lens = np.ediff1d(self.URM_test.indptr).astype(np.int64)
-            if n_eval:
-                users = users[np.argsort(train_lens[users], kind="stable")]
+            block_size, mine = self.block_rows(), None
             plan = self._plan
             if plan is not None:
                 # each data rank scores an equal part of every block
                 block_size = -(-block_size // plan.n_user_shards) * plan.n_user_shards
                 part = block_size // plan.n_user_shards
-                lo = plan.axis_index(plan.user_axes) * part
+                mine = (plan.axis_index(plan.user_axes) * part, part)
+            order = self._block_plan(recommender_object, block_size, mine)
             cutoffs = tuple(self.cutoff_list)
             plain = self._plain_holdout()
             use_k1 = plain and recommender_object._ranks_with_k1()
@@ -496,24 +564,12 @@ class EvaluatorHoldout:
                 own_cols = getattr(recommender_object, "score_device_columns", None)
             debug = debug_enabled()
 
-        # blocks are not padded to block_size but under a plan: the last one
-        # is just shorter
-        for start in range(0, n_eval, block_size):
+        for block in order.blocks:
             with span("eval.block"):
                 with span("eval.prep"):
                     count("eval.blocks." + self.device.type)
-                    chunk = users[start : start + block_size]
-                    crop_train = _pow2_crop(train_lens[chunk].max(), train_lens.max())
-                    crop_test = _pow2_crop(test_lens[chunk].max(), test_lens.max())
-                    ok = np.ones(len(chunk), bool)
-                    if plan is not None:
-                        mine = chunk[lo : lo + part]
-                        chunk = np.concatenate([mine, np.zeros(part - len(mine), np.int64)])
-                        ok = np.arange(part) < len(mine)
-
-                    uids = to_device(chunk, self.device, "eval.uids")
-                    n_pos = self._n_pos.index_select(0, uids)
-                    valid = to_device(ok, self.device, "eval.valid")
+                    start, crop_train, crop_test = block.start, block.crop_train, block.crop_test
+                    uids, n_pos, valid = block.uids, block.n_pos, block.valid
                 # the ranking and each user's RMSE, from K1, the similarity
                 # route, a model's own columns or the dense route's scores
                 with span("eval.rank"):
@@ -550,12 +606,12 @@ class EvaluatorHoldout:
                 with span("eval.metrics"):
                     # K3 takes float32 lists and RMSEs; a model may score in another type
                     stats = evaluate_pairs(topk[0].float(), topk[1], self._pairs, uids, n_pos, valid,
-                                           novelty_terms, pop_norm, user_rmse.float(), cutoffs)
+                                           order.novelty, order.popularity, user_rmse.float(), cutoffs)
                     diversity = None
                     if self.diversity_object is not None and not (use_k1 or use_sim):
                         top_val, top_idx = topk
                         diversity = _diversity_block(self._diversity_matrix(), top_idx, top_val, cutoffs, valid)
-            yield chunk, valid, stats, diversity
+            yield block, stats, diversity
 
         if self.ignore_items_flag and hasattr(recommender_object, "reset_items_to_ignore"):
             recommender_object.reset_items_to_ignore()

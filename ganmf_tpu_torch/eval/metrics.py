@@ -427,10 +427,18 @@ def finalize_counter_metrics(counter: np.ndarray, n_users_eval: int, cutoff: int
     return out
 
 
+def item_counts(urm_train) -> np.ndarray:
+    """[I] float64: each item's stored entries in the training URM, the
+    column lengths of its CSC form, counted from the column ids of its CSR
+    form (no copy of a CSR matrix)."""
+    csr = sps.csr_matrix(urm_train)
+    return np.bincount(csr.indices, minlength=csr.shape[1]).astype(np.float64)
+
+
 def item_novelty_terms(urm_train, n_items: int) -> np.ndarray:
     """Per-item novelty contribution -log2(pop/total)/n_items, 0 for cold
     items (metrics.py:298-341)."""
-    pop = np.ediff1d(urm_train.tocsc().indptr).astype(np.float64)
+    pop = item_counts(urm_train)
     total = pop.sum()
     out = np.zeros(n_items, dtype=np.float64)
     warm = pop > 0
@@ -440,6 +448,6 @@ def item_novelty_terms(urm_train, n_items: int) -> np.ndarray:
 
 def normalized_popularity(urm_train) -> np.ndarray:
     """Popularity normalized by the most popular item (metrics.py:355-374)."""
-    pop = np.ediff1d(urm_train.tocsc().indptr).astype(np.float64)
+    pop = item_counts(urm_train)
     mx = pop.max() if pop.size else 1.0
     return pop / (mx if mx > 0 else 1.0)

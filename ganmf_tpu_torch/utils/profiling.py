@@ -24,10 +24,14 @@ reads them all. Their names:
   loaded from its cache (ops/_build.py);
 - ``<root>.calls``: the calls of each root span that ``root`` opens
   (``train.epoch``, ``eval.evaluate``, ``serve.recommend``);
+- ``eval.plan.builds``, ``eval.plan.hits``: evaluations that built their
+  block plan and those that found it kept from an earlier evaluation of the
+  same training matrix (eval/evaluator.py);
 - ``host_sync.<site>``: each point of those paths where the host waits on
   the card, a blocking copy to the device (``to_device``) or a read back to
   the host (``to_host``). They count on any device, the CPU included, and
-  leave out the one-time uploads of a fit's or an evaluator's set-up.
+  leave out the one-time uploads of a fit's or an evaluator's set-up; the
+  uploads of an evaluation's block plan count (``host_sync.eval.plan``).
 """
 
 from __future__ import annotations

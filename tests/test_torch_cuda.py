@@ -456,7 +456,8 @@ def test_evaluation_launches_k3_once_a_block(cuda):
     factors = model._factors_device()
     uids = torch.from_numpy(np.asarray(ev.usersToEvaluate[:B], np.int64)).to(cuda)
     n_pos, valid = ev._n_pos.index_select(0, uids), torch.ones(B, dtype=torch.bool, device=cuda)
-    novelty, pop = ev._nov_pop
+    plan = ev._block_plan_cache
+    novelty, pop = plan.novelty, plan.popularity
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1854,8 +1855,8 @@ def test_host_sync_counter_is_the_sync_debug_count(cuda):
     """On the three paths the benchmark times, the host_sync counter rises
     by the synchronizations CUDA's sync debug mode reports: a GANMF epoch
     after the first (dense and csr, one: the shuffle's upload), a full
-    evaluation after the first (two a block and the two reads back) and a
-    recommend call (the ids in, the values and the ids back)."""
+    evaluation after the first (the two reads back: its block plan is kept
+    from the first) and a recommend call (the ids in, the values and the ids back)."""
     rng = np.random.RandomState(3)
     full = (rng.rand(300, 500) < 0.05).astype(np.float32)
     held = rng.rand(300, 500) < 0.2
@@ -1870,8 +1871,7 @@ def test_host_sync_counter_is_the_sync_debug_count(cuda):
         assert (w2 - w1, c2 - c1, w3 - w2, c3 - c2) == (1, 1, 1, 1), (storage, logger.at)
     ev = EvaluatorHoldout(test, [5, 10, 20, 50])
     ev.block_rows = lambda: 64
-    blocks = -(-len(ev.usersToEvaluate) // 64)
-    for call, want in ((lambda: ev.evaluateRecommender(model), 2 * blocks + 2),
+    for call, want in ((lambda: ev.evaluateRecommender(model), 2),
                        (lambda: model.recommend(7, cutoff=20), 3),
                        (lambda: model.recommend(np.arange(5), cutoff=20), 3)):
         call()  # the one-time uploads

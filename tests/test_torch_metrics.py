@@ -99,6 +99,22 @@ def test_host_pieces_are_the_reference_ones():
     assert torch_evaluator.get_result_string(res) == jax_evaluator.get_result_string(res)
 
 
+def test_item_terms_are_the_references_on_any_sparse_form():
+    """Novelty and popularity from the CSR's column ids equal the JAX
+    package's from the CSC form, bitwise: on a CSR holding duplicate ids, an
+    explicit zero and unsorted rows, on its COO and CSC forms, and with a
+    cold item."""
+    rng = np.random.RandomState(6)
+    dense = (rng.rand(30, 40) < 0.2) * rng.randint(1, 6, (30, 40)).astype(np.float32)
+    dense[:, 7] = 0.0  # a cold item
+    odd = _shuffled_csr(dense, rng)
+    for urm in (sps.csr_matrix(dense), odd, odd.tocoo(), odd.tocsc()):
+        np.testing.assert_array_equal(torch_metrics.item_novelty_terms(urm, 40),
+                                      jax_metrics.item_novelty_terms(urm, 40))
+        np.testing.assert_array_equal(torch_metrics.normalized_popularity(urm),
+                                      jax_metrics.normalized_popularity(urm))
+
+
 def _shuffled_csr(dense, rng, split=True):
     """A CSR of ``dense`` whose rows hold their ids out of order, and (with
     ``split``) some values split into two entries of one id, plus a pair of

@@ -173,7 +173,7 @@ def test_evaluation_spans_and_syncs(split, block_rows):
     model = _loaded_ganmf(train)
     ev = _evaluator(test, block_rows)
     n_blocks = -(-len(ev.usersToEvaluate) // block_rows)
-    want, _ = ev.evaluateRecommender(model)  # the one-time uploads
+    want, _ = ev.evaluateRecommender(model)  # builds the block plan: its uploads
     with profiling.recording():
         got, _ = ev.evaluateRecommender(model)
         ev.evaluateRecommender(model)
@@ -187,8 +187,9 @@ def test_evaluation_spans_and_syncs(split, block_rows):
     assert all(_children(spans, i) == ["eval.prep", "eval.rank", "eval.metrics"] for i in blocks)
     assert changed["eval.evaluate.calls"] == 2
     assert changed["eval.blocks.cpu"] == 2 * n_blocks and "k3.launches" not in changed
-    assert _syncs(changed) == {"eval.uids": 2 * n_blocks, "eval.valid": 2 * n_blocks,
-                               "eval.sums": 2, "eval.diversity": 2}
+    # the plan kept from the first evaluation: no upload, only the two reads back
+    assert changed["eval.plan.hits"] == 2 and "eval.plan.builds" not in changed
+    assert _syncs(changed) == {"eval.sums": 2, "eval.diversity": 2}
 
 
 def test_recommend_spans_and_syncs(split):
