@@ -106,17 +106,6 @@
 #include <cmath>
 #include <cstdint>
 
-// Measurement variants, built only by scripts/k1_breakdown.py (nvcc
-// -DK1_BREAKDOWN=n); their lists are wrong by design. Fused kernel, 1: a
-// later tile's candidates are compacted but never merged into the running
-// lists; 2: no selection at all, every accumulator feeds a checksum, so no
-// FMA is dropped as dead code. Wide pair, 3: the tile kernel alone, without
-// its sort; 4: the tile kernel alone, with its sort (no rank launch).
-// 0 (the default): the kernels.
-#ifndef K1_BREAKDOWN
-#define K1_BREAKDOWN 0
-#endif
-
 namespace {
 
 constexpr int kMaxK = 64;  // largest k of the fused kernel
@@ -424,11 +413,7 @@ __device__ void select_tile(const float (&acc)[kTM][kTN], uint64_t* run, uint64_
       for (int i = 0; i < kTM; ++i) {
         const int c = __shfl_sync(0xffffffffu, took[i], 16 * h);
         const int r = ((ty & ~1) + h) * kTM + i;
-#if K1_BREAKDOWN == 1
-        if (c > 1000) run[r] = c;  // keeps the compaction live
-#else
         if (c > 0) merge_row(run + r * kMaxK, cand + r * kCap, c, k, lane);
-#endif
       }
     }
 #pragma unroll
@@ -505,17 +490,7 @@ masked_topk_kernel(const float* __restrict__ U, const float* __restrict__ V,
       }
       cs = cs == kStages - 1 ? 0 : cs + 1;
     }
-#if K1_BREAKDOWN == 2
-    float z = 0.f;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) z += acc[i][j];
-    }
-    if (z == 12345.f) run[0] = 1;
-#else
     select_tile(acc, run, cand, mask, row0, t * kBN, B, I, k, split, t == t0, tx, ty);
-#endif
   }
   __syncthreads();  // every warp's lists are final
 
@@ -716,9 +691,7 @@ wide_tiles_kernel(const float* __restrict__ U, const float* __restrict__ V,
   uint64_t v[W::kLane];
 #pragma unroll
   for (int e = 0; e < W::kLane; ++e) v[e] = rk[lane * (W::kLane + 1) + e];
-#if K1_BREAKDOWN != 3
   sort_warp(v, lane);
-#endif
 #pragma unroll
   for (int e = 0; e < W::kLane; ++e) rk[lane * (W::kLane + 1) + e] = v[e];
   __syncwarp();
@@ -786,10 +759,8 @@ cudaError_t launch_wide(const float* U, const float* V, const uint8_t* mask, flo
     const dim3 tile_grid(T, (rows + kWideRows - 1) / kWideRows);
     wide_tiles_kernel<TW><<<tile_grid, kWideThreads, 0, s>>>(
         U + (size_t)r0 * K, V, mask + (size_t)r0 * I, part, rows, I, K, L);
-#if K1_BREAKDOWN < 3
     rank_tiles_kernel<<<dim3(T, rows), kRankThreads, rank_smem, s>>>(
         part, vals + (size_t)r0 * k, ids + (size_t)r0 * k, L, k);
-#endif
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -56,15 +56,6 @@
 
 #include <cstdint>
 
-// Measurement variants, built only by scripts/k2_breakdown.py (nvcc
-// -DK2_BREAKDOWN=n). 1: no radix pass, the mask is u <= image(0.5); wrong
-// by design, it times the reads and writes alone. 2: one histogram, not 8
-// sub-histograms (every lane counts into copy 0). 0 (the default): the
-// kernel.
-#ifndef K2_BREAKDOWN
-#define K2_BREAKDOWN 0
-#endif
-
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -80,8 +71,6 @@ constexpr int kShortCols = 2048;
 constexpr int kLongThreads = 512;    // a block per longer row
 constexpr int kSmemMaxCols = 56320;  // widest row kept in shared memory (220 KB)
 constexpr int kMaxCols = kCopies * 0xFFFF;  // no 16-bit count can overflow
-constexpr uint32_t kHalfImage = 0xbf000000u;  // monotone(0.5f)
-constexpr bool kCount = K2_BREAKDOWN != 1;
 
 __device__ __forceinline__ uint32_t monotone(uint32_t b) {
   // order-preserving map of IEEE-754 bits onto uint32 (the keys hold no NaN)
@@ -105,7 +94,7 @@ __device__ __forceinline__ int row_k(const void* ks, int k64, size_t row, int I)
 // 1 are the low and high halves of word w, whose copy c sits at (w / 4,
 // (w % 4) kCopies + c).
 __device__ __forceinline__ void hist_add(uint32_t* hist, uint32_t bin, int lane) {
-  const int copy = K2_BREAKDOWN == 2 ? 0 : lane % kCopies;
+  const int copy = lane % kCopies;
   const uint32_t w = bin >> 1;
   atomicAdd(hist + (w >> 2) * kLaneWords + (w & 3) * kCopies + copy, 1u << ((bin & 1) * 16));
 }
@@ -201,19 +190,17 @@ select_block_kernel(const float* __restrict__ keys, const void* __restrict__ ks,
     for (int q = tid; q < n4; q += kThreads) {
       const uint4 x = monotone4(__ldg(reinterpret_cast<const float4*>(kr) + q));
       if (kResident) reinterpret_cast<uint4*>(img)[q] = x;
-      if (kCount) {
-        hist_add(hist, x.x >> 24, lane);
-        hist_add(hist, x.y >> 24, lane);
-        hist_add(hist, x.z >> 24, lane);
-        hist_add(hist, x.w >> 24, lane);
-      }
+      hist_add(hist, x.x >> 24, lane);
+      hist_add(hist, x.y >> 24, lane);
+      hist_add(hist, x.z >> 24, lane);
+      hist_add(hist, x.w >> 24, lane);
     }
   } else {
 #pragma unroll 4
     for (int j = tid; j < I; j += kThreads) {
       const uint32_t x = monotone(__float_as_uint(__ldg(kr + j)));
       if (kResident) img[j] = x;
-      if (kCount) hist_add(hist, x >> 24, lane);
+      hist_add(hist, x >> 24, lane);
     }
   }
   if (k == 0 || k == I) {
@@ -232,10 +219,6 @@ select_block_kernel(const float* __restrict__ keys, const void* __restrict__ ks,
   // 1. radix select
   uint32_t prefix = 0, pmask = 0;
   int rank = k, n_equal = 0;
-#if K2_BREAKDOWN == 1
-  prefix = kHalfImage;
-  n_equal = rank;
-#else
   for (int shift = 24;; shift -= 8) {
     if (warp == 0) {
       int before, count;
@@ -275,7 +258,6 @@ select_block_kernel(const float* __restrict__ keys, const void* __restrict__ ks,
     }
     __syncthreads();  // the pass is counted
   }
-#endif
   const uint32_t T = prefix;
   const int needed = rank;  // = k - count(u < T), in [1, n_equal]
 

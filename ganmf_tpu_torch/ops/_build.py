@@ -7,9 +7,7 @@ ptxas reports each kernel's registers, shared memory and spills
 (``-Xptxas -v``); the report is kept beside the library (``ptxas_report``).
 The library lands in ``build/ganmf_tpu_torch/`` at the root of the checkout,
 named by a hash of the sources and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. A measurement script may build a
-variant of the sources with extra nvcc flags (``-D`` defines); it lands
-beside the library under a name of its own. Nothing here runs at import
+and an unchanged one is loaded as it is. Nothing here runs at import
 time. A load is the ``kernels.load`` span; each build by nvcc counts
 ``kernels.nvcc_builds`` (utils/profiling.py).
 """
@@ -34,7 +32,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIBS = {}
+_LIB = None
 
 
 def _nvcc() -> str:
@@ -55,11 +53,10 @@ def _sources():
     return srcs, headers
 
 
-def library_path(flags=()) -> Path:
-    """Where the library for the current sources and ``flags`` (extra nvcc
-    flags) lives, built or not."""
+def library_path() -> Path:
+    """Where the library for the current sources lives, built or not."""
     srcs, headers = _sources()
-    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in srcs + headers:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -84,11 +81,10 @@ def ptxas_report() -> str:
     return library_path().with_suffix(".ptxas.txt").read_text()
 
 
-def build(flags=()) -> Path:
-    """Compile the sources with ``flags`` (extra nvcc flags) unless a library
-    for them exists; return its path. Raises with nvcc's output when a
-    compile fails."""
-    out = library_path(flags)
+def build() -> Path:
+    """Compile the sources unless a library for them exists; return its
+    path. Raises with nvcc's output when a compile fails."""
+    out = library_path()
     if out.exists():
         return out
     count("kernels.nvcc_builds")
@@ -97,22 +93,21 @@ def build(flags=()) -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
-        outs = _run([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, str(src)]
+        outs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                      for src, obj in zip(srcs, objs)])
         out.with_suffix(".ptxas.txt").write_text("".join(outs))
         lib = os.path.join(tmp, out.name)
-        _run([[nvcc, *NVCC_FLAGS, *flags, "-shared", "-o", lib, *objs]])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 
-def load_library(flags=()) -> ctypes.CDLL:
-    """The kernel library built with ``flags`` (extra nvcc flags; none for
-    the port's own), with every entry point's C signature set."""
-    flags = tuple(flags)
-    if flags not in _LIBS:
+def load_library() -> ctypes.CDLL:
+    """The kernel library, with every entry point's C signature set."""
+    global _LIB
+    if _LIB is None:
         with span("kernels.load"):
-            lib = ctypes.CDLL(str(build(flags)))
+            lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ganmf_masked_topk.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.ganmf_masked_topk.restype = i32
@@ -136,8 +131,8 @@ def load_library(flags=()) -> ctypes.CDLL:
             getattr(lib, name).restype = i32
         lib.ganmf_cuda_error_string.argtypes = [i32]
         lib.ganmf_cuda_error_string.restype = ctypes.c_char_p
-        _LIBS[flags] = lib
-    return _LIBS[flags]
+        _LIB = lib
+    return _LIB
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

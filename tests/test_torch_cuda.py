@@ -7,7 +7,7 @@ which imports jax, is skipped):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 K1 is compared two ways. On continuous factors (uniform in +-0.05, the
-scale of chip_smoke.py's, at which a TF32 or bf16 product misses by orders
+scale of trained factors, at which a TF32 or bf16 product misses by orders
 of magnitude): values within rtol 1e-5 / atol 1e-7 of the plain version's
 (float32 products summed in another order than cuBLAS), ids equal at every
 finite slot except where the two items' plain scores lie within that
@@ -94,6 +94,16 @@ two runs bitwise equal and no synchronization, the shapes, types and devices
 it refuses, and a GANMF evaluation at ML-20M's block shape that launches it
 once a block, gives the CPU's metrics and meets no synchronization in a
 block's ranking and metrics.
+The library is built and loaded once, with ptxas's lines for every kernel.
+Fits on the card by default, each against a CPU copy of what it trained:
+GANMF and DisGANMF in both modes ranked through K1 (the wide pair at
+recommend's default cutoff); CFGAN (dense and csr) and CAAE by the dense
+route, ranking the card's scores on the CPU (evaluation within 1e-6, ids
+equal); the MF-SGD family, IRGAN, NMF and PureSVD through K1. The evaluator
+with a diversity object and EvaluatorNegativeItemSample (the dense route);
+the paper's studies; and the mesh fits and evaluations of GANMF, DisGANMF,
+CFGAN, CAAE and IALS with a plan over a world of one on NCCL against the
+one-card path (metrics within 1e-5).
 """
 
 import contextlib
@@ -136,6 +146,25 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def test_library_is_built_once_with_ptxas_lines_for_every_kernel(cuda):
+    """The kernel library of the current sources is built and loaded once;
+    the ptxas report kept beside it has each kernel's entry and register
+    lines."""
+    import re
+
+    from ganmf_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    assert _build.load_library() is lib and _build.library_path().is_file()
+    report = _build.ptxas_report()
+    entries = re.findall(r"Compiling entry function '(\w+)'", report)
+    for kernel in ("masked_topk_kernel", "merge_splits_kernel", "wide_tiles_kernel", "rank_tiles_kernel",
+                   "select_block_kernel", "keyed_uniforms_kernel", "block_metrics_kernel",
+                   "block_metrics_sum_kernel"):
+        assert any(kernel in e for e in entries), kernel
+    assert len(re.findall(r"Used \d+ registers", report)) >= len(entries)
 
 
 RTOL, ATOL = 1e-5, 1e-7
@@ -497,6 +526,48 @@ def test_slice_on_card_matches_plain_cpu_path(cuda):
                 assert got[c][metric] == pytest.approx(value, abs=1e-5), (mode, c, metric)
 
 
+@pytest.mark.parametrize("kind", ["diversity", "negative_sample"])
+def test_evaluator_extras_on_card_match_cpu(cuda, kind):
+    """A GANMF model evaluated on the card with a diversity object (an
+    ItemKNN cosine W built on the card) or by EvaluatorNegativeItemSample
+    (30 sampled negatives a user): the dense route, K1 not launched, every
+    metric within 1e-5 of a CPU copy's."""
+    from ganmf_tpu_torch.eval import EvaluatorNegativeItemSample
+    from ganmf_tpu_torch.ops.similarity import compute_similarity
+
+    train, test = _sim_split(binary=True)
+    cpu = torch.device("cpu")
+    if kind == "diversity":
+        div = compute_similarity(train, "cosine", topK=50, shrink=10.0, device=cuda)
+        assert div.nnz > 0
+
+        def make(dev):
+            return EvaluatorHoldout(test, [5, 10, 20, 50], diversity_object=div, device=dev)
+    else:
+        keys = np.random.RandomState(1).rand(*train.shape)
+        keys[(train + test).toarray() != 0] = np.inf  # negatives: neither trained nor tested
+        cols = np.argpartition(keys, 30, axis=1)[:, :30]
+        neg = sps.csr_matrix((np.ones(cols.size, np.float32), (np.repeat(np.arange(train.shape[0]), 30),
+                                                               cols.ravel())), shape=train.shape)
+
+        def make(dev):
+            return EvaluatorNegativeItemSample(test, neg, [5, 10, 20, 50], device=dev)
+    models = []
+    for dev in (cuda, cpu):
+        model = GANMF(train, device=dev)
+        model.params = init_params(*train.shape, 16, 32, torch.Generator().manual_seed(3), dev)
+        models.append(model)
+    before = _counter("k1.launches")
+    got, _ = make(cuda).evaluateRecommender(models[0])
+    assert _counter("k1.launches") == before
+    want, _ = make(cpu).evaluateRecommender(models[1])
+    for c in want:
+        for metric, value in want[c].items():
+            assert got[c][metric] == pytest.approx(value, abs=1e-5, nan_ok=True), (c, metric)
+    if kind == "diversity":
+        assert got[10]["DIVERSITY_SIMILARITY"] > 0
+
+
 def _select_case(case, R, I, seed=0):
     g = torch.Generator().manual_seed(seed)
     keys = torch.rand(R, I, generator=g)
@@ -696,26 +767,37 @@ def test_ganmf_epoch_does_not_synchronize(cuda, storage, lazy):
         assert all(bool(torch.isfinite(x)) for x in losses)
 
 
-def test_ganmf_fit_on_card_launches_k1(cuda):
-    """A 3-epoch fit with early stopping at every epoch, on the card by
-    default: the evaluations launch K1's fused kernel, and the trained model
-    scores like its CPU copy (every metric within 1e-5)."""
+_GAN_WIDTHS = {"GANMF": dict(emb_dim=64), "DisGANMF": dict(d_nodes=64, d_hidden_act="relu")}
+
+
+@pytest.mark.parametrize("name", sorted(_GAN_WIDTHS))
+def test_ganmf_fit_on_card_launches_k1(cuda, name):
+    """A 3-epoch fit of GANMF or DisGANMF with early stopping at every
+    epoch, on the card by default, in both modes: the evaluations launch K1's
+    fused kernel, recommend at the default cutoff its wide pair, and the
+    trained model scores like its CPU copy (every metric within 1e-5)."""
     import copy
 
+    import ganmf_tpu_torch.models as pm
+
+    cls = getattr(pm, name)
     rng = np.random.RandomState(2)
     full = (rng.rand(300, 500) < 0.05).astype(np.float32)
     held = rng.rand(300, 500) < 0.2
     train, test = sps.csr_matrix(full * ~held), sps.csr_matrix(full * held)
     for mode in ("user", "item"):
-        model = GANMF(train, mode=mode, seed=5, is_experiment=True)
+        model = cls(train, mode=mode, seed=5, is_experiment=True)
         assert model.device == cuda
         ev = EvaluatorHoldout(test, [5, 10, 20, 50])
         before = _counter("k1.launches") - _counter("k1.wide_launches")
-        returned = model.fit(num_factors=16, emb_dim=64, epochs=3, batch_size=32, d_lr=1e-3, g_lr=1e-3,
-                             validation_evaluator=ev, freq=1, allow_worse=5)
-        assert returned == 4 and len(model.train_d_loss) == 3
+        returned = model.fit(num_factors=16, epochs=3, batch_size=32, d_lr=1e-3, g_lr=1e-3,
+                             validation_evaluator=ev, freq=1, allow_worse=5, **_GAN_WIDTHS[name])
+        assert returned == 4 and (name != "GANMF" or len(model.train_d_loss) == 3)  # DisGANMF keeps none
         assert _counter("k1.launches") - _counter("k1.wide_launches") >= before + 3
-        plain = GANMF(train, mode=mode, device=torch.device("cpu"))
+        wide = _counter("k1.wide_launches")
+        assert len(model.recommend(0)) == train.shape[1] - train[0].nnz
+        assert _counter("k1.wide_launches") == wide + 1
+        plain = cls(train, mode=mode, device=torch.device("cpu"))
         plain.params = copy.deepcopy(model.params).cpu()
         got, _ = ev.evaluateRecommender(model)
         want, _ = EvaluatorHoldout(test, [5, 10, 20, 50], device=torch.device("cpu")).evaluateRecommender(plain)
@@ -810,12 +892,17 @@ def test_disganmf_epoch_does_not_synchronize(cuda):
 
 
 def test_puresvd_fit_on_card_matches_cpu(cuda):
+    """A PureSVD fit with two cold users: scores within 2e-4 of their scale
+    of the CPU fit's, cold users empty in recommend_fused and serve_all, and
+    the evaluation through K1 within 1e-5 of a CPU copy of the card's
+    factors."""
     from ganmf_tpu_torch.models import PureSVDRecommender
 
     rng = np.random.RandomState(3)
     full = (rng.rand(400, 600) < 0.05).astype(np.float32)
     full[[5, 77]] = 0.0  # cold users
     train = sps.csr_matrix(full)
+    test = sps.csr_matrix(((rng.rand(400, 600) < 0.01) & (full == 0)).astype(np.float32))
     card, plain = PureSVDRecommender(train), PureSVDRecommender(train, device=torch.device("cpu"))
     assert card.device == cuda
     card.fit(num_factors=20)
@@ -829,6 +916,11 @@ def test_puresvd_fit_on_card_matches_cpu(cuda):
     assert _counter("k1.launches") == before + 1 and lists[5] == [] and all(len(lists[u]) == 20 for u in (0, 1, 9))
     idx, vals = card.serve_all(cutoff=20)
     assert np.isneginf(vals[[5, 77]]).all() and np.isfinite(vals[users]).all()
+    copy = PureSVDRecommender(train, device=torch.device("cpu"))
+    copy.USER_factors, copy.ITEM_factors = card.USER_factors, card.ITEM_factors
+    before = _counter("k1.launches")
+    _metrics_close(card, copy, test)
+    assert _counter("k1.launches") == before + 1
 
 
 def _caae_epoch_args(dev, seed=0):
@@ -887,6 +979,52 @@ def test_caae_epoch_does_not_synchronize(cuda):
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(x)) for x in losses)
     assert torch.equal(torch.sort(draws.perm).values, torch.arange(len(w), device=cuda))
+
+
+_CFGAN_FIT = dict(g_nodes=64, d_nodes=8, d_layers=2, g_hidden_act="tanh", scheme="ZR", zr_ratio=0.45,
+                  zr_coefficient=0.05, d_batch_size=64, g_batch_size=128, d_lr=1e-4, g_lr=1e-3)
+_CAAE_FIT = dict(g_units=32, num_factors=8, d_bsize=512, d_steps=2, lr=1e-3, beta=0.1)
+_DENSE_ROUTE_FITS = {"cfgan_dense": ("CFGAN", _CFGAN_FIT), "cfgan_csr": ("CFGAN", dict(_CFGAN_FIT, urm_storage="csr")),
+                     "caae": ("CAAE", _CAAE_FIT)}
+
+
+@pytest.mark.parametrize("name", sorted(_DENSE_ROUTE_FITS))
+def test_dense_route_fit_on_card_matches_its_cpu_copy(cuda, name):
+    """CFGAN (dense and csr storage) and CAAE, 2 epochs with an evaluation
+    every epoch, on the card by default: K2 draws masks in every epoch and K1
+    never runs (the dense route ranks them); the scores within rtol 1e-5 /
+    atol 1e-6 of a CPU copy's from the same parameters; and, ranking the
+    card's scores, the CPU copy's evaluation within 1e-6 and its serve_all
+    and recommend ids equal to the card's."""
+    import copy
+
+    import ganmf_tpu_torch.models as pm
+
+    cls_name, params = _DENSE_ROUTE_FITS[name]
+    cls = getattr(pm, cls_name)
+    train, test = _sim_split(binary=True)
+    model = cls(train, seed=5, is_experiment=True)
+    assert model.device == cuda
+    ev = EvaluatorHoldout(test, [5, 10, 20, 50])
+    k1, k2 = _counter("k1.launches"), _counter("k2.launches")
+    model.fit(epochs=2, validation_evaluator=ev, freq=1, allow_worse=5, **params)
+    assert _counter("k2.launches") - k2 >= 2 and _counter("k1.launches") == k1
+    assert all(bool(torch.isfinite(t).all()) for t in model.params.parameters())
+    plain = cls(train, seed=5, is_experiment=True, device=torch.device("cpu"))
+    plain.fit(epochs=0, **params)
+    plain.params = copy.deepcopy(model.params).cpu()
+    users = torch.arange(train.shape[0])
+    got = model.score_device(users.to(cuda)).cpu()
+    torch.testing.assert_close(got, plain.score_device(users), rtol=1e-5, atol=1e-6)
+    plain.score_device = lambda uids: got.index_select(0, uids.cpu())  # the card's scores from here on
+    results, _ = ev.evaluateRecommender(model)
+    want, _ = EvaluatorHoldout(test, [5, 10, 20, 50], device=torch.device("cpu")).evaluateRecommender(plain)
+    for c in want:
+        for metric, value in want[c].items():
+            assert results[c][metric] == pytest.approx(value, abs=1e-6, nan_ok=True), (c, metric)
+    np.testing.assert_array_equal(model.serve_all(cutoff=20)[0], plain.serve_all(cutoff=20)[0])
+    assert model.recommend(np.arange(5)) == plain.recommend(np.arange(5))  # the default cutoff
+    assert _counter("k1.launches") == k1
 
 
 def _ials_urm(seed=4):
@@ -992,6 +1130,50 @@ def test_tuner_trial_on_card(cuda, tmp_path, monkeypatch):
     assert sorted(p.name for p in out.iterdir()) == ["best_params.pkl", "best_params.txt", "checkpoint.pkl",
                                                     "results.txt"]
     assert pickle.loads((out / "best_params.pkl").read_bytes())["epochs"] in (0, 5, 10)
+
+
+def test_studies_on_card(cuda, tmp_path, monkeypatch, capsys):
+    """The paper's studies on the card by default, on a 200 x 120 five-way
+    split (more items than the profile-length study's 50 factors) with
+    GANMF's epochs cut to 1: describe's five splits, the
+    feature-matching sweep (11 results) and its cosine study, the
+    latent-factor and profile-length studies, with K1 ranking their
+    evaluations; a PureSVD model's profile-length bins average to the
+    evaluator's MAP@20 on the card (1e-6)."""
+    import json
+
+    from ganmf_tpu_torch.cli import ablation, describe, mf_learned
+    from ganmf_tpu_torch.cli.experiment import load_urms
+    from ganmf_tpu_torch.data.splits import make_experiment_splits, save_experiment_splits
+    from ganmf_tpu_torch.models import PureSVDRecommender
+
+    rng = np.random.RandomState(0)
+    full = sps.csr_matrix((rng.rand(200, 120) < 0.1).astype(np.float32))
+    save_experiment_splits(make_experiment_splits(full, seed=1337), "synth", str(tmp_path / "splits"))
+    monkeypatch.setenv("GANMF_TPU_SPLIT_DIR", str(tmp_path / "splits"))
+    monkeypatch.chdir(tmp_path)
+    describe.main(["synth"])
+    assert capsys.readouterr().out.count('"name"') == 5
+    base = dict(num_factors=4, emb_dim=8, batch_size=16, m=2, d_lr=1e-3, g_lr=1e-3, d_reg=1e-4, recon_coefficient=0.3)
+    before = _counter("k1.launches")
+    alphas, maps, ndcgs = ablation.feature_matching_coefficient("synth", base_params=base, out_dir="fm", epochs=1)
+    assert len(maps) == len(ndcgs) == 11 and all(np.isfinite(maps + ndcgs))
+    stats = ablation.feature_matching_cos_sim("synth", base_params=base, out_dir="fm", epochs=1, sample_users=20)
+    assert all(-1 <= s["mean_cos_sim"] <= 1 for s in stats.values())
+    series = mf_learned.latent_factors_study("synth", out_dir="latent", epochs=1, k_grid=[2, 3])
+    assert sorted(series) == ["ALS", "GANMF", "PureSVD"] and all(np.isfinite(v).all() for v in series.values())
+    qual = mf_learned.mf_qualitative_study("synth", out_dir="qual", epochs=1)
+    assert sorted(qual) == ["ALS", "GANMF", "PureSVD"] and all(len(b) == 10 for b in qual.values())
+    with open(tmp_path / "qual" / "profile_length_map_synth.json") as fh:
+        assert sorted(json.load(fh)) == ["ALS", "GANMF", "PureSVD"]
+    assert _counter("k1.launches") >= before + 11 + 6  # the sweep's and the latent study's evaluations
+    splits = load_urms("synth")
+    svd = PureSVDRecommender(splits.train)
+    svd.fit(num_factors=6)
+    bins = mf_learned.per_profile_length_map(svd, splits)
+    n = sum(b["n_users"] for b in bins)
+    want, _ = EvaluatorHoldout(splits.test, [20]).evaluateRecommender(svd)
+    assert sum(b["MAP"] * b["n_users"] for b in bins) / n == pytest.approx(want[20]["MAP"], abs=1e-6)
 
 
 # -- the similarity family (no kernel: float32 products, tiled_topk) -----------
@@ -1207,18 +1389,33 @@ def test_mf_sgd_epoch_on_card_matches_cpu_and_does_not_synchronize(cuda, cls_nam
     assert bool(torch.isfinite(model._state.U).all())
 
 
-def test_bpr_evaluation_on_card_launches_k1(cuda):
-    from ganmf_tpu_torch.models import MatrixFactorization_BPR
+@pytest.mark.parametrize("cls_name,params", [
+    ("MatrixFactorization_BPR", dict(epochs=2, num_factors=8, learning_rate=0.05)),
+    ("MatrixFactorization_FunkSVD", dict(epochs=2, num_factors=8, learning_rate=0.05)),
+    ("MatrixFactorization_AsySVD", dict(epochs=2, num_factors=8, learning_rate=0.05)),
+    ("IRGAN_Recommender", dict(epochs=2, pre_train_epochs=1, num_factors=8, batch_size=64)),
+    ("NMFRecommender", dict(num_factors=8, n_iter=20)),
+])
+def test_bpr_evaluation_on_card_launches_k1(cuda, cls_name, params):
+    """The MF-SGD family, IRGAN and NMF fit on the card: each early-stopping
+    validation ranks through K1, and the trained factors score like a CPU
+    copy's (every metric within 1e-5) through one more K1 launch."""
+    import ganmf_tpu_torch.models as pm
 
+    cls = getattr(pm, cls_name)
     train, test = _sim_split()
-    model = MatrixFactorization_BPR(train)
+    model = cls(train)
+    validations = params.get("epochs", 0)
+    if validations:
+        params = dict(params, evaluator_object=EvaluatorHoldout(test, [5]), validation_every_n=1,
+                      validation_metric="MAP")
     before = _counter("k1.launches")
-    model.fit(epochs=2, num_factors=8, learning_rate=0.05, evaluator_object=EvaluatorHoldout(test, [5]),
-              validation_every_n=1, validation_metric="MAP")
-    assert _counter("k1.launches") >= before + 2  # each validation through K1
+    model.fit(**params)
+    assert _counter("k1.launches") >= before + validations  # each validation through K1
     before = _counter("k1.launches")
-    copy = MatrixFactorization_BPR(train, device=torch.device("cpu"))
-    copy.USER_factors, copy.ITEM_factors = model.USER_factors, model.ITEM_factors
+    copy = cls(train, device=torch.device("cpu"))
+    for attr in ("USER_factors", "ITEM_factors", "use_bias", "USER_bias", "ITEM_bias", "GLOBAL_bias"):
+        setattr(copy, attr, getattr(model, attr))
     _metrics_close(model, copy, test)
     assert _counter("k1.launches") == before + 1
 
@@ -1743,6 +1940,49 @@ def test_ease_r_topk_sharded_in_a_world_of_one_matches_the_card(cuda, world_of_o
     assert torch.equal((got != 0).sum(0), (want != 0).sum(0))
     both = (got != 0) & (want != 0)
     torch.testing.assert_close(got[both], want[both], rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+_GAN_MESH_FIT = dict(num_factors=16, epochs=1, batch_size=32, d_lr=1e-3, g_lr=1e-3)
+_SEEDED = dict(seed=5, is_experiment=True)
+_MESH_FITS = {  # (class, its constructor's keywords, fit's keywords)
+    "ganmf_user": ("GANMF", dict(_SEEDED, mode="user"), dict(_GAN_MESH_FIT, **_GAN_WIDTHS["GANMF"])),
+    "ganmf_item": ("GANMF", dict(_SEEDED, mode="item"), dict(_GAN_MESH_FIT, **_GAN_WIDTHS["GANMF"])),
+    "disganmf": ("DisGANMF", _SEEDED, dict(_GAN_MESH_FIT, **_GAN_WIDTHS["DisGANMF"])),
+    "cfgan_csr": ("CFGAN", _SEEDED, dict(_CFGAN_FIT, urm_storage="csr", epochs=1)),
+    "caae_dedup": ("CAAE", _SEEDED, dict(_CAAE_FIT, d_scatter="dedup", epochs=1)),
+    "ials_flat": ("IALSRecommender", {}, dict(epochs=2, num_factors=16, alpha=5.0, urm_storage="csr")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_MESH_FITS))
+def test_mesh_fit_and_evaluation_in_a_world_of_one_match_the_one_card_path(cuda, world_of_one, name,
+                                                                          monkeypatch):
+    """GANMF (both modes), DisGANMF, CFGAN (csr), CAAE (dedup) and IALS
+    (flat csr) fit with a plan over a world of one on NCCL and evaluated by
+    an evaluator on that plan: every metric within 1e-5 of the one-card
+    fit's one-card evaluation from the same seed; the mesh evaluation ranks
+    the factor models through K1, and CFGAN's and CAAE's mesh fits draw
+    through K2."""
+    import ganmf_tpu_torch.models as pm
+    from ganmf_tpu_torch.models import ials
+
+    cls_name, init, params = _MESH_FITS[name]
+    monkeypatch.setattr(ials, "_PAD_PLANE_BYTE_LIMIT", 1)  # IALS's csr storage in its flat form
+    train, test = _sim_split(binary=True)
+    results = []
+    for plan in (None, world_of_one):
+        model = getattr(pm, cls_name)(train, **init)
+        k2 = _counter("k2.launches")
+        model.fit(mesh_plan=plan, **params)
+        if plan is not None:
+            assert (_counter("k2.launches") > k2) == (cls_name in ("CFGAN", "CAAE"))
+        k1 = _counter("k1.launches")
+        results.append(EvaluatorHoldout(test, [5, 10, 20, 50], mesh_plan=plan).evaluateRecommender(model)[0])
+        assert (_counter("k1.launches") > k1) == (cls_name not in ("CFGAN", "CAAE"))
+    want, got = results
+    for c in want:
+        for metric, value in want[c].items():
+            assert got[c][metric] == pytest.approx(value, abs=1e-5, nan_ok=True), (c, metric)
 
 
 # -- JAX's bf16 similarity routes and the graft entry points ----------------------

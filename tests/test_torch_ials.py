@@ -99,7 +99,8 @@ def test_one_epoch_rows_match_jax_at_the_committed_lastfm_params():
     """At the committed LastFM params (K cut to 8; alpha 38.6, reg 1.58e-3)
     the systems are worse conditioned: a few near-zero entries pass ATOL (5
     of 400 here, a CPU measurement), while every row stays within ROW_GAP of
-    its norm (3.2e-5 here), the gate chip_smoke.py holds the card to."""
+    its norm (3.2e-5 here), the gate the card tests hold the card to
+    (tests/test_torch_cuda.py)."""
     urm = _urm()
     with open(REPO / "experiments" / "IALSRecommender__LastFM" / "best_params.pkl", "rb") as fh:
         cfg = dict(pickle.load(fh), epochs=1, num_factors=8)

@@ -1,7 +1,7 @@
 """The port runs where JAX, scikit-learn and pandas are not installed: no
-module of ganmf_tpu_torch (nor chip_smoke.py) imports jax, ganmf_tpu, sklearn
-or pandas, directly or through another module. Importing it turns TF32 and
-bf16 reduced-precision reductions off."""
+module of ganmf_tpu_torch (nor the card tests, tests/test_torch_cuda.py)
+imports jax, ganmf_tpu, sklearn or pandas, directly or through another
+module. Importing it turns TF32 and bf16 reduced-precision reductions off."""
 
 import os
 import subprocess
@@ -65,22 +65,28 @@ def test_port_imports_neither_jax_nor_ganmf_tpu():
         assert f"ganmf_tpu_torch.{module}" in names, module
 
 
-def test_chip_smoke_imports_neither_jax_nor_ganmf_tpu():
-    """chip_smoke.py runs where JAX and pandas are not installed: no import
-    statement of it, at the top or inside a function, names jax, ganmf_tpu,
-    sklearn or pandas, and importing it under the refusing finder works."""
+def test_card_tests_import_neither_jax_nor_ganmf_tpu():
+    """The card tests run where JAX and pandas are not installed (with
+    ``--noconftest``, which skips tests/conftest.py): no import statement of
+    tests/test_torch_cuda.py, at the top or inside a function, names jax,
+    ganmf_tpu, sklearn or pandas, and importing it under the refusing finder
+    works."""
     import ast
 
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    path = REPO / "tests" / "test_torch_cuda.py"
     roots = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             roots.update(alias.name.split(".")[0] for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
     assert "ganmf_tpu_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "ganmf_tpu", "sklearn", "pandas"}, roots
-    check = _CHECK.split("import ganmf_tpu_torch")[0] + "import chip_smoke\nprint('IMPORTED', 1)\n"
+    check = _CHECK.split("import ganmf_tpu_torch")[0] + (
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location('test_torch_cuda', {str(path)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print('IMPORTED', 1)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", check], capture_output=True, text=True,
                        cwd=str(REPO), env=env, timeout=300)

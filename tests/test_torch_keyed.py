@@ -1,8 +1,8 @@
 """The keyed per-row uniforms (ops/keyed.py), on the CPU: Philox4x32-10
 against Random123's known-answer vectors, the draw's independence of the
 batch it is drawn in, its range and its distribution. The kernel is held
-bitwise against this plain version on the card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+bitwise against this plain version on the card
+(tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest

@@ -18,7 +18,9 @@ two cold columns). Tolerances:
   ``pow``, ``exp`` and ``log`` of another library). The kept entries of a
   column are the same except at near ties: an entry kept by one package only
   must lie within that tolerance of the other's smallest kept value in the
-  column (``assert_topk_close``, the rule of chip_smoke.py's ``ids_agree``);
+  column (``assert_topk_close``: two candidates may swap only where their
+  scores lie within the tolerance, a near tie two summation orders may break
+  either way);
 - ``masked_topk_matmul``: values within rtol 1e-6, ids equal but at near
   ties, the test-pair probe within rtol 1e-6.
 """
