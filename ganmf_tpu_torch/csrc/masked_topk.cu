@@ -29,7 +29,8 @@
 // of 0.0836 ms. Its bytes (U, V, the mask, the lists: 19.7 MB) take 5.9 us at
 // 3.35 TB/s. So the bound is compute on the f32 CUDA cores. The design:
 //
-// 1. Register-tiled scoring. A block of 256 threads owns kBM = 64 rows and
+// 1. Register-tiled scoring (FusedTile<false>, any K and alignment; point 6
+//    gives the aligned instance). A block of 256 threads owns kBM = 64 rows and
 //    walks item tiles of kBN = 128. Each thread holds a 4 x 8 micro-tile of
 //    accumulators (4 rows x 8 items). U's and V's K-slices sit in shared
 //    memory factor-major, so one factor step reads one float4 of U (a
@@ -63,6 +64,32 @@
 //    time. K is not padded: the last slice multiplies only its own factors,
 //    so every score keeps its exact fmaf chain (a -0.0 score reaches the key
 //    as -0.0, which the key maps to +0.0, as in the wide pair).
+// 6. The aligned instance (FusedTile<true>). ML-20M's evaluation block is
+//    B = 3648, K = 128, I = 26744, k = 50: 24.97 GFLOP, a bound of 0.373 ms,
+//    where points 1-5 ran at a fifth of it. Timed variants and per-phase
+//    clock counters on the card put scoring alone at 40% of the bound (its
+//    4-byte copies a third of that time) and the selection at two thirds
+//    of each warp's cycles: the merges most (706,628 a launch, 8.5 keys on
+//    average, each over 128 slots of 32 lanes), then the threshold pass and
+//    the mask's byte loads. Where K % 4 == 0 and U and V are 16-byte aligned
+//    (so are rows of 4K bytes) and the batch fills row blocks, the wrapper
+//    takes this instance. Same tile and micro-tile (an 8 x 8 micro-tile was
+//    slower: at 128 registers it could not keep the next factors' loads in
+//    flight, and spilled); what differs:
+//    - K-slices of 32 factors arrive by 16-byte cp.async.cg copies, 6 a
+//      thread a slice, into row-major stages whose 16-byte chunks are
+//      swizzled (conflict-free float4 reads of 4 factors); two stages keep
+//      two blocks an SM, with half the slice barriers.
+//    - A lane's 8 items are contiguous, so its mask bytes of a row are one
+//      8-byte load where they lie whole in the row and aligned.
+//    - A row whose candidates and list fit 64 entries is merged by its own
+//      half-warp (4 slots of 16 lanes), the warp's two half-warps at once.
+//    Each score is still the one fmaf chain in factor order and the merges
+//    rank the same keys, so both instances return the same bits. (Deferring
+//    merges until a row's buffer overflows, and reading the mask only for
+//    candidates, were slower: a stale threshold doubles the keys merged,
+//    and a byte load behind each candidate's branch pays its latency once
+//    for each.)
 //
 // The TPU kernel ran a (row block x item tile) grid with item tiles in
 // sequence, the running top-k in its output refs, and a k-step max/argmax
@@ -105,6 +132,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -112,20 +140,36 @@ constexpr int kMaxK = 64;  // largest k of the fused kernel
 
 // fused kernel
 constexpr int kFusedThreads = 256;
-constexpr int kBM = 64;   // user rows per block
-constexpr int kBN = 128;  // items per tile
-constexpr int kBK = 16;   // factors per staged K-slice
-constexpr int kStages = 3;  // K-slices in flight (a cp.async ring)
-constexpr int kTM = 4;    // rows of a thread's micro-tile
-constexpr int kTN = 8;    // items of a thread's micro-tile (two groups of 4)
-constexpr int kAStride = kBM + 4;  // K-major slice rows, float4-aligned
-constexpr int kBStride = kBN + 4;
-constexpr int kCap = 64;          // candidate keys per row and merge round
 constexpr int kMaxSplits = 16;
 constexpr int kMergeThreads = 256;
-static_assert(kBM == 16 * kTM && kBN == 16 * kTN, "16 x 16 threads cover the block tile");
-static_assert(kBN >= kMaxK, "a split's first tile fills the running top-k");
-static_assert(kFusedThreads == 256 && kBK == 16, "load_slice's copy layout");
+
+// The fused kernel's two main loops (head note, points 1-2 and 6). A block
+// of 256 threads owns kBM = 64 rows and walks item tiles of kBN = 128; each
+// thread holds a 4 x 8 micro-tile of accumulators (4 rows, 8 items), the 16
+// threads of a half-warp sharing their rows; K-slices of kBK factors stream
+// through a ring of kStages stages; each row keeps its running top-k (kMaxK
+// keys) and a candidate buffer of kCap keys.
+template <bool kAligned>
+struct FusedTile {
+  static constexpr int kBM = 64;
+  static constexpr int kBN = 128;
+  static constexpr int kBK = kAligned ? 32 : 16;
+  static constexpr int kStages = kAligned ? 2 : 3;
+  static constexpr int kTM = 4;
+  static constexpr int kTN = 8;
+  static constexpr int kCap = 64;
+  // factor-major stages of the unaligned loop have rows padded by 4 floats;
+  // the aligned loop's stages are row-major, kBK floats a row
+  static constexpr int kAStride = kBM + 4;
+  static constexpr int kBStride = kBN + 4;
+  static constexpr int kStageFloats =
+      kAligned ? (kBM + kBN) * kBK : kBK * (kAStride + kBStride);
+  static constexpr size_t kSmemBytes = (size_t)kBM * (kMaxK + kCap) * sizeof(uint64_t) +
+                                       (size_t)kStages * kStageFloats * sizeof(float);
+  static_assert(kBM == 16 * kTM && kBN == 16 * kTN, "16 x 16 threads cover the block tile");
+  static_assert(kBN >= kMaxK, "a split's first tile fills the running top-k");
+  static_assert(kBK % 4 == 0 && (!kAligned || kBK / 4 == 8), "a row-major stage row is 8 chunks");
+};
 
 // wide pair
 constexpr int kWideThreads = 256;
@@ -181,17 +225,56 @@ __device__ __forceinline__ int count_below(const uint64_t* list, int n, uint64_t
   return lo;
 }
 
-// -- fused kernel (k <= kMaxK) -------------------------------------------------
-
-size_t fused_smem_bytes() {
-  return (size_t)kBM * (kMaxK + kCap) * sizeof(uint64_t) +
-         (size_t)kStages * kBK * (kAStride + kBStride) * sizeof(float);
+// A 64-bit key of the lane lane ^ lane_mask within groups of W lanes.
+template <int W>
+__device__ __forceinline__ uint64_t shfl_xor64(uint64_t v, int lane_mask) {
+  const uint32_t lo = __shfl_xor_sync(0xffffffffu, (uint32_t)v, lane_mask, W);
+  const uint32_t hi = __shfl_xor_sync(0xffffffffu, (uint32_t)(v >> 32), lane_mask, W);
+  return ((uint64_t)hi << 32) | lo;
 }
+
+// Sorts the W E keys that a group of W lanes holds (key e of lane l at index
+// E l + e) ascending by a bitonic network in registers: strides below E
+// inside a lane, the others by shuffles.
+template <int W, int E>
+__device__ __forceinline__ void sort_lanes(uint64_t (&v)[E], int lane) {
+#pragma unroll
+  for (int size = 2; size <= W * E; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int idx = lane * E + e;
+        const bool asc = (idx & size) == 0;
+        if (stride >= E) {  // the partner is key e of lane l ^ (stride / E)
+          const uint64_t o = shfl_xor64<W>(v[e], stride / E);
+          v[e] = (asc == ((idx & stride) == 0)) ? min(v[e], o) : max(v[e], o);
+        } else if ((e & stride) == 0) {  // the partner is key e + stride of this lane
+          const uint64_t x = v[e], y = v[e + stride];
+          if ((x > y) == asc) {
+            v[e] = y;
+            v[e + stride] = x;
+          }
+        }
+      }
+    }
+  }
+}
+
+// -- fused kernel (k <= kMaxK) -------------------------------------------------
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0));
+}
+
+// A 16-byte copy (L2 only), zero-filled when not valid; both addresses are
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -201,93 +284,145 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Issues the copies of one K-slice into a stage: As[c][r] = U[row0 + r][kc
-// + c] and Bs[c][t] = V[base + t][kc + c], zero outside [B, I, K). A warp's
-// copy covers 8 factors of 4 rows: 32 contiguous bytes of each row, and 32
-// distinct banks of the factor-major stage.
-__device__ __forceinline__ void load_slice(float* As, float* Bs, const float* __restrict__ U,
+// Issues the copies of one K-slice into a stage, zero outside [B, I, K).
+//
+// Unaligned (any K): As[c][r] = U[row0 + r][kc + c] and Bs[c][t] = V[base +
+// t][kc + c], factor-major, by 4-byte copies. A warp's copy covers 8 factors
+// of 4 rows: 32 contiguous bytes of each row, and 32 distinct banks of the
+// stage.
+//
+// Aligned (K % 4 == 0, U and V 16-byte aligned): As[r][c] and Bs[t][c],
+// row-major, by 16-byte copies of 4 factors (K's tail needs no test inside a
+// copy); a warp's copy covers 128 contiguous bytes of each of 4 rows. The
+// 16-byte chunk q of U's row r sits at chunk q ^ (r & 7) of its 128-byte
+// stage row, and that of V's item t at q ^ ((t >> 3) & 7), so fma_slice's
+// reads hit 8 distinct chunks in each quarter-warp.
+template <bool kAligned>
+__device__ __forceinline__ void load_slice(float* stage, const float* __restrict__ U,
                                            const float* __restrict__ V, int row0, int base,
                                            int kc, int B, int I, int K, int tid) {
-  const int lane = tid % 32;
-  const int r0 = lane / 8 + 4 * (tid / 32);
+  using T = FusedTile<kAligned>;
+  float* As = stage;
+  float* Bs = stage + (kAligned ? T::kBM * T::kBK : T::kBK * T::kAStride);
+  if constexpr (kAligned) {
 #pragma unroll
-  for (int m = 0; m < kBM * kBK / kFusedThreads; ++m) {
-    const int c = lane % 8 + 8 * (m & 1), r = r0 + 32 * (m >> 1);
-    const bool ok = kc + c < K && row0 + r < B;
-    cp_async4(As + c * kAStride + r, ok ? U + (size_t)(row0 + r) * K + kc + c : U, ok);
-  }
+    for (int m = 0; m < T::kBM * T::kBK / 4 / kFusedThreads; ++m) {
+      const int e = tid + kFusedThreads * m, r = e / 8, q = e % 8;
+      const bool ok = row0 + r < B && kc + 4 * q < K;
+      cp_async16(As + r * T::kBK + 4 * (q ^ (r & 7)),
+                 ok ? U + (size_t)(row0 + r) * K + kc + 4 * q : U, ok);
+    }
 #pragma unroll
-  for (int m = 0; m < kBN * kBK / kFusedThreads; ++m) {
-    const int c = lane % 8 + 8 * (m & 1), t = r0 + 32 * (m >> 1);
-    const bool ok = kc + c < K && base + t < I;
-    cp_async4(Bs + c * kBStride + t, ok ? V + (size_t)(base + t) * K + kc + c : V, ok);
+    for (int m = 0; m < T::kBN * T::kBK / 4 / kFusedThreads; ++m) {
+      const int e = tid + kFusedThreads * m, t = e / 8, q = e % 8;
+      const bool ok = base + t < I && kc + 4 * q < K;
+      cp_async16(Bs + t * T::kBK + 4 * (q ^ ((t >> 3) & 7)),
+                 ok ? V + (size_t)(base + t) * K + kc + 4 * q : V, ok);
+    }
+  } else {
+    static_assert(T::kBK == 16, "the copy layout");
+    const int lane = tid % 32;
+    const int r0 = lane / 8 + 4 * (tid / 32);
+#pragma unroll
+    for (int m = 0; m < T::kBM * T::kBK / kFusedThreads; ++m) {
+      const int c = lane % 8 + 8 * (m & 1), r = r0 + 32 * (m >> 1);
+      const bool ok = kc + c < K && row0 + r < B;
+      cp_async4(As + c * T::kAStride + r, ok ? U + (size_t)(row0 + r) * K + kc + c : U, ok);
+    }
+#pragma unroll
+    for (int m = 0; m < T::kBN * T::kBK / kFusedThreads; ++m) {
+      const int c = lane % 8 + 8 * (m & 1), t = r0 + 32 * (m >> 1);
+      const bool ok = kc + c < K && base + t < I;
+      cp_async4(Bs + c * T::kBStride + t, ok ? V + (size_t)(base + t) * K + kc + c : V, ok);
+    }
   }
 }
 
-// Item offset in the tile of micro-tile column j: two groups of 4, half a
-// tile apart, so a warp's float4 reads of V cover 256 contiguous bytes.
+// Item offset in the tile of micro-tile column j of lane tx. Unaligned: two
+// groups of 4, half a tile apart, so a warp's float4 reads of V cover 256
+// contiguous bytes. Aligned: 8 tx + j, so a lane's mask bytes of a row are
+// one 8-byte word.
+template <bool kAligned>
 __device__ __forceinline__ int item_of(int tx, int j) {
-  return (j < 4 ? 0 : kBN / 2) + tx * 4 + (j & 3);
+  if constexpr (kAligned) return tx * FusedTile<true>::kTN + j;
+  else return (j < 4 ? 0 : FusedTile<false>::kBN / 2) + tx * 4 + (j & 3);
 }
 
-__device__ __forceinline__ void fma_step(const float* As, const float* Bs, int c, int ty,
-                                         int tx, float (&acc)[kTM][kTN]) {
-  const float4 a = *reinterpret_cast<const float4*>(As + c * kAStride + ty * kTM);
-  const float4 b0 = *reinterpret_cast<const float4*>(Bs + c * kBStride + tx * 4);
-  const float4 b1 = *reinterpret_cast<const float4*>(Bs + c * kBStride + kBN / 2 + tx * 4);
-  const float av[kTM] = {a.x, a.y, a.z, a.w};
-  const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+// Multiplies the first `width` factors of a staged slice into the
+// accumulators, each score's chain in factor order. Unaligned: one factor
+// step reads one float4 of U (a broadcast) and two of V and feeds 32 FMAs.
+// Aligned (width a multiple of 4): four factors of each of the 8 items and
+// the 4 rows (a float4 each) feed 128 FMAs, 4 in a row into each sum.
+template <bool kAligned>
+__device__ __forceinline__ void fma_slice(const float* stage, int width, int tx, int ty,
+                                          float (&acc)[FusedTile<kAligned>::kTM][FusedTile<kAligned>::kTN]) {
+  using T = FusedTile<kAligned>;
+  if constexpr (kAligned) {
+    const float* As = stage;
+    const float* Bs = stage + T::kBM * T::kBK;
+    auto step = [&](int q) {
+      float4 b[T::kTN];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
+      for (int j = 0; j < T::kTN; ++j) {  // item 8 tx + j: its chunks' swizzle is tx & 7
+        b[j] = *reinterpret_cast<const float4*>(Bs + (tx * T::kTN + j) * T::kBK + 4 * (q ^ (tx & 7)));
+      }
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ uint64_t shfl_xor64(uint64_t v, int lane_mask) {
-  const uint32_t lo = __shfl_xor_sync(0xffffffffu, (uint32_t)v, lane_mask, 16);
-  const uint32_t hi = __shfl_xor_sync(0xffffffffu, (uint32_t)(v >> 32), lane_mask, 16);
-  return ((uint64_t)hi << 32) | lo;
-}
-
-// Sorts the 128 keys a half-warp holds (8 per lane, key j of lane tx at
-// index 8 tx + j) ascending by a bitonic network in registers.
-__device__ __forceinline__ void sort_half_warp(uint64_t (&v)[kTN], int tx) {
+      for (int i = 0; i < T::kTM; ++i) {
+        const int r = ty * T::kTM + i;
+        const float4 a = *reinterpret_cast<const float4*>(As + r * T::kBK + 4 * (q ^ (r & 7)));
 #pragma unroll
-  for (int size = 2; size <= kBN; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int idx = tx * kTN + j;
-        const bool asc = (idx & size) == 0;
-        if (stride >= kTN) {  // the partner is key j of lane tx ^ (stride / 8)
-          const uint64_t o = shfl_xor64(v[j], stride / kTN);
-          v[j] = (asc == ((idx & stride) == 0)) ? min(v[j], o) : max(v[j], o);
-        } else if ((j & stride) == 0) {  // the partner is key j + stride of this lane
-          const uint64_t x = v[j], y = v[j + stride];
-          if ((x > y) == asc) {
-            v[j] = y;
-            v[j + stride] = x;
-          }
+        for (int j = 0; j < T::kTN; ++j) {
+          float s = acc[i][j];
+          s = fmaf(a.x, b[j].x, s);
+          s = fmaf(a.y, b[j].y, s);
+          s = fmaf(a.z, b[j].z, s);
+          acc[i][j] = fmaf(a.w, b[j].w, s);
         }
       }
+    };
+    if (width == T::kBK) {
+#pragma unroll
+      for (int q = 0; q < T::kBK / 4; ++q) step(q);
+    } else {  // the last slice: only its own factors, so no product is added
+      for (int q = 0; q < width / 4; ++q) step(q);
+    }
+  } else {
+    const float* As = stage;
+    const float* Bs = stage + T::kBK * T::kAStride;
+    auto step = [&](int c) {
+      const float4 a = *reinterpret_cast<const float4*>(As + c * T::kAStride + ty * T::kTM);
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + c * T::kBStride + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(Bs + c * T::kBStride + T::kBN / 2 + tx * 4);
+      const float av[T::kTM] = {a.x, a.y, a.z, a.w};
+      const float bv[T::kTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < T::kTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < T::kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    };
+    if (width == T::kBK) {
+#pragma unroll
+      for (int c = 0; c < T::kBK; ++c) step(c);
+    } else {  // the last slice: only its own factors, so no product is added
+      for (int c = 0; c < width; ++c) step(c);
     }
   }
 }
 
 // Merges a row's c unsorted candidate keys into its sorted running top-k by
-// rank, with the 32 lanes of a warp: an entry's place is its rank in its own
-// list plus the keys below it in the other (all keys are distinct). Each
-// lane holds kSlots entries; one pass over the candidates counts for all.
+// rank, with kLanes lanes (the warp, or the row's half-warp: `lanes` names
+// them): an entry's place is its rank in its own list plus the keys below it
+// in the other (all keys are distinct). Each lane holds kSlots entries, so
+// c + k <= kLanes kSlots; one pass over the candidates counts for all.
+template <int kLanes, int kSlots>
 __device__ __forceinline__ void merge_row(uint64_t* rr, const uint64_t* cr, int c, int k,
-                                          int lane) {
-  constexpr int kSlots = (kCap + kMaxK) / 32;
+                                          int lane, unsigned lanes) {
   uint64_t key[kSlots];
   int below[kSlots];
 #pragma unroll
   for (int m = 0; m < kSlots; ++m) {
-    const int e = lane + 32 * m;
+    const int e = lane + kLanes * m;
     key[m] = ~0ull;
     below[m] = k;  // an empty slot is never placed
     if (e < c) {
@@ -299,7 +434,7 @@ __device__ __forceinline__ void merge_row(uint64_t* rr, const uint64_t* cr, int 
   }
 #pragma unroll
   for (int m = 0; m < kSlots; ++m) {
-    if (lane + 32 * m < c) below[m] = count_below(rr, k, key[m]);
+    if (lane + kLanes * m < c) below[m] = count_below(rr, k, key[m]);
   }
 #pragma unroll 4
   for (int z = 0; z < c; ++z) {
@@ -307,12 +442,68 @@ __device__ __forceinline__ void merge_row(uint64_t* rr, const uint64_t* cr, int 
 #pragma unroll
     for (int m = 0; m < kSlots; ++m) below[m] += y < key[m];
   }
-  __syncwarp();  // every lane has read the old list
+  __syncwarp(lanes);  // every lane has read the old list
 #pragma unroll
   for (int m = 0; m < kSlots; ++m) {
     if (below[m] < k) rr[below[m]] = key[m];
   }
-  __syncwarp();
+  __syncwarp(lanes);
+}
+
+// merge_row as a call (the aligned loop): one copy of its code, not one a
+// row, keeps the selection's code within the instruction caches.
+template <int kLanes, int kSlots>
+__device__ __noinline__ void merge_row_call(uint64_t* rr, const uint64_t* cr, int c, int k,
+                                            int lane, unsigned lanes) {
+  merge_row<kLanes, kSlots>(rr, cr, c, k, lane, lanes);
+}
+
+// Which of a thread's micro-tile scores are real (row < B, item < I) and
+// which are masked, from the mask's bytes in global memory: one byte at a
+// time, or, in the aligned loop, a row's 8 bytes as one word where they lie
+// whole in the row and 8-byte aligned.
+template <bool kAligned>
+__device__ __forceinline__ void tile_bits(const uint8_t* __restrict__ mask, int row0, int base,
+                                          int B, int I, int tx, int ty, uint32_t& valid,
+                                          uint32_t& masked) {
+  using T = FusedTile<kAligned>;
+  valid = 0;
+  masked = 0;
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    const int row = row0 + ty * T::kTM + i;
+    if constexpr (kAligned) {
+      if (row >= B) continue;
+      const uint8_t* p = mask + (size_t)row * I + base + T::kTN * tx;
+      uint64_t w = 0;
+      if (base + T::kTN * (tx + 1) <= I && (uintptr_t)p % 8 == 0) {
+        w = *reinterpret_cast<const uint64_t*>(p);
+      } else {
+#pragma unroll
+        for (int j = 0; j < T::kTN; ++j) {
+          if (base + T::kTN * tx + j < I && p[j]) w |= 1ull << (8 * j);
+        }
+      }
+      // bit j of the byte: whether byte j of the word is nonzero
+      w |= w >> 4;
+      w |= w >> 2;
+      w |= w >> 1;
+      w &= 0x0101010101010101ull;
+      const uint32_t m8 = (uint32_t)((w * 0x0102040810204080ull) >> 56);
+      const int n = min(T::kTN, max(0, I - base - T::kTN * tx));  // items of the lane in [0, I)
+      valid |= ((1u << n) - 1) << (i * T::kTN);
+      masked |= m8 << (i * T::kTN);
+    } else {
+#pragma unroll
+      for (int j = 0; j < T::kTN; ++j) {
+        const int item = base + item_of<kAligned>(tx, j);
+        if (row < B && item < I) {
+          valid |= 1u << (i * T::kTN + j);
+          if (mask[(size_t)row * I + item]) masked |= 1u << (i * T::kTN + j);
+        }
+      }
+    }
+  }
 }
 
 // The tile's epilogue, warp by warp (a warp's rows are its own: no block
@@ -324,25 +515,18 @@ __device__ __forceinline__ void merge_row(uint64_t* rr, const uint64_t* cr, int 
 // row's candidate buffer (prefix sums over the row's half-warp); every other
 // score is dropped by that one compare; then each warp merges its rows'
 // candidates into their running lists.
-__device__ void select_tile(const float (&acc)[kTM][kTN], uint64_t* run, uint64_t* cand,
-                            const uint8_t* __restrict__ mask, int row0, int base, int B, int I,
-                            int k, int split, bool first, int tx, int ty) {
-  uint32_t valid = 0, masked = 0;  // bit i * kTN + j
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int row = row0 + ty * kTM + i;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int item = base + item_of(tx, j);
-      if (row < B && item < I) {
-        valid |= 1u << (i * kTN + j);
-        if (mask[(size_t)row * I + item]) masked |= 1u << (i * kTN + j);
-      }
-    }
-  }
+template <bool kAligned>
+__device__ void select_tile(const float (&acc)[FusedTile<kAligned>::kTM][FusedTile<kAligned>::kTN],
+                            const uint8_t* __restrict__ mask, uint64_t* run, uint64_t* cand,
+                            int row0, int base, int B, int I, int k, int split, bool first,
+                            int tx, int ty) {
+  using T = FusedTile<kAligned>;
+  constexpr int kTM = T::kTM, kTN = T::kTN, kCap = T::kCap;
+  uint32_t valid, masked;  // bit i * kTN + j
+  tile_bits<kAligned>(mask, row0, base, B, I, tx, ty, valid, masked);
   auto key = [&](int i, int j) {
     const float s = (masked >> (i * kTN + j)) & 1u ? -INFINITY : acc[i][j];
-    return rank_key(s, (uint32_t)(base + item_of(tx, j)));
+    return rank_key(s, (uint32_t)(base + item_of<kAligned>(tx, j)));
   };
   if (first) {
 #pragma unroll
@@ -352,9 +536,9 @@ __device__ void select_tile(const float (&acc)[kTM][kTN], uint64_t* run, uint64_
       for (int j = 0; j < kTN; ++j) {
         v[j] = (valid >> (i * kTN + j)) & 1u
                    ? key(i, j)
-                   : rank_key(-INFINITY, 0x80000000u + (uint32_t)(split * kBN + tx * kTN + j));
+                   : rank_key(-INFINITY, 0x80000000u + (uint32_t)(split * T::kBN + tx * kTN + j));
       }
-      sort_half_warp(v, tx);
+      sort_lanes<16>(v, tx);
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
         if (tx * kTN + j < k) run[(ty * kTM + i) * kMaxK + tx * kTN + j] = v[j];
@@ -368,7 +552,7 @@ __device__ void select_tile(const float (&acc)[kTM][kTN], uint64_t* run, uint64_
   auto before = [&](int i, int j, uint64_t thr) {
     const float s = (masked >> (i * kTN + j)) & 1u ? -INFINITY : acc[i][j];
     const float tv = key_score(thr);
-    return s > tv || (s == tv && (uint32_t)(base + item_of(tx, j)) < (uint32_t)thr);
+    return s > tv || (s == tv && (uint32_t)(base + item_of<kAligned>(tx, j)) < (uint32_t)thr);
   };
   uint32_t pend[kTM];  // bit j: score j of row i ranks before the row's k-th key
 #pragma unroll
@@ -407,13 +591,36 @@ __device__ void select_tile(const float (&acc)[kTM][kTN], uint64_t* run, uint64_
       }
     }
     __syncwarp();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
+    if constexpr (kAligned) {
+      // a row whose candidates and list fit 64 entries is merged by its own
+      // half-warp, both half-warps at once; else by the warp, row by row
+      // (a rolled loop of calls: code size, not the loop, costs here)
+#pragma unroll 1
       for (int i = 0; i < kTM; ++i) {
-        const int c = __shfl_sync(0xffffffffu, took[i], 16 * h);
-        const int r = ((ty & ~1) + h) * kTM + i;
-        if (c > 0) merge_row(run + r * kMaxK, cand + r * kCap, c, k, lane);
+        const int r = ty * kTM + i;
+        if (!__any_sync(0xffffffffu, took[i] + k > 64)) {
+          if (took[i] > 0) {
+            merge_row_call<16, 4>(run + r * kMaxK, cand + r * kCap, took[i], k, tx,
+                                  0xffffu << (16 * (ty & 1)));
+          }
+          continue;
+        }
+        for (int h = 0; h < 2; ++h) {
+          const int c = __shfl_sync(0xffffffffu, took[i], 16 * h);
+          const int rh = ((ty & ~1) + h) * kTM + i;
+          if (c > 0) merge_row_call<32, 4>(run + rh * kMaxK, cand + rh * kCap, c, k, lane, 0xffffffffu);
+        }
+      }
+      if (!(pend[0] | pend[1] | pend[2] | pend[3])) continue;  // nothing to test again
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+          const int c = __shfl_sync(0xffffffffu, took[i], 16 * h);
+          const int r = ((ty & ~1) + h) * kTM + i;
+          if (c > 0) merge_row<32, 4>(run + r * kMaxK, cand + r * kCap, c, k, lane, 0xffffffffu);
+        }
       }
     }
 #pragma unroll
@@ -430,71 +637,65 @@ __device__ void select_tile(const float (&acc)[kTM][kTN], uint64_t* run, uint64_
 // One block: kBM rows x the item tiles [t0, t1) of split blockIdx.y. Writes
 // the split's top-k keys to part [S, B, k], or, when part is null (S = 1),
 // the scores and ids to the output.
+template <bool kAligned>
 __global__ void __launch_bounds__(kFusedThreads, 2)
 masked_topk_kernel(const float* __restrict__ U, const float* __restrict__ V,
                    const uint8_t* __restrict__ mask, float* __restrict__ out_vals,
                    int64_t* __restrict__ out_ids, uint64_t* __restrict__ part, int B, int I,
                    int K, int k, int tiles_per_split) {
+  using T = FusedTile<kAligned>;
   extern __shared__ __align__(16) unsigned char fused_smem[];
   uint64_t* run = reinterpret_cast<uint64_t*>(fused_smem);      // [kBM][kMaxK] running top-k
-  uint64_t* cand = run + kBM * kMaxK;                            // [kBM][kCap] candidates
-  float* stage_mem = reinterpret_cast<float*>(cand + kBM * kCap);  // the K-slice ring
+  uint64_t* cand = run + T::kBM * kMaxK;                         // [kBM][kCap] candidates
+  float* stage_mem = reinterpret_cast<float*>(cand + T::kBM * T::kCap);  // the K-slice ring
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * kBM;
+  const int row0 = blockIdx.x * T::kBM;
   const int split = blockIdx.y;
-  const int n_tiles = (I + kBN - 1) / kBN;
+  const int n_tiles = (I + T::kBN - 1) / T::kBN;
   const int t0 = split * tiles_per_split;
   const int t1 = min(n_tiles, t0 + tiles_per_split);
-  const int n_slices = (K + kBK - 1) / kBK;
+  const int n_slices = (K + T::kBK - 1) / T::kBK;
 
-  float* As = stage_mem;                           // [kStages][kBK][kAStride]
-  float* Bs = stage_mem + kStages * kBK * kAStride;  // [kStages][kBK][kBStride]
   // the ring: slice (lt, lk) is the next to load, into stage `ls`
   int lt = t0, lk = 0, ls = 0;
   auto issue = [&]() {
     if (lt < t1) {
-      load_slice(As + ls * kBK * kAStride, Bs + ls * kBK * kBStride, U, V, row0, lt * kBN,
-                 lk * kBK, B, I, K, tid);
+      load_slice<kAligned>(stage_mem + ls * T::kStageFloats, U, V, row0, lt * T::kBN,
+                           lk * T::kBK, B, I, K, tid);
       if (++lk == n_slices) {
         lk = 0;
         ++lt;
       }
     }
     cp_async_commit();  // possibly empty: one group per slice keeps the count
-    ls = ls == kStages - 1 ? 0 : ls + 1;
+    ls = ls == T::kStages - 1 ? 0 : ls + 1;
   };
 #pragma unroll
-  for (int p = 0; p < kStages - 1; ++p) issue();
+  for (int p = 0; p < T::kStages - 1; ++p) issue();
 
   int cs = 0;  // stage of the slice being multiplied
   for (int t = t0; t < t1; ++t) {
-    float acc[kTM][kTN];
+    float acc[T::kTM][T::kTN];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
+    for (int i = 0; i < T::kTM; ++i) {
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < T::kTN; ++j) acc[i][j] = 0.f;
     }
     for (int sl = 0; sl < n_slices; ++sl) {
-      cp_async_wait<kStages - 2>();  // this thread's copies of the slice have landed
+      cp_async_wait<T::kStages - 2>();  // this thread's copies of the slice have landed
       __syncthreads();  // everyone's have, and the stage refilled next is consumed
       issue();
-      const float* as = As + cs * kBK * kAStride;
-      const float* bs = Bs + cs * kBK * kBStride;
-      const int width = min(kBK, K - sl * kBK);
-      if (width == kBK) {
-#pragma unroll
-        for (int c = 0; c < kBK; ++c) fma_step(as, bs, c, ty, tx, acc);
-      } else {  // the last slice: only its own factors, so no product is added
-        for (int c = 0; c < width; ++c) fma_step(as, bs, c, ty, tx, acc);
-      }
-      cs = cs == kStages - 1 ? 0 : cs + 1;
+      fma_slice<kAligned>(stage_mem + cs * T::kStageFloats, min(T::kBK, K - sl * T::kBK), tx,
+                          ty, acc);
+      cs = cs == T::kStages - 1 ? 0 : cs + 1;
     }
-    select_tile(acc, run, cand, mask, row0, t * kBN, B, I, k, split, t == t0, tx, ty);
+    select_tile<kAligned>(acc, mask, run, cand, row0, t * T::kBN, B, I, k, split, t == t0, tx,
+                          ty);
   }
   __syncthreads();  // every warp's lists are final
 
-  for (int e = tid; e < kBM * k; e += kFusedThreads) {
+  for (int e = tid; e < T::kBM * k; e += kFusedThreads) {
     const int r = e / k, x = e - r * k;
     const int row = row0 + r;
     if (row >= B) continue;
@@ -536,41 +737,47 @@ merge_splits_kernel(const uint64_t* __restrict__ part, float* __restrict__ out_v
   }
 }
 
-// -- wide pair (k > kMaxK) ---------------------------------------------------
-
-__device__ __forceinline__ uint64_t shfl_xor64_warp(uint64_t v, int lane_mask) {
-  const uint32_t lo = __shfl_xor_sync(0xffffffffu, (uint32_t)v, lane_mask);
-  const uint32_t hi = __shfl_xor_sync(0xffffffffu, (uint32_t)(v >> 32), lane_mask);
-  return ((uint64_t)hi << 32) | lo;
-}
-
-// Sorts the 32 E keys a warp holds (key e of lane l at index E l + e)
-// ascending by a bitonic network in registers: strides below E inside a
-// lane, the others by shuffles.
-template <int E>
-__device__ __forceinline__ void sort_warp(uint64_t (&v)[E], int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32 * E; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int idx = lane * E + e;
-        const bool asc = (idx & size) == 0;
-        if (stride >= E) {  // the partner is key e of lane l ^ (stride / E)
-          const uint64_t o = shfl_xor64_warp(v[e], stride / E);
-          v[e] = (asc == ((idx & stride) == 0)) ? min(v[e], o) : max(v[e], o);
-        } else if ((e & stride) == 0) {  // the partner is key e + stride of this lane
-          const uint64_t x = v[e], y = v[e + stride];
-          if ((x > y) == asc) {
-            v[e] = y;
-            v[e + stride] = x;
-          }
-        }
-      }
-    }
+template <bool kAligned>
+cudaError_t launch_fused(const void* U, const void* V, const void* mask, void* vals, void* ids,
+                         void* part, int B, int I, int K, int k, int tiles_per_split, int splits,
+                         cudaStream_t s) {
+  using T = FusedTile<kAligned>;
+  const long long n_tiles = (I + T::kBN - 1) / T::kBN;
+  if ((long long)splits * tiles_per_split < n_tiles ||
+      (long long)(splits - 1) * tiles_per_split >= n_tiles || (splits > 1 && part == nullptr)) {
+    return cudaErrorInvalidValue;
   }
+  const size_t smem = FusedTile<kAligned>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      masked_topk_kernel<kAligned>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + T::kBM - 1) / T::kBM, splits);
+  masked_topk_kernel<kAligned><<<grid, kFusedThreads, smem, s>>>(
+      static_cast<const float*>(U), static_cast<const float*>(V),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(vals), static_cast<int64_t*>(ids),
+      splits > 1 ? static_cast<uint64_t*>(part) : nullptr, B, I, K, k, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  merge_splits_kernel<<<B, kMergeThreads, (size_t)splits * k * sizeof(uint64_t), s>>>(
+      static_cast<const uint64_t*>(part), static_cast<float*>(vals),
+      static_cast<int64_t*>(ids), B, k, splits);
+  return cudaGetLastError();
 }
+
+template <bool kAligned>
+int blocks_per_sm() {
+  int n = 0;
+  const size_t smem = FusedTile<kAligned>::kSmemBytes;
+  if (cudaFuncSetAttribute(masked_topk_kernel<kAligned>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, masked_topk_kernel<kAligned>,
+                                                    kFusedThreads, smem) != cudaSuccess) {
+    return 0;
+  }
+  return n;
+}
+
+// -- wide pair (k > kMaxK) ---------------------------------------------------
 
 // This thread's share of K-slice kc (S = kSlice factors), into registers:
 // pv[m] = V[base + t][kc + c] with t = tid / S + (256 / S) m, c = tid % S (S
@@ -691,7 +898,7 @@ wide_tiles_kernel(const float* __restrict__ U, const float* __restrict__ V,
   uint64_t v[W::kLane];
 #pragma unroll
   for (int e = 0; e < W::kLane; ++e) v[e] = rk[lane * (W::kLane + 1) + e];
-  sort_warp(v, lane);
+  sort_lanes<32>(v, lane);
 #pragma unroll
   for (int e = 0; e < W::kLane; ++e) rk[lane * (W::kLane + 1) + e] = v[e];
   __syncwarp();
@@ -771,57 +978,44 @@ cudaError_t launch_wide(const float* U, const float* V, const uint8_t* mask, flo
 
 extern "C" {
 
-// Dynamic shared memory of one fused-kernel block, in bytes.
-int ganmf_masked_topk_smem_bytes() { return (int)fused_smem_bytes(); }
+// Dynamic shared memory of one fused-kernel block, in bytes, of the aligned
+// main loop (aligned != 0) or the other.
+int ganmf_masked_topk_smem_bytes(int aligned) {
+  return (int)(aligned ? FusedTile<true>::kSmemBytes : FusedTile<false>::kSmemBytes);
+}
 
-// Fused-kernel blocks one SM holds at once on the current device (0 on a
-// CUDA error).
-int ganmf_masked_topk_blocks_per_sm() {
-  int n = 0;
-  if (cudaFuncSetAttribute(masked_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)fused_smem_bytes()) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, masked_topk_kernel, kFusedThreads,
-                                                    fused_smem_bytes()) != cudaSuccess) {
-    return 0;
-  }
-  return n;
+// Fused-kernel blocks one SM holds at once on the current device, of either
+// main loop (0 on a CUDA error).
+int ganmf_masked_topk_blocks_per_sm(int aligned) {
+  return aligned ? blocks_per_sm<true>() : blocks_per_sm<false>();
 }
 
 // Launches K1's fused kernel (k <= 64) over `splits` item splits of
-// `tiles_per_split` tiles of 128 items, then, for splits > 1, the merge pass,
-// on `stream`; returns the first cudaGetLastError() (0 on success). U [B, K]
-// f32, V [I, K] f32, mask [B, I] bytes (nonzero = exclude), all row-major and
-// contiguous; vals [B, k] f32 and ids [B, k] int64 are written. part is
-// scratch [splits, B, k] uint64 (unused, and may be null, when splits = 1).
-// Every split must hold at least one tile.
+// `tiles_per_split` tiles of 128 items, then, for splits > 1, the merge
+// pass, on `stream`; returns the first cudaGetLastError() (0 on success).
+// U [B, K] f32, V [I, K] f32, mask [B, I] bytes (nonzero = exclude), all
+// row-major and contiguous; vals [B, k] f32 and ids [B, k] int64 are
+// written. part is scratch [splits, B, k] uint64 (unused, and may be null,
+// when splits = 1). Every split must hold at least one tile. aligned != 0
+// takes the aligned main loop (head note, point 6), which needs K % 4 == 0
+// and U and V 16-byte aligned.
 int ganmf_masked_topk(const void* U, const void* V, const void* mask, void* vals, void* ids,
                       void* part, int B, int I, int K, int k, int tiles_per_split, int splits,
-                      void* stream) {
+                      int aligned, void* stream) {
   if (B <= 0 || I <= 0 || K <= 0 || k <= 0 || k > kMaxK || k > I || I > (1 << 30) ||
       tiles_per_split <= 0 || splits <= 0 || splits > kMaxSplits) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long n_tiles = (I + kBN - 1) / kBN;
-  if ((long long)splits * tiles_per_split < n_tiles ||
-      (long long)(splits - 1) * tiles_per_split >= n_tiles || (splits > 1 && part == nullptr)) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!aligned) {
+    return (int)launch_fused<false>(U, V, mask, vals, ids, part, B, I, K, k, tiles_per_split,
+                                    splits, s);
+  }
+  if (K % 4 != 0 || (uintptr_t)U % 16 != 0 || (uintptr_t)V % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = fused_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      masked_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + kBM - 1) / kBM, splits);
-  masked_topk_kernel<<<grid, kFusedThreads, smem, s>>>(
-      static_cast<const float*>(U), static_cast<const float*>(V),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(vals), static_cast<int64_t*>(ids),
-      splits > 1 ? static_cast<uint64_t*>(part) : nullptr, B, I, K, k, tiles_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  merge_splits_kernel<<<B, kMergeThreads, (size_t)splits * k * sizeof(uint64_t), s>>>(
-      static_cast<const uint64_t*>(part), static_cast<float*>(vals),
-      static_cast<int64_t*>(ids), B, k, splits);
-  return (int)cudaGetLastError();
+  return (int)launch_fused<true>(U, V, mask, vals, ids, part, B, I, K, k, tiles_per_split,
+                                 splits, s);
 }
 
 // Launches K1's wide pair (any k in [1, I]) on `stream`, `chunk_rows` rows at

@@ -109,11 +109,11 @@ def load_library() -> ctypes.CDLL:
         with span("kernels.load"):
             lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ganmf_masked_topk.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.ganmf_masked_topk.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
         lib.ganmf_masked_topk.restype = i32
-        lib.ganmf_masked_topk_smem_bytes.argtypes = []
+        lib.ganmf_masked_topk_smem_bytes.argtypes = [i32]
         lib.ganmf_masked_topk_smem_bytes.restype = i32
-        lib.ganmf_masked_topk_blocks_per_sm.argtypes = []
+        lib.ganmf_masked_topk_blocks_per_sm.argtypes = [i32]
         lib.ganmf_masked_topk_blocks_per_sm.restype = i32
         lib.ganmf_masked_topk_wide.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.ganmf_masked_topk_wide.restype = i32

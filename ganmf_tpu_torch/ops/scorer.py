@@ -6,7 +6,10 @@ in [1, I]. On a CUDA tensor the wrapper launches the hand-written Hopper
 kernels of csrc/masked_topk.cu, chosen from k alone: for k <= ``MAX_K`` the
 fused kernel, which never writes the [B, I] score matrix, over a grid of
 row blocks x item splits that ``fused_plan`` lays out, then, with more than
-one split, a merge pass over the splits' lists; above ``MAX_K`` the wide
+one split, a merge pass over the splits' lists. The fused kernel has two
+main loops, one tiling each (``FUSED_TILINGS``), with the same arithmetic
+and so the same bits; ``aligned_route`` picks the aligned one from what the
+call shows (K, the factors' alignment, the batch). Above ``MAX_K`` the wide
 pair, which ``wide_plan`` lays out: its first kernel scores and sorts tiles
 of 128 or 512 items per row and keeps each tile's first min(k, tile) keys
 in a scratch buffer of at most ``WIDE_SCRATCH_BYTES`` (rows go in chunks
@@ -54,22 +57,58 @@ WIDE_ROWS = 8
 WIDE_MAX_TILES = 32
 WIDE_MAX_CHUNK_ROWS = 65535
 
-# The fused kernel's tiling, as csrc/masked_topk.cu fixes it: user rows per
-# block, items per tile, factors per staged K-slice, K-slices in flight,
-# candidate keys per row, and the most item splits the merge pass takes.
-FUSED_ROWS, FUSED_ITEMS, FUSED_SLICE, FUSED_STAGES, FUSED_CANDIDATES = 64, 128, 16, 3, 64
+#: The most item splits the merge pass takes.
 MAX_SPLITS = 16
-#: Fused-kernel blocks an SM holds at once (its launch bounds; the shared
-#: memory of two blocks fits an H100's 228 KB).
+#: Fused-kernel blocks an SM holds at once, on either route (its launch
+#: bounds; both tilings keep two blocks' shared memory within an H100's 228 KB).
 BLOCKS_PER_SM = 2
 #: Streaming multiprocessors of an H100 SXM.
 H100_SMS = 132
+#: The least batch that takes the fused kernel's aligned main loop: one full
+#: block of rows. On an H100 the aligned loop was as fast or faster at every
+#: batch timed, down to B=1 (PERF.md section 6); below a full block the
+#: calls are single-user serving, which keeps the loop it had.
+ALIGNED_MIN_ROWS = 64
+
+
+@dataclass(frozen=True)
+class FusedTiling:
+    """One of the fused kernel's two tilings, as csrc/masked_topk.cu fixes
+    it (``FusedTile``): user rows per block, items per tile, factors per
+    staged K-slice, K-slices in flight, candidate keys per row, and the
+    floats each staged row is padded by."""
+
+    rows: int
+    items: int
+    slice: int
+    stages: int
+    candidates: int
+    pad: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block: each row's running top-k
+        (MAX_K keys) and candidate buffer, and the ring of K-slices of U and
+        V."""
+        lists = self.rows * (MAX_K + self.candidates) * 8
+        slices = self.stages * self.slice * ((self.rows + self.pad) + (self.items + self.pad)) * 4
+        return lists + slices
+
+
+#: The tiling of each route, keyed by ``aligned``: 4-byte copies into
+#: factor-major slices of 16 factors for any K; 16-byte copies into row-major
+#: slices of 32 factors where K % 4 == 0 and the factors are 16-byte aligned.
+FUSED_TILINGS = {
+    False: FusedTiling(rows=64, items=128, slice=16, stages=3, candidates=64, pad=4),
+    True: FusedTiling(rows=64, items=128, slice=32, stages=2, candidates=64, pad=0),
+}
 
 
 @dataclass(frozen=True)
 class FusedPlan:
     """Launch plan of K1's fused kernel for one call."""
 
+    aligned: bool  # the main loop: the aligned one (FUSED_TILINGS[True]) or the other
     rows_per_block: int  # BM
     items_per_tile: int  # BN
     splits: int  # S: item splits, each of tiles_per_split tiles (the last may be shorter)
@@ -79,23 +118,38 @@ class FusedPlan:
     scratch_bytes: int  # the [S, B, k] uint64 key lists the merge pass reads, 0 when S = 1
 
 
-def fused_smem_bytes() -> int:
-    """Dynamic shared memory of one fused block: each row's running top-k
-    (MAX_K keys) and candidate buffer, and the ring of K-slices of U and V
-    (factor-major, rows padded by 4 floats)."""
-    lists = FUSED_ROWS * (MAX_K + FUSED_CANDIDATES) * 8
-    slices = FUSED_STAGES * FUSED_SLICE * ((FUSED_ROWS + 4) + (FUSED_ITEMS + 4)) * 4
-    return lists + slices
+def fused_smem_bytes(aligned: bool = False) -> int:
+    """Dynamic shared memory of one fused block of the route's tiling."""
+    return FUSED_TILINGS[aligned].smem_bytes
+
+
+def aligned_route(user_factors, item_factors) -> bool:
+    """Whether K1's fused kernel takes its aligned main loop: K % 4 == 0 (rows
+    of a multiple of 16 bytes), both factor matrices 16-byte aligned (a
+    mesh rank's item slice ``V[i0:i1]`` is, at such K), and at least
+    ALIGNED_MIN_ROWS users."""
+    B, K = user_factors.shape
+    return (K % 4 == 0 and B >= ALIGNED_MIN_ROWS and user_factors.data_ptr() % 16 == 0
+            and item_factors.data_ptr() % 16 == 0)
 
 
 @lru_cache(maxsize=256)
-def fused_plan(B: int, I: int, k: int, num_sms: int = H100_SMS) -> FusedPlan:
-    """Splits the item tiles so that the (row blocks x splits) grid fills
-    ``num_sms`` SMs at BLOCKS_PER_SM each: of the split sizes that keep at
-    most MAX_SPLITS splits, the one with the fewest tiles per block times
-    waves of blocks, and of those the fewest splits."""
-    row_blocks = -(-B // FUSED_ROWS)
-    n_tiles = -(-I // FUSED_ITEMS)
+def fused_plan(B: int, I: int, k: int, num_sms: int = H100_SMS, aligned: bool = False) -> FusedPlan:
+    """Splits the route's item tiles so that the (row blocks x splits) grid
+    fills ``num_sms`` SMs at BLOCKS_PER_SM each: of the split sizes that
+    keep at most MAX_SPLITS splits, the one with the fewest tiles per block
+    times waves of blocks, and of those the fewest splits.
+
+    ``aligned`` picks the tiling: the wrapper passes ``aligned_route``'s
+    answer, which needs K % 4 == 0, 16-byte aligned factors and at least
+    ALIGNED_MIN_ROWS (64) users, one full block of rows. Both tilings hold
+    two blocks an SM and tiles of 128 items, so the split search is the
+    same; at ML-20M's evaluation block it gives S = 9, which on an H100 tied
+    the best count timed for the aligned loop (S = 4) and beat the others
+    by 9-30%."""
+    tiling = FUSED_TILINGS[aligned]
+    row_blocks = -(-B // tiling.rows)
+    n_tiles = -(-I // tiling.items)
     slots = num_sms * BLOCKS_PER_SM
     best = None
     for tiles in range(n_tiles, -(-n_tiles // MAX_SPLITS) - 1, -1):
@@ -105,8 +159,8 @@ def fused_plan(B: int, I: int, k: int, num_sms: int = H100_SMS) -> FusedPlan:
             best = (cost, tiles, S)
     _, tiles, S = best
     return FusedPlan(
-        rows_per_block=FUSED_ROWS, items_per_tile=FUSED_ITEMS, splits=S, tiles_per_split=tiles,
-        grid=(row_blocks, S), smem_bytes=fused_smem_bytes(),
+        aligned=aligned, rows_per_block=tiling.rows, items_per_tile=tiling.items, splits=S,
+        tiles_per_split=tiles, grid=(row_blocks, S), smem_bytes=tiling.smem_bytes,
         scratch_bytes=S * B * k * 8 if S > 1 else 0)
 
 
@@ -250,7 +304,10 @@ def _masked_topk(user_factors, item_factors, seen_mask, k: int):
         return vals, ids
     wide = k > MAX_K
     sms = _sm_count(device.index)
-    plan = wide_plan(B, I, k, sms) if wide else fused_plan(B, I, k, sms)
+    if wide:
+        plan = wide_plan(B, I, k, sms)
+    else:
+        plan = fused_plan(B, I, k, sms, aligned_route(user_factors, item_factors))
     stream = stream_handle(device)
     part = _scratch(device, stream, plan.scratch_bytes) if plan.scratch_bytes else None
     with on_device(device):
@@ -263,13 +320,15 @@ def _masked_topk(user_factors, item_factors, seen_mask, k: int):
             code = lib.ganmf_masked_topk(
                 user_factors.data_ptr(), item_factors.data_ptr(), seen_mask.data_ptr(),
                 vals.data_ptr(), ids.data_ptr(), part.data_ptr() if part is not None else None,
-                B, I, K, k, plan.tiles_per_split, plan.splits, stream)
+                B, I, K, k, plan.tiles_per_split, plan.splits, int(plan.aligned), stream)
     check(lib, code, "K1 masked_topk wide launch" if wide else "K1 masked_topk launch")
     count("k1.launches")
     if wide:
         count("k1.wide_launches")
     else:
         LAST_SPLITS = plan.splits
+        if plan.aligned:
+            count("k1.aligned_launches")
         if plan.splits > 1:
             count("k1.merge_launches")
     return vals, ids

@@ -251,13 +251,18 @@ def test_kernel_at_the_factor_models_shapes(cuda, B, K, I, k, case):
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "masked_rows"])
-@pytest.mark.parametrize("B,I,K", [(37, 3706, 250), (3024, 3706, 250), (5, 257, 33)])
+@pytest.mark.parametrize("B,I,K", [(37, 3706, 250), (3024, 3706, 250), (5, 257, 33),
+                                   (3648, 26744, 128), (1000, 3706, 128), (200, 1001, 64)])
 def test_fused_and_wide_share_one_arithmetic(cuda, B, I, K, case):
     """The fused kernel at k = 64 and the wide pair at k = 65 return the same
     bits in the first 64 slots of every row: on continuous factors, where a
-    different summation order would change the bits, and with exact ties."""
+    different summation order would change the bits, and with exact ties.
+    At K % 4 == 0 and a full row block the fused kernel takes its aligned
+    main loop."""
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
+    aligned = _counter("k1.aligned_launches")
     fused = masked_topk_scores(U, V, mask, scorer.MAX_K)
+    assert _counter("k1.aligned_launches") == aligned + (K % 4 == 0 and B >= scorer.ALIGNED_MIN_ROWS)
     before = _counter("k1.wide_launches")
     wide = masked_topk_scores(U, V, mask, scorer.MAX_K + 1)
     assert _counter("k1.wide_launches") == before + 1
@@ -271,7 +276,10 @@ def test_merge_pass_at_the_evaluation_shape(cuda):
     runs, and the result matches the plain version."""
     from ganmf_tpu_torch.ops._build import load_library
 
-    assert load_library().ganmf_masked_topk_smem_bytes() == scorer.fused_smem_bytes()
+    lib = load_library()
+    for aligned in (False, True):  # each route's tiling as the kernel fixes it
+        assert lib.ganmf_masked_topk_smem_bytes(int(aligned)) == scorer.fused_smem_bytes(aligned)
+        assert lib.ganmf_masked_topk_blocks_per_sm(int(aligned)) == scorer.BLOCKS_PER_SM
     plan = scorer.fused_plan(3024, 3706, 50, torch.cuda.get_device_properties(cuda).multi_processor_count)
     assert plan.splits > 1
     U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", 3024, 3706, 250))
@@ -280,6 +288,74 @@ def test_merge_pass_at_the_evaluation_shape(cuda):
     assert _counter("k1.merge_launches") == before + 1
     assert scorer.LAST_SPLITS == plan.splits
     _assert_k1_matches(U, V, mask, 50, vals, ids, exact=False)
+
+
+def _unaligned(monkeypatch):
+    """Sends every fused launch to the other main loop."""
+    monkeypatch.setattr(scorer, "ALIGNED_MIN_ROWS", 1 << 40)
+
+
+@pytest.mark.parametrize("case", ["random", "grid", "ties", "masked_rows"])
+@pytest.mark.parametrize("B,K,I,k", [
+    (3648, 128, 26744, 50),  # ML-20M's evaluation block: item splits and the merge pass
+    (3648, 64, 26744, 64),
+    (100, 64, 3706, 1),  # B not a multiple of the row tile, I % 16 != 0
+    (100, 128, 3706, 64),
+    (1000, 64, 1001, 50),
+    (3000, 128, 250, 50),  # one tile: a single split, no merge pass
+])
+def test_aligned_route_matches_plain_and_the_other_loop(cuda, B, K, I, k, case, monkeypatch):
+    """The aligned main loop against the plain version, and bitwise against
+    the other main loop on the same inputs (one arithmetic): values and
+    ids, the -inf tails of masked_rows included."""
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(case, B, I, K))
+    before, aligned = _counter("k1.launches"), _counter("k1.aligned_launches")
+    vals, ids = masked_topk_scores(U, V, mask, k)
+    assert _counter("k1.launches") == before + 1 and _counter("k1.aligned_launches") == aligned + 1
+    plan = scorer.fused_plan(B, I, k, torch.cuda.get_device_properties(cuda).multi_processor_count, True)
+    assert scorer.LAST_SPLITS == plan.splits and (plan.splits > 1) == (I > plan.items_per_tile)
+    _assert_k1_matches(U, V, mask, k, vals, ids, case in EXACT)
+    _unaligned(monkeypatch)
+    other = masked_topk_scores(U, V, mask, k)
+    assert _counter("k1.aligned_launches") == aligned + 1
+    assert torch.equal(vals, other[0]) and torch.equal(ids, other[1])
+
+
+@pytest.mark.parametrize("K", [64, 128])
+def test_aligned_route_on_an_item_shard(cuda, K, monkeypatch):
+    """A mesh rank's item slice V[i0:i1] with its mask columns and
+    id_offset: the aligned loop ranks it, ids global, as the other loop
+    does."""
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("masked_rows", 700, 9000, K))
+    i0, i1 = 1237, 6001
+    shard, seen = V[i0:i1], mask[:, i0:i1].contiguous()
+    aligned = _counter("k1.aligned_launches")
+    vals, ids = masked_topk_scores(U, shard, seen, 50, id_offset=i0)
+    assert _counter("k1.aligned_launches") == aligned + 1
+    _assert_k1_matches(U, shard, seen, 50, vals, ids - i0, exact=False)
+    _unaligned(monkeypatch)
+    other = masked_topk_scores(U, shard, seen, 50, id_offset=i0)
+    assert torch.equal(vals, other[0]) and torch.equal(ids, other[1])
+
+
+@pytest.mark.parametrize("B,K,aligned", [(3648, 128, True), (1, 250, False), (1, 128, False),
+                                         (3648, 250, False), (63, 64, False), (64, 64, True)])
+def test_aligned_route_is_taken_where_it_applies(cuda, B, K, aligned):
+    """k1.aligned_launches counts each launch of the aligned loop: at the
+    evaluation block's shape, and never at serving's B=1, at K % 4 != 0 or
+    below a full row block; factors off a 16-byte boundary take the other
+    loop too."""
+    U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", B, 3706, K))
+    before = _counter("k1.aligned_launches")
+    for _ in range(2):
+        masked_topk_scores(U, V, mask, 20)
+    assert _counter("k1.aligned_launches") == before + 2 * aligned
+    if aligned:  # the same factors one float past a 16-byte boundary
+        U4 = torch.empty(B * K + 1, device=cuda)[1:].view(B, K).copy_(U)
+        before = _counter("k1.aligned_launches")
+        vals, ids = masked_topk_scores(U4, V, mask, 20)
+        assert _counter("k1.aligned_launches") == before
+        _assert_k1_matches(U, V, mask, 20, vals, ids, exact=False)
 
 
 @pytest.mark.parametrize("case", ["random", "grid"])
@@ -617,13 +693,16 @@ def test_k2_takes_k_outside_its_range(cuda, I, dtype):
     assert got[0].sum() == 0 and bool(got[1].all()) and bool(got[3].all())
 
 
-@pytest.mark.parametrize("what", ["K1 fused", "K1 wide pair", "K2"])
+@pytest.mark.parametrize("what", ["K1 fused", "K1 wide pair", "K2", "K1 fused aligned"])
 def test_wrappers_do_not_synchronize(cuda, what):
     """Each wrapper only enqueues: under sync debug mode "error" any
     host-device synchronization in it would raise."""
     if what == "K2":
         keys, k = (t.to(cuda) for t in _select_case("uniform", 64, 17632))
         call = lambda: smallest_k_mask(keys, k)  # noqa: E731
+    elif what == "K1 fused aligned":
+        U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", 3648, 26744, 128))
+        call = lambda: masked_topk_scores(U, V, mask, 50)  # noqa: E731
     else:
         U, V, mask = (torch.from_numpy(a).to(cuda) for a in _inputs("random", 5, 3706, 250))
         kk = 20 if what == "K1 fused" else 3705

@@ -147,3 +147,65 @@ def test_fused_plan_splits_the_evaluation_block():
     assert plan.splits > 1
     assert plan.grid[0] * plan.splits >= scorer.H100_SMS
     assert fused_plan(1, 3706, 20).splits >= plan.splits
+
+
+@pytest.mark.parametrize("B,I,k", [
+    (3648, 26744, 50),  # ML-20M's evaluation block
+    (3517, 26744, 50),  # its last block
+    (3024, 3706, 50),
+    (1000, 1001, 64),
+    (64, 3706, 1),
+    (3000, 250, 50),  # a single tile
+])
+def test_aligned_plan_covers_the_work(B, I, k):
+    """The aligned main loop's plan: its own tiling (its slices, its shared
+    memory) covers all rows and items, every split holds a tile, and two
+    blocks fit an SM."""
+    plan = fused_plan(B, I, k, aligned=True)
+    tiling = scorer.FUSED_TILINGS[True]
+    assert plan.aligned and (plan.rows_per_block, plan.items_per_tile) == (tiling.rows, tiling.items) == (64, 128)
+    row_blocks, S = plan.grid
+    assert row_blocks * 64 >= B > (row_blocks - 1) * 64
+    n_tiles = -(-I // 128)
+    assert S == plan.splits and 1 <= S <= scorer.MAX_SPLITS
+    assert S * plan.tiles_per_split >= n_tiles > (S - 1) * plan.tiles_per_split
+    assert plan.smem_bytes == scorer.fused_smem_bytes(True) < H100_BLOCK_SMEM
+    assert scorer.BLOCKS_PER_SM * (plan.smem_bytes + 1024) <= 233472
+    assert plan.scratch_bytes == (S * B * k * 8 if S > 1 else 0)
+
+
+def test_route_tilings_as_the_kernel_fixes_them():
+    """Each route's shared memory from its tiling: the running lists and
+    candidates, and the ring of K-slices (three of 16 factors, factor-major
+    rows padded by 4 floats, in the other loop; two of 32, row-major, in the
+    aligned one)."""
+    assert scorer.fused_smem_bytes(False) == 64 * (64 + 64) * 8 + 3 * 16 * (68 + 132) * 4
+    assert scorer.fused_smem_bytes(True) == 64 * (64 + 64) * 8 + 2 * 32 * (64 + 128) * 4
+    assert scorer.fused_smem_bytes() == scorer.fused_smem_bytes(False)
+
+
+def test_eval_shape_takes_the_aligned_route():
+    """ML-20M's evaluation block (K=128, factors 16-byte aligned) takes the
+    aligned loop, whose plan splits the items so that the grid fills the
+    card and its last wave is nearly full."""
+    U, V = torch.zeros(3648, 128), torch.zeros(26744, 128)
+    assert scorer.aligned_route(U, V)
+    plan = fused_plan(3648, 26744, 50, aligned=True)
+    blocks = plan.grid[0] * plan.splits
+    slots = scorer.H100_SMS * scorer.BLOCKS_PER_SM
+    assert plan.splits > 1 and blocks >= slots
+    assert blocks % slots == 0 or blocks % slots >= 0.9 * slots
+    # a mesh rank's item slice is aligned too at K % 4 == 0
+    assert scorer.aligned_route(U, V[1237:6001])
+
+
+@pytest.mark.parametrize("B,K,offset", [(1, 128, 0), (63, 128, 0), (3648, 250, 0), (3024, 250, 0),
+                                        (3648, 130, 0), (3648, 128, 1), (1, 250, 0)])
+def test_other_shapes_keep_todays_route(B, K, offset):
+    """A batch under a row block (serving's B=1), K % 4 != 0 (the ML-1M
+    cells' K=250) and factors off a 16-byte boundary keep the other main
+    loop and its plan."""
+    U = torch.zeros(B * K + offset)[offset:].view(B, K)
+    assert not scorer.aligned_route(U, torch.zeros(3706, K))
+    plan = fused_plan(B, 3706, 20)
+    assert not plan.aligned and plan.items_per_tile == 128 and plan.smem_bytes == scorer.fused_smem_bytes(False)
