@@ -61,6 +61,7 @@ from ganmf_tpu_torch.models.gan_base import (  # noqa: F401  (ADAM_* re-exported
 from ganmf_tpu_torch.ops.keyed import keyed_uniforms
 from ganmf_tpu_torch.ops.topk import smallest_k_mask
 from ganmf_tpu_torch.utils.debug import debug_enabled, raise_on_nan
+from ganmf_tpu_torch.utils.profiling import count, span
 
 ACTIVATIONS = {
     "linear": lambda x: x,
@@ -192,20 +193,23 @@ def csr_batch_inputs(urm: PaddedCSR, n_rows: int, n_cols: int, lo: int, size: in
     [lo, lo + size) from padded-CSR storage (JAX :156-180): the rows densified
     (rows past ``n_rows`` are zeros, as JAX's out-of-range gather gives), and
     each mask drawn from ``row_uniforms(stream, rows)``. The ZR mask is drawn
-    only when ``with_zr`` (the G phase)."""
-    rows = torch.arange(lo, lo + size, device=urm.idx.device)
-    n = max(0, min(size, n_rows - lo))
-    cond = padded_rows_dense(urm, rows[:n], n_cols)
-    if n < size:
-        cond = F.pad(cond, (0, 0, 0, size - n))
-    zr = None
-    if with_zr:
-        zr = (negative_mask(cond, row_uniforms(ZR_STREAM, rows), zr_ratio) if scheme in ("ZP", "ZR")
-              else torch.zeros_like(cond))
-    if scheme in ("ZP", "PM"):
-        tmask = torch.clamp(cond + negative_mask(cond, row_uniforms(PM_STREAM, rows), zp_ratio), 0.0, 1.0)
-    else:
-        tmask = cond
+    only when ``with_zr`` (the G phase). The densify is the span
+    ``train.rows``, the draws ``train.masks``."""
+    with span("train.rows"):
+        rows = torch.arange(lo, lo + size, device=urm.idx.device)
+        n = max(0, min(size, n_rows - lo))
+        cond = padded_rows_dense(urm, rows[:n], n_cols)
+        if n < size:
+            cond = F.pad(cond, (0, 0, 0, size - n))
+    with span("train.masks"):
+        zr = None
+        if with_zr:
+            zr = (negative_mask(cond, row_uniforms(ZR_STREAM, rows), zr_ratio) if scheme in ("ZP", "ZR")
+                  else torch.zeros_like(cond))
+        if scheme in ("ZP", "PM"):
+            tmask = torch.clamp(cond + negative_mask(cond, row_uniforms(PM_STREAM, rows), zp_ratio), 0.0, 1.0)
+        else:
+            tmask = cond
     return cond, tmask, zr
 
 
@@ -252,7 +256,14 @@ def cfgan_epoch(
     the training matrix's PaddedCSR and ``uniforms`` a callable
     ``row_uniforms(stream, rows) -> [B, I]``; each minibatch draws its own
     masks (``csr_batch_inputs``). Under ``GANMF_TPU_DEBUG`` every step's loss
-    and updated parameters are checked for NaN."""
+    and updated parameters are checked for NaN.
+
+    Each minibatch is a ``train.d_step`` or ``train.g_step`` span (counted
+    under ``cfgan.minibatches``) with four children: ``train.rows`` (the
+    batch's rows; the csr densify), ``train.masks`` (csr storage: the keyed
+    draw and K2 of the batch's masks), ``train.grad`` (the loss and its
+    gradient) and ``train.update`` (the optimizer step). Dense storage draws
+    the whole epoch's masks first, in one ``train.masks`` span."""
     cd = torch.bfloat16 if compute_dtype == "bf16" else None
     G, D = params.G, params.D
     d_params, g_params = list(D.parameters()), list(G.parameters())
@@ -265,27 +276,40 @@ def cfgan_epoch(
             return csr_batch_inputs(urm, n_rows, n_cols, lo, size, uniforms, zr_ratio=zr_ratio,
                                     zp_ratio=zp_ratio, scheme=scheme, with_zr=with_zr)
     else:
-        zr_full, pm_full = sample_negative_masks(urm, zr_ratio, zp_ratio, scheme, uniforms=uniforms)
-        # train mask: profile with PM-sampled negatives flipped to 1 (CFGAN.py:242-249)
-        train_full = torch.clamp(urm + pm_full, 0.0, 1.0) if scheme in ("ZP", "PM") else urm
+        with span("train.masks"):
+            zr_full, pm_full = sample_negative_masks(urm, zr_ratio, zp_ratio, scheme, uniforms=uniforms)
+            # train mask: profile with PM-sampled negatives flipped to 1 (CFGAN.py:242-249)
+            train_full = torch.clamp(urm + pm_full, 0.0, 1.0) if scheme in ("ZP", "PM") else urm
 
         def batch_inputs(lo, size, with_zr):
-            return urm[lo : lo + size], train_full[lo : lo + size], zr_full[lo : lo + size]
+            with span("train.rows"):
+                return urm[lo : lo + size], train_full[lo : lo + size], zr_full[lo : lo + size]
 
     for step in range(d_steps * d_n_batches):
         b = (step % d_n_batches) * d_batch
-        cond, tmask, _ = batch_inputs(b, d_batch, False)
-        loss = d_loss(D, G, cond, tmask, d_weights[b : b + d_batch], d_reg, d_hidden_act, g_hidden_act, cd)
-        apply_grads(d_opt, d_params, torch.autograd.grad(loss, d_params))
+        count("cfgan.minibatches")
+        with span("train.d_step"):
+            cond, tmask, _ = batch_inputs(b, d_batch, False)
+            with span("train.grad"):
+                loss = d_loss(D, G, cond, tmask, d_weights[b : b + d_batch], d_reg, d_hidden_act, g_hidden_act,
+                              cd)
+                grads = torch.autograd.grad(loss, d_params)
+            with span("train.update"):
+                apply_grads(d_opt, d_params, grads)
         if debug:
             raise_on_nan(f"CFGAN D step {step}", loss=loss, **dict(D.named_parameters()))
 
     for step in range(g_steps * g_n_batches):
         b = (step % g_n_batches) * g_batch
-        cond, tmask, zmask = batch_inputs(b, g_batch, True)
-        loss = g_loss(G, D, cond, tmask, zmask, g_weights[b : b + g_batch], g_reg, zr_coefficient,
-                      d_hidden_act, g_hidden_act, cd)
-        apply_grads(g_opt, g_params, torch.autograd.grad(loss, g_params))
+        count("cfgan.minibatches")
+        with span("train.g_step"):
+            cond, tmask, zmask = batch_inputs(b, g_batch, True)
+            with span("train.grad"):
+                loss = g_loss(G, D, cond, tmask, zmask, g_weights[b : b + g_batch], g_reg, zr_coefficient,
+                              d_hidden_act, g_hidden_act, cd)
+                grads = torch.autograd.grad(loss, g_params)
+            with span("train.update"):
+                apply_grads(g_opt, g_params, grads)
         if debug:
             raise_on_nan(f"CFGAN G step {step}", loss=loss, **dict(G.named_parameters()))
 

@@ -20,6 +20,7 @@ reads them all. Their names:
   those of the wide pair (k > ``MAX_K``); ``k1.merge_launches``, the fused
   kernel's merge passes (a launch with more than one item split);
 - ``k2.launches`` (ops/select.py) and ``keyed.launches`` (ops/keyed.py);
+- ``cfgan.minibatches``: CFGAN's D and G minibatches run (models/cfgan.py);
 - ``kernels.nvcc_builds``: the kernel library built by nvcc rather than
   loaded from its cache (ops/_build.py);
 - ``<root>.calls``: the calls of each root span that ``root`` opens

@@ -64,7 +64,9 @@ max|B|; K1 at the shapes these models' evaluations and `recommend` give it.
 The keyed per-row draw of CFGAN's csr storage bitwise its
 plain version (and not synchronizing); one CFGAN csr epoch in both modes,
 card against CPU (the keyed masks bitwise, parameters within the Adam bound,
-K2 and the keyed draw launched once a minibatch for each mask drawn); past
+K2 and the keyed draw launched once a minibatch for each mask drawn), and in
+a CFGAN csr fit each G minibatch launching the two once, from inside its
+``train.masks`` span, and each D minibatch neither; past
 the card's memory: K2's streamed-row route at [128, 65536] and [128, 131072]
 on keyed-draw keys with ties bitwise its plain version, and CFGAN's csr
 epoch at 8,192 x 131,072 without a host synchronization; the
@@ -1628,6 +1630,37 @@ def test_cfgan_csr_epoch_on_card_matches_cpu(cuda, mode):
         diff = (a - b).abs()
         assert float(diff.max()) <= 2.2 * lr * max(d_n, g_n)
         assert float((diff <= 0.01 * lr).float().mean()) >= 0.99
+
+
+def test_cfgan_mask_kernels_launch_inside_train_masks(cuda, monkeypatch):
+    """A CFGAN csr fit (scheme ZR): each G minibatch launches the keyed draw
+    and then K2 once, both inside the step's ``train.masks`` span; a D
+    minibatch draws no mask and launches neither."""
+    from ganmf_tpu_torch.ops import keyed
+
+    launches = []
+
+    def spy(count):
+        def counted(name, n=1):
+            count(name, n)
+            launches.append((name, [profiling._SPANS[i][0] for i in profiling._OPEN]))
+        return counted
+
+    monkeypatch.setattr(select, "count", spy(select.count))
+    monkeypatch.setattr(keyed, "count", spy(keyed.count))
+    rng = np.random.RandomState(0)
+    train = sps.csr_matrix((rng.rand(300, 700) < 0.02).astype(np.float32))
+    model = pcf.CFGAN(train, seed=3, is_experiment=True, device=cuda)
+    with profiling.recording():
+        model.fit(g_nodes=64, d_nodes=4, d_layers=5, g_hidden_act="tanh", scheme="ZR", zr_ratio=0.45,
+                  zr_coefficient=0.05, d_batch_size=32, g_batch_size=128, epochs=1, urm_storage="csr")
+    spans, changed = profiling.drain()
+    g_n = -(-300 // 128)
+    assert changed["keyed.launches"] == changed["k2.launches"] == g_n
+    assert [name for name, _ in launches] == ["keyed.launches", "k2.launches"] * g_n
+    assert all(stack == ["train.epoch", "train.g_step", "train.masks"] for _, stack in launches)
+    steps = [s.name for s in spans if s.name in ("train.d_step", "train.g_step")]
+    assert steps == ["train.d_step"] * -(-300 // 32) + ["train.g_step"] * g_n
 
 
 def _beyond_hbm_keys(cuda, I, grid):

@@ -2,8 +2,9 @@
 
 The recorder off and on, nesting and root ids, the clock the profiler's
 events use, the spans in a Chrome trace, and the spans and host-sync counts
-of the three paths the benchmark times: a GANMF (and DisGANMF) epoch, a
-holdout evaluation and ``recommend``, on the CPU at small sizes.
+of the paths the benchmark times: a GANMF (and DisGANMF) epoch, a CFGAN
+epoch in both storages, a holdout evaluation and ``recommend``, on the CPU
+at small sizes.
 """
 
 import contextlib
@@ -16,7 +17,7 @@ import scipy.sparse as sps
 import torch
 
 from ganmf_tpu_torch.eval import EvaluatorHoldout
-from ganmf_tpu_torch.models import GANMF
+from ganmf_tpu_torch.models import CFGAN, GANMF
 from ganmf_tpu_torch.models.disganmf import DisGANMF
 from ganmf_tpu_torch.utils import profiling
 
@@ -153,6 +154,50 @@ def test_training_spans_and_syncs(split, kind, storage):
         if s.name in ("train.d_step", "train.g_step"):
             assert _children(spans, i) == ["train.rows", "train.grad", "train.update"]
     assert _syncs(changed) == {"train.shuffle": epochs}
+
+
+CFGAN_FIT = dict(d_nodes=4, g_nodes=8, d_layers=2, g_hidden_act="tanh", scheme="ZR", zr_ratio=0.45,
+                 zr_coefficient=0.05, d_batch_size=8, g_batch_size=BATCH)
+
+
+@pytest.mark.parametrize("storage", ["dense", "csr"])
+def test_cfgan_spans_and_counts(split, storage):
+    """Each minibatch a step span with its parts, the csr storage's masks
+    drawn in each minibatch, the dense storage's once an epoch; every
+    minibatch counted; no host sync."""
+    train, _ = split
+    epochs, d_n, g_n = 2, -(-N_USERS // 8), -(-N_USERS // BATCH)
+    model = CFGAN(train, seed=3, is_experiment=True, device=CPU)
+    with profiling.recording():
+        model.fit(**CFGAN_FIT, epochs=epochs, urm_storage=storage)
+    spans, changed = profiling.drain()
+    roots = [i for i, s in enumerate(spans) if s.parent == -1]
+    assert [spans[i].name for i in roots] == ["train.epoch"] * epochs
+    first = ["train.masks"] if storage == "dense" else []
+    parts = ["train.rows", "train.masks", "train.grad", "train.update"] if storage == "csr" else \
+        ["train.rows", "train.grad", "train.update"]
+    for i in roots:
+        assert _children(spans, i) == first + ["train.d_step"] * d_n + ["train.g_step"] * g_n
+    for i, s in enumerate(spans):
+        if s.name in ("train.d_step", "train.g_step"):
+            assert _children(spans, i) == parts
+    assert changed["cfgan.minibatches"] == epochs * (d_n + g_n)
+    assert changed["train.epoch.calls"] == epochs
+    assert _syncs(changed) == {}
+
+
+@pytest.mark.parametrize("storage", ["dense", "csr"])
+def test_cfgan_spans_leave_results_unchanged(split, storage):
+    """A CFGAN fit with the recorder on gives the same bits as with it off."""
+    train, _ = split
+    out = []
+    for on in (False, True):
+        model = CFGAN(train, seed=5, is_experiment=True, device=CPU)
+        with profiling.recording() if on else contextlib.nullcontext():
+            model.fit(**CFGAN_FIT, epochs=2, urm_storage=storage)
+        profiling.drain()
+        out.append([p.detach().clone() for p in model.params.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*out))
 
 
 def _evaluator(test, block_rows):
